@@ -198,3 +198,18 @@ def staged_mean(
 def group_weights(weights: torch.Tensor, num_groups: int, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """|D^l| per edge: sum of member dataset sizes (masked)."""
     return _masked_weights(weights, mask).reshape(num_groups, -1).sum(dim=1)
+
+
+def delta_weighted_mean(
+    tree: Tree, anchor: Tree, weights: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> Tree:
+    """Cloud aggregation in delta form: anchor + mean(tree - anchor), over
+    the full client axis. Equal to ``weighted_mean`` when every client
+    survives (the anchor is the last broadcast, common to all clients); the
+    deltas are what a compressed uplink carries. Plain PyTorch, as
+    ``weighted_mean``."""
+    deltas = {k: x - anchor[k].to(x.dtype) for k, x in tree.items()}
+    mean_delta = weighted_mean(deltas, weights, mask)
+    return {
+        k: (a.to(torch.float32) + mean_delta[k].to(torch.float32)).to(a.dtype) for k, a in anchor.items()
+    }

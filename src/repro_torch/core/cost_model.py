@@ -60,6 +60,27 @@ class WorkloadCosts:
     e_comm_edge: float
     cloud_latency_mult: float = 10.0
 
+    @property
+    def t_comm_cloud(self) -> float:
+        return self.cloud_latency_mult * self.t_comm_edge
+
+    def with_bits(self, edge_bits_per_param: float = 32.0, cloud_bits_per_param: float = 32.0) -> "WorkloadCosts":
+        """Costs under a compressed transport: uploads carry bits/32 of the
+        fp32 payload per hop. Edge comm time and energy scale by the edge
+        ratio; ``cloud_latency_mult`` is rescaled by the cloud/edge ratio,
+        so ``t_comm_cloud`` becomes ``mult * (cloud_bits/32) * t_comm_edge``
+        of the fp32 costs. Compute costs are unchanged."""
+        if edge_bits_per_param <= 0 or cloud_bits_per_param <= 0:
+            raise ValueError("bits per parameter must be positive")
+        es = edge_bits_per_param / 32.0
+        cs = cloud_bits_per_param / 32.0
+        return dataclasses.replace(
+            self,
+            t_comm_edge=self.t_comm_edge * es,
+            e_comm_edge=self.e_comm_edge * es,
+            cloud_latency_mult=self.cloud_latency_mult * (cs / es),
+        )
+
 
 # Paper workloads: M = #params * 32 model bits; D = data bits per local
 # iteration chosen by the paper so that Table I holds.

@@ -15,11 +15,16 @@ of every round is known on the host. ``FedState.rng`` is a seeded
 threefry stream draw for draw. The paper losses ignore it
 (``repro/models/cnn.py:124-125``), so their trajectories are comparable.
 
+Compressed transports (``fed.transport``) and ``delta_cloud`` carry the
+last broadcast each client received in ``FedState.anchor`` and, for
+error-feedback codecs, a per-client residual in ``FedState.residual``.
+Since the port updates ``params`` in place, the anchor is always a copy
+(``clone``), never a view of the parameters.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 item): compressed transports and ``delta_cloud`` (7), robust
-aggregators and non-f32 precision (8), sampled participation (10), the
-deadline lowering (11), the client-sharded lowering (12), the megakernel
-lowering (6).
+Queue 1 item): robust aggregators and non-f32 precision (8), sampled
+participation (10), the deadline lowering (11), the client-sharded lowering
+(12), the megakernel lowering (6).
 """
 from __future__ import annotations
 
@@ -104,8 +109,22 @@ class HierFAVGConfig:
     precision: Optional[PrecisionSpec] = None
 
     def __post_init__(self):
-        if self.transport is not None or self.delta_cloud:
-            raise unported("compressed transport / delta_cloud", 7)
+        if self.transport is not None:
+            if not hasattr(self.transport, "codec") or not hasattr(self.transport, "is_trivial"):
+                raise TypeError(
+                    f"transport must be a fed.transport.TransportSpec, got {type(self.transport).__name__}"
+                )
+            n_levels = len(self.kappas) if self.kappas is not None else 2
+            if self.transport.depth != n_levels:
+                raise ValueError(
+                    f"transport has {self.transport.depth} levels but the schedule has "
+                    f"{n_levels} (kappas={self.kappas or (self.kappa1, self.kappa2)})"
+                )
+            if not self.transport.is_trivial and self.delta_cloud:
+                raise ValueError(
+                    "a non-identity transport subsumes delta_cloud (both repurpose "
+                    "the anchor slot); drop the flag"
+                )
         if self.aggregators is not None:
             raise unported("a non-default aggregator", 8)
         if self.precision is not None and self.precision.is_active:
@@ -153,11 +172,15 @@ class HierFAVGConfig:
         """Edge intervals per cloud interval (= kappa2 for two levels)."""
         return math.prod(self.kappa_vector[1:])
 
-    # The JAX config's feature predicates. Every such feature is rejected
-    # in __post_init__ until its slice lands, so each reads False here.
     @property
     def transport_active(self) -> bool:
-        return self.transport is not None
+        """True iff some level's uplink compresses (an all-identity
+        transport is the uncompressed protocol and allocates no anchor or
+        residual)."""
+        return self.transport is not None and not self.transport.is_trivial
+
+    # The JAX config's other feature predicates. Each such feature is
+    # rejected in __post_init__ until its slice lands, so each reads False.
 
     @property
     def aggregators_active(self) -> bool:
@@ -177,6 +200,8 @@ class FedState(NamedTuple):
     params: Params  # stacked (N, ...) client models
     opt_state: Any  # optimizer state over the stacked params
     rng: torch.Generator  # seeded; not the JAX threefry stream
+    anchor: Optional[Params] = None  # last broadcast (delta_cloud / compressed transport)
+    residual: Optional[Params] = None  # per-client error-feedback residual (EF codecs), f32
 
 
 def replicate_for_clients(params: Params, num_clients: int) -> Params:
@@ -195,12 +220,27 @@ def init_state(
     optimizer state and step 0."""
     stacked = replicate_for_clients(params, topology.num_clients)
     device = next(iter(stacked.values())).device
+    anchor = residual = None
+    if config.delta_cloud or config.transport_active:
+        # the last broadcast each client received: w - anchor is what a
+        # compressed uplink carries
+        anchor = _copy(stacked)
+    if config.transport_active and config.transport.needs_residual:
+        residual = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in stacked.items()}
     return FedState(
         step=torch.zeros((), dtype=torch.int32, device=device),
         params=stacked,
         opt_state=optimizer.init(stacked),
         rng=rng,
+        anchor=anchor,
+        residual=residual,
     )
+
+
+def _copy(tree: Params) -> Params:
+    """A copy that shares no storage with ``tree``: the anchor must not move
+    when the local steps update ``params`` in place."""
+    return {k: v.clone() for k, v in tree.items()}
 
 
 def build_local_step(loss_fn: LossFn, optimizer: GradientTransformation):
@@ -250,21 +290,68 @@ def _maybe_sync_opt_state(opt_state, agg_fn, sync: bool):
 
 def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.Tensor, level: int):
     """Aggregation at one hierarchy level (Algorithm 1 l.25-31 generalized)
-    with an optional (N,) survival mask: the identity-transport,
-    weighted-mean branch of ``repro/core/hierfavg.py:611-667``. Level 1 is
-    edge aggregation, level ``depth`` cloud aggregation, computed as the
-    staged bottom-up composition (``hierarchical_segment_mean``)."""
+    with an optional (N,) survival mask: the single-device branch of
+    ``repro/core/hierfavg.py:611-667``. Level 1 is edge aggregation, level
+    ``depth`` cloud aggregation, computed as the staged bottom-up
+    composition (``hierarchical_segment_mean``); the top level honours
+    ``delta_cloud``.
+
+    With a non-identity codec at this level each client uploads its delta
+    w - anchor through the codec's round trip, and the group mean is taken
+    over anchor + decoded delta. While a transport is active the anchor
+    re-syncs to the new broadcast after every level sync, identity levels
+    included. A client whose whole group died keeps its exact params and
+    anchor, and a masked client keeps its error-feedback residual; the
+    ``received`` / ``sent`` masks are computed on the device.
+    """
     spec = as_hierarchy(topology)
     if not 1 <= level <= spec.depth:
         raise ValueError(f"level {level} outside 1..{spec.depth}")
-
+    is_top = level == spec.depth
+    if is_top and config.delta_cloud and config.sync_opt_state:
+        raise ValueError("delta_cloud + sync_opt_state do not compose (the optimizer state has no anchor)")
+    codec = config.transport.codec(level) if config.transport_active else None
+    if codec is not None and codec.is_identity:
+        codec = None
     stages = aggregation.level_stages(spec, level)  # uniform vs ragged, decided once
+    seg = torch.as_tensor(spec.segments(level), dtype=torch.long, device=weights.device)
+    num_segs = spec.num_nodes(level)
 
     def level_sync(state: FedState, mask: Optional[torch.Tensor] = None) -> FedState:
-        agg = lambda t: aggregation.staged_mean(t, weights, stages, mask)
-        params = agg(state.params)
+        uploaded = state.params
+        residual = state.residual
+        if codec is not None:
+            delta = {k: x.to(torch.float32) - state.anchor[k].to(torch.float32) for k, x in state.params.items()}
+            delta_hat, residual = codec.roundtrip(delta, residual)
+            uploaded = {
+                k: (a.to(torch.float32) + delta_hat[k]).to(state.params[k].dtype) for k, a in state.anchor.items()
+            }
+        if is_top and config.delta_cloud and state.anchor is not None:
+            agg = lambda t: aggregation.delta_weighted_mean(t, state.anchor, weights, mask)
+            params = agg(uploaded)
+            anchor = _copy(params)
+        else:
+            agg = lambda t: aggregation.staged_mean(t, weights, stages, mask)
+            params = agg(uploaded)
+            anchor = _copy(params) if config.transport_active else state.anchor
+        if codec is not None:
+            w_eff = weights.to(torch.float32)
+            if mask is not None:
+                w_eff = w_eff * mask.to(torch.float32)
+            den = torch.zeros(num_segs, dtype=torch.float32, device=w_eff.device).index_add_(0, seg, w_eff)
+            received = (den > 0)[seg]  # (N,) the client's group had a survivor
+            sent = w_eff > 0  # (N,) the client uploaded
+
+            def keep(flags, new, old):
+                f = flags.reshape((-1,) + (1,) * (new.dim() - 1))
+                return torch.where(f, new, old.to(new.dtype))
+
+            params = {k: keep(received, v, state.params[k]) for k, v in params.items()}
+            anchor = {k: keep(received, v, state.anchor[k]) for k, v in anchor.items()}
+            if residual is not None and state.residual is not None:
+                residual = {k: keep(sent, v, state.residual[k]) for k, v in residual.items()}
         opt_state = _maybe_sync_opt_state(state.opt_state, agg, config.sync_opt_state)
-        return state._replace(params=params, opt_state=opt_state)
+        return state._replace(params=params, opt_state=opt_state, anchor=anchor, residual=residual)
 
     return level_sync
 

@@ -126,17 +126,41 @@ def _levels(text: str, default: str) -> list:
     return [p for p in (text.strip() or default).split("/") if p]
 
 
+def _parse_levels(text: str, depth: int, parse_one, field: str, default: str) -> tuple:
+    """'/'-separated per-level grammar: a single entry replicates to every
+    level; otherwise the count must match the schedule depth. Errors name
+    the spec field."""
+    parts = _levels(text, default)
+    if len(parts) == 1:
+        parts = parts * depth
+    if len(parts) != depth:
+        raise ValueError(
+            f"{field}={text!r} names {len(parts)} levels but the schedule has "
+            f"{depth}; give one entry per level ('/'-separated) or one entry "
+            f"for all levels"
+        )
+    try:
+        return tuple(parse_one(p) for p in parts)
+    except ValueError as e:
+        raise ValueError(f"{field}: {e}") from None
+
+
 @dataclasses.dataclass(frozen=True)
 class TransportSpec:
-    """Per-level link codecs, bottom-up (``"identity/int8_ef:128"``). Only
-    the all-identity transport (the uncompressed protocol) runs here."""
+    """Per-level link codecs, bottom-up, in the ``fed.transport`` grammar:
+    ``"identity/int8_ef:128"`` is an fp32 edge hop and an error-feedback
+    int8 cloud hop. A single codec (no ``/``) applies to every level."""
 
     levels: str = "identity"
 
     def build(self, depth: int):
-        if any(p.partition(":")[0].strip() != "identity" for p in _levels(self.levels, "identity")):
-            raise unported(f"transport.levels={self.levels!r}", 7)
-        return None
+        """The ``fed.transport.TransportSpec``, or None for an all-identity
+        transport (the uncompressed protocol)."""
+        from repro_torch.fed import transport as transport_lib
+
+        codecs = _parse_levels(self.levels, depth, transport_lib.parse_codec, "transport.levels", "identity")
+        spec = transport_lib.TransportSpec(codecs=codecs)
+        return None if spec.is_trivial else spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -383,9 +407,10 @@ class ExperimentSpec:
 
     def describe(self) -> str:
         topo = self.topology.fanouts or f"{self.topology.num_edges}x{self.topology.clients_per_edge}"
+        tail = f" transport={self.transport.levels}" if self.transport.levels != "identity" else ""
         return (
             f"{self.name}: {topo} kappas={','.join(map(str, self.schedule.kappas))} "
-            f"{self.data.partition} {self.model.arch} rounds={self.run.num_rounds}"
+            f"{self.data.partition} {self.model.arch} rounds={self.run.num_rounds}{tail}"
         )
 
 

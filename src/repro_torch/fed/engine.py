@@ -9,7 +9,10 @@ costs:
 * **State updated in place** — where the JAX engine donates the
   ``FedState`` to its jitted superround (``repro/fed/engine.py:146``), the
   port updates the stacked parameters in place (``optim.apply_updates``);
-  the caller's state is consumed.
+  the caller's state is consumed. A compressed transport's anchor and
+  error-feedback residual ride along in the ``FedState``: each sync
+  replaces them with fresh tensors, never views of the parameters that the
+  next local step updates in place.
 * **Async metrics** — per-round loss / grad-norm / step stay device tensors
   until ``_flush`` at an eval point or the end of the run, where one host
   fetch per cloud interval rebuilds the ``RoundRecord`` history.

@@ -7,7 +7,11 @@ the device until an eval point. The per-round loop below runs the
 remainder (a partial trailing cloud interval), or everything when
 ``eval_every`` needs finer granularity than a cloud interval. Both loops
 append the same ``RoundRecord`` history, with the paper's T/E accounting
-(``core.cost_model``) and the uplink bytes per client (``wire_mb``).
+(``core.cost_model``) and the uplink bytes per client (``wire_mb``). When
+``hier_config.transport`` names per-level codecs, both are accounted on the
+compressed wire: T/E through ``WorkloadCosts.with_bits`` (edge hop = level
+1, cloud hop = the top level) and ``wire_mb`` at each level's bits per
+parameter.
 
 The runner consumes the ``FedState`` it is given: stacked parameters are
 updated in place (see ``optim.apply_updates``).
@@ -94,6 +98,11 @@ class FederatedRunner:
         self.cfg = runner_config
         self.eval_fn = eval_fn
         self.costs = costs
+        self.transport = hier_config.transport
+        if self.costs is not None and self.transport is not None:
+            self.costs = self.costs.with_bits(
+                self.transport.bits_per_param(1), self.transport.bits_per_param(self.transport.depth)
+            )
         self._engine = None  # lazily built (and cached) SuperRoundEngine
         self._round = build_hier_round(loss_fn, optimizer, topology, hier_config, self.weights)
         self.history: List[RoundRecord] = []
@@ -110,10 +119,12 @@ class FederatedRunner:
         return aggregation.cloud_model(params, self.weights, mask)
 
     def _wire_bytes_per_step(self, state: FedState) -> float:
-        """Summed per-level uplink bytes per local step for one client."""
+        """Summed per-level uplink bytes per local step for one client, at
+        the transport's per-level bits per parameter."""
         per_client = sum(x.numel() // x.shape[0] * x.element_size() for x in state.params.values())
+        bits = self.transport.bits_vector() if self.transport is not None else None
         traffic = collectives.hierarchy_traffic_per_step(
-            float(per_client), as_hierarchy(self.topology), self.hier_config.kappa_vector
+            float(per_client), as_hierarchy(self.topology), self.hier_config.kappa_vector, bits_per_param=bits
         )
         return float(sum(traffic))
 

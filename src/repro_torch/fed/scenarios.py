@@ -15,18 +15,25 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Sequence, Tuple
 
 from repro_torch.core.hierfavg import unported
-from repro_torch.fed.api import CostSpec, DataSpec, ExperimentSpec, ModelSpec, RunSpec, ScheduleSpec, TopologySpec
+from repro_torch.fed.api import (
+    CostSpec,
+    DataSpec,
+    ExperimentSpec,
+    ModelSpec,
+    RunSpec,
+    ScheduleSpec,
+    TopologySpec,
+    TransportSpec,
+)
 
 _REGISTRY: Dict[str, Tuple[Callable[[], ExperimentSpec], str]] = {}
 
 # JAX scenarios that need an unported feature: (what it needs, ROADMAP.md
 # Queue 1 item that brings it)
 _LATER = {
-    "int8_cloud": ("the int8 transport", 7),
-    "int8_ef_both": ("the int8 error-feedback transport", 7),
     "trimmed_edge": ("robust aggregators and failure injection", 8),
     "median_cloud": ("robust aggregators", 8),
-    "trimmed_int8": ("robust aggregators and the int8 transport", 8),
+    "trimmed_int8": ("robust aggregators", 8),
     "lm_edge_niid": ("the LM workloads", 13),
     "n1m_cohort4096": ("sampled participation", 10),
     "congested_backhaul": ("the round-replay simulator", 11),
@@ -72,13 +79,14 @@ def get(name: str, overrides: Sequence[str] = ()) -> ExperimentSpec:
 _BENCH_MODEL = ModelSpec(lr=0.15, lr_schedule="exponential")
 
 
-def _bench(name, *, kappas, partition, rounds) -> ExperimentSpec:
+def _bench(name, *, kappas, partition, rounds, transport=None) -> ExperimentSpec:
     return ExperimentSpec(
         name=name,
         topology=TopologySpec(num_edges=5, clients_per_edge=10),
         schedule=ScheduleSpec(kappas=kappas),
         data=DataSpec(partition=partition),
         model=_BENCH_MODEL,
+        transport=transport or TransportSpec(),
         run=RunSpec(num_rounds=rounds),
     )
 
@@ -133,6 +141,22 @@ def _edge_only() -> ExperimentSpec:
         model=_BENCH_MODEL,
         cost=CostSpec(workload="mnist", cloud_latency_mult=1.0),
         run=RunSpec(num_rounds=60),
+    )
+
+
+@register("int8_cloud", "int8 cloud hop (blockwise-absmax, Table IIc compressed-wire rows)")
+def _int8_cloud() -> ExperimentSpec:
+    return _bench(
+        "int8_cloud", kappas=(6, 10), partition="edge_iid", rounds=40,
+        transport=TransportSpec(levels="identity/int8:256"),
+    )
+
+
+@register("int8_ef_both", "error-feedback int8 on both hops (arXiv:2103.14272 compounding)")
+def _int8_ef_both() -> ExperimentSpec:
+    return _bench(
+        "int8_ef_both", kappas=(6, 10), partition="edge_iid", rounds=40,
+        transport=TransportSpec(levels="int8_ef:128/int8_ef:128"),
     )
 
 

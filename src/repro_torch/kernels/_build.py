@@ -30,6 +30,11 @@ SIGNATURES = {
     "hier_aggregate": {
         "hier_grouped_mean": (_P, _P, _P, _I, _I, _I, _I, _P),
         "hier_segment_mean": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "hier_segment_dequant_mean": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
+    "quantize": {
+        "quant_quantize": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "quant_dequantize": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
 }
 SOURCES = tuple(SIGNATURES)
@@ -98,6 +103,12 @@ def build_all(names=SOURCES) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return paths
+
+
+def raise_on_error(err: int, what: str) -> None:
+    """Raise for the cudaError_t a kernel's C entry point returned."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed with cudaError {err}")
 
 
 def load(name: str) -> ctypes.CDLL:

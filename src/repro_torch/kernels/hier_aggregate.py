@@ -1,6 +1,7 @@
 """K1 ``grouped_mean`` and K2 ``segment_mean``: the aggregation operator on
 hand-written CUDA kernels (``csrc/hier_aggregate.cu``), each beside its
-plain PyTorch version.
+plain PyTorch version; and K6 ``segment_dequant_mean``, K2 over int8
+transport payloads decoded on the fly.
 
 They replace the Pallas TPU kernels ``grouped_mean_pallas`` and
 ``segment_mean_pallas`` of ``repro/kernels/hier_aggregate.py`` and compute
@@ -8,8 +9,12 @@ the same function: x (N, D) stacked parameters of one leaf (f32 or bf16),
 w (N,) f32 weights with the survival mask already folded in; each group's
 weighted mean, accumulated in f32, broadcast back to its rows in x's type;
 a group whose weights sum to zero keeps its rows bit for bit. K1 takes
-equal contiguous groups, K2 groups given by sorted segment ids. The source
-notes what bounds the kernels on the card and how they are laid out.
+equal contiguous groups, K2 groups given by sorted segment ids. K6
+(``segment_dequant_mean_pallas``) takes K2's groups over int8 codes (N, D)
+and f32 block scales (N, D / qblock), the row layout of
+``kernels.quantize.quantize_stacked``, and returns f32; a dead group keeps
+its decoded rows. The source notes what bounds the kernels on the card and
+how they are laid out.
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel on the current stream (no
@@ -27,7 +32,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES: Dict[str, int] = {"grouped_mean": 0, "segment_mean": 0}
+LAUNCHES: Dict[str, int] = {"grouped_mean": 0, "segment_mean": 0, "segment_dequant_mean": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -67,10 +72,22 @@ def segment_mean_plain(x: torch.Tensor, w: torch.Tensor, segment_ids, num_segmen
     return torch.where(keep, mean[seg], x.to(torch.float32)).to(x.dtype)
 
 
+def segment_dequant_mean_plain(
+    q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor, segment_ids, num_segments: int
+) -> torch.Tensor:
+    """K6's function in plain PyTorch: decode ``q * scale`` per block (the
+    math of ``repro.kernels.ref.segment_dequant_mean_ref``), then K2's plain
+    version in f32."""
+    n, d = q.shape
+    nb = scales.shape[1]
+    x = (q.to(torch.float32).reshape(n, nb, d // nb) * scales[..., None]).reshape(n, d)
+    return segment_mean_plain(x, w, segment_ids, num_segments)
+
+
 # -- kernel wrappers -------------------------------------------------------------
 
 
-def _check_cuda(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
+def _check_cuda(x: torch.Tensor, w: torch.Tensor, what: str, dtypes=tuple(_DTYPE_CODES)) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: tensors must be on the CPU (plain version) or CUDA, got {x.device}")
     if x.device != w.device:
@@ -79,19 +96,15 @@ def _check_cuda(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: x is on {x.device} but the current CUDA device is {torch.cuda.current_device()}")
     if x.dim() != 2 or x.shape[0] == 0 or x.shape[1] == 0:
         raise ValueError(f"{what}: x must be a non-empty (N, D) matrix, got shape {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{what}: x dtype must be float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in dtypes:
+        names = " or ".join(str(t).removeprefix("torch.") for t in dtypes)
+        raise ValueError(f"{what}: x dtype must be {names}, got {x.dtype}")
     if w.dtype != torch.float32 or tuple(w.shape) != (x.shape[0],):
         raise ValueError(f"{what}: weights must be float32 of shape ({x.shape[0]},), got {w.dtype} {tuple(w.shape)}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{what}: x and weights must be contiguous")
     if x.numel() >= 2**31:
         raise ValueError(f"{what}: x has {x.numel()} elements; the kernel indexes with int32 sizes")
-
-
-def _raise_on_error(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed with cudaError {err}")
 
 
 def grouped_mean(x: torch.Tensor, w: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -108,7 +121,7 @@ def grouped_mean(x: torch.Tensor, w: torch.Tensor, num_groups: int) -> torch.Ten
         x.data_ptr(), w.data_ptr(), out.data_ptr(), n, x.shape[1], num_groups,
         _DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream,
     )
-    _raise_on_error(err, "grouped_mean")
+    _build.raise_on_error(err, "grouped_mean")
     LAUNCHES["grouped_mean"] += 1
     return out
 
@@ -151,6 +164,35 @@ def segment_mean(x: torch.Tensor, w: torch.Tensor, segment_ids, num_segments: in
         x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
         int(num_segments), _DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream,
     )
-    _raise_on_error(err, "segment_mean")
+    _build.raise_on_error(err, "segment_mean")
     LAUNCHES["segment_mean"] += 1
+    return out
+
+
+def segment_dequant_mean(
+    q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor, segment_ids, num_segments: int
+) -> torch.Tensor:
+    """K6: per segment of sorted ``segment_ids`` (host-side, (N,)), the f32
+    weighted mean of the decoded rows ``q * scale`` (q (N, D) int8, scales
+    (N, D / qblock) f32), broadcast back; zero-weight segments keep their
+    decoded rows."""
+    n, d = q.shape
+    if scales.dim() != 2 or scales.shape[0] != n or scales.shape[1] == 0 or d % scales.shape[1]:
+        raise ValueError(f"scales shape {tuple(scales.shape)} incompatible with q {tuple(q.shape)}")
+    ids = np.asarray(segment_ids, np.int64)
+    if ids.shape != (n,):
+        raise ValueError(f"segment_ids shape {ids.shape} != ({n},)")
+    if q.device.type == "cpu":
+        return segment_dequant_mean_plain(q, scales, w, ids, num_segments)
+    _check_cuda(q, w, "segment_dequant_mean", dtypes=(torch.int8,))
+    if scales.dtype != torch.float32 or scales.device != q.device or not scales.is_contiguous():
+        raise ValueError("segment_dequant_mean: scales must be contiguous float32 on the device of q")
+    offsets = _device_offsets(ids.tobytes(), int(num_segments), q.device)
+    out = torch.empty((n, d), dtype=torch.float32, device=q.device)
+    err = _build.load("hier_aggregate").hier_segment_dequant_mean(
+        q.data_ptr(), scales.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(), n, d,
+        d // scales.shape[1], int(num_segments), torch.cuda.current_stream().cuda_stream,
+    )
+    _build.raise_on_error(err, "segment_dequant_mean")
+    LAUNCHES["segment_dequant_mean"] += 1
     return out

@@ -86,8 +86,8 @@ def test_resolve_device_turns_tf32_off():
 @pytest.mark.parametrize(
     "overrides,item",
     [
-        (["transport.levels=identity/int8:256"], 7),
-        (["schedule.delta_cloud=true"], 7),
+        (["aggregators.levels=weighted_mean/coordinate_median"], 8),
+        (["schedule.async_cloud=true"], 11),
         (["aggregators.levels=trimmed_mean:0.1/weighted_mean"], 8),
         (["precision.param_dtype=bfloat16"], 8),
         (["failures.p_fail=0.1"], 9),
@@ -108,7 +108,7 @@ def test_unported_features_name_their_roadmap_item(overrides, item):
         spec.build(device="cpu")
 
 
-@pytest.mark.parametrize("name", ["int8_cloud", "trimmed_edge", "lm_edge_niid", "n1m_cohort4096", "fedbuff_k4"])
+@pytest.mark.parametrize("name", ["trimmed_int8", "trimmed_edge", "lm_edge_niid", "n1m_cohort4096", "fedbuff_k4"])
 def test_unported_scenarios_name_their_roadmap_item(name):
     from repro_torch.fed import scenarios
 
@@ -123,13 +123,13 @@ def test_unknown_scenario_lists_the_ported_ones():
         scenarios.get("no_such_scenario")
     assert scenarios.names() == sorted([
         "quickstart", "favg", "hierfavg_iid", "hierfavg_edge_iid", "hierfavg_edge_niid",
-        "kappa_sweep_fast", "edge_only", "ragged_edges", "three_level",
+        "kappa_sweep_fast", "edge_only", "ragged_edges", "three_level", "int8_cloud", "int8_ef_both",
     ])
 
 
 def test_kernel_sources_build_for_hopper():
     from repro_torch.kernels import _build
 
-    assert _build.SOURCES == ("hier_aggregate",)
-    assert (_build.CSRC / "hier_aggregate.cu").exists()
+    assert _build.SOURCES == ("hier_aggregate", "quantize")
+    assert all((_build.CSRC / f"{name}.cu").exists() for name in _build.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
