@@ -31,11 +31,31 @@ Phases, one JSON line each; any failure exits non-zero:
   fused_decode
               the transport's fused decode-and-aggregate entry point (K6) on
               that run's client updates, at the edge and cloud groupings
+  edge_interval_kernel
+              K3 edge_interval against its plain version on the card: the
+              JAX package's four test cases, kernel_bench's shape, the
+              full-width case (32 clients, feat 64, out 1024) with momentum
+              0 and 0.9 and with bf16 params and mu, a wide-feat case
+              (the scratch-column path) and an out that is no multiple of
+              32; two launches bit for bit; an all-zero-weight edge
+              non-finite as in the plain version; times by CUDA events
+  megakernel_vs_k3
+              one cloud interval of the client-blocked lowering
+              (``build_megakernel_super_round``) on linear MSE clients at
+              K3's full-width case, against K3 through ``ops.edge_interval``
+              (one edge, kappa2 1; four edges, kappa2 2); both timed
+  mlp307k_megakernel
+              ``mlp307k`` with ``run.engine=megakernel``: the client-blocked
+              path must run (no fallback), K1 launches counted, losses
+              against this call's mlp307k run and the same run on the CPU
+  mlp307k_megakernel_bf16
+              the same with bf16 client state: bf16 leaves, losses and
+              accuracy against the f32 megakernel run, lower peak memory
 
-The quickstart, mlp307k and mlp307k_int8_ef phases then run their scenario
-twice more, warm: once timed, once under ``torch.profiler``, and report
-where the device time of a cloud interval goes (by kernel class and top
-kernels) and the device's idle share.
+The quickstart, mlp307k, mlp307k_int8_ef and mlp307k_megakernel phases then
+run their scenario twice more, warm: once timed, once under
+``torch.profiler``, and report where the device time of a cloud interval
+goes (by kernel class and top kernels) and the device's idle share.
 
 Then a kernel summary line, the card's name and power limit as nvidia-smi
 reports them, and last ``{"ok": true, "device": {...}}``. Imports nothing
@@ -54,13 +74,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
 MLP307K = [
     "data.dim=64", "model.hidden=4096", "topology.num_edges=4", "topology.clients_per_edge=8",
     "schedule.kappas=8,2", "run.num_rounds=8", "run.eval_every=2",
 ]
 INT8_CLOUD = ["run.num_rounds=20", "run.eval_every=10"]
 INT8_EF_BOTH = ["run.num_rounds=20"]
+MEGAKERNEL = ["run.engine=megakernel"]
+BF16 = ["precision.param_dtype=bfloat16"]
+# K3 at the engine's design geometry (N 32, E 4, kappa1 8, b 1) with the
+# widest linear client the JAX kernel's own VMEM budget admits there
+K3_FULL = dict(n=32, e=4, k1=8, b=1, feat=64, out=1024)
+K3_RTOL, K3_ATOL = 3e-6, 5e-7  # the JAX kernel-vs-oracle tolerance
 # kernel -> (the TPU kernel it replaces, its CUDA source)
 KERNELS = {
     "grouped_mean": ("src/repro/kernels/hier_aggregate.py:56", "src/repro_torch/kernels/csrc/hier_aggregate.cu"),
@@ -69,10 +97,15 @@ KERNELS = {
         "src/repro/kernels/hier_aggregate.py:132", "src/repro_torch/kernels/csrc/hier_aggregate.cu"),
     "quantize": ("src/repro/kernels/quantize.py:38", "src/repro_torch/kernels/csrc/quantize.cu"),
     "dequantize": ("src/repro/kernels/quantize.py:91", "src/repro_torch/kernels/csrc/quantize.cu"),
+    "edge_interval": ("src/repro/kernels/megakernel.py:96", "src/repro_torch/kernels/csrc/megakernel.cu"),
 }
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the script
+    started (``elapsed_s``), so a phase costs the difference to the last."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -81,9 +114,17 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def flush_buffer(torch):
+    """1 GiB to zero before each timed call: it evicts the 50 MB L2 (a sync
+    sees cold parameters), and zeroing it keeps the device busy for about
+    0.3 ms, longer than a wrapper's host work, so the start event is not
+    recorded before the host has queued the kernel."""
+    return torch.empty(256 * 2**20, dtype=torch.float32, device="cuda")
+
+
 def time_ms(fn, *, flush, reps: int = 25, warmup: int = 3) -> float:
     """Median device time of one call, by CUDA events around each call,
-    with the L2 cache flushed before each (a sync sees cold parameters)."""
+    with ``flush`` (``flush_buffer``) zeroed before each."""
     import torch
 
     for _ in range(warmup):
@@ -98,6 +139,14 @@ def time_ms(fn, *, flush, reps: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def reset_peak(torch) -> int:
+    """Reset the peak-memory statistics; return the bytes allocated now, so
+    that ``max_memory_allocated() - base`` is what the next run added on top
+    of what earlier phases still hold."""
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
 
 
 def bf16_ulp(x):
@@ -123,7 +172,7 @@ def kernel_cases():
 def phase_kernels(torch, ha):
     import numpy as np
 
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    flush = flush_buffer(torch)
     rng = np.random.default_rng(0)
     rows, summary = [], {}
     for name, label, n, d, groups in kernel_cases():
@@ -195,7 +244,7 @@ def phase_transport_kernels(torch, ha, qz):
     against its plain version on the same inputs."""
     import numpy as np
 
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    flush = flush_buffer(torch)
     rng = np.random.default_rng(1)
     rows, summary = [], {}
     for label, n, d in (("quickstart w1 (20x768)", 20, 768), ("b2 leaf (50x10)", 50, 10),
@@ -284,6 +333,178 @@ def phase_transport_kernels(torch, ha, qz):
     return summary
 
 
+def k3_cases():
+    """(label, N, E, kappa1, b, feat, out, momentum, dtype name)."""
+    full = tuple(K3_FULL[k] for k in ("n", "e", "k1", "b", "feat", "out"))
+    return [
+        ("jax case 1", 8, 2, 3, 2, 4, 3, 0.0, "float32"),
+        ("jax case 2", 16, 4, 2, 1, 8, 5, 0.9, "float32"),
+        ("jax case 3", 8, 2, 4, 2, 6, 2, 0.9, "float32"),
+        ("jax case 4 (one edge)", 8, 1, 2, 3, 4, 4, 0.0, "float32"),
+        ("kernel_bench", 32, 4, 4, 2, 64, 128, 0.0, "float32"),
+        ("full width", *full, 0.0, "float32"),
+        ("full width", *full, 0.9, "float32"),
+        ("full width", *full, 0.9, "bfloat16"),
+        ("wide feat (scratch columns)", 8, 2, 3, 2, 512, 96, 0.9, "float32"),
+        ("out not a multiple of 32", 16, 4, 3, 2, 32, 100, 0.9, "float32"),
+    ]
+
+
+def k3_bound(n, k1, b, feat, out, mom, isz):
+    """(bound ms, "bytes" or "operations") of one K3 call: each input read
+    once and each output written once, against the f32 operations."""
+    p = feat * out
+    nbytes = 2 * n * p * isz * (2 if mom else 1) + n * k1 * b * (feat + out) * 4 + n * 4 + n * k1 * 4
+    flops = n * k1 * (4 * b * feat * out + 3 * b * out + (5 if mom else 3) * feat * out) + 2 * n * p
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def k3_inputs(torch, rng, n, k1, b, feat, out, mom, dtype):
+    import numpy as np
+
+    p = feat * out
+    params = torch.from_numpy((rng.normal(size=(n, p)) * 0.1).astype(np.float32)).to("cuda", dtype)
+    x = torch.from_numpy(rng.normal(size=(n, k1, b, feat)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.normal(size=(n, k1, b, out)).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.uniform(1, 3, n).astype(np.float32)).cuda()
+    mu = torch.from_numpy((rng.normal(size=(n, p)) * 0.01).astype(np.float32)).to("cuda", dtype) if mom else None
+    return params, x, y, w, mu
+
+
+def phase_edge_interval_kernel(torch, mk):
+    """K3 against its plain version on the same inputs, f32 at the JAX
+    kernel's tolerance, bf16 at one bf16 ulp plus it; bit-equal across two
+    launches; an all-zero-weight edge non-finite in both."""
+    import numpy as np
+
+    flush = flush_buffer(torch)
+    rng = np.random.default_rng(2)
+    rows, summary = [], {"max_abs_err": 0.0, "library_ms": None}
+    for label, n, e, k1, b, feat, out, mom, dname in k3_cases():
+        dtype = getattr(torch, dname)
+        params, x, y, w, mu = k3_inputs(torch, rng, n, k1, b, feat, out, mom, dtype)
+        kw = dict(num_edges=e, feat=feat, lr=0.1, momentum=mom, mu=mu)
+        got = mk.edge_interval(params, x, y, w, **kw)
+        again = mk.edge_interval(params, x, y, w, **kw)
+        want = mk.edge_interval_plain(params, x, y, w, **kw)
+        torch.cuda.synchronize()
+        what = f"edge_interval {label} N{n} E{e} k1 {k1} b{b} {feat}x{out} momentum {mom} {dname}"
+        check(all(bit_equal(a, c) for a, c in zip(got, again)), f"{what}: two launches differ")
+        err = 0.0
+        for name, a, c in zip(("params", "losses", "mu"), got, want):
+            a, c = a.float(), c.float()
+            tol = K3_ATOL + K3_RTOL * c.abs()
+            if name != "losses" and dtype == torch.bfloat16:
+                tol = tol + bf16_ulp(c)
+            diff = (a - c).abs()
+            check(bool(torch.isfinite(a).all()) and bool((diff <= tol).all()),
+                  f"{what}: {name} max abs err {float(diff.max())} outside the tolerance")
+            err = max(err, float(diff.max()))
+        bound, bound_by = k3_bound(n, k1, b, feat, out, mom, params.element_size())
+        row = {"kernel": "edge_interval", "case": label, "n": n, "edges": e, "kappa1": k1, "b": b, "feat": feat,
+               "out": out, "momentum": mom, "dtype": dname, "path": "registers" if feat <= 64 else "scratch",
+               "max_abs_err": err, "bit_equal_relaunch": True, "kernel_launches_per_call": 2,
+               "ms": time_ms(lambda: mk.edge_interval(params, x, y, w, **kw), flush=flush),
+               "plain_ms": time_ms(lambda: mk.edge_interval_plain(params, x, y, w, **kw), flush=flush, reps=5),
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        if dtype == torch.float32:
+            summary["max_abs_err"] = max(summary["max_abs_err"], err)
+            if label == "full width" and mom:
+                summary.update({k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                               case=f"{label}, momentum {mom}")
+    # an edge whose weights are all zero: no zero guard, as in JAX
+    n, e, k1, b, feat, out = 8, 2, 3, 2, 4, 3
+    params, x, y, w, mu = k3_inputs(torch, rng, n, k1, b, feat, out, 0.9, torch.float32)
+    w[: n // e] = 0.0
+    kw = dict(num_edges=e, feat=feat, lr=0.1, momentum=0.9, mu=mu)
+    got, want = mk.edge_interval(params, x, y, w, **kw)[0], mk.edge_interval_plain(params, x, y, w, **kw)[0]
+    check(not bool(torch.isfinite(got[: n // e]).any()) and not bool(torch.isfinite(want[: n // e]).any()),
+          "edge_interval: an all-zero-weight edge must give non-finite rows in kernel and plain version")
+    live = (got[n // e:] - want[n // e:]).abs()
+    check(bool((live <= K3_ATOL + K3_RTOL * want[n // e:].abs()).all()), "edge_interval: live edge next to a dead one")
+    rows.append({"kernel": "edge_interval", "case": "all-zero-weight edge", "dead_rows_non_finite": True,
+                 "live_max_abs_err": float(live.max())})
+    emit({"phase": "edge_interval_kernel", "kernels": ["edge_interval"], "tolerance": {
+        "rtol": K3_RTOL, "atol": K3_ATOL, "bf16": "plus one bf16 ulp of the plain result"}, "cases": rows})
+    return {"edge_interval": summary}
+
+
+def phase_megakernel_vs_k3(torch, mods, mk):
+    """One cloud interval of the client-blocked lowering on linear MSE
+    clients ({"w"} (feat, out), loss mean((x w - y)^2)) against K3 through
+    its entry point: one edge with kappa2 1 (one K3 call) and four edges
+    with kappa2 2 (K3 over the edges, then over all clients). Returns the
+    phase's launch counts: K3's are its entry-point launches."""
+    import numpy as np
+
+    from repro_torch import resolve_device
+    from repro_torch.core.hierfavg import FedTopology, HierFAVGConfig, build_megakernel_super_round, init_state
+    from repro_torch.kernels import ops
+    from repro_torch.optim import sgd
+
+    resolve_device("cuda")  # TF32 off for the lowering's products
+    flush = flush_buffer(torch)
+    n, k1, b, feat, out = (K3_FULL[k] for k in ("n", "k1", "b", "feat", "out"))
+    lr = 0.1
+    rng = np.random.default_rng(3)
+
+    def loss_fn(p, batch, _rng):
+        return torch.mean(torch.square(batch["x"] @ p["w"] - batch["y"]))
+
+    w0 = torch.from_numpy((rng.normal(size=(feat, out)) * 0.1).astype(np.float32)).cuda()
+    weights = torch.from_numpy(rng.uniform(1, 3, n).astype(np.float32)).cuda()
+    report, counted = {}, {}
+    for edges, k2 in ((1, 1), (4, 2)):
+        topo, config = FedTopology(edges, n // edges), HierFAVGConfig(kappa1=k1, kappa2=k2)
+        batches = {"x": torch.from_numpy(rng.normal(size=(k2, k1, n, b, feat)).astype(np.float32)).cuda(),
+                   "y": torch.from_numpy(rng.normal(size=(k2, k1, n, b, out)).astype(np.float32)).cuda()}
+        mega = build_megakernel_super_round(loss_fn, sgd(lr), topo, config, weights)
+        fresh = lambda: init_state(torch.Generator(device="cuda").manual_seed(0), {"w": w0}, sgd(lr), topo, config)
+        for m in mods:
+            m.reset_launch_counts()
+        state, metrics = mega(fresh(), batches)
+        start = fresh().params["w"].reshape(n, feat * out)
+        k3_params = start
+        k3_losses = []
+        schedule = (1,) if k2 == 1 else (edges, 1)
+        for j, groups in enumerate(schedule):  # edge rounds, then the cloud round
+            xs, ys = (batches[k][j].transpose(0, 1).contiguous() for k in ("x", "y"))
+            k3_params, losses, _ = ops.edge_interval(k3_params, xs, ys, weights, num_edges=groups, feat=feat, lr=lr)
+            k3_losses.append(torch.mean(losses))
+        torch.cuda.synchronize()
+        launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+        check(launches["edge_interval"] == k2 and launches["grouped_mean"] == k2,
+              f"megakernel_vs_k3 E{edges} launches {launches}")
+        for k, v in launches.items():
+            counted[k] = counted.get(k, 0) + v
+        got = state.params["w"].reshape(n, feat * out)
+        diff = (got - k3_params).abs()
+        check(bool((diff <= K3_ATOL + K3_RTOL * k3_params.abs()).all()),
+              f"megakernel_vs_k3 E{edges}: params max abs err {float(diff.max())}")
+        loss_err = float((metrics["loss"] - torch.stack(k3_losses)).abs().max())
+        check(bool(torch.allclose(metrics["loss"], torch.stack(k3_losses), rtol=K3_RTOL, atol=K3_ATOL)),
+              f"megakernel_vs_k3 E{edges}: losses {metrics['loss'].tolist()} vs {torch.stack(k3_losses).tolist()}")
+
+        def k3_interval():
+            p = start
+            for j, groups in enumerate(schedule):
+                xs, ys = (batches[k][j].transpose(0, 1).contiguous() for k in ("x", "y"))
+                p = mk.edge_interval(p, xs, ys, weights, num_edges=groups, feat=feat, lr=lr)[0]
+
+        timing_state = fresh()
+        report[f"E{edges}_kappa2_{k2}"] = {
+            "params_max_abs_err": float(diff.max()), "loss_max_abs_err": loss_err, "launches": launches,
+            "megakernel_ms": time_ms(lambda: mega(timing_state, batches), flush=flush, reps=5),
+            "k3_ms": time_ms(k3_interval, flush=flush, reps=10),
+        }
+    emit({"phase": "megakernel_vs_k3", "case": dict(K3_FULL, lr=lr), "tolerance": {"rtol": K3_RTOL, "atol": K3_ATOL},
+          **report})
+    return counted
+
+
 def run_scenario(torch, mods, name, overrides, device, params=None, profiler=None):
     """Build, init and run a scenario; returns (runner, state, seconds,
     launches, params) with the launch counts of every kernel module in
@@ -311,23 +532,29 @@ def run_scenario(torch, mods, name, overrides, device, params=None, profiler=Non
     return runner, state, seconds, launches, params
 
 
-def cpu_agreement(torch, mods, runner, name, overrides, params):
-    """The same run on the CPU (plain versions) from the same init: the
-    largest per-round relative loss error and accuracy gap, checked. A
-    round whose CPU loss is exactly 0 (the full-width MLP separates its data
-    and the cross-entropy underflows) is held to |loss| <= 1e-6 instead."""
-    cpu_runner, *_ = run_scenario(torch, mods, name, overrides, "cpu", params=params)
-    check(len(runner.history) == len(cpu_runner.history) == runner.cfg.num_rounds, f"{name} rounds")
-    pairs = [(a.loss, b.loss) for a, b in zip(runner.history, cpu_runner.history)]
+def history_agreement(runner, ref_runner, what, prefix):
+    """Per-round losses within rtol 1e-4 and accuracies within 0.01 of
+    ``ref_runner``'s, checked. A round whose reference loss is exactly 0
+    (the full-width MLP separates its data and the cross-entropy
+    underflows) is held to |loss| <= 1e-6 instead."""
+    check(len(runner.history) == len(ref_runner.history) == runner.cfg.num_rounds, f"{what} rounds")
+    pairs = [(a.loss, b.loss) for a, b in zip(runner.history, ref_runner.history)]
     loss_rel = max((abs(a - b) / abs(b) for a, b in pairs if b != 0), default=0.0)
     zero_loss = max((abs(a) for a, b in pairs if b == 0), default=0.0)
-    acc_gap = max((abs(a.accuracy - b.accuracy) for a, b in zip(runner.history, cpu_runner.history)
+    acc_gap = max((abs(a.accuracy - b.accuracy) for a, b in zip(runner.history, ref_runner.history)
                    if a.accuracy is not None), default=0.0)
-    check(loss_rel <= 1e-4, f"{name} cuda vs cpu loss rel err {loss_rel}")
-    check(zero_loss <= 1e-6, f"{name} cuda loss {zero_loss} where the cpu loss is 0")
-    check(acc_gap <= 0.01, f"{name} cuda vs cpu accuracy gap {acc_gap}")
-    return {"cpu_loss_max_rel_err": loss_rel, "cpu_zero_loss_rounds": sum(b == 0 for _, b in pairs),
-            "cuda_loss_max_where_cpu_zero": zero_loss, "cpu_accuracy_max_gap": acc_gap}
+    check(loss_rel <= 1e-4, f"{what} loss rel err {loss_rel}")
+    check(zero_loss <= 1e-6, f"{what}: loss {zero_loss} where the reference loss is 0")
+    check(acc_gap <= 0.01, f"{what} accuracy gap {acc_gap}")
+    return {f"{prefix}_loss_max_rel_err": loss_rel, f"{prefix}_zero_loss_rounds": sum(b == 0 for _, b in pairs),
+            f"{prefix}_loss_max_where_zero": zero_loss, f"{prefix}_accuracy_max_gap": acc_gap}
+
+
+def cpu_agreement(torch, mods, runner, name, overrides, params):
+    """The same run on the CPU (plain versions) from the same init, held to
+    ``history_agreement``."""
+    cpu_runner, *_ = run_scenario(torch, mods, name, overrides, "cpu", params=params)
+    return history_agreement(runner, cpu_runner, f"{name} cuda vs cpu", "cpu")
 
 
 def path_report(runner, seconds, launches, extra=None):
@@ -353,6 +580,8 @@ def kernel_class(name: str) -> str:
         return "transport codec (K4/K5)"
     if "segment_dequant_mean_kernel" in name:
         return "fused decode-mean (K6)"
+    if "edge_interval" in name:
+        return "fused edge interval (K3)"
     low = name.lower()
     if "gemm" in low or "gemv" in low or "cutlass" in low or "matmul" in low:
         return "matrix products"
@@ -403,9 +632,10 @@ def main() -> int:
     from repro_torch.fed import transport
     from repro_torch.kernels import _build
     from repro_torch.kernels import hier_aggregate as ha
+    from repro_torch.kernels import megakernel as mk
     from repro_torch.kernels import quantize as qz
 
-    mods = (ha, qz)
+    mods = (ha, qz, mk)
     t0 = time.perf_counter()
     libs = _build.build_all()
     ptxas = [ln.strip() for p in libs.values() for ln in Path(str(p) + ".log").read_text().splitlines()
@@ -415,6 +645,7 @@ def main() -> int:
 
     summary = phase_kernels(torch, ha)
     summary.update(phase_transport_kernels(torch, ha, qz))
+    summary.update(phase_edge_interval_kernel(torch, mk))
     total = {name: 0 for name in KERNELS}
 
     def count(launches):
@@ -440,7 +671,7 @@ def main() -> int:
     count(launches)
 
     # the full-width MLP design shape
-    torch.cuda.reset_peak_memory_stats()
+    base = reset_peak(torch)
     runner, state, secs, launches, params = run_scenario(torch, mods, "hierfavg_edge_iid", MLP307K, "cuda")
     check(launches["grouped_mean"] == 4 * 12, f"mlp307k K1 launches {launches}")
     check(all(torch.isfinite(v).all() for v in state.params.values()), "mlp307k params not finite")
@@ -448,10 +679,11 @@ def main() -> int:
     check(runner.history[-1].loss < runner.history[0].loss, "mlp307k loss did not fall")
     check(runner.history[-1].accuracy >= 0.9, f"mlp307k accuracy {runner.history[-1].accuracy}")
     uncompressed_accuracy = runner.history[-1].accuracy
+    mlp_runner, mlp_params, mlp_peak = runner, params, torch.cuda.max_memory_allocated() - base
     count(launches)
     emit({"phase": "mlp307k", **path_report(runner, secs, launches, {
         "params_per_client": sum(v[0].numel() for v in state.params.values()),
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "peak_memory_bytes": mlp_peak,
         "profile": device_profile(torch, mods, "hierfavg_edge_iid", MLP307K, params)})})
 
     # the compressed transport. One K4 and one K5 launch per leaf (4 for the
@@ -472,7 +704,7 @@ def main() -> int:
 
     # int8 with error feedback on both hops at the full-width MLP's shape:
     # 8 syncs x 4 leaves
-    torch.cuda.reset_peak_memory_stats()
+    base = reset_peak(torch)
     runner, state, secs, launches, params = run_scenario(torch, mods, "int8_ef_both", MLP307K, "cuda")
     check(launches["quantize"] == launches["dequantize"] == 8 * 4, f"mlp307k_int8_ef K4/K5 launches {launches}")
     check(launches["grouped_mean"] == 4 * 12, f"mlp307k_int8_ef K1 launches {launches}")
@@ -480,7 +712,7 @@ def main() -> int:
     check(runner.history[-1].loss < runner.history[0].loss, "mlp307k_int8_ef loss did not fall")
     acc = runner.history[-1].accuracy
     check(abs(acc - uncompressed_accuracy) <= 0.02, f"mlp307k_int8_ef accuracy {acc} vs {uncompressed_accuracy}")
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     agreement = cpu_agreement(torch, mods, runner, "int8_ef_both", MLP307K, params)
     count(launches)
     emit({"phase": "mlp307k_int8_ef", **path_report(runner, secs, launches, {
@@ -518,7 +750,55 @@ def main() -> int:
         worst = max(worst, err)
     count(launches)
     emit({"phase": "fused_decode", "seconds": secs, "launches": launches, "max_abs_err_vs_k5_then_mean": worst})
+    del updates, encoded, fused, state, got, want, decoded, q, s  # free the device memory before the peak checks
 
+    # K3 through its entry point against the client-blocked lowering
+    count(phase_megakernel_vs_k3(torch, mods, mk))
+
+    # the client-blocked engine at the full-width MLP (blocks of 2 clients
+    # under the 4 MiB budget): one flat K1 mean per leaf per edge interval
+    mk_overrides = MLP307K + MEGAKERNEL
+    base = reset_peak(torch)
+    runner, state, secs, launches, _ = run_scenario(torch, mods, "hierfavg_edge_iid", mk_overrides, "cuda", mlp_params)
+    check(runner._engine.uses_megakernel and runner._engine.megakernel_reason is None,
+          f"mlp307k_megakernel fell back to the superround: {runner._engine.megakernel_reason}")
+    check(launches["grouped_mean"] == 4 * 8, f"mlp307k_megakernel K1 launches {launches}")
+    check(all(torch.isfinite(v).all() for v in state.params.values()), "mlp307k_megakernel params not finite")
+    check(tuple(state.params["w1"].shape) == (32, 64, 4096), "mlp307k_megakernel w1 shape")
+    check(runner.history[-1].accuracy >= 0.9, f"mlp307k_megakernel accuracy {runner.history[-1].accuracy}")
+    mk_runner, mk_peak = runner, torch.cuda.max_memory_allocated() - base
+    vs_superround = history_agreement(runner, mlp_runner, "mlp307k_megakernel vs mlp307k", "superround")
+    agreement = cpu_agreement(torch, mods, runner, "hierfavg_edge_iid", mk_overrides, mlp_params)
+    count(launches)
+    emit({"phase": "mlp307k_megakernel", **path_report(runner, secs, launches, {
+        "uses_megakernel": True, "megakernel_reason": None, **vs_superround, **agreement,
+        "final_accuracy": runner.history[-1].accuracy, "peak_memory_bytes": mk_peak,
+        "superround_peak_memory_bytes": mlp_peak,
+        "profile": device_profile(torch, mods, "hierfavg_edge_iid", mk_overrides, mlp_params)})})
+
+    # the same with bf16 client state
+    base = reset_peak(torch)
+    runner, state, secs, launches, _ = run_scenario(
+        torch, mods, "hierfavg_edge_iid", mk_overrides + BF16, "cuda", mlp_params)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(runner._engine.uses_megakernel, f"mlp307k_megakernel_bf16 fell back: {runner._engine.megakernel_reason}")
+    check(launches["grouped_mean"] == 4 * 8, f"mlp307k_megakernel_bf16 K1 launches {launches}")
+    check(all(v.dtype == torch.bfloat16 and bool(torch.isfinite(v).all()) for v in state.params.values()),
+          "mlp307k_megakernel_bf16: a param leaf is not finite bf16")
+    l16 = torch.tensor([h.loss for h in runner.history], dtype=torch.float64)
+    l32 = torch.tensor([h.loss for h in mk_runner.history], dtype=torch.float64)
+    check(len(l16) == len(l32) and bool(((l16 - l32).abs() <= 0.01 + 0.05 * l32.abs()).all()),
+          f"mlp307k_megakernel_bf16 losses {l16.tolist()} vs f32 {l32.tolist()}")
+    acc16, acc32 = runner.history[-1].accuracy, mk_runner.history[-1].accuracy
+    check(abs(acc16 - acc32) <= 0.05, f"mlp307k_megakernel_bf16 accuracy {acc16} vs f32 {acc32}")
+    check(peak < mk_peak, f"mlp307k_megakernel_bf16 peak memory {peak} not below the f32 run's {mk_peak}")
+    count(launches)
+    emit({"phase": "mlp307k_megakernel_bf16", **path_report(runner, secs, launches, {
+        "param_dtypes": sorted({str(v.dtype) for v in state.params.values()}),
+        "loss_max_abs_err_vs_f32": float((l16 - l32).abs().max()), "final_accuracy": acc16,
+        "f32_final_accuracy": acc32, "peak_memory_bytes": peak, "f32_peak_memory_bytes": mk_peak})})
+
+    check(all(total[name] > 0 for name in KERNELS), f"a kernel was never launched on its path: {total}")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][1], "replaces": KERNELS[name][0],
          "launches": total[name], "max_abs_err": summary[name]["max_abs_err"], "ms": summary[name]["ms"],

@@ -21,10 +21,15 @@ error-feedback codecs, a per-client residual in ``FedState.residual``.
 Since the port updates ``params`` in place, the anchor is always a copy
 (``clone``), never a view of the parameters.
 
+A ``PrecisionSpec`` with a non-f32 ``param_dtype`` stores and steps the
+stacked client state in that dtype (batches are cast on the way into the
+loss); every aggregation still accumulates in f32.
+``build_megakernel_super_round`` is the client-blocked lowering of the
+superround (``engine="megakernel"``).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 item): robust aggregators and non-f32 precision (8), sampled
-participation (10), the deadline lowering (11), the client-sharded lowering
-(12), the megakernel lowering (6).
+Queue 1 item): robust aggregators and ``remat`` (8), sampled participation
+(10), the deadline lowering (11), the client-sharded lowering (12).
 """
 from __future__ import annotations
 
@@ -32,8 +37,10 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch.func import grad, vmap
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core import aggregation
 from repro_torch.core.hierarchy import HierarchySpec, as_hierarchy
@@ -69,17 +76,24 @@ Topology = Union[FedTopology, HierarchySpec]
 @dataclasses.dataclass(frozen=True)
 class PrecisionSpec:
     """Mixed-precision policy for the stacked client state (the spec's
-    ``precision`` section). Only the inert default (float32, no remat) runs
-    in this slice; an active policy raises when a config is built."""
+    ``precision`` section). ``param_dtype`` is the storage and compute
+    dtype of the stacked client params and their stacked optimizer rows
+    (``"bfloat16"`` halves them); aggregation accumulates in f32 and casts
+    back, and the loss / grad-norm metrics are reduced in f32. ``remat`` is
+    not ported: a config with it raises (ROADMAP.md item 8)."""
 
     param_dtype: str = "float32"
     remat: bool = False
 
     def __post_init__(self):
-        dt = getattr(torch, self.param_dtype, None)
+        # names parse as the JAX package parses them (``jnp.dtype``, numpy's
+        # rules: "float" is float64, "half" float16; unknown names raise
+        # TypeError); numpy has no bfloat16 of its own
+        name = "bfloat16" if self.param_dtype == "bfloat16" else np.dtype(self.param_dtype).name
+        dt = getattr(torch, name, None)
         if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
             raise ValueError(f"param_dtype must be floating, got {self.param_dtype!r}")
-        object.__setattr__(self, "param_dtype", str(dt).removeprefix("torch."))
+        object.__setattr__(self, "param_dtype", name)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -109,6 +123,8 @@ class HierFAVGConfig:
     precision: Optional[PrecisionSpec] = None
 
     def __post_init__(self):
+        if self.precision is not None and not isinstance(self.precision, PrecisionSpec):
+            raise TypeError(f"precision must be a PrecisionSpec, got {type(self.precision).__name__}")
         if self.transport is not None:
             if not hasattr(self.transport, "codec") or not hasattr(self.transport, "is_trivial"):
                 raise TypeError(
@@ -127,8 +143,8 @@ class HierFAVGConfig:
                 )
         if self.aggregators is not None:
             raise unported("a non-default aggregator", 8)
-        if self.precision is not None and self.precision.is_active:
-            raise unported("a non-float32 precision policy", 8)
+        if self.precision is not None and self.precision.remat:
+            raise unported("precision.remat (activation recomputation)", 8)
         if self.participation is not None:
             raise unported("sampled participation", 10)
         if self.kappas is not None:
@@ -179,8 +195,9 @@ class HierFAVGConfig:
         residual)."""
         return self.transport is not None and not self.transport.is_trivial
 
-    # The JAX config's other feature predicates. Each such feature is
-    # rejected in __post_init__ until its slice lands, so each reads False.
+    # The JAX config's other feature predicates. Aggregators and
+    # participation are rejected in __post_init__ until their slices land,
+    # so those read False.
 
     @property
     def aggregators_active(self) -> bool:
@@ -217,8 +234,14 @@ def init_state(
     config: HierFAVGConfig,
 ) -> FedState:
     """Every client starts from ``params`` (unstacked), with fresh
-    optimizer state and step 0."""
+    optimizer state and step 0. Under an active precision policy the
+    stacked floating params are cast to its dtype before the optimizer
+    state is made, so stacked optimizer rows follow (Adam's moments stay
+    f32)."""
     stacked = replicate_for_clients(params, topology.num_clients)
+    if config.precision_active:
+        dt = config.precision.dtype
+        stacked = {k: p.to(dt) if p.is_floating_point() else p for k, p in stacked.items()}
     device = next(iter(stacked.values())).device
     anchor = residual = None
     if config.delta_cloud or config.transport_active:
@@ -243,21 +266,46 @@ def _copy(tree: Params) -> Params:
     return {k: v.clone() for k, v in tree.items()}
 
 
-def build_local_step(loss_fn: LossFn, optimizer: GradientTransformation):
-    """One local SGD update for all clients (Algorithm 1 l.5).
+def _apply_precision(loss_fn: LossFn, precision: Optional[PrecisionSpec]) -> LossFn:
+    """Wrap a per-client loss with the precision policy: the batch's
+    floating leaves are cast to the policy dtype on the way in, so the
+    forward and backward run in it. The inert policy (or None) returns
+    ``loss_fn`` unchanged."""
+    if precision is None or precision.dtype == torch.float32:
+        return loss_fn
+    dt = precision.dtype
 
-    batch leaves: (N, b, ...). Returns ``local_step(state, batch) ->
-    (state, metrics)``. The stacked parameters are updated in place
-    (``optim.apply_updates``); the loss / grad-norm metrics are f32 device
-    scalars."""
+    def cast_loss(params, batch, rng):
+        batch = {k: x.to(dt) if x.is_floating_point() else x for k, x in batch.items()}
+        return loss_fn(params, batch, rng)
+
+    return cast_loss
+
+
+def _client_grads(loss_fn: LossFn, precision: Optional[PrecisionSpec]):
+    """``(params, batch, rng) -> (grads, per-client losses)`` for a stack of
+    clients: one ``torch.func`` grad of the summed per-client loss, vmapped
+    over the leading client axis."""
+    loss_p = _apply_precision(loss_fn, precision)
 
     def total_loss(params, batch, rng):
-        losses = vmap(loss_fn, in_dims=(0, 0, None))(params, batch, rng)
+        losses = vmap(loss_p, in_dims=(0, 0, None))(params, batch, rng)
         # sum (not mean): keeps per-client gradients identical to each client
         # running SGD on its own mean loss
         return torch.sum(losses), losses
 
-    grad_fn = grad(total_loss, has_aux=True)
+    return grad(total_loss, has_aux=True)
+
+
+def build_local_step(loss_fn: LossFn, optimizer: GradientTransformation, *,
+                     precision: Optional[PrecisionSpec] = None):
+    """One local SGD update for all clients (Algorithm 1 l.5).
+
+    batch leaves: (N, b, ...). Returns ``local_step(state, batch) ->
+    (state, metrics)``. The stacked parameters are updated in place
+    (``optim.apply_updates``); ``precision`` casts the batch to the policy
+    dtype; the loss / grad-norm metrics are f32 device scalars."""
+    grad_fn = _client_grads(loss_fn, precision)
 
     def local_step(state: FedState, batch: Dict[str, torch.Tensor]) -> Tuple[FedState, dict]:
         grads, losses = grad_fn(state.params, batch, state.rng)
@@ -398,7 +446,7 @@ def build_hier_round(
     leaves carry a leading (kappa1,) axis."""
     spec = as_hierarchy(topology)
     depth = _check_levels(spec, config)
-    local_step = build_local_step(loss_fn, optimizer)
+    local_step = build_local_step(loss_fn, optimizer, precision=config.precision)
     level_syncs = [build_level_sync(spec, config, weights, l) for l in range(1, depth + 1)]
     intervals = _round_intervals(config)
 
@@ -441,7 +489,7 @@ def build_super_round(
     """
     spec = as_hierarchy(topology)
     depth = _check_levels(spec, config)
-    local_step = build_local_step(loss_fn, optimizer)
+    local_step = build_local_step(loss_fn, optimizer, precision=config.precision)
     level_syncs = [build_level_sync(spec, config, weights, l) for l in range(1, depth + 1)]
     schedule = super_round_schedule(config)
 
@@ -455,5 +503,170 @@ def build_super_round(
             steps.append(state.step)
         metrics = {"loss": torch.stack(losses), "grad_norm": torch.stack(gnorms), "step": torch.stack(steps)}
         return state, metrics
+
+    return super_round
+
+
+# ---------------------------------------------------------------------------
+# Client-blocked megakernel lowering
+# ---------------------------------------------------------------------------
+
+
+def megakernel_incompatibility(config: HierFAVGConfig, topology: Topology, *, grad_accum: int = 1) -> Optional[str]:
+    """Why this schedule cannot run through the client-blocked lowering
+    (``build_megakernel_super_round``), or None when it can:
+    ``build_megakernel_super_round`` raises on a reason, the engine reports
+    it and runs the superround. The
+    reasons and their words are the JAX package's
+    (``repro/core/hierfavg.py:1135-1166``)."""
+    spec = as_hierarchy(topology)
+    if not spec.is_paper_topology:
+        return (
+            f"the megakernel lowering is two-level uniform "
+            f"(clients/edges/cloud) only, got {spec.describe()}"
+        )
+    if config.delta_cloud:
+        return "delta_cloud's anchor bookkeeping keeps the scan-fused path"
+    if config.transport_active:
+        return "compressed transports (codec round-trips, EF residuals) keep the scan-fused path"
+    if config.aggregators_active:
+        return "non-default aggregators need the full client axis at each sync"
+    if config.participation_active:
+        return "sampled participation runs through the cohort engine"
+    if config.sync_opt_state:
+        return "optimizer-state averaging keeps the scan-fused path"
+    if grad_accum != 1:
+        return "microbatch accumulation keeps the scan-fused path"
+    return None
+
+
+def _megakernel_block_clients(clients_per_edge: int, bytes_per_client: int) -> int:
+    """Client-block size: the largest divisor of ``clients_per_edge`` whose
+    block of param and optimizer rows fits the JAX package's 4 MiB
+    residency budget. Blocks never straddle an edge."""
+    budget = 4 << 20
+    best = 1
+    for b in range(1, clients_per_edge + 1):
+        if clients_per_edge % b == 0 and b * bytes_per_client <= budget:
+            best = b
+    return best
+
+
+def build_megakernel_super_round(
+    loss_fn: LossFn,
+    optimizer: GradientTransformation,
+    topology: Topology,
+    config: HierFAVGConfig,
+    weights: torch.Tensor,
+    *,
+    grad_accum: int = 1,
+    block_clients: Optional[int] = None,
+):
+    """``build_super_round`` lowered client-major, as
+    ``repro/core/hierfavg.py:1198-1364``: per edge interval, blocks of
+    ``block_clients`` clients (default: ``_megakernel_block_clients``) each
+    run all kappa1 local steps, then one flat weighted mean per leaf: over
+    each edge (G = num_edges), or over all N clients on a cloud round
+    (G = 1), so each leaf takes one K1 launch per edge interval on CUDA.
+
+        super_round(state, batches, masks=None) -> (state, metrics)
+
+    The same contract as ``build_super_round`` (batch leaves (kappa2,
+    kappa1, N, b, ...); metrics ``loss``, ``grad_norm``, ``step`` each
+    (kappa2,)), except that ``masks`` must be None. Stacked params are
+    updated in place through views of each block's rows; stacked optimizer
+    rows are rebuilt per edge interval, and a shared scalar (the schedule
+    count) steps identically in every block, so the first block's value is
+    kept. Only the order of the mean and metric sums differs from the
+    superround.
+
+    The JAX lowering precomputes its per-step threefry key table
+    (``_rng_step_table``) so that its keys equal the superround's. Here
+    both paths hand every loss call the same ``FedState.rng`` and neither
+    draws from it (``vmap`` refuses random draws), so the generator ends in
+    the superround's state by construction.
+
+    K1 keeps a zero-weight group's rows where JAX divides by the unguarded
+    sum of weights; with no masks the runner's weights are partition
+    sizes, so no group weighs zero and the two agree.
+    """
+    spec = as_hierarchy(topology)
+    depth = _check_levels(spec, config)
+    reason = megakernel_incompatibility(config, spec, grad_accum=grad_accum)
+    if reason is not None:
+        raise ValueError(f"schedule cannot run through the megakernel: {reason}")
+    n = spec.num_clients
+    num_edges = spec.num_nodes(1)
+    cpe = n // num_edges
+    k1 = config.kappa1
+    schedule = super_round_schedule(config)
+    w = weights.to(torch.float32)
+    grad_fn = _client_grads(loss_fn, config.precision)
+
+    def block_steps(params, opt, batches, j, lo, hi, rng):
+        """All kappa1 steps of clients [lo, hi): ``params`` are views of
+        their rows (updated in place), ``opt`` their optimizer state.
+        Returns (opt, losses (kappa1, Bc) f32, squared grad norms
+        (kappa1, Bc) f32)."""
+        losses_t, gsq_t = [], []
+        for t in range(k1):
+            batch = {k: v[j, t, lo:hi] for k, v in batches.items()}
+            grads, losses = grad_fn(params, batch, rng)
+            updates, opt = optimizer.update(grads, opt, params)
+            apply_updates(params, updates)
+            losses_t.append(losses.to(torch.float32))
+            gsq_t.append(sum(
+                torch.sum(torch.square(g.to(torch.float32)).reshape(g.shape[0], -1), dim=1)
+                for _, g in sorted(grads.items())
+            ))
+        return opt, torch.stack(losses_t), torch.stack(gsq_t)
+
+    def super_round(state: FedState, batches, masks: Optional[torch.Tensor] = None):
+        if masks is not None:
+            raise TypeError(
+                "the megakernel superround takes no survival masks; failure "
+                "models are routed to the scan-fused engine by eligibility"
+            )
+        params = state.params
+        opt_leaves, opt_def = tree_flatten(state.opt_state)
+        for leaf in opt_leaves:
+            if leaf.dim() >= 1 and leaf.shape[0] != n:
+                raise ValueError(
+                    f"megakernel needs optimizer state leaves that are either "
+                    f"scalar (shared) or stacked (N, ...); got shape {tuple(leaf.shape)}"
+                )
+        stacked = [leaf.dim() >= 1 for leaf in opt_leaves]
+        bytes_per_client = sum(x.numel() * x.element_size() // n for x in params.values()) + sum(
+            x.numel() * x.element_size() // n for x, s in zip(opt_leaves, stacked) if s
+        )
+        bc = block_clients if block_clients is not None else _megakernel_block_clients(cpe, max(1, bytes_per_client))
+        if cpe % bc != 0:
+            raise ValueError(f"block_clients={bc} does not divide clients_per_edge={cpe}")
+        step0 = state.step
+        loss_r, gnorm_r, step_r = [], [], []
+        for j, deepest in enumerate(schedule):
+            new_opt, losses, gsq = [], [], []
+            for lo in range(0, n, bc):
+                hi = lo + bc
+                block_params = {k: v[lo:hi] for k, v in params.items()}
+                block_opt = tree_unflatten([x[lo:hi] if s else x for x, s in zip(opt_leaves, stacked)], opt_def)
+                opt_b, loss_b, gsq_b = block_steps(block_params, block_opt, batches, j, lo, hi, state.rng)
+                new_opt.append(tree_flatten(opt_b)[0])
+                losses.append(loss_b)
+                gsq.append(gsq_b)
+            opt_leaves = [
+                torch.cat([blk[i] for blk in new_opt]) if s else new_opt[0][i] for i, s in enumerate(stacked)
+            ]
+            ls, gs = torch.cat(losses, dim=1), torch.cat(gsq, dim=1)  # (kappa1, N), client order
+            loss_r.append(torch.mean(ls))
+            gnorm_r.append(torch.mean(torch.sqrt(torch.sum(gs, dim=1))))
+            step_r.append(step0 + (j + 1) * k1)
+            groups = 1 if deepest == depth else num_edges
+            params = aggregation.grouped_weighted_mean(params, w, groups)
+        new_state = state._replace(
+            step=step0 + k1 * len(schedule), params=params, opt_state=tree_unflatten(opt_leaves, opt_def)
+        )
+        metrics = {"loss": torch.stack(loss_r), "grad_norm": torch.stack(gnorm_r), "step": torch.stack(step_r)}
+        return new_state, metrics
 
     return super_round

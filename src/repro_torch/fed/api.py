@@ -407,7 +407,12 @@ class ExperimentSpec:
 
     def describe(self) -> str:
         topo = self.topology.fanouts or f"{self.topology.num_edges}x{self.topology.clients_per_edge}"
-        tail = f" transport={self.transport.levels}" if self.transport.levels != "identity" else ""
+        extras = []
+        if self.transport.levels != "identity":
+            extras.append(f"transport={self.transport.levels}")
+        if self.precision.is_active:
+            extras.append(f"precision={self.precision.param_dtype}" + ("+remat" if self.precision.remat else ""))
+        tail = (" " + " ".join(extras)) if extras else ""
         return (
             f"{self.name}: {topo} kappas={','.join(map(str, self.schedule.kappas))} "
             f"{self.data.partition} {self.model.arch} rounds={self.run.num_rounds}{tail}"
@@ -583,6 +588,9 @@ def _build_data(spec: ExperimentSpec, topo, bundle, device: torch.device):
     y_all = torch.from_numpy(data.y).to(device)
 
     def eval_fn(p):
+        # bf16 client state: the f32 data promotes the params to f32, as
+        # JAX's type promotion does in its eval
+        p = {k: v.to(x_all.dtype) if v.is_floating_point() else v for k, v in p.items()}
         return float(accuracy(apply_fn(p, x_all), y_all))
 
     return batcher, eval_fn

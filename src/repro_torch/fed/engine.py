@@ -20,14 +20,20 @@ costs:
   assembles interval r+1's (kappa2, kappa1, N, b, ...) block in pinned host
   memory while interval r computes.
 
+With ``RunnerConfig.engine="megakernel"`` the engine builds the
+client-blocked ``build_megakernel_super_round`` when the runner's
+``_check_megakernel`` finds no reason against it (``uses_megakernel``), and
+otherwise the superround, keeping the reason on ``megakernel_reason``: the
+fallback is reported, never silent (``repro/fed/engine.py:92-137``).
+
 Nothing in this path synchronises the device except those fetches and the
 eval.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
-from repro_torch.core.hierfavg import FedState, build_super_round
+from repro_torch.core.hierfavg import FedState, build_megakernel_super_round, build_super_round
 from repro_torch.data.pipeline import SuperBatchPrefetcher
 
 
@@ -41,7 +47,14 @@ class SuperRoundEngine:
         hier = runner.hier_config
         self.k1 = hier.kappa1
         self.k2 = hier.kappa2_effective
-        self._super = build_super_round(runner.loss_fn, runner.optimizer, runner.topology, hier, runner.weights)
+        self.uses_megakernel = False
+        self.megakernel_reason: Optional[str] = None
+        build = build_super_round
+        if runner.cfg.engine == "megakernel":
+            self.megakernel_reason = runner._check_megakernel()
+            if self.megakernel_reason is None:
+                build, self.uses_megakernel = build_megakernel_super_round, True
+        self._super = build(runner.loss_fn, runner.optimizer, runner.topology, hier, runner.weights)
         # [(round_base, device metrics {"loss","grad_norm","step"} each (k2,))]
         self._pending: List[Tuple[int, dict]] = []
 

@@ -3,7 +3,9 @@
 Port of ``repro.fed.runner`` for the main path. By default
 (``RunnerConfig.engine="auto"``) every whole cloud interval goes to the
 superround engine (``fed.engine``), with batch prefetch and metrics kept on
-the device until an eval point. The per-round loop below runs the
+the device until an eval point; ``engine="megakernel"`` runs those
+intervals through the client-blocked lowering where the schedule allows
+(``_check_megakernel``) and names the reason where it does not. The per-round loop below runs the
 remainder (a partial trailing cloud interval), or everything when
 ``eval_every`` needs finer granularity than a cloud interval. Both loops
 append the same ``RoundRecord`` history, with the paper's T/E accounting
@@ -34,7 +36,7 @@ from repro_torch.core.hierfavg import (
     Topology,
     build_hier_round,
     init_state,
-    unported,
+    megakernel_incompatibility,
 )
 from repro_torch.data.pipeline import to_device
 from repro_torch.device import DeviceLike, resolve_device
@@ -48,15 +50,17 @@ class RunnerConfig:
     target_accuracy: float = 0.0  # stop early when reached (0 = never)
     # "auto": superround engine for every whole cloud interval whose
     # boundaries satisfy the eval cadence, per-round otherwise;
-    # "superround" forces the engine (raises if ineligible); "per_round"
+    # "superround" forces the engine (raises if ineligible); "megakernel"
+    # is the opt-in client-blocked path (falls back to the superround with
+    # a named reason when the schedule is not block-separable); "per_round"
     # forces the one-edge-interval-at-a-time loop.
     engine: str = "auto"
 
     def __post_init__(self):
-        if self.engine == "megakernel":
-            raise unported("engine='megakernel'", 6)
-        if self.engine not in ("auto", "superround", "per_round"):
-            raise ValueError(f"RunnerConfig.engine must be auto|superround|per_round, got {self.engine!r}")
+        if self.engine not in ("auto", "superround", "megakernel", "per_round"):
+            raise ValueError(
+                f"RunnerConfig.engine must be auto|superround|megakernel|per_round, got {self.engine!r}"
+            )
 
 
 @dataclasses.dataclass
@@ -104,6 +108,7 @@ class FederatedRunner:
                 self.transport.bits_per_param(1), self.transport.bits_per_param(self.transport.depth)
             )
         self._engine = None  # lazily built (and cached) SuperRoundEngine
+        self._megakernel_reason: Optional[str] = None
         self._round = build_hier_round(loss_fn, optimizer, topology, hier_config, self.weights)
         self.history: List[RoundRecord] = []
 
@@ -160,6 +165,19 @@ class FederatedRunner:
         self.history.append(record)
         return record
 
+    def _check_megakernel(self) -> Optional[str]:
+        """None if whole cloud intervals can run through the client-blocked
+        lowering, else why the engine falls back to the superround; cached
+        on ``_megakernel_reason`` so the fallback is named, not silent.
+        The JAX runner checks its runner-level seams first (a mesh,
+        failure masks, microbatch accumulation, an overridden failure
+        detector); the port's runner has none of them yet (a spec that
+        needs a mesh or failures raises as unported before a run), so the
+        schedule-level predicate decides."""
+        reason = megakernel_incompatibility(self.hier_config, self.topology)
+        self._megakernel_reason = reason
+        return reason
+
     def _superround_eligible(self, start_round: int) -> bool:
         """The engine returns to the host at cloud boundaries only, so the
         start and the eval cadence must land on them."""
@@ -182,9 +200,9 @@ class FederatedRunner:
         k2 = self.hier_config.kappa2_effective
         if mode != "per_round":
             full = (self.cfg.num_rounds - start_round) // k2 if self._superround_eligible(start_round) else 0
-            if mode == "superround" and full <= 0:
+            if mode in ("superround", "megakernel") and full <= 0:
                 raise ValueError(
-                    "engine='superround' needs a cloud-aligned start_round, eval_every "
+                    f"engine={mode!r} needs a cloud-aligned start_round, eval_every "
                     f"a multiple of kappa2_effective={k2}, and at least one whole cloud "
                     "interval of rounds"
                 )

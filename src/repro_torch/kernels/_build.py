@@ -23,9 +23,9 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points per source, with their argument types (pointers and the
-# stream as c_void_p: a plain int would be cut to 32 bits). All return int.
+# stream as c_void_p: a plain int would be cut to 32 bits).
 SIGNATURES = {
     "hier_aggregate": {
         "hier_grouped_mean": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -36,7 +36,12 @@ SIGNATURES = {
         "quant_quantize": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
         "quant_dequantize": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
+    "megakernel": {
+        "mk_edge_interval": (_P,) * 11 + (_I,) * 6 + (_F, _F, _F, _I, _P),
+        "mk_edge_interval_smem": (_I, _I, _I, _I),
+    },
 }
+RESTYPES = {"mk_edge_interval_smem": ctypes.c_longlong}  # every other entry point returns int
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -119,6 +124,6 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all((name,))[name]))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
             _libs[name] = lib
         return lib

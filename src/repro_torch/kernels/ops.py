@@ -2,9 +2,9 @@
 
 Each call goes to the hand-written CUDA kernel for a CUDA tensor and to
 the kernel's plain PyTorch version for a CPU tensor (decided in
-``kernels.hier_aggregate`` and ``kernels.quantize`` by the tensor's
-device). Kernels of later slices (K3, K7, K8 in ROADMAP.md Queue 2) join
-here as they are ported.
+``kernels.hier_aggregate``, ``kernels.quantize`` and ``kernels.megakernel``
+by the tensor's device). Kernels of later slices (K7, K8 in ROADMAP.md
+Queue 2) join here as they are ported.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import hier_aggregate as _ha
+from repro_torch.kernels import megakernel as _mk
 from repro_torch.kernels import quantize as _qz
 
 
@@ -53,3 +54,14 @@ def dequantize_int8(q: torch.Tensor, s: torch.Tensor, shape: Sequence[int], dtyp
 def dequantize_stacked(q: torch.Tensor, scales: torch.Tensor, d: int, dtype=torch.float32) -> torch.Tensor:
     """K5, the inverse of ``quantize_stacked``: (N, d) rows in ``dtype``."""
     return _qz.dequantize_stacked(q, scales, d, dtype)
+
+
+def edge_interval(params: torch.Tensor, inputs: torch.Tensor, targets: torch.Tensor, weights: torch.Tensor, *,
+                  num_edges: int, feat: int, lr: float, momentum: float = 0.0, mu=None):
+    """K3: kappa1 local SGD(+momentum) steps of every flat-row linear client
+    plus the trailing per-edge weighted mean, one call per edge interval.
+    The engine's client-blocked path is ``core.hierfavg.build_megakernel_super_round``,
+    which does not call this. Returns (params (N, P), losses (N, kappa1),
+    mu (N, P))."""
+    return _mk.edge_interval(params, inputs, targets, weights, num_edges=num_edges, feat=feat, lr=lr,
+                             momentum=momentum, mu=mu)

@@ -1,7 +1,8 @@
 """Optax-style gradient transformations over dicts of stacked tensors.
 
-Port of ``repro.optim.transforms`` (``sgd``, ``adam``, ``chain``,
-``scale_by_learning_rate``, ``apply_updates``), written functionally:
+Port of ``repro.optim.transforms`` (``sgd``, ``momentum``, ``adam``,
+``chain``, ``trace``, ``scale_by_learning_rate``, ``apply_updates``),
+written functionally:
 
     opt = sgd(lr)
     state = opt.init(params)
@@ -33,6 +34,10 @@ class GradientTransformation(NamedTuple):
 
 class ScaleByScheduleState(NamedTuple):
     count: torch.Tensor
+
+
+class TraceState(NamedTuple):
+    trace: Params
 
 
 class ScaleByAdamState(NamedTuple):
@@ -85,6 +90,25 @@ def scale_by_learning_rate(lr: ScalarOrSchedule, *, flip_sign: bool = True) -> G
     return GradientTransformation(init, update)
 
 
+def trace(decay: float, *, nesterov: bool = False) -> GradientTransformation:
+    """Momentum accumulator (a la ``optax.trace``): ``t = g + decay * t``.
+    The trace rows take the parameters' dtype (bf16 client state keeps a
+    bf16 trace, as in the JAX package)."""
+
+    def init(params):
+        return TraceState(trace={k: torch.zeros_like(p) for k, p in params.items()})
+
+    def update(grads, state, params=None):
+        new_trace = {k: g + decay * state.trace[k] for k, g in grads.items()}
+        if nesterov:
+            updates = {k: g + decay * new_trace[k] for k, g in grads.items()}
+        else:
+            updates = new_trace
+        return updates, TraceState(trace=new_trace)
+
+    return GradientTransformation(init, update)
+
+
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
     def init(params):
         zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
@@ -113,6 +137,10 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Grad
 def sgd(lr: ScalarOrSchedule) -> GradientTransformation:
     """Plain SGD — what the paper uses ("we do not use momentum")."""
     return scale_by_learning_rate(lr)
+
+
+def momentum(lr: ScalarOrSchedule, decay: float = 0.9, *, nesterov: bool = False) -> GradientTransformation:
+    return chain(trace(decay, nesterov=nesterov), scale_by_learning_rate(lr))
 
 
 def adam(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:

@@ -183,8 +183,8 @@ def test_config_validation():
         th.build_super_round(None, toptim.sgd(0.1), tparse("2,2/2"), th.HierFAVGConfig.multi_level((1, 1, 1)),
                              torch.ones(4))
     with pytest.raises(NotImplementedError, match="item 8"):
-        th.HierFAVGConfig.multi_level((2, 2), precision=th.PrecisionSpec(param_dtype="bfloat16"))
-    assert th.PrecisionSpec(param_dtype="float").param_dtype == "float32"
+        th.HierFAVGConfig.multi_level((2, 2), precision=th.PrecisionSpec(remat=True))
+    assert th.PrecisionSpec(param_dtype="float").param_dtype == "float64"  # numpy's name rules, as jnp.dtype
     with pytest.raises(ValueError, match="floating"):
         th.PrecisionSpec(param_dtype="int32")
 

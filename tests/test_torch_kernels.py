@@ -1,7 +1,7 @@
 """K1 grouped_mean / K2 segment_mean (and, on a GPU, K4 quantize, K5
-dequantize and K6 segment_dequant_mean) wrappers: input checks, CPU
-dispatch, and, on a GPU, each CUDA kernel against its plain PyTorch
-version. This file imports no jax, so it also runs on the card:
+dequantize, K6 segment_dequant_mean and K3 edge_interval) wrappers: input
+checks, CPU dispatch, and, on a GPU, each CUDA kernel against its plain
+PyTorch version. This file imports no jax, so it also runs on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_kernels.py -q
 
@@ -10,7 +10,8 @@ Tests marked ``cuda`` skip without a GPU. On the card: f32 ``atol=1e-5``
 ``atol=5e-2`` (one bf16 ulp at |x| ~ 4); dead groups bit for bit. K4 and
 K5 are bit-equal to their plain versions (the same IEEE divisions and
 round-half-to-even); K6 agrees within ``1e-5 * max|x|``, dead groups bit
-for bit.
+for bit. K3 agrees at the JAX kernel-vs-oracle ``rtol=3e-6, atol=5e-7``
+(bf16 rows: plus one bf16 ulp) and repeats itself bit for bit.
 """
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from pathlib import Path
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import hier_aggregate as ha
+from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels import quantize as qz
 
 
@@ -190,3 +192,47 @@ def test_int8_ef_both_on_gpu_goes_through_k4_k5_and_tracks_the_cpu(cuda):
     assert state.residual["w1"].is_cuda
     for a, b in zip(cpu.history, gpu.history):
         assert b.loss == pytest.approx(a.loss, rel=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e,k1,b,feat,out,mom", [
+    (8, 2, 3, 2, 4, 3, 0.0),
+    (16, 4, 2, 1, 8, 5, 0.9),
+    (32, 4, 8, 1, 64, 1024, 0.9),  # full width, columns in registers
+    (8, 2, 3, 2, 512, 96, 0.9),  # wide feat: the scratch-column path
+    (16, 4, 3, 2, 32, 100, 0.0),  # out not a multiple of 32
+])
+def test_edge_interval_kernel_matches_plain_on_gpu(cuda, dtype, n, e, k1, b, feat, out, mom):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = (torch.randn(n, feat * out, device=cuda, generator=gen) * 0.1).to(dtype)
+    x = torch.randn(n, k1, b, feat, device=cuda, generator=gen)
+    y = torch.randn(n, k1, b, out, device=cuda, generator=gen)
+    w = torch.rand(n, device=cuda, generator=gen) * 2 + 1
+    mu = (torch.randn(n, feat * out, device=cuda, generator=gen) * 0.01).to(dtype) if mom else None
+    kw = dict(num_edges=e, feat=feat, lr=0.1, momentum=mom, mu=mu)
+    before = mk.LAUNCHES["edge_interval"]
+    got = mk.edge_interval(params, x, y, w, **kw)
+    assert mk.LAUNCHES["edge_interval"] == before + 1
+    again = mk.edge_interval(params, x, y, w, **kw)
+    want = mk.edge_interval_plain(params, x, y, w, **kw)
+    for a, c, r, name in zip(got, want, again, ("params", "losses", "mu")):
+        assert a.dtype == c.dtype and torch.equal(a, r), name
+        a, c = a.float(), c.float()
+        tol = 5e-7 + 3e-6 * c.abs()
+        if dtype == torch.bfloat16 and name != "losses":
+            tol = tol + torch.exp2(torch.floor(torch.log2(c.abs().clamp_min(1e-30))) - 7)
+        assert bool(((a - c).abs() <= tol).all()), f"{name}: max abs err {float((a - c).abs().max())}"
+
+
+@pytest.mark.cuda
+def test_edge_interval_wrapper_checks_its_inputs_on_gpu(cuda):
+    params = torch.zeros(4, 6, device=cuda)
+    x, y, w = torch.zeros(4, 1, 1, 3, device=cuda), torch.zeros(4, 1, 1, 2, device=cuda), torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mk.edge_interval(params.half(), x, y, w, num_edges=2, feat=3, lr=0.1)
+    with pytest.raises(ValueError, match="mu must be"):
+        mk.edge_interval(params, x, y, w, num_edges=2, feat=3, lr=0.1, momentum=0.9, mu=params.bfloat16())
+    with pytest.raises(ValueError, match="shared memory"):
+        mk.edge_interval(params, torch.zeros(4, 1, 4096, 3, device=cuda), torch.zeros(4, 1, 4096, 2, device=cuda), w,
+                         num_edges=1, feat=3, lr=0.1)

@@ -89,12 +89,12 @@ def test_resolve_device_turns_tf32_off():
         (["aggregators.levels=weighted_mean/coordinate_median"], 8),
         (["schedule.async_cloud=true"], 11),
         (["aggregators.levels=trimmed_mean:0.1/weighted_mean"], 8),
-        (["precision.param_dtype=bfloat16"], 8),
+        (["precision.remat=true"], 8),
         (["failures.p_fail=0.1"], 9),
         (["participation.cohort_size=8"], 10),
         (["deadline.enabled=true"], 11),
         (["topology.mesh_axes=clients"], 12),
-        (["run.engine=megakernel"], 6),
+        (["model.lr_schedule=warmup_cosine"], 13),
         (["model.arch=lm-10m"], 13),
         (["data.dataset=tokens"], 13),
         (["run.checkpoint_dir=ckpt"], 5),
@@ -130,6 +130,6 @@ def test_unknown_scenario_lists_the_ported_ones():
 def test_kernel_sources_build_for_hopper():
     from repro_torch.kernels import _build
 
-    assert _build.SOURCES == ("hier_aggregate", "quantize")
+    assert _build.SOURCES == ("hier_aggregate", "quantize", "megakernel")
     assert all((_build.CSRC / f"{name}.cu").exists() for name in _build.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
