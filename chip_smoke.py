@@ -51,6 +51,31 @@ Phases, one JSON line each; any failure exits non-zero:
   mlp307k_megakernel_bf16
               the same with bf16 client state: bf16 leaves, losses and
               accuracy against the f32 megakernel run, lower peak memory
+  attention_kernel
+              K7 flash attention against its plain version on the card: the
+              JAX package's test cases, kernel_bench's shape, the lm-100m
+              prefill (GQA 12 on 4, hd 64, f32) and the recurrentgemma-9b
+              prefill (MQA 16 on 1, hd 256, window 2048, bf16); a relaunch
+              bit for bit; times beside the bound, the plain version and
+              torch's scaled_dot_product_attention (a yardstick only)
+  rglru_kernel
+              K8 RG-LRU scan against its plain version, bit for bit: the JAX
+              test cases, kernel_bench's shape and recurrentgemma-9b's
+              (2 x 4096 x 4096, f32)
+  serve_lm100m
+              ``repro_torch.launch.serve.serve`` on lm-100m at full width, f32,
+              4 prompts of 1024 tokens, 32 generated: 12 K7 launches per
+              prefill, none of K8; a 2 x 128 prefill on the card against the
+              same on the CPU; decoding token P after prefill(P) against
+              prefill(P + 1)
+  serve_recurrentgemma9b
+              the same on recurrentgemma-9b at full width (9.57B parameters,
+              bf16), 2 prompts of 4096 tokens (the 2048-slot rings wrap), 16
+              generated: 12 K7 and 26 K8 launches per prefill; the prefill
+              with the kernels against the layer code on the card; decode
+              consistency; a cut-depth f32 check of the K7/K8 route against
+              the layer code; a warm prefill and decode step under
+              torch.profiler
 
 The quickstart, mlp307k, mlp307k_int8_ef and mlp307k_megakernel phases then
 run their scenario twice more, warm: once timed, once under
@@ -77,6 +102,7 @@ sys.path.insert(0, str(ROOT / "src"))
 T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 MLP307K = [
     "data.dim=64", "model.hidden=4096", "topology.num_edges=4", "topology.clients_per_edge=8",
     "schedule.kappas=8,2", "run.num_rounds=8", "run.eval_every=2",
@@ -98,7 +124,18 @@ KERNELS = {
     "quantize": ("src/repro/kernels/quantize.py:38", "src/repro_torch/kernels/csrc/quantize.cu"),
     "dequantize": ("src/repro/kernels/quantize.py:91", "src/repro_torch/kernels/csrc/quantize.cu"),
     "edge_interval": ("src/repro/kernels/megakernel.py:96", "src/repro_torch/kernels/csrc/megakernel.cu"),
+    "flash_attention": (
+        "src/repro/kernels/flash_attention.py:99", "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "rglru_scan": ("src/repro/kernels/rglru_scan.py:44", "src/repro_torch/kernels/csrc/rglru_scan.cu"),
 }
+# K7 against its plain version: f32 both sum in f32 in other orders (|out|
+# <= max |v| ~ 5); bf16 adds one bf16 ulp of the result, where the two f32
+# results round apart
+K7_ATOL = 2e-5
+# the full-width serve checks: f32 card against CPU (and decode against a
+# longer prefill) within K_F32 of the largest |logit|; bf16 within K_BF16 of
+# it (bf16 rounds after every operation, in other places on the two routes)
+K_F32, K_BF16 = 1e-4, 0.1
 
 
 def emit(obj) -> None:
@@ -582,8 +619,12 @@ def kernel_class(name: str) -> str:
         return "fused decode-mean (K6)"
     if "edge_interval" in name:
         return "fused edge interval (K3)"
+    if "flash_attention_kernel" in name:
+        return "flash attention (K7)"
+    if "rglru_scan_kernel" in name:
+        return "RG-LRU scan (K8)"
     low = name.lower()
-    if "gemm" in low or "gemv" in low or "cutlass" in low or "matmul" in low:
+    if "gemm" in low or "gemv" in low or "cutlass" in low or "matmul" in low or "nvjet" in low:
         return "matrix products"
     return "other"
 
@@ -621,6 +662,342 @@ def device_profile(torch, mods, name, overrides, params):
     }
 
 
+def attention_cases():
+    """(label, B, S, H, Hkv, hd, window, dtype name); K7 is causal on every
+    path of the port."""
+    cases = [(f"jax case s{s} window {w}", 3, s, 1, 1, 64, w, dt)
+             for s, w in ((128, 0), (200, 0), (256, 33), (120, 64)) for dt in ("float32", "bfloat16")]
+    return cases + [
+        ("kernel_bench (4 x 1024 x 64)", 4, 1024, 1, 1, 64, 0, "bfloat16"),
+        ("lm-100m prefill", 4, 1024, 12, 4, 64, 0, "float32"),
+        ("recurrentgemma-9b prefill", 2, 4096, 16, 1, 256, 2048, "bfloat16"),
+    ]
+
+
+def visible_pairs(s: int, window: int) -> int:
+    """(query, key) pairs of a causal self-attention of length s that a
+    window (0: none) leaves visible."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def k7_bound(b, s, h, hkv, hd, window, isz):
+    """(bound ms, "bytes" or "operations") of one K7 call: q, k, v read once
+    and out written once at the HBM rate, against 4 hd operations per visible
+    pair per query head at the tensor cores' bf16 rate (bf16) or the f32 rate
+    without TF32 (f32)."""
+    nbytes = (2 * b * s * h * hd + 2 * b * s * hkv * hd) * isz
+    flops = 4 * hd * visible_pairs(s, window) * b * h
+    rate = BF16_FLOPS_PER_S if isz == 2 else F32_FLOPS_PER_S
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def sdpa_call(torch, q, k, v, window):
+    """torch's scaled_dot_product_attention on (B, H, S, hd) copies of K7's
+    inputs (causal, or a boolean band mask for a window; GQA by
+    ``enable_gqa``): a yardstick for K7's time that the port never calls.
+    Returns a callable giving (B, H, S, hd)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if window > 0:
+        i = torch.arange(q.shape[1], device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+
+def phase_attention_kernel(torch, fa):
+    """K7 against its plain version on the same inputs (``K7_ATOL``; bf16
+    plus one bf16 ulp), bit-equal across two launches."""
+    import numpy as np
+
+    flush = flush_buffer(torch)
+    rng = np.random.default_rng(4)
+    rows, summary = [], {}
+    for label, b, s, h, hkv, hd, window, dname in attention_cases():
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(np.float32)).to("cuda", dtype)
+                   for n in (h, hkv, hkv))
+        got = fa.attention(q, k, v, causal=True, window=window)
+        again = fa.attention(q, k, v, causal=True, window=window)
+        want = fa.attention_plain(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        what = f"flash_attention {label} {dname}"
+        check(bit_equal(got, again), f"{what}: two launches differ")
+        diff = (got.float() - want.float()).abs()
+        tol = K7_ATOL + (bf16_ulp(want.float()) if dtype == torch.bfloat16 else 0.0)
+        check(bool(torch.isfinite(got).all()) and bool((diff <= tol).all()),
+              f"{what}: max abs err {float(diff.max())} outside the tolerance")
+        library = sdpa_call(torch, q, k, v, window)
+        lib_err = float((library().transpose(1, 2).float() - want.float()).abs().max())
+        bound, bound_by = k7_bound(b, s, h, hkv, hd, window, q.element_size())
+        big = s >= 4096
+        row = {"kernel": "flash_attention", "case": label, "b": b, "s": s, "h": h, "hkv": hkv, "hd": hd,
+               "window": window, "dtype": dname, "max_abs_err": float(diff.max()), "bit_equal_relaunch": True,
+               "visible_pairs_per_head": visible_pairs(s, window),
+               "ms": time_ms(lambda: fa.attention(q, k, v, causal=True, window=window), flush=flush,
+                             reps=10 if big else 25),
+               "plain_ms": time_ms(lambda: fa.attention_plain(q, k, v, causal=True, window=window), flush=flush,
+                                   reps=5, warmup=1),
+               "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": time_ms(library, flush=flush, reps=10 if big else 25),
+               "library_max_abs_err": lib_err}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        if label.startswith("recurrentgemma"):
+            summary["flash_attention"] = {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                               "library_ms")}
+        del q, k, v, got, again, want, diff
+    emit({"phase": "attention_kernel", "kernels": ["flash_attention"], "tolerance": {
+        "atol": K7_ATOL, "bf16": "plus one bf16 ulp of the plain result"}, "cases": rows})
+    return summary
+
+
+def phase_rglru_kernel(torch, rg):
+    """K8 against its plain loop, bit for bit, and across two launches."""
+    import numpy as np
+
+    flush = flush_buffer(torch)
+    rng = np.random.default_rng(5)
+    rows, summary = [], {}
+    for label, b, s, d, dname in (("jax case", 2, 33, 96, "float32"), ("jax case", 2, 128, 128, "float32"),
+                                  ("jax case", 2, 64, 200, "float32"), ("jax case, bf16 a and b", 2, 128, 128,
+                                                                        "bfloat16"),
+                                  ("kernel_bench", 2, 8192, 256, "float32"),
+                                  ("recurrentgemma-9b prefill", 2, 4096, 4096, "float32")):
+        dtype = getattr(torch, dname)
+        a = torch.from_numpy(rng.uniform(0.7, 0.999, size=(b, s, d)).astype(np.float32)).to("cuda", dtype)
+        bb = torch.from_numpy((rng.normal(size=(b, s, d)) * 0.1).astype(np.float32)).to("cuda", dtype)
+        h0 = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).cuda()
+        h, h_last = rg.rglru_scan(a, bb, h0)
+        h2, h_last2 = rg.rglru_scan(a, bb, h0)
+        hp, h_lastp = rg.rglru_scan_plain(a, bb, h0)
+        torch.cuda.synchronize()
+        what = f"rglru_scan {label} {b}x{s}x{d} {dname}"
+        check(bit_equal(h, h2) and bit_equal(h_last, h_last2), f"{what}: two launches differ")
+        err = max(float((h - hp).abs().max()), float((h_last - h_lastp).abs().max()))
+        check(bit_equal(h, hp) and bit_equal(h_last, h_lastp), f"{what}: differs from the plain loop, err {err}")
+        nbytes = 2 * b * s * d * a.element_size() + b * s * d * 4 + 2 * b * d * 4
+        row = {"kernel": "rglru_scan", "case": label, "b": b, "s": s, "d": d, "dtype": dname, "max_abs_err": err,
+               "bit_equal_plain": True, "bit_equal_relaunch": True,
+               "ms": time_ms(lambda: rg.rglru_scan(a, bb, h0), flush=flush),
+               "plain_ms": time_ms(lambda: rg.rglru_scan_plain(a, bb, h0), flush=flush, reps=3, warmup=1),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        if label.startswith("recurrentgemma"):
+            summary["rglru_scan"] = {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                          "library_ms")}
+        del a, bb, h, h2, hp
+    emit({"phase": "rglru_kernel", "kernels": ["rglru_scan"], "tolerance": "bit-equal", "cases": rows})
+    return summary
+
+
+def max_err(got, want):
+    """(max |got - want|, max |want|) in f32 on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def counted_serve(torch, mods, cfg, params, **kw):
+    """``serve.serve`` with every launch count set to 0 just before and read
+    just after; returns (serve's report, launches)."""
+    from repro_torch.launch import serve
+
+    torch.cuda.synchronize()
+    for m in mods:
+        m.reset_launch_counts()
+    out = serve.serve(cfg, device="cuda", params=params, **kw)
+    return out, {k: v for m in mods for k, v in m.LAUNCHES.items()}
+
+
+def serve_report(out, warm, launches):
+    keep = ("prefill_s", "prefill_tokens_per_s", "decode_s", "decode_tokens_per_s")
+    return {"launches": launches, **{f"first_{k}": out[k] for k in keep}, **{f"warm_{k}": warm[k] for k in keep},
+            "sample_ids": out["tokens"][:, -1].tolist()}
+
+
+def check_launches(launches, want, what):
+    """Every count as in ``want`` and every other kernel's at 0."""
+    check(all(launches[k] == want.get(k, 0) for k in launches), f"{what} launches {launches}, want {want}")
+
+
+def phase_serve_lm100m(torch, mods):
+    """lm-100m at full width (f32) through the serving entry point, then
+    against the CPU and against a longer prefill."""
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.configs.base import param_count
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = get_config("lm-100m")
+    B, P, G = 4, 1024, 32
+    base = reset_peak(torch)
+    with torch.no_grad():
+        params = transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    out, launches = counted_serve(torch, mods, cfg, params, batch=B, prompt_len=P, gen=G)
+    peak = torch.cuda.max_memory_allocated() - base
+    check_launches(launches, {"flash_attention": 12}, "serve_lm100m")
+    check(tuple(out["tokens"].shape) == (B, G) and bool(torch.isfinite(out["prefill_logits"]).all()),
+          "serve_lm100m: tokens or logits")
+    warm, _ = counted_serve(torch, mods, cfg, params, batch=B, prompt_len=P, gen=G)
+
+    # the same prefill on the card (K7) and on the CPU (layer code), same init
+    x = torch.from_numpy(serve.make_prompts(cfg, 2, 129, seed=1))
+    with torch.inference_mode():
+        card, caches = transformer.prefill(params, cfg, x[:, :128].cuda(), 160)
+        cpu, _ = transformer.prefill(tree_map(lambda t: t.cpu(), params), cfg, x[:, :128], 160)
+        cpu_err, scale = max_err(card, cpu)
+        check(cpu_err <= K_F32 * scale, f"serve_lm100m: card vs CPU logits err {cpu_err} (scale {scale})")
+        dec, _ = transformer.decode_step(params, cfg, caches, x[:, 128].cuda(),
+                                         torch.full((2,), 128, dtype=torch.int32, device="cuda"))
+        longer, _ = transformer.prefill(params, cfg, x.cuda(), 160)
+        dec_err, dec_scale = max_err(dec, longer)
+        check(dec_err <= K_F32 * dec_scale, f"serve_lm100m: decode vs prefill(P+1) err {dec_err}")
+    emit({"phase": "serve_lm100m", "arch": cfg.name, "params": param_count(cfg), "dtype": "float32",
+          "batch": B, "prompt_len": P, "gen": G, **serve_report(out, warm, launches),
+          "launches_per_prefill": {"flash_attention": 12, "rglru_scan": 0}, "peak_memory_bytes": peak,
+          "card_vs_cpu": {"batch": 2, "prompt_len": 128, "max_abs_err": cpu_err, "max_abs_logit": scale,
+                          "tolerance": f"{K_F32} x max |logit|"},
+          "decode_vs_prefill": {"position": 128, "max_abs_err": dec_err, "max_abs_logit": dec_scale}})
+    return launches
+
+
+def profile_call(torch, fn):
+    """One call under torch.profiler: wall ms (host clock to a synchronise),
+    device-busy ms by kernel class, busy share of the wall, top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_class, by_name = {}, {}
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in events:
+        by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name), 0.0) + e.device_time_total
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    busy_us = sum(by_class.values())
+    check(busy_us > 0, "the profiler saw no device time")
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e6 / wall,
+            "device_ops": len(events), "busy_ms_by_class": {k: v / 1e3 for k, v in sorted(by_class.items())},
+            "top_kernels_ms": [[n[:90], v / 1e3] for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]]}
+
+
+def layer_code_last_logits(torch, transformer, params, cfg, tokens):
+    """The last position's logits of ``forward`` given the positions
+    ``arange(S)`` explicitly: the layers then run their own code, not K7 or
+    K8, which take only the positions the model builds itself."""
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    return transformer.forward(params, cfg, tokens, positions=positions)[:, -1]
+
+
+def phase_serve_recurrentgemma9b(torch, mods):
+    """recurrentgemma-9b at full width (bf16) through the serving entry
+    point; the prefill with the kernels against the layer code (``forward``
+    with explicit positions: a route the kernels do not take), decode
+    consistency, a cut-depth f32 check of the route, and a warm prefill and
+    decode step profiled."""
+    import dataclasses
+
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs.base import param_count
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = get_config("recurrentgemma-9b")
+    B, P, G = 2, 4096, 16
+    per_prefill = {"flash_attention": 12, "rglru_scan": 26}
+    torch.cuda.empty_cache()
+    base = reset_peak(torch)
+    with torch.no_grad():
+        params = transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == param_count(cfg) == 9_572_462_592, f"recurrentgemma-9b has {n_params} parameters")
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted_serve(torch, mods, cfg, params, batch=B, prompt_len=P, gen=G)
+    peak = torch.cuda.max_memory_allocated() - base
+    check_launches(launches, per_prefill, "serve_recurrentgemma9b")
+    check(tuple(out["tokens"].shape) == (B, G) and bool(torch.isfinite(out["prefill_logits"]).all()),
+          "serve_recurrentgemma9b: tokens or logits")
+    warm, _ = counted_serve(torch, mods, cfg, params, batch=B, prompt_len=P, gen=G)
+    del out["caches"], warm["caches"]
+
+    # the prefill with the kernels against the layer code, on the card
+    x = torch.from_numpy(serve.make_prompts(cfg, B, P + 1, seed=1)).cuda()
+    max_len = P + G
+    for m in mods:
+        m.reset_launch_counts()
+    with torch.inference_mode():
+        kern, caches = transformer.prefill(params, cfg, x[:, :P], max_len)
+        plain = layer_code_last_logits(torch, transformer, params, cfg, x[:, :P])
+    routed = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    check_launches(routed, per_prefill, "serve_recurrentgemma9b kernel vs layer-code prefills")
+    plain_err, scale = max_err(kern, plain)
+    check(bool(torch.isfinite(kern).all()) and plain_err <= K_BF16 * scale,
+          f"serve_recurrentgemma9b: kernels vs layer code err {plain_err} (scale {scale})")
+    top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    with torch.inference_mode():
+        dec, _ = transformer.decode_step(params, cfg, caches, x[:, P],
+                                         torch.full((B,), P, dtype=torch.int32, device="cuda"))
+        longer, _ = transformer.prefill(params, cfg, x, max_len)
+    dec_err, dec_scale = max_err(dec, longer)
+    check(bool(torch.isfinite(dec).all()) and dec_err <= K_BF16 * dec_scale,
+          f"serve_recurrentgemma9b: decode vs prefill(P+1) err {dec_err} (scale {dec_scale})")
+
+    # a warm prefill and decode step under the profiler
+    tok = kern.argmax(-1).to(torch.int32)
+    pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        prof_prefill = profile_call(torch, lambda: transformer.prefill(params, cfg, x[:, :P], max_len))
+        prof_decode = profile_call(torch, lambda: transformer.decode_step(params, cfg, caches, tok, pos))
+    del params, caches, kern, plain, dec, longer
+    torch.cuda.empty_cache()
+
+    # the route at cut depth in f32 (1 superblock + the 2-layer tail, full
+    # widths): K7 with the window and MQA at hd 256, K8, against the layer
+    # code; 3072 tokens wrap the window and divide the layer code's chunks
+    cut = dataclasses.replace(cfg, num_layers=5, param_dtype="float32", compute_dtype="float32")
+    with torch.no_grad():
+        p32 = transformer.init_params(torch.Generator(device="cuda").manual_seed(2), cut)
+    x32 = torch.from_numpy(serve.make_prompts(cut, 1, 3072, seed=2)).cuda()
+    for m in mods:
+        m.reset_launch_counts()
+    with torch.inference_mode():
+        k32, _ = transformer.prefill(p32, cut, x32, 3072)
+        l32 = layer_code_last_logits(torch, transformer, p32, cut, x32)
+    check_launches({k: v for m in mods for k, v in m.LAUNCHES.items()}, {"flash_attention": 1, "rglru_scan": 4},
+                   "cut-depth f32 prefill")
+    cut_err, cut_scale = max_err(k32, l32)
+    check(cut_err <= K_F32 * cut_scale, f"serve_recurrentgemma9b cut-depth f32: err {cut_err} (scale {cut_scale})")
+    del p32
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_recurrentgemma9b", "arch": cfg.name, "params": n_params, "param_bytes": param_bytes,
+          "dtype": "bfloat16", "batch": B, "prompt_len": P, "gen": G, **serve_report(out, warm, launches),
+          "launches_per_prefill": per_prefill, "init_peak_memory_bytes": init_peak, "peak_memory_bytes": peak,
+          "kernels_vs_layer_code": {"max_abs_err": plain_err, "max_abs_logit": scale, "top1_agreement": top1,
+                                    "tolerance": f"{K_BF16} x max |logit|"},
+          "decode_vs_prefill": {"position": P, "max_abs_err": dec_err, "max_abs_logit": dec_scale},
+          "cut_depth_f32": {"layers": 5, "prompt_len": 3072, "max_abs_err": cut_err, "max_abs_logit": cut_scale,
+                            "tolerance": f"{K_F32} x max |logit|"},
+          "profile_prefill": prof_prefill, "profile_decode_step": prof_decode})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -630,12 +1007,16 @@ def main() -> int:
     from repro_torch.core import aggregation
     from repro_torch.core.hierarchy import as_hierarchy
     from repro_torch.fed import transport
+    from repro_torch import resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hier_aggregate as ha
     from repro_torch.kernels import megakernel as mk
     from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import rglru_scan as rg
 
-    mods = (ha, qz, mk)
+    resolve_device("cuda")  # TF32 off: the plain versions' f32 products stay f32
+    mods = (ha, qz, mk, fa, rg)
     t0 = time.perf_counter()
     libs = _build.build_all()
     ptxas = [ln.strip() for p in libs.values() for ln in Path(str(p) + ".log").read_text().splitlines()
@@ -646,6 +1027,8 @@ def main() -> int:
     summary = phase_kernels(torch, ha)
     summary.update(phase_transport_kernels(torch, ha, qz))
     summary.update(phase_edge_interval_kernel(torch, mk))
+    summary.update(phase_attention_kernel(torch, fa))
+    summary.update(phase_rglru_kernel(torch, rg))
     total = {name: 0 for name in KERNELS}
 
     def count(launches):
@@ -797,6 +1180,12 @@ def main() -> int:
         "param_dtypes": sorted({str(v.dtype) for v in state.params.values()}),
         "loss_max_abs_err_vs_f32": float((l16 - l32).abs().max()), "final_accuracy": acc16,
         "f32_final_accuracy": acc32, "peak_memory_bytes": peak, "f32_peak_memory_bytes": mk_peak})})
+
+    # LM serving: K7 in every attention layer and K8 in every RG-LRU layer of
+    # the prefill
+    del runner, state, mk_runner, mlp_runner, mlp_params, params
+    count(phase_serve_lm100m(torch, mods))
+    count(phase_serve_recurrentgemma9b(torch, mods))
 
     check(all(total[name] > 0 for name in KERNELS), f"a kernel was never launched on its path: {total}")
     emit({"kernels": [

@@ -1,0 +1,39 @@
+"""deepseek-7b [dense] — DeepSeek LLM 7B, llama-arch.
+
+30L d_model=4096 32H (MHA: kv=32) d_ff=11008 vocab=102400
+[arXiv:2401.02954; hf]. Fed layout A. long_500k skipped (full attention).
+"""
+from repro_torch.configs.base import ArchConfig, FedPlan
+
+CONFIG = ArchConfig(
+    name="deepseek-7b",
+    family="dense",
+    num_layers=30,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=11008,
+    vocab_size=102400,
+    run_long_context=False,
+    microbatch=1,
+    fed=FedPlan(layout="stacked", edges_per_pod=4, clients_per_edge=4, kappa1=16, kappa2=4),
+    source="arXiv:2401.02954",
+)
+
+
+def smoke() -> ArchConfig:
+    return ArchConfig(
+        name="deepseek-7b-smoke",
+        family="dense",
+        num_layers=2,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=4,
+        d_ff=160,
+        vocab_size=128,
+        param_dtype="float32",
+        compute_dtype="float32",
+        remat="none",
+        attn_chunk=0,
+        fed=FedPlan(layout="stacked", edges_per_pod=2, clients_per_edge=2, kappa1=2, kappa2=2),
+    )

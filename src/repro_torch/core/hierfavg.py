@@ -44,18 +44,11 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core import aggregation
 from repro_torch.core.hierarchy import HierarchySpec, as_hierarchy
+from repro_torch.errors import unported
 from repro_torch.optim import GradientTransformation, apply_updates
 
 Params = Dict[str, torch.Tensor]
 LossFn = Callable[[Params, Dict[str, torch.Tensor], Any], torch.Tensor]  # (params_i, batch_i, rng)
-
-
-def unported(feature: str, item: int) -> NotImplementedError:
-    """The error for a configuration that needs a feature a later slice
-    brings; names the ROADMAP.md item."""
-    return NotImplementedError(
-        f"{feature} is not ported to repro_torch yet (ROADMAP.md Queue 1 item {item} brings it)"
-    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -35,8 +35,9 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.hierfavg import PrecisionSpec, unported
+from repro_torch.core.hierfavg import PrecisionSpec
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.errors import unported
 from repro_torch.fed.participation import ParticipationSpec
 from repro_torch.sim.distributions import NetworkSpec
 
@@ -357,10 +358,10 @@ class ExperimentSpec:
     def params_from_numpy(self, np_params, device: DeviceLike = None):
         """A JAX init carried across (``jax.device_get(spec.init_params(key))``),
         checked against this spec's model."""
-        from repro_torch.models.cnn import params_from_numpy
+        from repro_torch.models import params_from_numpy
 
         device = resolve_device(device)
-        return params_from_numpy(np_params, device, module=self.model_bundle(device)["module"])
+        return params_from_numpy(np_params, device, like=dict(self.model_bundle(device)["module"].named_parameters()))
 
     def build(self, *, device: DeviceLike = None):
         """Assemble the ``FederatedRunner`` on ``device`` (default ``cuda``)."""

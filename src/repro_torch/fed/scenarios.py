@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Sequence, Tuple
 
-from repro_torch.core.hierfavg import unported
+from repro_torch.errors import unported
 from repro_torch.fed.api import (
     CostSpec,
     DataSpec,

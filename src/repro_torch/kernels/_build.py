@@ -40,6 +40,12 @@ SIGNATURES = {
         "mk_edge_interval": (_P,) * 11 + (_I,) * 6 + (_F, _F, _F, _I, _P),
         "mk_edge_interval_smem": (_I, _I, _I, _I),
     },
+    "flash_attention": {
+        "fa_forward": (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _I, _P),
+    },
+    "rglru_scan": {
+        "rg_scan": (_P,) * 5 + (_I,) * 4 + (_P,),
+    },
 }
 RESTYPES = {"mk_edge_interval_smem": ctypes.c_longlong}  # every other entry point returns int
 SOURCES = tuple(SIGNATURES)

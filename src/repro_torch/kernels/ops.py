@@ -2,9 +2,10 @@
 
 Each call goes to the hand-written CUDA kernel for a CUDA tensor and to
 the kernel's plain PyTorch version for a CPU tensor (decided in
-``kernels.hier_aggregate``, ``kernels.quantize`` and ``kernels.megakernel``
-by the tensor's device). Kernels of later slices (K7, K8 in ROADMAP.md
-Queue 2) join here as they are ported.
+``kernels.hier_aggregate`` (K1, K2, K6), ``kernels.quantize`` (K4, K5),
+``kernels.megakernel`` (K3), ``kernels.flash_attention`` (K7) and
+``kernels.rglru_scan`` (K8) by the tensor's device). The LM layers reach K7
+and K8 through those modules directly, on the model's own layout.
 """
 from __future__ import annotations
 
@@ -12,9 +13,11 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hier_aggregate as _ha
 from repro_torch.kernels import megakernel as _mk
 from repro_torch.kernels import quantize as _qz
+from repro_torch.kernels import rglru_scan as _rg
 
 
 def grouped_mean(x: torch.Tensor, weights: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -65,3 +68,21 @@ def edge_interval(params: torch.Tensor, inputs: torch.Tensor, targets: torch.Ten
     mu (N, P))."""
     return _mk.edge_interval(params, inputs, targets, weights, num_edges=num_edges, feat=feat, lr=lr,
                              momentum=momentum, mu=mu)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """K7 on (BH, S, d) with batch and heads folded: (BH, Sq, d) in q's
+    dtype. The CUDA kernel picks its own tiles, so JAX's ``block_q`` /
+    ``block_k`` have no counterpart."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"flash_attention: want (BH, S, d) inputs, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    out = _fa.attention(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), causal=causal, window=window)
+    return out.squeeze(2)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """K8: (h (B, S, D) f32, hT (B, D) f32). The CUDA kernel picks its own
+    channel tiles, so JAX's ``block_d`` has no counterpart."""
+    return _rg.rglru_scan(a, b, h0)

@@ -4,8 +4,8 @@
 Port of the parts of ``repro.models.cnn`` and of the ``mlp`` bundle
 (``repro/fed/api.py:752-773``) that the main path runs. The MLP keeps the
 JAX parameter names and layout (``w1 (dim, hidden)``, ``b1``,
-``w2 (hidden, classes)``, ``b2``), so ``params_from_numpy`` carries a JAX
-init across unchanged. The MNIST/CIFAR CNNs are not reachable from
+``w2 (hidden, classes)``, ``b2``), so ``models.params_from_numpy`` carries a
+JAX init across unchanged. The MNIST/CIFAR CNNs are not reachable from
 ``ExperimentSpec`` and wait for a later slice.
 
 Losses take ``(params, batch, rng)`` like the JAX losses; the paper losses
@@ -13,9 +13,8 @@ ignore ``rng`` (``repro/models/cnn.py:124-125``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict
 
-import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
@@ -47,7 +46,7 @@ class MLP(nn.Module):
     """``relu(x @ w1 + b1) @ w2 + b2`` with the JAX package's parameter
     names and layout; init ``N(0, 1) * 0.25`` weights and zero biases, as
     ``repro/fed/api.py:760-767`` (from a torch generator, so the numbers
-    differ from the JAX init: carry that across with ``params_from_numpy``)."""
+    differ from the JAX init: carry that across with ``models.params_from_numpy``)."""
 
     def __init__(self, dim: int, hidden: int, classes: int, *, device=None,
                  generator: torch.Generator = None):
@@ -78,21 +77,3 @@ def mlp_bundle(dim: int, hidden: int, classes: int, device: torch.device) -> Dic
         return functional_call(module, params, (x,))
 
     return {"module": module, "init": init, "apply": apply_fn, "loss": make_cnn_loss_fn(apply_fn)}
-
-
-def params_from_numpy(np_params: Mapping[str, np.ndarray], device, *, module: nn.Module) -> Params:
-    """Turn a JAX init (``jax.device_get(spec.init_params(key))``) into the
-    port's unstacked parameters on ``device``, after checking that names,
-    shapes and dtypes match ``module``'s parameters."""
-    want = {k: (tuple(v.shape), v.dtype) for k, v in module.named_parameters()}
-    if set(np_params) != set(want):
-        raise ValueError(f"parameter names {sorted(np_params)} != the model's {sorted(want)}")
-    out: Params = {}
-    for k, (shape, dtype) in want.items():
-        arr = np.asarray(np_params[k])
-        if tuple(arr.shape) != shape:
-            raise ValueError(f"parameter {k!r}: shape {tuple(arr.shape)} != the model's {shape}")
-        if torch.from_numpy(np.empty(0, arr.dtype)).dtype != dtype:
-            raise ValueError(f"parameter {k!r}: dtype {arr.dtype} != the model's {dtype}")
-        out[k] = torch.from_numpy(np.array(arr)).to(device)
-    return out

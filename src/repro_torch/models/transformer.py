@@ -1,0 +1,329 @@
+"""Decoder stack: pattern-cycled blocks in stacked superblocks, the full
+forward, the LM loss, and serving (prefill + single-token decode with
+caches); the counterpart of ``repro.models.transformer`` for the block kinds
+``attn``, ``local_attn`` and ``rglru``.
+
+The stack is ``num_superblocks`` repetitions of ``cfg.block_pattern`` plus
+an unscanned tail (recurrentgemma's 38 = 12 x (rglru, rglru, local_attn) + 2).
+The JAX layout is kept: the ``"blocks"`` leaves carry a leading superblock
+axis (JAX builds it with ``jax.vmap``), ``tail{t}`` hold the tail, and
+``blocks_unrolled`` is a list when ``cfg.scan_layers`` is off. A Python loop
+over the superblock index replaces ``lax.scan``; ``remat`` has no effect in
+this forward-only slice. JAX's ``forward`` also returns a MoE auxiliary
+loss; MoE is not ported, so the port's returns the logits alone.
+
+``forward`` (without explicit ``positions``) and ``prefill`` build the
+positions ``arange(S)`` themselves and say so to the layers
+(``default_positions``), so on the card, where autograd records nothing,
+every attention layer runs K7 and every RG-LRU layer K8. The prefill reuses
+each RG-LRU block's own scan for the cache's ``h`` (JAX scans a second time;
+the values are the same function), so a prefill launches K7 once per
+attention layer and K8 once per RG-LRU layer.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.errors import unported
+from repro_torch.models import layers, recurrent
+
+PyTree = Any
+ATTN_KINDS = ("attn", "local_attn")
+_UNPORTED_KINDS = {"mlstm": "mLSTM blocks", "slstm": "sLSTM blocks"}
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    if cfg.mla is not None:
+        raise unported("MLA attention (cfg.mla)", 13)
+    if cfg.moe is not None:
+        raise unported("MoE layers (cfg.moe)", 13)
+    for kind in cfg.block_pattern:
+        if kind in _UNPORTED_KINDS:
+            raise unported(_UNPORTED_KINDS[kind], 13)
+        if kind not in ATTN_KINDS + ("rglru",):
+            raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Single block
+# ---------------------------------------------------------------------------
+
+def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, stack=()) -> Dict[str, PyTree]:
+    _check_supported(cfg)
+    d, dt = cfg.d_model, cfg.dtype()
+    p: Dict[str, PyTree] = {"norm1": layers.init_rmsnorm(d, dt, gen.device, stack)}
+    if kind in ATTN_KINDS:
+        p["attn"] = layers.init_attention(gen, cfg, stack)
+    elif kind == "rglru":
+        p["rnn"] = recurrent.init_rglru(gen, cfg, stack)
+    else:
+        raise ValueError(kind)
+    if cfg.d_ff > 0:
+        p["norm2"] = layers.init_rmsnorm(d, dt, gen.device, stack)
+        p["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, dt, stack)
+    return p
+
+
+def _mlp_residual(params, x, cfg: ArchConfig):
+    if "mlp" in params:
+        x = x + layers.mlp_apply(params["mlp"], layers.rmsnorm(x, params["norm2"], cfg.norm_eps))
+    return x
+
+
+def _block_run(params, x, cfg: ArchConfig, kind: str, positions, default_positions: bool):
+    """The full-sequence block; returns (x, what the block's decode cache is
+    built from: (k, v) for attention, (h_S, u) for RG-LRU)."""
+    _check_supported(cfg)
+    h = layers.rmsnorm(x, params["norm1"], cfg.norm_eps)
+    if kind in ATTN_KINDS:
+        window = cfg.window if kind == "local_attn" else 0
+        y, k, v = layers.attention_with_kv(params["attn"], h, cfg, positions, window=window,
+                                           default_positions=default_positions)
+        return _mlp_residual(params, x + y, cfg), (k, v)
+    if kind == "rglru":
+        y, h_last, u = recurrent.rglru_sequence(params["rnn"], h, cfg, default_positions=default_positions)
+        return _mlp_residual(params, x + y, cfg), (h_last, u)
+    raise ValueError(kind)
+
+
+def block_apply(params, x, cfg: ArchConfig, kind: str, positions, *, default_positions: bool = False) -> torch.Tensor:
+    """Full-sequence block: (B,S,d) -> (B,S,d)."""
+    return _block_run(params, x, cfg, kind, positions, default_positions)[0]
+
+
+def block_init_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, dtype, device=None, stack=()) -> PyTree:
+    _check_supported(cfg)
+    if kind in ATTN_KINDS:
+        window = cfg.window if kind == "local_attn" else 0
+        eff = min(max_len, window) if window else max_len
+        return layers.init_kv_cache(cfg, batch, eff if window else max_len, dtype, device, stack)
+    if kind == "rglru":
+        return recurrent.rglru_init_state(cfg, batch, dtype, device, stack)
+    raise ValueError(kind)
+
+
+def block_decode(params, x, cache, cfg: ArchConfig, kind: str, position) -> Tuple[torch.Tensor, PyTree]:
+    _check_supported(cfg)
+    h = layers.rmsnorm(x, params["norm1"], cfg.norm_eps)
+    if kind in ATTN_KINDS:
+        window = cfg.window if kind == "local_attn" else 0
+        y, cache = layers.attention_decode(params["attn"], h, cache, cfg, position, window=window)
+    elif kind == "rglru":
+        y, cache = recurrent.rglru_step(params["rnn"], h, cache, cfg)
+    else:
+        raise ValueError(kind)
+    return _mlp_residual(params, x + y, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+def _stacked(cfg: ArchConfig, params=None) -> bool:
+    return cfg.scan_layers and cfg.num_superblocks > 0 and (params is None or "blocks" in params)
+
+
+def init_superblock(gen: torch.Generator, cfg: ArchConfig, stack=()) -> Dict[str, PyTree]:
+    return {f"b{i}": init_block(gen, cfg, kind, stack) for i, kind in enumerate(cfg.block_pattern)}
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, PyTree]:
+    """Random parameters on ``gen``'s device with JAX's tree, names, shapes,
+    dtypes and scales (other numbers than JAX's init draws)."""
+    _check_supported(cfg)
+    dt = cfg.dtype()
+    params: Dict[str, PyTree] = {}
+    if cfg.embed_inputs:
+        params["embed"] = layers._init_dense(gen, (cfg.vocab_size, cfg.d_model), dt, scale=1.0)
+    if _stacked(cfg):
+        params["blocks"] = init_superblock(gen, cfg, stack=(cfg.num_superblocks,))
+    else:
+        params["blocks_unrolled"] = [
+            init_block(gen, cfg, cfg.block_pattern[i % cfg.pattern_period])
+            for i in range(cfg.num_layers - cfg.tail_layers)
+        ]
+    for t in range(cfg.tail_layers):
+        params[f"tail{t}"] = init_block(gen, cfg, cfg.block_pattern[t])
+    params["final_norm"] = layers.init_rmsnorm(cfg.d_model, dt, gen.device)
+    params["lm_head"] = layers._init_dense(gen, (cfg.d_model, cfg.vocab_size), dt)
+    return params
+
+
+def _index(tree, i: int):
+    """Superblock ``i`` of a stacked tree (views, no copies)."""
+    return {k: _index(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
+
+
+def _stack(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _layers(params, cfg: ArchConfig):
+    """(where, kind, block params) in execution order; ``where`` is
+    ("blocks", superblock, "b{i}"), ("blocks_unrolled", i) or ("tail{t}",)."""
+    if _stacked(cfg, params):
+        for s in range(cfg.num_superblocks):
+            sb = _index(params["blocks"], s)
+            for i, kind in enumerate(cfg.block_pattern):
+                yield ("blocks", s, f"b{i}"), kind, sb[f"b{i}"]
+    elif "blocks_unrolled" in params:
+        for i, bp in enumerate(params["blocks_unrolled"]):
+            yield ("blocks_unrolled", i), cfg.block_pattern[i % cfg.pattern_period], bp
+    for t in range(cfg.tail_layers):
+        yield (f"tail{t}",), cfg.block_pattern[t], params[f"tail{t}"]
+
+
+def backbone(params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
+             default_positions: bool = False) -> torch.Tensor:
+    """(B,S,d) -> (B,S,d) hidden states."""
+    for _, kind, bp in _layers(params, cfg):
+        x = block_apply(bp, x, cfg, kind, positions, default_positions=default_positions)
+    return x
+
+
+def _embed(params, cfg: ArchConfig, inputs: torch.Tensor) -> torch.Tensor:
+    if cfg.embed_inputs:
+        return params["embed"][inputs]
+    return inputs.to(cfg.dtype())
+
+
+def _default_positions(x: torch.Tensor) -> torch.Tensor:
+    B, S = x.shape[0], x.shape[1]
+    return torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+
+
+def forward(params, cfg: ArchConfig, inputs: torch.Tensor, positions: Optional[torch.Tensor] = None):
+    """inputs: int tokens (B,S) if cfg.embed_inputs else embeddings (B,S,d).
+    Returns the logits (B,S,V)."""
+    x = _embed(params, cfg, inputs)
+    default = positions is None
+    if default:
+        positions = _default_positions(x)
+    x = backbone(params, cfg, x, positions, default_positions=default)
+    x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["lm_head"]
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    """logsumexp - target logit, in f32. targets: (B,S) int."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    nll = lse - tgt
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+def make_loss_fn(cfg: ArchConfig):
+    """Per-client loss: loss_fn(params, batch, rng) -> scalar. batch:
+    {"inputs": tokens (b,S) or embeds (b,S,d), "targets": (b,S) int}."""
+
+    def loss_fn(params, batch, rng):
+        logits = forward(params, cfg, batch["inputs"])
+        return cross_entropy(logits, batch["targets"], batch.get("mask"))
+
+    return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + single-token decode with stacked caches
+# ---------------------------------------------------------------------------
+
+def _block_prefill(params, x, cfg: ArchConfig, kind: str, positions, max_len: int, *, default_positions: bool):
+    """Run the block over the prompt AND build its decode cache."""
+    y, state = _block_run(params, x, cfg, kind, positions, default_positions)
+    B, S, _ = x.shape
+    dtype = cfg.dtype()
+    cache = block_init_cache(cfg, kind, B, max_len, dtype, x.device)
+    if kind in ATTN_KINDS:
+        k, v = state
+        L = cache["k"].shape[1]
+        take = min(S, L)
+        slots = torch.remainder(positions[:, -take:], L).long()
+        bidx = torch.arange(B, device=x.device)[:, None]
+        cache["k"][bidx, slots] = k[:, -take:].to(dtype)
+        cache["v"][bidx, slots] = v[:, -take:].to(dtype)
+        cache["pos"][bidx, slots] = positions[:, -take:].to(torch.int32)
+    else:  # rglru: h_S with h_0 = 0, and the last 3 pre-conv inputs
+        h_last, u = state
+        cache["h"] = h_last
+        cache["conv"] = u[:, -3:].to(dtype)
+    return y, cache
+
+
+def prefill(params, cfg: ArchConfig, inputs: torch.Tensor, max_len: int):
+    """Full-prompt forward building every layer's decode cache.
+    Returns (last-position logits (B,V), caches)."""
+    x = _embed(params, cfg, inputs)
+    positions = _default_positions(x)
+    caches: Dict[str, PyTree] = {}
+    stacked = []
+    for where, kind, bp in _layers(params, cfg):
+        x, c = _block_prefill(bp, x, cfg, kind, positions, max_len, default_positions=True)
+        if where[0] == "blocks":
+            if where[2] == "b0":
+                stacked.append({})
+            stacked[-1][where[2]] = c
+        elif where[0] == "blocks_unrolled":
+            caches.setdefault("blocks_unrolled", []).append(c)
+        else:
+            caches[where[0]] = c
+    if stacked:
+        caches["blocks"] = _stack(stacked)
+    x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x[:, -1] @ params["lm_head"], caches
+
+
+def init_decode_caches(params, cfg: ArchConfig, batch: int, max_len: int, device=None):
+    """Fresh (empty) caches matching the model structure."""
+    dtype = cfg.dtype()
+    caches: Dict[str, PyTree] = {}
+    if _stacked(cfg, params):
+        caches["blocks"] = {
+            f"b{i}": block_init_cache(cfg, kind, batch, max_len, dtype, device, stack=(cfg.num_superblocks,))
+            for i, kind in enumerate(cfg.block_pattern)
+        }
+    elif "blocks_unrolled" in params:
+        caches["blocks_unrolled"] = [
+            block_init_cache(cfg, cfg.block_pattern[i % cfg.pattern_period], batch, max_len, dtype, device)
+            for i in range(len(params["blocks_unrolled"]))
+        ]
+    for t in range(cfg.tail_layers):
+        caches[f"tail{t}"] = block_init_cache(cfg, cfg.block_pattern[t], batch, max_len, dtype, device)
+    return caches
+
+
+def decode_step(params, cfg: ArchConfig, caches, tokens: torch.Tensor, position: torch.Tensor):
+    """One decode step for all requests. tokens: (B,) int (or (B,d)
+    embeddings for stub-frontend archs); position: (B,) absolute positions.
+    Returns (logits (B,V), caches); the input caches are left as they were."""
+    x = _embed(params, cfg, tokens)[:, None]
+    new: Dict[str, PyTree] = {}
+    stacked = []
+    for where, kind, bp in _layers(params, cfg):
+        if where[0] == "blocks":
+            cache = _index(caches["blocks"][where[2]], where[1])
+        elif where[0] == "blocks_unrolled":
+            cache = caches["blocks_unrolled"][where[1]]
+        else:
+            cache = caches[where[0]]
+        x, c = block_decode(bp, x, cache, cfg, kind, position)
+        if where[0] == "blocks":
+            if where[2] == "b0":
+                stacked.append({})
+            stacked[-1][where[2]] = c
+        elif where[0] == "blocks_unrolled":
+            new.setdefault("blocks_unrolled", []).append(c)
+        else:
+            new[where[0]] = c
+    if stacked:
+        new["blocks"] = _stack(stacked)
+    x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x[:, 0] @ params["lm_head"], new

@@ -70,6 +70,16 @@ def test_runner_without_device_raises_when_no_gpu(monkeypatch):
         )
 
 
+def test_serve_without_device_raises_when_no_gpu(monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "yi-9b", "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.serve(serve.get_smoke("recurrentgemma-9b"), gen=2)
+
+
 def test_resolve_device_turns_tf32_off():
     from repro_torch import resolve_device
 
@@ -130,6 +140,6 @@ def test_unknown_scenario_lists_the_ported_ones():
 def test_kernel_sources_build_for_hopper():
     from repro_torch.kernels import _build
 
-    assert _build.SOURCES == ("hier_aggregate", "quantize", "megakernel")
+    assert _build.SOURCES == ("hier_aggregate", "quantize", "megakernel", "flash_attention", "rglru_scan")
     assert all((_build.CSRC / f"{name}.cu").exists() for name in _build.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
