@@ -14,7 +14,13 @@ is the case H = Hkv = 1.
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel on the current stream (no
-synchronisation) or raises. ``LAUNCHES`` counts kernel launches.
+synchronisation) or raises. ``LAUNCHES`` counts kernel launches. On the
+card the source holds two templates, chosen by dtype: bf16 runs on the
+tensor cores (wgmma), f32 on the CUDA cores (no TF32).
+
+The bf16 template rounds the probabilities to bf16 for the PV product, as
+the model's layer code does, while ``attention_plain`` keeps them in f32;
+``bf16_tolerance`` is the bound between the two, row by row.
 """
 from __future__ import annotations
 
@@ -56,6 +62,23 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     out = torch.where(mask.any(dim=-1)[None, :, None, None, None], out, torch.zeros((), device=q.device))
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, got: torch.Tensor, want: torch.Tensor,
+                   atol: float, *, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Elementwise bound on |got - want| for K7 in bf16, ``want`` being
+    ``attention_plain`` on the same inputs. Each probability is rounded to
+    bf16 (relative error <= u = 2^-8) and l sums the rounded ones, so each
+    normalised weight w_j differs from the oracle's by at most 2u/(1-u) w_j,
+    and an output element by at most 2u/(1-u) sum_j w_j |v_j|: the oracle's
+    attention over |v|, per row and head dim. The two results then round
+    to bf16 apart, half an ulp each: at most one ulp of the larger.
+    ``atol`` takes the f32 arithmetic's other orders."""
+    weighted = attention_plain(q.float(), k.float(), v.float().abs(), causal=causal, window=window)
+    larger = torch.maximum(got.float().abs(), want.float().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(larger.clamp_min(torch.finfo(torch.bfloat16).tiny))) - 7)
+    u = 2.0 ** -8
+    return atol + 2 * u / (1 - u) * weighted + ulp
 
 
 def _check_cuda(t: torch.Tensor, what: str) -> None:

@@ -6,9 +6,15 @@ kernel against the plain version (this file runs on the card with
 ``-m cuda``, where JAX is not installed).
 
 Tolerances: against JAX, ``atol=3e-4`` in f32 and ``4e-2`` in bf16, the
-JAX kernel test's own. On the card the kernel and the plain version both
-work in f32 but sum in another order: ``atol=1e-5`` in f32 (|out| <= 4),
-and in bf16 one bf16 ulp of the result plus that.
+JAX kernel test's own. On the card the kernel and the plain version sum
+in another order: ``atol=1e-5`` in f32 (|out| <= 4). In bf16 the kernel
+runs on the tensor cores and rounds the probabilities to bf16 for the PV
+product, as the layer code does, while the plain version keeps them in f32:
+``fa.bf16_tolerance`` per element (1e-5 + 2^-7 / (1 - 2^-8) of the
+attention over |v| + one bf16 ulp of the larger result), and the RMS error
+within ``BF16_RMS_REL`` of the output's RMS (bf16 rounding alone gives
+about 2e-3). The layer code's own tiled scheme is held to both on the CPU,
+and a window one key too wide fails both.
 """
 import numpy as np
 import pytest
@@ -16,7 +22,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as tops
-from repro_torch.models.layers import _repeat_kv
+from repro_torch.models.layers import _repeat_kv, chunked_causal_attention
 
 try:  # the card's machine has no JAX; there only the tests marked cuda run (-m cuda)
     import jax.numpy as jnp
@@ -32,6 +38,7 @@ except ImportError:
 JAX_CASES = [(128, 0), (200, 0), (256, 33), (120, 64)]  # tests/test_kernels.py
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _TOL = {"float32": 3e-4, "bfloat16": 4e-2}
+BF16_RMS_REL = 5e-3
 
 
 def _qkv(rng, shape_q, shape_kv, dtype):
@@ -115,6 +122,54 @@ def test_wrappers_check_their_inputs():
     assert fa.LAUNCHES == {"flash_attention": 0}  # the CPU never launches the kernel
 
 
+def _rms_rel(got, want):
+    return float((got.float() - want.float()).pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt())
+
+
+def _layer_code_tiles(q, k, v, window):
+    """The layer code's chunked attention at 64 x 64 tiles: a running max,
+    P rounded to bf16 per tile, l from the rounded P (K7's bf16 scheme)."""
+    pos = torch.arange(q.shape[1], dtype=torch.int32).expand(q.shape[0], q.shape[1])
+    return chunked_causal_attention(q, k, v, q_positions=pos, kv_positions=pos, window=window,
+                                    chunk_q=64, chunk_k=64)
+
+
+def _bf16_qkv(rng, b, s, h, hkv, hd):
+    return (torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(np.float32)).to(torch.bfloat16)
+            for n in (h, hkv, hkv))
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("window", [0, 100])
+def test_bf16_tolerance_holds_for_the_layer_codes_tiled_scheme(rng, hd, window):
+    """On bf16 inputs the layer code's tiled scheme stays within
+    ``bf16_tolerance`` of the f32 oracle ``attention_plain``, element by
+    element, and within ``BF16_RMS_REL`` in RMS."""
+    q, k, v = _bf16_qkv(rng, 2, 256, 4, 1, hd)
+    tiled = _layer_code_tiles(q, k, v, window)
+    want = fa.attention_plain(q, k, v, causal=True, window=window)
+    diff = (tiled.float() - want.float()).abs()
+    assert tiled.dtype == torch.bfloat16 and bool(diff.max() > 0)  # the rounding shows
+    tol = fa.bf16_tolerance(q, k, v, tiled, want, 1e-5, causal=True, window=window)
+    assert bool((diff <= tol).all()), float((diff / tol).max())
+    assert _rms_rel(tiled, want) <= BF16_RMS_REL
+
+
+@pytest.mark.parametrize("hd,s,window", [(64, 2048, 1024), (256, 1024, 512)])
+def test_bf16_tolerance_catches_a_window_one_key_too_wide(rng, hd, s, window):
+    """A control: one key leaked at the window's edge of rows that each
+    average up to ``window`` keys fails both the per-element bound and the
+    RMS limit; the same scheme with the right window passes both."""
+    q, k, v = _bf16_qkv(rng, 1, s, 2, 1, hd)
+    want = fa.attention_plain(q, k, v, causal=True, window=window)
+    for w, sound in ((window, True), (window + 1, False)):
+        got = _layer_code_tiles(q, k, v, w)
+        tol = fa.bf16_tolerance(q, k, v, got, want, 1e-5, causal=True, window=window)
+        within = bool(((got.float() - want.float()).abs() <= tol).all())
+        assert within == sound, (w, float(((got.float() - want.float()).abs() / tol).max()))
+        assert (_rms_rel(got, want) <= BF16_RMS_REL) == sound, (w, _rms_rel(got, want))
+
+
 # -- on the card: K7 against its plain version -----------------------------------
 
 
@@ -128,7 +183,7 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,hkv,hd,window", [
     (3, 200, 1, 1, 64, 0), (3, 256, 1, 1, 64, 33), (2, 130, 4, 2, 16, 0), (1, 300, 16, 1, 256, 128),
-    (2, 77, 6, 3, 96, 5),
+    (2, 77, 6, 3, 96, 5), (1, 1100, 8, 2, 128, 0), (1, 700, 4, 1, 256, 100), (1, 150, 2, 1, 33, 0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_gpu(cuda, b, s, h, hkv, hd, window, dtype):
@@ -144,5 +199,9 @@ def test_kernel_matches_plain_on_gpu(cuda, b, s, h, hkv, hd, window, dtype):
     assert fa.LAUNCHES["flash_attention"] == before + 2
     assert torch.equal(got, again)
     diff = (got.float() - want.float()).abs()
-    tol = 1e-5 if dtype == torch.float32 else 1e-5 + torch.exp2(torch.floor(torch.log2(want.float().abs() + 1e-30)) - 7)
-    assert bool((diff <= tol).all()), float(diff.max())
+    if dtype == torch.float32:
+        assert bool((diff <= 1e-5).all()), float(diff.max())
+    else:
+        tol = fa.bf16_tolerance(q, k, v, got, want, 1e-5, causal=True, window=window)
+        assert bool((diff <= tol).all()), float((diff / tol).max())
+        assert _rms_rel(got, want) <= BF16_RMS_REL
