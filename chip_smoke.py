@@ -13,7 +13,11 @@ Phases, one JSON line each; any failure exits non-zero:
   transport_kernels
               K4 quantize and K5 dequantize against their plain versions at
               the transport's leaf shapes, f32 and bf16, qblock 256 and 128,
-              bit for bit (an all-zero block must get scale 0); K6
+              bit for bit (an all-zero block must get scale 0), plus a
+              full-width leaf whose width is no multiple of 16 (32 x 262150)
+              and 70,000 rows; which K5 path each case ran (16-byte
+              vectors or scalar, read from the kernel's name in a profiler
+              trace) must follow the shape; K6
               segment_dequant_mean against its plain version and against K5
               then K2, with masked clients and a dead group
   quickstart  the ``quickstart`` scenario on cuda, then on the CPU (plain
@@ -62,9 +66,17 @@ Phases, one JSON line each; any failure exits non-zero:
               and RMS error; times beside the bound, the plain version and
               torch's scaled_dot_product_attention (a yardstick only)
   rglru_kernel
-              K8 RG-LRU scan against its plain version, bit for bit: the JAX
-              test cases, kernel_bench's shape and recurrentgemma-9b's
-              (2 x 4096 x 4096, f32)
+              K8 RG-LRU scan against its chunked plain version
+              (``chunk=CHUNK``) bit for bit and across two launches, and
+              within 1e-6 max(1, max|h|) of the sequential loop, while the
+              chunked plain version with one chunk's carry zeroed must break
+              that bound: the JAX test cases, chunk-boundary lengths (T - 1,
+              T, T + 1, 3T + 7 at d 5 and 200, f32 and bf16),
+              kernel_bench's shape, recurrentgemma-9b's (2 x 4096 x 4096,
+              f32 and bf16) and a long prefill (2 x 32768 x 4096, bf16);
+              every large case also through the element-load path (a and b
+              one element off TMA's alignment, bit-equal and timed) and
+              beside one elementwise add moving the same bytes
   serve_lm100m
               ``repro_torch.launch.serve.serve`` on lm-100m at full width, f32,
               4 prompts of 1024 tokens, 32 generated: 12 K7 launches per
@@ -144,6 +156,9 @@ K7_BF16_RMS = 5e-3
 # longer prefill) within K_F32 of the largest |logit|; bf16 within K_BF16 of
 # it (bf16 rounds after every operation, in other places on the two routes)
 K_F32, K_BF16 = 1e-4, 0.1
+# K8's chunked order against the sequential loop: within this share of
+# max(1, max|h|) (f32 rounding, composed over at most S / CHUNK carries)
+K8_LOOP_TOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -293,7 +308,8 @@ def phase_transport_kernels(torch, ha, qz):
     rng = np.random.default_rng(1)
     rows, summary = [], {}
     for label, n, d in (("quickstart w1 (20x768)", 20, 768), ("b2 leaf (50x10)", 50, 10),
-                        ("mlp307k w1 (32x262144)", 32, 262144)):
+                        ("mlp307k w1 (32x262144)", 32, 262144), ("no 16 multiple (32x262150)", 32, 262150),
+                        ("70,000 rows (70000x32)", 70000, 32)):
         for qblock in (256, 128):
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32) * 3.0).to("cuda", dtype)
@@ -309,6 +325,9 @@ def phase_transport_kernels(torch, ha, qz):
                 check(float(s[0, 0]) == 0.0 and int(q[0, :qblock].abs().max()) == 0,
                       f"quantize {what}: an all-zero block did not get scale 0")
                 check(bit_equal(back, backp), f"dequantize {what}: differs from the plain version")
+                kname = kernel_name(torch, lambda: qz.dequantize_stacked(q, s, d, dtype), "dequantize_kernel")
+                path = "vector" if "dequantize_kernel_vec16" in kname else "scalar"
+                check(path == ("vector" if d % 16 == 0 else "scalar"), f"dequantize {what}: took the {path} path")
                 dp, nb = q.shape[1], s.shape[1]
                 lib = None
                 if dtype == torch.float32 and d == dp:  # one broadcast multiply computes K5
@@ -322,12 +341,13 @@ def phase_transport_kernels(torch, ha, qz):
                      lambda: qz.dequantize_stacked_plain(q, s, d, dtype), n * dp + n * nb * 4 + n * d * isz, lib),
                 ):
                     row = {"kernel": name, "case": label, "qblock": qblock, "dtype": str(dtype)[6:],
+                           **({"path": path} if name == "dequantize" else {}),
                            "max_abs_err": 0.0, "ms": time_ms(kernel, flush=flush),
                            "plain_ms": time_ms(plain, flush=flush), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                            "bound_by": "bytes",
                            "library_ms": None if library is None else time_ms(library, flush=flush)}
                     rows.append(row)
-                    if n == 32 and qblock == 256 and dtype == torch.float32:  # the largest f32 case
+                    if d == 262144 and qblock == 256 and dtype == torch.float32:  # the main path's largest leaf
                         summary[name] = {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                              "bound_by", "library_ms")}
                         summary[name]["case"] = f"{label}, qblock {qblock}"
@@ -621,7 +641,7 @@ def path_report(runner, seconds, launches, extra=None):
 def kernel_class(name: str) -> str:
     if "grouped_mean_kernel" in name or "segment_mean_kernel" in name:
         return "aggregation (K1/K2)"
-    if "quantize_kernel" in name:  # K4 quantize_kernel and K5 dequantize_kernel
+    if "quantize_kernel" in name:  # K4 quantize_kernel, K5 dequantize_kernel and dequantize_kernel_vec16
         return "transport codec (K4/K5)"
     if "segment_dequant_mean_kernel" in name:
         return "fused decode-mean (K6)"
@@ -629,7 +649,7 @@ def kernel_class(name: str) -> str:
         return "fused edge interval (K3)"
     if "flash_attention" in name:  # flash_attention_kernel (f32) and flash_attention_wgmma (bf16)
         return "flash attention (K7)"
-    if "rglru_scan_kernel" in name:
+    if "rglru_chunked_kernel" in name:
         return "RG-LRU scan (K8)"
     low = name.lower()
     if "gemm" in low or "gemv" in low or "cutlass" in low or "matmul" in low or "nvjet" in low:
@@ -718,19 +738,23 @@ def sdpa_call(torch, q, k, v, window):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
 
-def k7_path(torch, fn) -> str:
-    """Which K7 template one call ran: ``tensor_core`` or ``cuda_core``, by
-    the kernel's name in a profiler trace."""
+def kernel_name(torch, fn, needle: str) -> str:
+    """The name of the one device kernel containing ``needle`` that a call
+    of ``fn`` ran, from a profiler trace."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = {e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and "flash_attention" in e.name}
-    check(len(names) == 1, f"one K7 kernel per call, got {sorted(names)}")
-    return "tensor_core" if "flash_attention_wgmma" in names.pop() else "cuda_core"
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and needle in e.name}
+    check(len(names) == 1, f"one {needle} kernel per call, got {sorted(names)}")
+    return names.pop()
+
+
+def k7_path(torch, fn) -> str:
+    """Which K7 template one call ran: ``tensor_core`` or ``cuda_core``."""
+    return "tensor_core" if "flash_attention_wgmma" in kernel_name(torch, fn, "flash_attention") else "cuda_core"
 
 
 def rms_rel(got, want) -> float:
@@ -809,43 +833,83 @@ def phase_attention_kernel(torch, fa):
     return summary
 
 
-def phase_rglru_kernel(torch, rg):
-    """K8 against its plain loop, bit for bit, and across two launches."""
-    import numpy as np
+def rglru_zeroed_carry(torch, rg, a, b, h0):
+    """The control for K8: the chunked plain version with the carry into
+    chunk 1 zeroed (h0 itself when one chunk covers the sequence). From a
+    zero carry, chunks 1.. compose as a fresh scan from step CHUNK."""
+    t = rg.CHUNK
+    if a.shape[1] <= t:
+        return rg.rglru_scan_plain(a, b, torch.zeros_like(h0), chunk=t)[0]
+    head = rg.rglru_scan_plain(a[:, :t], b[:, :t], h0, chunk=t)[0]
+    return torch.cat([head, rg.rglru_scan_plain(a[:, t:], b[:, t:], torch.zeros_like(h0), chunk=t)[0]], dim=1)
 
+
+def phase_rglru_kernel(torch, rg):
+    """K8 against its chunked plain version (bit for bit, and across two
+    launches), within K8_LOOP_TOL max(1, max|h|) of the sequential loop, and
+    the zeroed-carry control beyond that bound."""
     flush = flush_buffer(torch)
-    rng = np.random.default_rng(5)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t = rg.CHUNK
+    cases = [("jax case", 2, 33, 96, "float32"), ("jax case", 2, 128, 128, "float32"),
+             ("jax case", 2, 64, 200, "float32"), ("jax case, bf16 a and b", 2, 128, 128, "bfloat16")]
+    cases += [("chunk boundary", 2, s, d, dname) for s in (t - 1, t, t + 1, 3 * t + 7) for d in (5, 200)
+              for dname in ("float32", "bfloat16")]
+    cases += [("kernel_bench", 2, 8192, 256, "float32"), ("recurrentgemma-9b prefill", 2, 4096, 4096, "float32"),
+              ("recurrentgemma-9b prefill, bf16 a and b", 2, 4096, 4096, "bfloat16"),
+              ("long prefill, bf16 a and b", 2, 32768, 4096, "bfloat16")]
     rows, summary = [], {}
-    for label, b, s, d, dname in (("jax case", 2, 33, 96, "float32"), ("jax case", 2, 128, 128, "float32"),
-                                  ("jax case", 2, 64, 200, "float32"), ("jax case, bf16 a and b", 2, 128, 128,
-                                                                        "bfloat16"),
-                                  ("kernel_bench", 2, 8192, 256, "float32"),
-                                  ("recurrentgemma-9b prefill", 2, 4096, 4096, "float32")):
+    for label, b, s, d, dname in cases:
         dtype = getattr(torch, dname)
-        a = torch.from_numpy(rng.uniform(0.7, 0.999, size=(b, s, d)).astype(np.float32)).to("cuda", dtype)
-        bb = torch.from_numpy((rng.normal(size=(b, s, d)) * 0.1).astype(np.float32)).to("cuda", dtype)
-        h0 = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).cuda()
+        a = (torch.rand(b, s, d, generator=gen, device="cuda") * 0.299 + 0.7).to(dtype)
+        bb = (torch.randn(b, s, d, generator=gen, device="cuda") * 0.1).to(dtype)
+        h0 = torch.randn(b, d, generator=gen, device="cuda")
         h, h_last = rg.rglru_scan(a, bb, h0)
         h2, h_last2 = rg.rglru_scan(a, bb, h0)
-        hp, h_lastp = rg.rglru_scan_plain(a, bb, h0)
+        hp, h_lastp = rg.rglru_scan_plain(a, bb, h0, chunk=t)
+        loop = rg.rglru_scan_plain(a, bb, h0)[0]
+        control = rglru_zeroed_carry(torch, rg, a, bb, h0)
         torch.cuda.synchronize()
         what = f"rglru_scan {label} {b}x{s}x{d} {dname}"
         check(bit_equal(h, h2) and bit_equal(h_last, h_last2), f"{what}: two launches differ")
         err = max(float((h - hp).abs().max()), float((h_last - h_lastp).abs().max()))
-        check(bit_equal(h, hp) and bit_equal(h_last, h_lastp), f"{what}: differs from the plain loop, err {err}")
+        check(bit_equal(h, hp) and bit_equal(h_last, h_lastp), f"{what}: differs from the chunked plain version, "
+                                                                 f"err {err}")
+        check(bit_equal(h_last, h[:, -1]), f"{what}: hT is not h[:, -1]")
+        tol = K8_LOOP_TOL * max(1.0, float(loop.abs().max()))
+        loop_err = float((h - loop).abs().max())
+        control_err = float((control - loop).abs().max())
+        check(loop_err <= tol, f"{what}: {loop_err} from the sequential loop, over {tol}")
+        check(control_err > tol, f"{what}: the zeroed-carry control ({control_err}) stays within {tol}")
         nbytes = 2 * b * s * d * a.element_size() + b * s * d * 4 + 2 * b * d * 4
-        row = {"kernel": "rglru_scan", "case": label, "b": b, "s": s, "d": d, "dtype": dname, "max_abs_err": err,
-               "bit_equal_plain": True, "bit_equal_relaunch": True,
+        row = {"kernel": "rglru_scan", "case": label, "b": b, "s": s, "d": d, "dtype": dname, "chunk": t,
+               "max_abs_err": err, "bit_equal_plain": True, "bit_equal_relaunch": True,
+               "loop_max_abs_err": loop_err, "loop_tolerance": tol, "control_max_abs_err": control_err,
                "ms": time_ms(lambda: rg.rglru_scan(a, bb, h0), flush=flush),
-               "plain_ms": time_ms(lambda: rg.rglru_scan_plain(a, bb, h0), flush=flush, reps=3, warmup=1),
+               "plain_ms": time_ms(lambda: rg.rglru_scan_plain(a, bb, h0, chunk=t), flush=flush, reps=3, warmup=1),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None}
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        if s >= 4096:
+            # a yardstick of the card's rate for this traffic: one elementwise
+            # add that reads a and b and writes h's bytes (not K8's function)
+            z = torch.empty_like(h)
+            row["same_bytes_add_ms"] = time_ms(lambda: torch.add(a, bb, out=z), flush=flush)
+            del z
+            # the element-load path at the same shape: a and b one element
+            # off the 16-byte alignment that TMA needs
+            ua, ub = (torch.empty(x.numel() + 1, dtype=dtype, device="cuda")[1:].view_as(x).copy_(x) for x in (a, bb))
+            check(bit_equal(rg.rglru_scan(ua, ub, h0)[0], h), f"{what}: the element-load path differs")
+            row["ms_element_loads"] = time_ms(lambda: rg.rglru_scan(ua, ub, h0), flush=flush)
+            del ua, ub
         rows.append(row)
-        if label.startswith("recurrentgemma"):
+        if label == "recurrentgemma-9b prefill":
             summary["rglru_scan"] = {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                           "library_ms")}
-        del a, bb, h, h2, hp
-    emit({"phase": "rglru_kernel", "kernels": ["rglru_scan"], "tolerance": "bit-equal", "cases": rows})
+        del a, bb, h, h2, hp, loop, control
+    emit({"phase": "rglru_kernel", "kernels": ["rglru_scan"],
+          "tolerance": f"bit-equal to rglru_scan_plain(chunk={t}) and across two launches; within "
+                       f"{K8_LOOP_TOL} max(1, max|h|) of the sequential loop, which the plain version with the "
+                       f"carry into chunk 1 zeroed (h0 where one chunk covers S) must exceed", "cases": rows})
     return summary
 
 

@@ -44,10 +44,16 @@ SIGNATURES = {
         "fa_forward": (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _I, _P),
     },
     "rglru_scan": {
-        "rg_scan": (_P,) * 5 + (_I,) * 4 + (_P,),
+        "rg_scan": (_P,) * 6 + (_I,) * 4 + (_P,),
+        "rg_scan_header_bytes": (_I,) * 4,
+        "rg_scan_aggregate_bytes": (_I,) * 3,
     },
 }
-RESTYPES = {"mk_edge_interval_smem": ctypes.c_longlong}  # every other entry point returns int
+RESTYPES = {  # every other entry point returns int
+    "mk_edge_interval_smem": ctypes.c_longlong,
+    "rg_scan_header_bytes": ctypes.c_longlong,
+    "rg_scan_aggregate_bytes": ctypes.c_longlong,
+}
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

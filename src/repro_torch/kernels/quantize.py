@@ -140,8 +140,6 @@ def dequantize_stacked(
         raise ValueError(f"dequantize: need int8 codes and float32 scales, got {q.dtype} and {scales.dtype}")
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"dequantize: output dtype must be float32 or bfloat16, got {dtype}")
-    if n > 65535:
-        raise ValueError(f"dequantize: {n} rows; the kernel takes at most 65535")
     out = torch.empty((n, d), dtype=dtype, device=q.device)
     err = _build.load("quantize").quant_dequantize(
         q.data_ptr(), scales.data_ptr(), out.data_ptr(), n, dp, d, dp // scales.shape[1],

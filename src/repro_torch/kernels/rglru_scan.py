@@ -7,13 +7,22 @@ It replaces the Pallas TPU kernel ``rglru_scan_pallas`` of
 a, b (B, S, D) from h0 (B, D), returning every state h (B, S, D) and the
 last hT (B, D), both f32.
 
+The kernel cuts the sequence into chunks of ``CHUNK`` steps and composes
+each chunk's carry from h0 through the chunks' aggregates in a fixed order,
+so its bits depend on ``CHUNK`` and on nothing else (not on the channel
+tiling, not on timing). ``rglru_scan_plain(..., chunk=CHUNK)`` computes the
+same order with one PyTorch multiply and one add per step, so the two agree
+bit for bit; ``chunk=None`` is the plain sequential loop, which they meet to
+rounding (and bit for bit when ``chunk >= S``).
+
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
-version; a CUDA tensor launches the kernel on the current stream (no
-synchronisation) or raises. ``LAUNCHES`` counts kernel launches.
+version at ``chunk=CHUNK``; a CUDA tensor launches the kernel on the
+current stream (no synchronisation) or raises. ``LAUNCHES`` counts kernel
+launches.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,6 +30,7 @@ from repro_torch.kernels import _build
 
 LAUNCHES: Dict[str, int] = {"rglru_scan": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+CHUNK = 128  # steps per chunk: the kernel's compile-time kChunk
 
 
 def reset_launch_counts() -> None:
@@ -28,18 +38,50 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K8's function in plain PyTorch: a sequential loop over S in f32, one
-    multiply and one add per step (no fused multiply-add), so it equals the
-    kernel bit for bit; ``rglru_scan_ref``'s associative scan pairs the
-    terms in another order and agrees to rounding."""
+def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+                     chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's function in plain PyTorch, in f32, one multiply and one add per
+    step (never a fused multiply-add).
+
+    ``chunk=None``: the sequential loop over S. ``chunk=T``: the kernel's
+    order. The sequence is cut into chunks of T steps; each chunk's
+    aggregate (A, B), the map c -> A c + B, starts from (a_0, b_0) and takes
+    A = A a_t, B = a_t B + b_t for each later step; the carry into chunk k
+    is composed from h0 in order, c_{j+1} = A_j c_j + B_j; each chunk is then
+    walked again from its carry. The last chunk's tail is padded with
+    a = 1, b = -0.0, which leave A and B unchanged bit for bit. hT is
+    h[:, -1]."""
     af, bf = a.float(), b.float()
-    h = torch.empty(af.shape, dtype=torch.float32, device=a.device)
-    carry = h0.float()
-    for t in range(a.shape[1]):
-        carry = af[:, t] * carry + bf[:, t]
-        h[:, t] = carry
-    return h, carry
+    B, S, D = af.shape
+    if chunk is None or chunk >= S:
+        h = torch.empty(af.shape, dtype=torch.float32, device=a.device)
+        carry = h0.float()
+        for t in range(S):
+            carry = af[:, t] * carry + bf[:, t]
+            h[:, t] = carry
+        return h, carry
+    if chunk < 1:
+        raise ValueError(f"rglru_scan_plain: chunk must be >= 1, got {chunk}")
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    if pad:
+        af = torch.cat([af, af.new_ones(B, pad, D)], dim=1)
+        bf = torch.cat([bf, bf.new_full((B, pad, D), -0.0)], dim=1)
+    af, bf = af.reshape(B, n, chunk, D), bf.reshape(B, n, chunk, D)
+    agg_a, agg_b = af[:, :, 0], bf[:, :, 0]
+    for t in range(1, chunk):
+        agg_a = agg_a * af[:, :, t]
+        agg_b = af[:, :, t] * agg_b + bf[:, :, t]
+    carries = [h0.float()]
+    for j in range(n - 1):
+        carries.append(agg_a[:, j] * carries[-1] + agg_b[:, j])
+    carry = torch.stack(carries, dim=1)  # (B, n, D): the carry into each chunk
+    steps = []
+    for t in range(chunk):
+        carry = af[:, :, t] * carry + bf[:, :, t]
+        steps.append(carry)
+    h = torch.stack(steps, dim=2).reshape(B, n * chunk, D)[:, :S]
+    return h, h[:, -1].clone()
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -53,7 +95,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> Tuple[torc
     if a.dtype != b.dtype:
         raise ValueError(f"rglru_scan: a and b must share a dtype, got {a.dtype} and {b.dtype}")
     if a.device.type == "cpu":
-        return rglru_scan_plain(a, b, h0)
+        return rglru_scan_plain(a, b, h0, chunk=CHUNK)
     for t in (a, b, h0):
         if t.device.type != "cuda":
             raise ValueError(f"rglru_scan: tensors must be on the CPU (plain version) or CUDA, got {t.device}")
@@ -65,13 +107,21 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> Tuple[torc
     if a.dtype not in _DTYPE_CODES:
         raise ValueError(f"rglru_scan: dtype must be float32 or bfloat16, got {a.dtype}")
     B, S, D = a.shape
-    if B > 65535:
-        raise ValueError(f"rglru_scan: batch {B} > 65535, the kernel's grid")
     h0f = h0.float().contiguous()
     h = torch.empty((B, S, D), dtype=torch.float32, device=a.device)
     h_last = torch.empty((B, D), dtype=torch.float32, device=a.device)
-    err = _build.load("rglru_scan").rg_scan(
-        a.data_ptr(), b.data_ptr(), h0f.data_ptr(), h.data_ptr(), h_last.data_ptr(), B, S, D,
+    lib = _build.load("rglru_scan")
+    # workspace: the ticket and one flag per tile, cleared by one memset,
+    # then (A, B) per (row, chunk, channel), which the kernel writes before
+    # any block reads them
+    header = lib.rg_scan_header_bytes(B, S, D, _DTYPE_CODES[a.dtype])
+    pairs = lib.rg_scan_aggregate_bytes(B, S, D)
+    if header < 0 or pairs < 0:
+        raise ValueError(f"rglru_scan: the kernel refuses {tuple(a.shape)}")
+    work = torch.empty(header + pairs, dtype=torch.uint8, device=a.device)
+    work[:header].zero_()
+    err = lib.rg_scan(
+        a.data_ptr(), b.data_ptr(), h0f.data_ptr(), h.data_ptr(), h_last.data_ptr(), work.data_ptr(), B, S, D,
         _DTYPE_CODES[a.dtype], torch.cuda.current_stream().cuda_stream,
     )
     _build.raise_on_error(err, "rglru_scan")

@@ -8,18 +8,21 @@ that need them, naming ROADMAP item 13.
 
 Full-sequence attention (``_full_attention``) has two routes:
 
-* **K7** (``kernels.flash_attention``): on CUDA tensors that autograd
-  would not record (grad mode off, or no input requiring grad), for the
-  default positions ``arange(S)`` and no cache-slot mask. That is the
+* **K7** (``kernels.flash_attention``): on CUDA tensors that no
+  transform would differentiate or batch (grad mode off, or no input
+  requiring grad; and no input wrapped by a ``torch.func`` transform), for
+  the default positions ``arange(S)`` and no cache-slot mask. That is the
   function of ``attention_ref`` (causal, optional window), which the JAX
   docstring of ``chunked_causal_attention`` says the Pallas kernel takes
   over on the accelerator.
 * **Layer code** otherwise: ``causal_attention`` or, above
   ``cfg.attn_chunk``, ``chunked_causal_attention``, as the JAX package
   computes them (probabilities cast to the value dtype before the PV
-  product). CPU tensors, every forward that autograd records (K7 has no
-  backward), explicit positions, and the decode step (one query against a
-  ring cache with a slot mask) take it.
+  product). CPU tensors, every forward that autograd records or that runs
+  under ``grad`` / ``vmap`` (K7 has no backward and takes no batched
+  tensors; JAX's loss never calls a Pallas kernel either), explicit
+  positions, and the decode step (one query against a ring cache with a
+  slot mask) take it.
 
 Parameters are created by ``init_*`` from a ``torch.Generator``; the numbers
 differ from the JAX init's (the tests carry the JAX init across with
@@ -207,11 +210,23 @@ def chunked_causal_attention(
     return out.to(v.dtype)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on the card (the one place the route asks)."""
+    return t.is_cuda
+
+
 def _use_kernels(default_positions: bool, *inputs: torch.Tensor) -> bool:
-    """K7 / K8 route: the default positions, CUDA inputs, and nothing for
-    autograd to record (the kernels have no backward)."""
-    recorded = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
-    return default_positions and inputs[0].is_cuda and not recorded
+    """K7 / K8 route: the default positions, inputs on the card, nothing for
+    autograd to record (the kernels have no backward) and no input wrapped
+    by a ``torch.func`` transform. Inside ``grad(vmap(loss))`` every input
+    reports ``requires_grad=False`` but is wrapped; torch has no public
+    test for an active transform, and a tensor the transform does not wrap
+    is a constant to it, which the kernels may take."""
+    if not default_positions or not _on_card(inputs[0]):
+        return False
+    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in inputs):
+        return False
+    return not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs))
 
 
 def _full_attention(q, k, v, cfg: ArchConfig, positions, *, window: int = 0, default_positions: bool = False):

@@ -7,9 +7,10 @@ counterpart of the RG-LRU part of ``repro.models.recurrent``.
     rglru_step(params, x_t, state, cfg)       -> (y_t, state)
 
 The recurrence h_t = a_t * h_{t-1} + b_t (h_0 = 0) over the sequence has two
-routes, as attention has in ``layers``: K8 (``kernels.rglru_scan``) on CUDA
-tensors that autograd would not record, and otherwise ``_associative_scan``, a log-step
-scan that mirrors JAX's ``jax.lax.associative_scan``. mLSTM and sLSTM are not
+routes, as attention has in ``layers`` (``layers._use_kernels``): K8
+(``kernels.rglru_scan``) on CUDA tensors that neither autograd nor a
+``torch.func`` transform would record, and otherwise ``_associative_scan``,
+a log-step scan that mirrors JAX's ``jax.lax.associative_scan``. mLSTM and sLSTM are not
 ported yet: ``transformer`` refuses configs that need them, naming ROADMAP
 item 13.
 """

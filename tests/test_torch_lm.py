@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_flatten, tree_flatten_with_path, tree_map, tree_unflatten
 
 from repro.configs import base as jbase
 from repro.configs import registry as jreg
@@ -24,6 +24,7 @@ from repro.models import transformer as jt
 from repro_torch import models as tmodels
 from repro_torch.configs import base as tbase
 from repro_torch.configs import registry as treg
+from repro_torch.core import hierfavg
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import rglru_scan as trg
 from repro_torch.models import layers as tlayers
@@ -388,6 +389,51 @@ def test_kernel_route_follows_autograd_and_positions(kernel_calls, rng):
     assert seen == both
     seen, _ = route(lambda: tt.forward(params, tcfg, x.as_subclass(torch.Tensor)))  # a CPU tensor
     assert seen == layer_code
+
+
+def _stacked(trees):
+    """One tree whose leaves stack the given trees' along a new client axis."""
+    leaves, spec = tree_flatten(trees[0])
+    others = [tree_flatten(t)[0] for t in trees[1:]]
+    return tree_unflatten([torch.stack([leaf, *(o[i] for o in others)]) for i, leaf in enumerate(leaves)], spec)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "recurrentgemma-9b"])
+def test_client_grads_under_torch_func_take_the_layer_code(arch, kernel_calls, monkeypatch, rng):
+    """The engine's ``grad(vmap(loss))`` hands the layers functorch-wrapped
+    tensors that report ``requires_grad=False``: with the card test forced
+    true, the route must still take the layer code (no K7 / K8 call), and the
+    gradients of two clients' LM losses match ``jax.grad`` of JAX's loss
+    summed over clients within 1e-5 of each leaf's largest. The same forced
+    route sends a plain forward to both kernels (the control)."""
+    jcfg, tcfg = _configs(arch)
+    monkeypatch.setattr(tlayers, "_on_card", lambda t: True)
+    trees = [_carry(jcfg, tcfg, seed) for seed in (0, 1)]
+    jparams = jax.tree.map(lambda *x: jnp.stack(x), *(j for j, _ in trees))
+    tparams = _stacked([t for _, t in trees])
+    x = np.stack([_inputs(jcfg, rng, 2, 8) for _ in range(2)])
+    y = rng.integers(0, jcfg.vocab_size, size=(2, 2, 8)).astype(np.int32)
+
+    grads, losses = hierfavg._client_grads(tt.make_loss_fn(tcfg), None)(
+        tparams, {"inputs": torch.from_numpy(x), "targets": torch.from_numpy(y)}, None)
+    assert kernel_calls == {"attention": 0, "rglru_scan": 0}
+
+    jloss = jt.make_loss_fn(jcfg)
+    per_client = jax.vmap(lambda p, xi, yi: jloss(p, {"inputs": xi, "targets": yi}, None))
+    want = jax.grad(lambda p: jnp.sum(per_client(p, jnp.asarray(x), jnp.asarray(y))))(jparams)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(per_client(jparams, jnp.asarray(x), jnp.asarray(y))),
+                               **F32)
+    want = {jax.tree_util.keystr(path): np.asarray(leaf) for path, leaf in jax.tree_util.tree_leaves_with_path(want)}
+    got = tree_flatten_with_path(grads)[0]
+    assert len(got) == len(want)
+    for path, leaf in got:
+        w = want["".join(f"['{k.key}']" for k in path)]
+        np.testing.assert_allclose(leaf.numpy(), w, rtol=0, atol=1e-5 * float(np.abs(w).max()), err_msg=str(path))
+
+    kinds = [kind for _, kind, _ in tt._layers(trees[0][1], tcfg)]
+    with torch.no_grad():
+        tt.forward(trees[0][1], tcfg, torch.from_numpy(x[0]))
+    assert kernel_calls == {"attention": sum(k in tt.ATTN_KINDS for k in kinds), "rglru_scan": kinds.count("rglru")}
 
 
 @pytest.mark.parametrize("arch,what", [("arctic-480b", "MoE"), ("deepseek-v3-671b", "MLA"),

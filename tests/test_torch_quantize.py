@@ -13,25 +13,33 @@ sit one f32 ulp away, which the test allows and no more. K5 is bit-equal on
 the same codes and scales. K6 agrees within ``atol=1e-6`` (the sums run in
 another order than the oracle's one-hot matmuls); dead segments keep their
 decoded rows bit for bit. On the card the kernels are held against their
-plain versions in ``test_torch_kernels.py``, which imports no jax.
+plain versions in ``test_torch_kernels.py``, which imports no jax, and K5's
+two paths (16-byte vectors; the scalar path for other shapes and unaligned
+pointers) and its lifted row limit here, with ``-m cuda`` (that machine has
+no JAX, so only the tests marked cuda run there).
 """
 import functools
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.fed import transport as jtp
-from repro.kernels import ops as jops
-from repro.kernels import ref
 from repro_torch.fed import transport as ttp
 from repro_torch.kernels import hier_aggregate as ha
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantize as qz
 
-jops.set_interpret(True)
+try:  # the card's machine has no JAX; there only the tests marked cuda run (-m cuda)
+    import jax
+    import jax.numpy as jnp
+
+    from repro.fed import transport as jtp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref
+
+    jops.set_interpret(True)
+except ImportError:
+    jax = jnp = jtp = jops = ref = None
 
 SHAPES = [(37, 129), (8, 2048), (1000,), (3, 5, 7)]
 
@@ -215,3 +223,52 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     with pytest.raises(ValueError, match="CPU .* or CUDA"):
         ops.segment_dequant_mean(torch.empty(4, 8, dtype=torch.int8, device="meta"),
                                  torch.empty(4, 2, device="meta"), torch.empty(4, device="meta"), [0, 0, 1, 1], 2)
+
+
+# -- on the card: K5's paths against its plain version ------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,qblock,offset,vector", [
+    (32, 262144, 256, 0, True),  # the full-width leaf
+    (20, 768, 128, 0, True),
+    (70000, 32, 32, 0, True),  # more than 65,535 rows
+    (32, 262150, 256, 0, False),  # d % 16 != 0, at full width
+    (50, 10, 256, 0, False),  # the b2 leaf
+    (70000, 10, 16, 0, False),  # more than 65,535 rows
+    (8, 4096, 128, 1, False),  # codes one byte off 16-byte alignment
+], ids=["vec-32x262144", "vec-20x768", "vec-70000x32", "scalar-32x262150", "scalar-50x10", "scalar-70000x10",
+        "scalar-unaligned"])
+def test_dequantize_paths_are_bit_equal_to_plain_on_gpu(cuda, dtype, n, d, qblock, offset, vector):
+    """Bit-equal to the plain version on the path the case names, read from
+    the launched kernel's name (``dequantize_kernel_vec16`` for the 16-byte
+    vector path)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(n, d, generator=gen, device=cuda) * 3.0
+    q, s = qz.quantize_stacked(x, qblock)
+    if offset:
+        q = torch.empty(q.numel() + offset, dtype=torch.int8, device=cuda)[offset:].view(q.shape).copy_(q)
+    before = qz.LAUNCHES["dequantize"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = qz.dequantize_stacked(q, s, d, dtype)
+        torch.cuda.synchronize()
+    want = qz.dequantize_stacked_plain(q, s, d, dtype)
+    torch.cuda.synchronize()
+    assert qz.LAUNCHES["dequantize"] == before + 1
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "dequantize_kernel" in e.name}
+    assert len(names) == 1 and ("dequantize_kernel_vec16" in names.pop()) == vector
+    assert got.dtype == want.dtype == dtype and got.shape == (n, d)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))
