@@ -40,9 +40,17 @@ Phases, one JSON line each; any failure exits non-zero:
               JAX package's four test cases, kernel_bench's shape, the
               full-width case (32 clients, feat 64, out 1024) with momentum
               0 and 0.9 and with bf16 params and mu, a wide-feat case
-              (the scratch-column path) and an out that is no multiple of
-              32; two launches bit for bit; an all-zero-weight edge
-              non-finite as in the plain version; times by CUDA events
+              (the scratch-column path), an out that is no multiple of 32,
+              16 and 12 clients per edge (rounds of 8 warps), kappa1 12 (the
+              8-step ring wraps), kappa1 40 (loss partials stored every 32
+              steps) and b 48 (a one-step ring); two launches
+              bit for bit; one device kernel per call (profiler); how W and
+              mu came in (``tma`` or ``lanes``), and where TMA ran, the same
+              call with params and mu one element off alignment (lane loads)
+              bit-equal to it and timed; the plain
+              version one step short (kappa1 - 1) must fail the tolerance
+              at full width; an all-zero-weight edge non-finite as in the
+              plain version; times by CUDA events
   megakernel_vs_k3
               one cloud interval of the client-blocked lowering
               (``build_megakernel_super_round``) on linear MSE clients at
@@ -412,6 +420,12 @@ def k3_cases():
         ("full width", *full, 0.9, "bfloat16"),
         ("wide feat (scratch columns)", 8, 2, 3, 2, 512, 96, 0.9, "float32"),
         ("out not a multiple of 32", 16, 4, 3, 2, 32, 100, 0.9, "float32"),
+        ("cpe 16 (two rounds of 8 clients)", 32, 2, 4, 1, 64, 256, 0.9, "float32"),
+        ("cpe 12 (idle warps in the last round)", 24, 2, 3, 2, 16, 64, 0.0, "float32"),
+        ("cpe 16, wide feat (scratch columns)", 32, 2, 2, 1, 96, 40, 0.9, "float32"),
+        ("kappa1 12 (the 8-step ring wraps)", 8, 2, 12, 1, 16, 40, 0.9, "float32"),
+        ("kappa1 40 (loss partials stored every 32 steps)", 8, 2, 40, 1, 16, 40, 0.9, "float32"),
+        ("b 48 (a one-step ring)", 16, 2, 5, 48, 64, 64, 0.9, "float32"),
     ]
 
 
@@ -437,15 +451,64 @@ def k3_inputs(torch, rng, n, k1, b, feat, out, mom, dtype):
     return params, x, y, w, mu
 
 
+TRACES_TAKEN_AGAIN = [0]  # short traces that showed no kernel and were taken again
+
+
+def traced_kernels(torch, fn, needle: str, attempts: int = 5) -> list:
+    """The names of the device kernels holding ``needle`` that one call of
+    ``fn`` ran, from a profiler trace (one entry per launch). The tracer can
+    lose a short window whole, so a trace that shows no such kernel is taken
+    again, up to ``attempts`` traces of one call each; a kernel that never
+    ran still shows none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and needle in e.name]
+        if names:
+            break
+        TRACES_TAKEN_AGAIN[0] += 1
+    return names
+
+
+def off_by_one(torch, t):
+    """A copy of ``t`` whose data starts one element past a 16-byte boundary
+    (None stays None)."""
+    if t is None:
+        return None
+    u = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return u.copy_(t)
+
+
+def k3_err_over_tol(got, want, bf16: bool) -> float:
+    """The largest |got - want| / tolerance over params and mu (K3's
+    tolerance; bf16 rows plus one bf16 ulp)."""
+    worst = 0.0
+    for a, c in zip(got, want):
+        a, c = a.float(), c.float()
+        tol = K3_ATOL + K3_RTOL * c.abs()
+        if bf16:
+            tol = tol + bf16_ulp(c)
+        worst = max(worst, float(((a - c).abs() / tol).max()))
+    return worst
+
+
 def phase_edge_interval_kernel(torch, mk):
     """K3 against its plain version on the same inputs, f32 at the JAX
     kernel's tolerance, bf16 at one bf16 ulp plus it; bit-equal across two
-    launches; an all-zero-weight edge non-finite in both."""
+    launches; one device kernel per call (profiler); an all-zero-weight edge
+    non-finite in both; on the full-width case, the plain version one step
+    short (kappa1 - 1) must fail the tolerance."""
     import numpy as np
 
     flush = flush_buffer(torch)
     rng = np.random.default_rng(2)
     rows, summary = [], {"max_abs_err": 0.0, "library_ms": None}
+    full_width, control = [], None
     for label, n, e, k1, b, feat, out, mom, dname in k3_cases():
         dtype = getattr(torch, dname)
         params, x, y, w, mu = k3_inputs(torch, rng, n, k1, b, feat, out, mom, dtype)
@@ -469,17 +532,45 @@ def phase_edge_interval_kernel(torch, mk):
         bound, bound_by = k3_bound(n, k1, b, feat, out, mom, params.element_size())
         row = {"kernel": "edge_interval", "case": label, "n": n, "edges": e, "kappa1": k1, "b": b, "feat": feat,
                "out": out, "momentum": mom, "dtype": dname, "path": "registers" if feat <= 64 else "scratch",
-               "max_abs_err": err, "bit_equal_relaunch": True, "kernel_launches_per_call": 2,
+               "column_loads": mk.column_loads(params, x, num_edges=e, feat=feat, momentum=mom, mu=mu),
+               "max_abs_err": err, "err_over_tol": k3_err_over_tol(got[::2], want[::2], dtype == torch.bfloat16),
+               "bit_equal_relaunch": True,
                "ms": time_ms(lambda: mk.edge_interval(params, x, y, w, **kw), flush=flush),
                "plain_ms": time_ms(lambda: mk.edge_interval_plain(params, x, y, w, **kw), flush=flush, reps=5),
                "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        per_call = len(traced_kernels(torch, lambda: mk.edge_interval(params, x, y, w, **kw), "edge_interval"))
+        check(per_call == 1, f"{what}: {per_call} edge_interval kernels in one call")
+        row["kernel_launches_per_call"] = per_call
+        if row["column_loads"] == "tma":  # the same call with one load per lane and row
+            p1, mu1 = off_by_one(torch, params), off_by_one(torch, mu)
+            kw1 = dict(kw, mu=mu1)
+            check(mk.column_loads(p1, x, num_edges=e, feat=feat, momentum=mom, mu=mu1) == "lanes",
+                  f"{what}: params one element off alignment still take TMA")
+            check(all(bit_equal(a, c) for a, c in zip(mk.edge_interval(p1, x, y, w, **kw1), got)),
+                  f"{what}: lane loads and TMA differ")
+            row["ms_lane_loads"] = time_ms(lambda: mk.edge_interval(p1, x, y, w, **kw1), flush=flush)
+        if label == "full width":
+            # yardstick: copying the rows K3 reads and writes (params, and mu
+            # with momentum), the most of its bytes
+            rows_in = [params] + ([mu] if mom else [])
+            rows_out = [torch.empty_like(t) for t in rows_in]
+            row["copy_ms"] = time_ms(lambda: [o.copy_(i) for o, i in zip(rows_out, rows_in)], flush=flush)
+            full_width.append({k: row.get(k) for k in ("momentum", "dtype", "column_loads", "ms", "ms_lane_loads",
+                                                       "copy_ms", "plain_ms", "bound_ms", "bound_share")})
+            if mom and dtype == torch.float32:  # the control: one step short must fail the tolerance
+                short = mk.edge_interval_plain(params, x[:, : k1 - 1], y[:, : k1 - 1], w, **kw)
+                control = k3_err_over_tol(got[::2], short[::2], False)
+                check(control > 1.0, f"{what}: the plain version with kappa1 - 1 steps is within the tolerance "
+                      f"({control} of it): the check has no teeth")
+                row["control_kappa1_minus_1_err_over_tol"] = control
         rows.append(row)
         if dtype == torch.float32:
             summary["max_abs_err"] = max(summary["max_abs_err"], err)
             if label == "full width" and mom:
                 summary.update({k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                                case=f"{label}, momentum {mom}")
+    check(control is not None, "edge_interval: the kappa1 - 1 control did not run")
     # an edge whose weights are all zero: no zero guard, as in JAX
     n, e, k1, b, feat, out = 8, 2, 3, 2, 4, 3
     params, x, y, w, mu = k3_inputs(torch, rng, n, k1, b, feat, out, 0.9, torch.float32)
@@ -493,7 +584,9 @@ def phase_edge_interval_kernel(torch, mk):
     rows.append({"kernel": "edge_interval", "case": "all-zero-weight edge", "dead_rows_non_finite": True,
                  "live_max_abs_err": float(live.max())})
     emit({"phase": "edge_interval_kernel", "kernels": ["edge_interval"], "tolerance": {
-        "rtol": K3_RTOL, "atol": K3_ATOL, "bf16": "plus one bf16 ulp of the plain result"}, "cases": rows})
+        "rtol": K3_RTOL, "atol": K3_ATOL, "bf16": "plus one bf16 ulp of the plain result"},
+        "full_width": full_width,
+        "control_kappa1_minus_1_err_over_tol": control, "cases": rows})
     return {"edge_interval": summary}
 
 
@@ -741,13 +834,7 @@ def sdpa_call(torch, q, k, v, window):
 def kernel_name(torch, fn, needle: str) -> str:
     """The name of the one device kernel containing ``needle`` that a call
     of ``fn`` ran, from a profiler trace."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and needle in e.name}
+    names = set(traced_kernels(torch, fn, needle))
     check(len(names) == 1, f"one {needle} kernel per call, got {sorted(names)}")
     return names.pop()
 
@@ -1305,6 +1392,7 @@ def main() -> int:
     count(phase_serve_recurrentgemma9b(torch, mods))
 
     check(all(total[name] > 0 for name in KERNELS), f"a kernel was never launched on its path: {total}")
+    emit({"phase": "profiler", "short_traces_taken_again": TRACES_TAKEN_AGAIN[0]})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][1], "replaces": KERNELS[name][0],
          "launches": total[name], "max_abs_err": summary[name]["max_abs_err"], "ms": summary[name]["ms"],

@@ -37,8 +37,9 @@ SIGNATURES = {
         "quant_dequantize": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "megakernel": {
-        "mk_edge_interval": (_P,) * 11 + (_I,) * 6 + (_F, _F, _F, _I, _P),
-        "mk_edge_interval_smem": (_I, _I, _I, _I),
+        "mk_edge_interval": (_P,) * 12 + (_I,) * 6 + (_F, _F, _F, _I, _P),
+        "mk_edge_interval_smem": (_I,) * 5,
+        "mk_edge_interval_uses_tma": (_P, _P) + (_I,) * 6 + (_F, _I),
     },
     "flash_attention": {
         "fa_forward": (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _I, _P),

@@ -21,14 +21,16 @@ The engine's ``engine="megakernel"`` path does not call K3 (as in JAX,
 where only ``ops.edge_interval`` reaches it): it is a kernel entry point.
 The JAX wrapper also refuses an edge block over the TPU's 12 MiB VMEM
 budget; this kernel keeps one column per lane and has no such limit. It
-refuses only what its own launch cannot take: a local batch whose inputs
-and residuals overflow a block's shared memory.
+refuses only what its own launch cannot take: a local batch so large that
+one step of x and y per warp overflows a block's shared memory (longer
+intervals run through a ring of up to 8 steps).
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel on the current stream (no
-synchronisation) or raises. ``LAUNCHES`` counts wrapper calls that launched
-the kernel (each call is two launches: the interval, then the fixed-order
-sum of the step losses across column tiles).
+synchronisation) or raises. Each call is one launch: the last block of each
+edge sums the step losses across column tiles, found through a per-edge
+ticket in a small counter buffer kept per device and stream, which the
+kernel leaves zeroed. ``LAUNCHES`` counts wrapper calls that launched it.
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES: Dict[str, int] = {"edge_interval": 0}
+# (device index, stream handle) -> int32 per-edge tickets, all zero between calls
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 32  # output columns per block (csrc/megakernel.cu kTile)
 _REG_FEAT = 64  # feat up to this keeps a column in registers (kRegFeat)
@@ -126,6 +130,50 @@ def edge_interval_plain(params: torch.Tensor, inputs: torch.Tensor, targets: tor
 # -- kernel wrapper -------------------------------------------------------------
 
 
+def scratch(n: int, feat: int, out: int, k1: int, momentum: bool, device) -> Tuple[Optional[torch.Tensor], ...]:
+    """The kernel's device-memory scratch: (work, work_mu, partial). Above
+    feat 64 a client's working column lives in ``work`` (and its momentum in
+    ``work_mu``), f32 (N, feat, out padded to whole 32-column tiles); with
+    feat <= 64 the columns stay in registers and both are None. ``partial``
+    (N, kappa1, tiles) holds each step's loss per column tile."""
+    f32 = torch.float32
+    ntiles = -(-out // _TILE)
+    work = work_mu = None
+    if feat > _REG_FEAT:
+        work = torch.empty((n, feat, ntiles * _TILE), dtype=f32, device=device)
+        if momentum:
+            work_mu = torch.empty_like(work)
+    return work, work_mu, torch.empty((n, k1, ntiles), dtype=f32, device=device)
+
+
+def ticket_buffer(cache: Dict, key, num_edges: int, device) -> torch.Tensor:
+    """The int32 per-edge tickets for ``key`` (a device and stream), at least
+    ``num_edges`` of them, zero: made on first use and grown when a call has
+    more edges. The kernel takes a ticket per block and the last block of
+    each edge zeroes its counter, so the buffer is zero again after every
+    launch; calls on one stream run in order, so they share it safely."""
+    buf = cache.get(key)
+    if buf is None or buf.numel() < num_edges:
+        buf = torch.zeros(max(num_edges, 2 * (0 if buf is None else buf.numel())), dtype=torch.int32,
+                          device=device)
+        cache[key] = buf
+    return buf
+
+
+def column_loads(params: torch.Tensor, inputs: torch.Tensor, *, num_edges: int, feat: int, momentum: float = 0.0,
+                 mu: Optional[torch.Tensor] = None) -> str:
+    """How a call with these CUDA tensors brings each client's columns of W
+    and mu in: ``"tma"`` (one box per client and array into shared memory:
+    16-byte rows and bases, feat <= 64) or ``"lanes"`` (one load per lane
+    and row)."""
+    n, k1, b = inputs.shape[0], inputs.shape[1], inputs.shape[2]
+    lib = _build.load("megakernel")
+    tma = lib.mk_edge_interval_uses_tma(params.data_ptr(), 0 if mu is None else mu.data_ptr(), n, num_edges, feat,
+                                        params.shape[1] // feat, k1, b, float(np.float32(momentum)),
+                                        _DTYPE_CODES[params.dtype])
+    return "tma" if tma else "lanes"
+
+
 def edge_interval(params: torch.Tensor, inputs: torch.Tensor, targets: torch.Tensor, weights: torch.Tensor, *,
                   num_edges: int, feat: int, lr: float, momentum: float = 0.0, mu: Optional[torch.Tensor] = None):
     """K3: kappa1 local SGD(+momentum) steps of every client's linear MSE
@@ -157,33 +205,31 @@ def edge_interval(params: torch.Tensor, inputs: torch.Tensor, targets: torch.Ten
                          "point's sizes with int32")
     lib = _build.load("megakernel")
     k1, b = inputs.shape[1], inputs.shape[2]
-    smem = lib.mk_edge_interval_smem(n, num_edges, b, feat)
+    smem = lib.mk_edge_interval_smem(n, num_edges, k1, b, feat)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"edge_interval: a local batch of b={b} at feat={feat} needs {smem} bytes of shared "
-                         f"memory per block, over the {MAX_SHARED_BYTES} a block can use")
+                         f"memory per block (one step of x and y per warp), over the {MAX_SHARED_BYTES} a block "
+                         "can use")
     f32 = torch.float32
     x = inputs.to(f32).contiguous()  # read as f32, as the JAX kernel does
     y = targets.to(f32).contiguous()
     w = weights.to(f32).contiguous()
     momentum_f = float(np.float32(momentum))
-    ntiles = -(-out // _TILE)
     new_params = torch.empty_like(params)
     losses = torch.empty((n, k1), dtype=f32, device=dev)
-    work = torch.empty((n, feat, ntiles * _TILE), dtype=f32, device=dev)  # f32 working / final columns
-    partial = torch.empty((n, k1, ntiles), dtype=f32, device=dev)  # step losses per column tile
-    work_mu = None
+    work, work_mu, partial = scratch(n, feat, out, k1, momentum_f != 0.0, dev)
+    stream = torch.cuda.current_stream()
+    tickets = ticket_buffer(_TICKETS, (dev.index, stream.cuda_stream), num_edges, dev)
     if momentum_f != 0.0:
         new_mu = torch.empty_like(params)
-        if feat > _REG_FEAT:
-            work_mu = torch.empty_like(work)
     else:
         new_mu = mu if mu is not None else torch.zeros_like(params)
     err = lib.mk_edge_interval(
         params.data_ptr(), x.data_ptr(), y.data_ptr(), w.data_ptr(), 0 if mu is None else mu.data_ptr(),
-        new_params.data_ptr(), new_mu.data_ptr(), losses.data_ptr(), work.data_ptr(),
-        0 if work_mu is None else work_mu.data_ptr(), partial.data_ptr(), n, num_edges, feat, out, k1, b,
-        float(np.float32(lr)), momentum_f, float(np.float32(2.0 / (b * out))), _DTYPE_CODES[params.dtype],
-        torch.cuda.current_stream().cuda_stream,
+        new_params.data_ptr(), new_mu.data_ptr(), losses.data_ptr(), 0 if work is None else work.data_ptr(),
+        0 if work_mu is None else work_mu.data_ptr(), partial.data_ptr(), tickets.data_ptr(), n, num_edges, feat,
+        out, k1, b, float(np.float32(lr)), momentum_f, float(np.float32(2.0 / (b * out))),
+        _DTYPE_CODES[params.dtype], stream.cuda_stream,
     )
     _build.raise_on_error(err, "edge_interval")
     LAUNCHES["edge_interval"] += 1

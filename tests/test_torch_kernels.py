@@ -11,7 +11,8 @@ Tests marked ``cuda`` skip without a GPU. On the card: f32 ``atol=1e-5``
 K5 are bit-equal to their plain versions (the same IEEE divisions and
 round-half-to-even); K6 agrees within ``1e-5 * max|x|``, dead groups bit
 for bit. K3 agrees at the JAX kernel-vs-oracle ``rtol=3e-6, atol=5e-7``
-(bf16 rows: plus one bf16 ulp) and repeats itself bit for bit.
+(bf16 rows: plus one bf16 ulp), repeats itself bit for bit and is one
+kernel launch per call.
 """
 import numpy as np
 import pytest
@@ -202,6 +203,12 @@ def test_int8_ef_both_on_gpu_goes_through_k4_k5_and_tracks_the_cpu(cuda):
     (32, 4, 8, 1, 64, 1024, 0.9),  # full width, columns in registers
     (8, 2, 3, 2, 512, 96, 0.9),  # wide feat: the scratch-column path
     (16, 4, 3, 2, 32, 100, 0.0),  # out not a multiple of 32
+    (32, 2, 4, 1, 64, 256, 0.9),  # 16 clients per edge: two rounds of 8 warps
+    (24, 2, 3, 2, 16, 64, 0.0),  # 12 clients per edge: idle warps in the last round
+    (32, 2, 2, 1, 96, 40, 0.9),  # 16 clients per edge on the scratch-column path
+    (8, 2, 12, 1, 16, 40, 0.9),  # kappa1 12: the 8-step ring wraps
+    (8, 2, 40, 1, 16, 40, 0.9),  # kappa1 40: loss partials stored every 32 steps
+    (16, 2, 5, 48, 64, 64, 0.9),  # b 48: only a one-step ring fits
 ])
 def test_edge_interval_kernel_matches_plain_on_gpu(cuda, dtype, n, e, k1, b, feat, out, mom):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -223,6 +230,44 @@ def test_edge_interval_kernel_matches_plain_on_gpu(cuda, dtype, n, e, k1, b, fea
         if dtype == torch.bfloat16 and name != "losses":
             tol = tol + torch.exp2(torch.floor(torch.log2(c.abs().clamp_min(1e-30))) - 7)
         assert bool(((a - c).abs() <= tol).all()), f"{name}: max abs err {float((a - c).abs().max())}"
+
+
+@pytest.mark.cuda
+def test_edge_interval_is_one_kernel_launch_on_gpu(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    params = torch.randn(16, 8 * 40, device=cuda)
+    x, y, w = torch.randn(16, 3, 1, 8, device=cuda), torch.randn(16, 3, 1, 40, device=cuda), torch.ones(16, device=cuda)
+    kw = dict(num_edges=4, feat=8, lr=0.1, momentum=0.9, mu=torch.zeros_like(params))
+    mk.edge_interval(params, x, y, w, **kw)  # the build and the ticket buffer
+    for _ in range(5):  # the tracer can lose a short window whole: take it again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            mk.edge_interval(params, x, y, w, **kw)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "edge_interval" in kernels[0], kernels
+
+
+def test_edge_interval_scratch_only_above_feat_64():
+    work, work_mu, partial = mk.scratch(8, 64, 100, 3, True, "cpu")
+    assert work is None and work_mu is None and partial.shape == (8, 3, 4)
+    work, work_mu, partial = mk.scratch(8, 65, 100, 3, True, "cpu")
+    assert work.shape == work_mu.shape == (8, 65, 128) and partial.shape == (8, 3, 4)
+    work, work_mu, _ = mk.scratch(8, 65, 100, 3, False, "cpu")
+    assert work.shape == (8, 65, 128) and work_mu is None
+
+
+def test_edge_interval_ticket_buffer_is_kept_and_grown():
+    cache = {}
+    first = mk.ticket_buffer(cache, (0, 7), 4, "cpu")
+    assert first.dtype == torch.int32 and first.numel() == 4 and not first.any()
+    assert mk.ticket_buffer(cache, (0, 7), 3, "cpu") is first
+    grown = mk.ticket_buffer(cache, (0, 7), 5, "cpu")
+    assert grown.numel() == 8 and not grown.any() and cache[(0, 7)] is grown
+    assert mk.ticket_buffer(cache, (0, 9), 2, "cpu") is not grown  # another stream, its own buffer
 
 
 @pytest.mark.cuda

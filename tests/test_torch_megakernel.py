@@ -75,6 +75,8 @@ def _j(a):
         (16, 4, 2, 1, 8, 5, 0.9),
         (8, 2, 4, 2, 6, 2, 0.9),
         (8, 1, 2, 3, 4, 4, 0.0),  # one edge: the cloud mean
+        (32, 2, 4, 1, 64, 256, 0.9),  # 16 clients per edge
+        (24, 2, 3, 2, 16, 64, 0.0),  # 12 clients per edge
     ],
 )
 def test_edge_interval_plain_matches_pallas_kernel_and_oracle(rng, n, e, k1, b, feat, out, mom):
