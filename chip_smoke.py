@@ -8,7 +8,8 @@ Phases, one JSON line each; any failure exits non-zero:
 
   build       compile every CUDA source of the port with nvcc (sm_90a)
   kernels     K1 grouped_mean and K2 segment_mean against their plain
-              versions on the card, at the main path's shapes, f32 and bf16,
+              versions on the card, at the main path's shapes (lm-100m's
+              largest leaf and a norm among them), f32 and bf16,
               with masked clients and a dead group; times by CUDA events
   transport_kernels
               K4 quantize and K5 dequantize against their plain versions at
@@ -85,6 +86,21 @@ Phases, one JSON line each; any failure exits non-zero:
               every large case also through the element-load path (a and b
               one element off TMA's alignment, bit-equal and timed) and
               beside one elementwise add moving the same bytes
+  train_lm10m
+              ``lm_edge_niid`` (lm-10m, Adam with warmup-cosine, 8 clients on
+              2 edges, kappa (4, 2)) for 8 rounds on cuda, then on the CPU
+              from the same init: loss and grad_norm within LM_RTOL, wire_mb
+              equal; K1 once per leaf per level mean, K7 and K8 never
+  train_lm10m_int8_ef
+              the same with error-feedback int8 (qblock 128) on both hops:
+              K4 and K5 once per leaf per sync
+  train_lm100m
+              ``lm_edge_niid`` at lm-100m's full width (12 layers, d_model
+              768, GQA 12 on 4, d_ff 2048; the scenario's vocabulary of 512)
+              for 8 rounds on cuda: first-call wall, peak memory, every
+              round's loss (finite, falling), K1 as counted and K7 = K8 = 0;
+              one round on the CPU from the same init against the first
+              round; then one warm cloud interval timed and profiled
   serve_lm100m
               ``repro_torch.launch.serve.serve`` on lm-100m at full width, f32,
               4 prompts of 1024 tokens, 32 generated: 12 K7 launches per
@@ -100,8 +116,9 @@ Phases, one JSON line each; any failure exits non-zero:
               the layer code; a warm prefill and decode step under
               torch.profiler
 
-The quickstart, mlp307k, mlp307k_int8_ef and mlp307k_megakernel phases then
-run their scenario twice more, warm: once timed, once under
+The quickstart, mlp307k, mlp307k_int8_ef, mlp307k_megakernel and
+train_lm100m phases then run their scenario twice more, warm: once timed,
+once under
 ``torch.profiler``, and report where the device time of a cloud interval
 goes (by kernel class and top kernels) and the device's idle share.
 
@@ -133,6 +150,13 @@ MLP307K = [
 INT8_CLOUD = ["run.num_rounds=20", "run.eval_every=10"]
 INT8_EF_BOTH = ["run.num_rounds=20"]
 MEGAKERNEL = ["run.engine=megakernel"]
+LM_TRAIN = ["run.num_rounds=8"]  # 32 local steps: the 20-step warmup, then the cosine
+LM_INT8_EF = LM_TRAIN + ["transport.levels=int8_ef:128/int8_ef:128"]
+LM100M = ["model.arch=lm-100m"]
+# federated LM training, card against the CPU from the same init: per-round
+# loss and grad_norm within LM_RTOL (the CPU tests hold the port to JAX at
+# the same tolerance: tests/test_torch_lm_train.py)
+LM_RTOL = 1e-4
 BF16 = ["precision.param_dtype=bfloat16"]
 # K3 at the engine's design geometry (N 32, E 4, kappa1 8, b 1) with the
 # widest linear client the JAX kernel's own VMEM budget admits there
@@ -233,6 +257,11 @@ def kernel_cases():
         ("grouped_mean", "quickstart w1 edge (20x768, G=4)", 20, 768, 4),
         ("grouped_mean", "mlp307k w1 edge (32x262144, G=4)", 32, 262144, 4),
         ("grouped_mean", "mlp307k w1 cloud (32x262144, G=1)", 32, 262144, 1),
+        # lm_edge_niid's leaves at lm-100m: the final norm, and the stacked
+        # MLP weight of 12 layers (8 x 12 x 768 x 2048, the largest leaf)
+        ("grouped_mean", "lm-100m final_norm edge (8x768, G=2)", 8, 768, 2),
+        ("grouped_mean", "lm-100m mlp w1 edge (8x18874368, G=2)", 8, 18874368, 2),
+        ("grouped_mean", "lm-100m mlp w1 cloud (8x18874368, G=1)", 8, 18874368, 1),
         ("segment_mean", "ragged 16,12,10,7,5 (50x262144)", 50, 262144, ragged),
     ]
 
@@ -1072,6 +1101,100 @@ def phase_serve_lm100m(torch, mods):
     return launches
 
 
+def lm_launches(runner, state, syncs_compressed: int) -> dict:
+    """What a federated LM run must launch: K1 once per leaf per level mean
+    (an edge sync is one stage, the cloud sync of the two-level tree two),
+    K4 and K5 once per leaf per compressed sync, nothing else."""
+    from repro_torch.tree import leaves
+
+    n_leaves = len(list(leaves(state.params)))
+    intervals = runner.cfg.num_rounds // runner.hier_config.kappa2_effective
+    want = {"grouped_mean": n_leaves * 3 * intervals}  # kappa (4, 2): one edge and one cloud sync an interval
+    if syncs_compressed:
+        want.update(quantize=n_leaves * syncs_compressed, dequantize=n_leaves * syncs_compressed)
+    return want
+
+
+def lm_agreement(runner, ref, what, rounds=None):
+    """Per-round loss and grad_norm within LM_RTOL of ``ref``'s (its first
+    ``rounds`` records), wire_mb equal; checked."""
+    rounds = len(ref.history) if rounds is None else rounds
+    pairs = list(zip(runner.history[:rounds], ref.history[:rounds]))
+    check(len(pairs) == rounds == len(ref.history[:rounds]), f"{what}: rounds")
+    loss_rel = max(abs(a.loss - b.loss) / abs(b.loss) for a, b in pairs)
+    gnorm_rel = max(abs(a.grad_norm - b.grad_norm) / abs(b.grad_norm) for a, b in pairs)
+    check(loss_rel <= LM_RTOL and gnorm_rel <= LM_RTOL, f"{what}: loss rel err {loss_rel}, grad_norm {gnorm_rel}")
+    check(all(a.wire_mb == b.wire_mb for a, b in pairs), f"{what}: wire_mb differs")
+    return {"loss_max_rel_err": loss_rel, "grad_norm_max_rel_err": gnorm_rel, "rounds": rounds,
+            "tolerance": {"rtol": LM_RTOL}}
+
+
+def params_max_err(state, ref_state) -> float:
+    from repro_torch.tree import leaves
+
+    return max(float((a.float().cpu() - b.float().cpu()).abs().max())
+               for a, b in zip(leaves(state.params), leaves(ref_state.params)))
+
+
+def phase_train_lm10m(torch, mods, phase, overrides):
+    """``lm_edge_niid`` (lm-10m) for 8 rounds on the card and on the CPU
+    from the same init; launch counts asserted."""
+    import math
+
+    compressed = any(o.startswith("transport.levels=") for o in overrides)
+    t0 = time.perf_counter()
+    runner, state, secs, launches, params = run_scenario(torch, mods, "lm_edge_niid", overrides, "cuda")
+    want = lm_launches(runner, state, runner.cfg.num_rounds if compressed else 0)
+    check_launches(launches, want, phase)
+    losses = [h.loss for h in runner.history]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"{phase}: losses {losses}")
+    cpu_runner, cpu_state, cpu_secs, *_ = run_scenario(torch, mods, "lm_edge_niid", overrides, "cpu", params=params)
+    agreement = lm_agreement(runner, cpu_runner, f"{phase} cuda vs cpu")
+    emit({"phase": phase, **path_report(runner, secs, launches, {
+        "arch": runner.spec.model.arch, "transport": runner.spec.transport.levels, "launches_want": want,
+        "losses": losses, "grad_norms": [h.grad_norm for h in runner.history],
+        "wire_mb": runner.history[-1].wire_mb, "cpu": agreement, "cpu_seconds": cpu_secs,
+        "params_max_abs_err_vs_cpu": params_max_err(state, cpu_state),
+        "phase_seconds": time.perf_counter() - t0})})
+    return launches
+
+
+def phase_train_lm100m(torch, mods):
+    """``lm_edge_niid`` at lm-100m's full width: 8 rounds on the card, one on
+    the CPU against the first, then one warm cloud interval profiled."""
+    import math
+
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = reset_peak(torch)
+    runner, state, secs, launches, params = run_scenario(torch, mods, "lm_edge_niid", LM100M + LM_TRAIN, "cuda")
+    peak = torch.cuda.max_memory_allocated() - base
+    want = lm_launches(runner, state, 0)
+    check_launches(launches, want, "train_lm100m")
+    n_params = sum(x[0].numel() for x in leaves(state.params))
+    check(n_params == 76_303_104, f"train_lm100m has {n_params} parameters per client")
+    check(tuple(state.params["blocks"]["b0"]["mlp"]["w1"].shape) == (8, 12, 768, 2048), "train_lm100m mlp w1 shape")
+    losses = [h.loss for h in runner.history]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"train_lm100m losses {losses}")
+    check(all(bool(torch.isfinite(x).all()) for x in leaves(state.params)), "train_lm100m params not finite")
+    del state
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    cpu_runner, *_ = run_scenario(torch, mods, "lm_edge_niid", LM100M + ["run.num_rounds=1"], "cpu", params=params)
+    cpu_s = time.perf_counter() - t1
+    agreement = lm_agreement(runner, cpu_runner, "train_lm100m round 0 cuda vs cpu", rounds=1)
+    profile = device_profile(torch, mods, "lm_edge_niid", LM100M + ["run.num_rounds=2"], params)
+    emit({"phase": "train_lm100m", **path_report(runner, secs, launches, {
+        "arch": runner.spec.model.arch, "params_per_client": n_params, "clients": runner.topology.num_clients,
+        "tokens_per_local_step": runner.topology.num_clients * runner.spec.data.batch_size * runner.spec.data.seq_len,
+        "launches_want": want, "losses": losses, "grad_norms": [h.grad_norm for h in runner.history],
+        "first_call_wall_s": secs, "peak_memory_bytes": peak, "cpu_round0": agreement, "cpu_round0_seconds": cpu_s,
+        "profile": profile, "phase_seconds": time.perf_counter() - t0})})
+    return launches
+
+
 def profile_call(torch, fn):
     """One call under torch.profiler: wall ms (host clock to a synchronise),
     device-busy ms by kernel class, busy share of the wall, top kernels."""
@@ -1385,9 +1508,15 @@ def main() -> int:
         "loss_max_abs_err_vs_f32": float((l16 - l32).abs().max()), "final_accuracy": acc16,
         "f32_final_accuracy": acc32, "peak_memory_bytes": peak, "f32_peak_memory_bytes": mk_peak})})
 
+    # federated LM training: K1 per leaf per level mean, K4/K5 per leaf per
+    # compressed sync, K7/K8 never (the layer code runs under torch.func)
+    del runner, state, mk_runner, mlp_runner, mlp_params, params
+    count(phase_train_lm10m(torch, mods, "train_lm10m", LM_TRAIN))
+    count(phase_train_lm10m(torch, mods, "train_lm10m_int8_ef", LM_INT8_EF))
+    count(phase_train_lm100m(torch, mods))
+
     # LM serving: K7 in every attention layer and K8 in every RG-LRU layer of
     # the prefill
-    del runner, state, mk_runner, mlp_runner, mlp_params, params
     count(phase_serve_lm100m(torch, mods))
     count(phase_serve_recurrentgemma9b(torch, mods))
 

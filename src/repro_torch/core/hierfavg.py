@@ -1,7 +1,8 @@
 """HierFAVG (Algorithm 1) over stacked client tensors: the main path's part
 of ``repro.core.hierfavg``.
 
-Parameters are stacked along a leading client axis, ``{name: (N, ...)}``.
+Parameters are trees (``repro_torch.tree``: the MLP's flat dict, the LM's
+nested tree) of tensors stacked along a leading client axis, (N, ...).
 One ``torch.func.grad`` of the summed per-client loss (``vmap`` over the
 client axis) yields every client's local gradient at once, since client
 losses are block-separable in the stacked parameters. With the kappa vector
@@ -46,8 +47,9 @@ from repro_torch.core import aggregation
 from repro_torch.core.hierarchy import HierarchySpec, as_hierarchy
 from repro_torch.errors import unported
 from repro_torch.optim import GradientTransformation, apply_updates
+from repro_torch.tree import Tree, first_leaf, leaves, tree_map
 
-Params = Dict[str, torch.Tensor]
+Params = Tree
 LossFn = Callable[[Params, Dict[str, torch.Tensor], Any], torch.Tensor]  # (params_i, batch_i, rng)
 
 
@@ -216,7 +218,7 @@ class FedState(NamedTuple):
 
 def replicate_for_clients(params: Params, num_clients: int) -> Params:
     """Stack the initial model: every client starts from w0 (Algorithm 1 l.2)."""
-    return {k: p.unsqueeze(0).expand((num_clients,) + tuple(p.shape)).clone() for k, p in params.items()}
+    return tree_map(lambda p: p.unsqueeze(0).expand((num_clients,) + tuple(p.shape)).clone(), params)
 
 
 def init_state(
@@ -234,15 +236,15 @@ def init_state(
     stacked = replicate_for_clients(params, topology.num_clients)
     if config.precision_active:
         dt = config.precision.dtype
-        stacked = {k: p.to(dt) if p.is_floating_point() else p for k, p in stacked.items()}
-    device = next(iter(stacked.values())).device
+        stacked = tree_map(lambda p: p.to(dt) if p.is_floating_point() else p, stacked)
+    device = first_leaf(stacked).device
     anchor = residual = None
     if config.delta_cloud or config.transport_active:
         # the last broadcast each client received: w - anchor is what a
         # compressed uplink carries
         anchor = _copy(stacked)
     if config.transport_active and config.transport.needs_residual:
-        residual = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in stacked.items()}
+        residual = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), stacked)
     return FedState(
         step=torch.zeros((), dtype=torch.int32, device=device),
         params=stacked,
@@ -256,7 +258,7 @@ def init_state(
 def _copy(tree: Params) -> Params:
     """A copy that shares no storage with ``tree``: the anchor must not move
     when the local steps update ``params`` in place."""
-    return {k: v.clone() for k, v in tree.items()}
+    return tree_map(torch.clone, tree)
 
 
 def _apply_precision(loss_fn: LossFn, precision: Optional[PrecisionSpec]) -> LossFn:
@@ -304,7 +306,7 @@ def build_local_step(loss_fn: LossFn, optimizer: GradientTransformation, *,
         grads, losses = grad_fn(state.params, batch, state.rng)
         updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
         apply_updates(state.params, updates)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[k].to(torch.float32))) for k in sorted(grads)))
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves(grads)))
         metrics = {"loss": torch.mean(losses.to(torch.float32)), "grad_norm": gnorm}
         return state._replace(step=state.step + 1, opt_state=opt_state), metrics
 
@@ -362,11 +364,10 @@ def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.
         uploaded = state.params
         residual = state.residual
         if codec is not None:
-            delta = {k: x.to(torch.float32) - state.anchor[k].to(torch.float32) for k, x in state.params.items()}
+            delta = tree_map(lambda x, a: x.to(torch.float32) - a.to(torch.float32), state.params, state.anchor)
             delta_hat, residual = codec.roundtrip(delta, residual)
-            uploaded = {
-                k: (a.to(torch.float32) + delta_hat[k]).to(state.params[k].dtype) for k, a in state.anchor.items()
-            }
+            uploaded = tree_map(lambda a, d, x: (a.to(torch.float32) + d).to(x.dtype),
+                                state.anchor, delta_hat, state.params)
         if is_top and config.delta_cloud and state.anchor is not None:
             agg = lambda t: aggregation.delta_weighted_mean(t, state.anchor, weights, mask)
             params = agg(uploaded)
@@ -387,10 +388,10 @@ def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.
                 f = flags.reshape((-1,) + (1,) * (new.dim() - 1))
                 return torch.where(f, new, old.to(new.dtype))
 
-            params = {k: keep(received, v, state.params[k]) for k, v in params.items()}
-            anchor = {k: keep(received, v, state.anchor[k]) for k, v in anchor.items()}
+            params = tree_map(lambda v, old: keep(received, v, old), params, state.params)
+            anchor = tree_map(lambda v, old: keep(received, v, old), anchor, state.anchor)
             if residual is not None and state.residual is not None:
-                residual = {k: keep(sent, v, state.residual[k]) for k, v in residual.items()}
+                residual = tree_map(lambda v, old: keep(sent, v, old), residual, state.residual)
         opt_state = _maybe_sync_opt_state(state.opt_state, agg, config.sync_opt_state)
         return state._replace(params=params, opt_state=opt_state, anchor=anchor, residual=residual)
 
@@ -609,8 +610,7 @@ def build_megakernel_super_round(
             apply_updates(params, updates)
             losses_t.append(losses.to(torch.float32))
             gsq_t.append(sum(
-                torch.sum(torch.square(g.to(torch.float32)).reshape(g.shape[0], -1), dim=1)
-                for _, g in sorted(grads.items())
+                torch.sum(torch.square(g.to(torch.float32)).reshape(g.shape[0], -1), dim=1) for g in leaves(grads)
             ))
         return opt, torch.stack(losses_t), torch.stack(gsq_t)
 
@@ -629,7 +629,7 @@ def build_megakernel_super_round(
                     f"scalar (shared) or stacked (N, ...); got shape {tuple(leaf.shape)}"
                 )
         stacked = [leaf.dim() >= 1 for leaf in opt_leaves]
-        bytes_per_client = sum(x.numel() * x.element_size() // n for x in params.values()) + sum(
+        bytes_per_client = sum(x.numel() * x.element_size() // n for x in leaves(params)) + sum(
             x.numel() * x.element_size() // n for x, s in zip(opt_leaves, stacked) if s
         )
         bc = block_clients if block_clients is not None else _megakernel_block_clients(cpe, max(1, bytes_per_client))
@@ -641,7 +641,7 @@ def build_megakernel_super_round(
             new_opt, losses, gsq = [], [], []
             for lo in range(0, n, bc):
                 hi = lo + bc
-                block_params = {k: v[lo:hi] for k, v in params.items()}
+                block_params = tree_map(lambda v: v[lo:hi], params)
                 block_opt = tree_unflatten([x[lo:hi] if s else x for x, s in zip(opt_leaves, stacked)], opt_def)
                 opt_b, loss_b, gsq_b = block_steps(block_params, block_opt, batches, j, lo, hi, state.rng)
                 new_opt.append(tree_flatten(opt_b)[0])

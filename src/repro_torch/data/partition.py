@@ -1,8 +1,8 @@
 """Client data partitioning (Section IV-A's non-IID protocols).
 
-Copy-port of ``repro.data.partition.partition_hierarchy`` (numpy): same
-protocols, same generator draws in the same order, so seeded partitions are
-byte-identical to the JAX package's.
+Copy-port of ``repro.data.partition``'s ``partition_hierarchy`` and
+``partition`` (numpy): same protocols, same generator draws in the same
+order, so seeded partitions are byte-identical to the JAX package's.
 
 * ``iid``          — uniform random split.
 * ``simple_niid``  — each client holds samples of ``classes_per_client``
@@ -91,3 +91,18 @@ def partition_hierarchy(
             take, cursors[c] = _balanced_take(pools[c], per_client, cursors[c])
             out.append(np.sort(take))
     return out
+
+
+def partition(
+    kind: str,
+    labels: np.ndarray,
+    num_edges: int,
+    clients_per_edge: int,
+    rng: np.random.Generator,
+    **kw,
+) -> List[np.ndarray]:
+    """``partition_hierarchy`` on the uniform two-level tree of
+    ``num_edges`` x ``clients_per_edge`` clients (the launchers' form)."""
+    from repro_torch.core.hierarchy import HierarchySpec
+
+    return partition_hierarchy(kind, labels, HierarchySpec.uniform(num_edges, clients_per_edge), rng, **kw)

@@ -3,14 +3,17 @@ and the background prefetch of superround blocks onto the device.
 
 ``FederatedBatcher`` is a copy-port of ``repro.data.pipeline``'s (numpy):
 same per-client, per-epoch shuffles, so its blocks are byte-identical to
-the JAX package's. Batches are flat dicts of numpy arrays.
+the JAX package's. Batches are flat dicts of numpy arrays; a ``batch_fn``
+maps the gathered sample arrays to them (the LM's maps its token rows to
+``inputs`` / ``targets``, kept int32 as JAX keeps them: the embedding
+lookup and the loss's gather index with int32 on the device).
 """
 from __future__ import annotations
 
 import dataclasses
 import queue
 import threading
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,7 +29,8 @@ class ClientCursor:
 
 class FederatedBatcher:
     """Stateful, restart-safe federated batcher over a dict of sample arrays
-    (first axis = sample)."""
+    (first axis = sample). ``batch_fn`` maps each gathered dict of
+    (N, b, ...) arrays to the model's batch dict (default: identity)."""
 
     def __init__(
         self,
@@ -35,11 +39,13 @@ class FederatedBatcher:
         batch_size: int,
         *,
         seed: int = 0,
+        batch_fn: Optional[Callable[[Batch], Batch]] = None,
     ):
         self.arrays = arrays
         self.client_indices = [np.asarray(ix) for ix in client_indices]
         self.batch_size = batch_size
         self.seed = seed
+        self.batch_fn = batch_fn or (lambda d: d)
         self.cursors = [ClientCursor() for _ in client_indices]
         self._orders: List[np.ndarray] = [self._order(i) for i in range(len(client_indices))]
 
@@ -70,7 +76,7 @@ class FederatedBatcher:
     def next_batch(self) -> Batch:
         """One stacked batch: leaves (N, b, ...)."""
         idx = np.stack([self._next_for(i) for i in range(self.num_clients)])  # (N, b)
-        return {k: v[idx] for k, v in self.arrays.items()}
+        return self.batch_fn({k: v[idx] for k, v in self.arrays.items()})
 
     def next_batches(self, count: int) -> Batch:
         """``count`` stacked batches with a leading step axis: (count, N, b, ...)."""
@@ -78,8 +84,14 @@ class FederatedBatcher:
         return {k: np.stack([o[k] for o in outs]) for k in outs[0]}
 
     def state_dict(self) -> Dict[str, Any]:
-        """The cursors (restart safety; loading comes with checkpointing)."""
+        """The cursors (restart safety)."""
         return {"seed": self.seed, "cursors": [(c.epoch, c.pos) for c in self.cursors]}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.seed = state["seed"]
+        for c, (e, p) in zip(self.cursors, state["cursors"]):
+            c.epoch, c.pos = e, p
+        self._orders = [self._order(i) for i in range(self.num_clients)]
 
 
 def to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:

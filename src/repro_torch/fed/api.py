@@ -357,11 +357,11 @@ class ExperimentSpec:
 
     def params_from_numpy(self, np_params, device: DeviceLike = None):
         """A JAX init carried across (``jax.device_get(spec.init_params(key))``),
-        checked against this spec's model."""
+        checked against this spec's model (names, shapes, dtypes)."""
         from repro_torch.models import params_from_numpy
 
         device = resolve_device(device)
-        return params_from_numpy(np_params, device, like=dict(self.model_bundle(device)["module"].named_parameters()))
+        return params_from_numpy(np_params, device, like=self.model_bundle(device)["like"]())
 
     def build(self, *, device: DeviceLike = None):
         """Assemble the ``FederatedRunner`` on ``device`` (default ``cuda``)."""
@@ -376,7 +376,7 @@ class ExperimentSpec:
         batcher, eval_fn = _build_data(self, topo, bundle, device)
         runner = FederatedRunner(
             loss_fn=bundle["loss"],
-            optimizer=_build_optimizer(self.model),
+            optimizer=_build_optimizer(self.model, self.run.num_rounds * hier.kappa1),
             topology=topo,
             hier_config=hier,
             data_sizes=batcher.data_sizes,
@@ -524,26 +524,55 @@ def _apply_override(obj, parts, text: str, full_path: str):
 _LM_PRESETS = ("lm-10m", "lm-100m")
 
 
+def _lm_config(spec: ExperimentSpec):
+    """lm-100m (``configs.paper.LM_100M``) or its 4-layer, 256-wide cut
+    lm-10m, with the vocabulary of ``data.vocab``, as JAX's ``_lm_config``
+    (``repro/fed/api.py:736-746``)."""
+    from repro_torch.configs.paper import LM_100M
+
+    if spec.model.arch == "lm-10m":
+        cfg = dataclasses.replace(
+            LM_100M, name="lm-10m", num_layers=4, d_model=256, num_heads=8, num_kv_heads=4, d_ff=768,
+        )
+    else:
+        cfg = LM_100M
+    return dataclasses.replace(cfg, vocab_size=spec.data.vocab)
+
+
 def _model_bundle(spec: ExperimentSpec, device: torch.device) -> Dict[str, Any]:
+    """{"init", "loss", "apply" (None for an LM), "like"} for the spec's
+    architecture. ``init`` takes a seed; ``like()`` is a tree of the model's
+    names, shapes and dtypes that ``params_from_numpy`` checks against."""
     arch = spec.model.arch
     if arch == "mlp":
         from repro_torch.models.cnn import mlp_bundle
 
-        return mlp_bundle(spec.data.dim, spec.model.hidden, spec.data.num_classes, device)
+        bundle = mlp_bundle(spec.data.dim, spec.model.hidden, spec.data.num_classes, device)
+        return {**bundle, "like": lambda: dict(bundle["module"].named_parameters())}
     if arch in _LM_PRESETS:
-        raise unported(f"model.arch={arch!r}", 13)
+        from repro_torch.models import transformer
+
+        cfg = _lm_config(spec)
+
+        def init(seed: int):
+            with torch.no_grad():
+                return transformer.init_params(torch.Generator(device=device).manual_seed(int(seed)), cfg)
+
+        return {"init": init, "apply": None, "loss": transformer.make_loss_fn(cfg), "like": lambda: init(0)}
     raise ValueError(f"model.arch must be one of ('mlp',) + {_LM_PRESETS}, got {arch!r}")
 
 
-def _build_optimizer(model: ModelSpec):
-    from repro_torch.optim import adam, exponential_decay, sgd
+def _build_optimizer(model: ModelSpec, total_steps: int):
+    """The optimizer with its schedule; ``total_steps`` (run.num_rounds x
+    kappa1 local steps) is what ``warmup_cosine`` decays over."""
+    from repro_torch.optim import adam, exponential_decay, sgd, warmup_cosine
 
     if model.lr_schedule == "constant":
         lr = model.lr
     elif model.lr_schedule == "exponential":
         lr = exponential_decay(model.lr, model.decay_rate, model.decay_steps)
     elif model.lr_schedule == "warmup_cosine":
-        raise unported("model.lr_schedule='warmup_cosine'", 13)
+        lr = warmup_cosine(model.lr, model.warmup_steps, total_steps)
     else:
         raise ValueError(f"model.lr_schedule must be constant|exponential|warmup_cosine, got {model.lr_schedule!r}")
     if model.optimizer == "sgd":
@@ -558,14 +587,22 @@ def _build_data(spec: ExperimentSpec, topo, bundle, device: torch.device):
     (dataset draw, then partition, both from ``default_rng(data.seed)``), so
     the two packages train on the same batches."""
     from repro_torch.core.hierarchy import as_hierarchy, parse_fanouts
-    from repro_torch.data import FederatedBatcher, clustered_gaussians, partition_hierarchy
+    from repro_torch.data import FederatedBatcher, clustered_gaussians, partition_hierarchy, token_corpus
     from repro_torch.models.cnn import accuracy
 
     d = spec.data
-    if d.dataset == "tokens":
-        raise unported("data.dataset='tokens'", 13)
-    if d.dataset != "gaussians":
+    if d.dataset not in ("gaussians", "tokens"):
         raise ValueError(f"data.dataset must be gaussians|tokens, got {d.dataset!r}")
+    if d.dataset == "gaussians" and bundle["apply"] is None:
+        raise ValueError(
+            f"model.arch={spec.model.arch!r} is a language model and needs "
+            f"data.dataset=tokens (got {d.dataset!r})"
+        )
+    if d.dataset == "tokens" and spec.model.arch not in _LM_PRESETS:
+        raise ValueError(
+            f"data.dataset=tokens needs a language model, got "
+            f"model.arch={spec.model.arch!r}; choose one of {_LM_PRESETS}"
+        )
     if d.virtual_clients:
         raise unported("data.virtual_clients (population mode)", 10)
     rng = np.random.default_rng(d.seed)
@@ -579,6 +616,17 @@ def _build_data(spec: ExperimentSpec, topo, bundle, device: torch.device):
     kw = {}
     if d.partition == "edge_niid" and d.classes_per_edge:
         kw["classes_per_edge"] = d.classes_per_edge
+    if d.dataset == "tokens":
+        corp = token_corpus(
+            rng, num_sequences=d.num_samples, seq_len=d.seq_len, vocab=d.vocab,
+            num_classes=d.num_classes, concentration=d.concentration,
+        )
+        parts = partition_hierarchy(d.partition, corp.labels, pspec, rng, **kw)[:n]
+        batcher = FederatedBatcher(
+            {"tokens": corp.tokens}, parts, batch_size=d.batch_size, seed=d.seed,
+            batch_fn=lambda b: {"inputs": b["tokens"][..., :-1], "targets": b["tokens"][..., 1:]},
+        )
+        return batcher, None
     data = clustered_gaussians(
         rng, num_samples=d.num_samples, num_classes=d.num_classes, dim=(d.dim,), class_sep=d.class_sep
     )

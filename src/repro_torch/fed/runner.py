@@ -41,6 +41,7 @@ from repro_torch.core.hierfavg import (
 from repro_torch.data.pipeline import to_device
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist import collectives
+from repro_torch.tree import leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -115,7 +116,7 @@ class FederatedRunner:
     def init(self, rng: torch.Generator, params: Params) -> FedState:
         """Stacked initial state from unstacked ``params`` (moved to the
         runner's device)."""
-        params = {k: v.to(self.device) for k, v in params.items()}
+        params = tree_map(lambda v: v.to(self.device), params)
         return init_state(rng, params, self.optimizer, self.topology, self.hier_config)
 
     def eval_model(self, params: Params, mask: Optional[torch.Tensor] = None) -> Params:
@@ -126,7 +127,7 @@ class FederatedRunner:
     def _wire_bytes_per_step(self, state: FedState) -> float:
         """Summed per-level uplink bytes per local step for one client, at
         the transport's per-level bits per parameter."""
-        per_client = sum(x.numel() // x.shape[0] * x.element_size() for x in state.params.values())
+        per_client = sum(x.numel() // x.shape[0] * x.element_size() for x in leaves(state.params))
         bits = self.transport.bits_vector() if self.transport is not None else None
         traffic = collectives.hierarchy_traffic_per_step(
             float(per_client), as_hierarchy(self.topology), self.hier_config.kappa_vector, bits_per_param=bits

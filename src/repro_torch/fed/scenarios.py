@@ -34,7 +34,6 @@ _LATER = {
     "trimmed_edge": ("robust aggregators and failure injection", 8),
     "median_cloud": ("robust aggregators", 8),
     "trimmed_int8": ("robust aggregators", 8),
-    "lm_edge_niid": ("the LM workloads", 13),
     "n1m_cohort4096": ("sampled participation", 10),
     "congested_backhaul": ("the round-replay simulator", 11),
     "hetero_clients_assoc": ("the round-replay simulator", 11),
@@ -182,6 +181,25 @@ def _three_level() -> ExperimentSpec:
         data=DataSpec(partition="edge_iid"),
         model=_BENCH_MODEL,
         run=RunSpec(num_rounds=40),
+    )
+
+
+@register("lm_edge_niid", "decoder-only 10M LM, 8 clients / 2 edges, label-skewed corpus")
+def _lm_edge_niid() -> ExperimentSpec:
+    return ExperimentSpec(
+        name="lm_edge_niid",
+        topology=TopologySpec(num_edges=2, clients_per_edge=4),
+        schedule=ScheduleSpec(kappas=(4, 2)),
+        data=DataSpec(
+            dataset="tokens", partition="edge_niid", num_samples=512,
+            num_classes=8, classes_per_edge=4, seq_len=64, vocab=512,
+        ),
+        model=ModelSpec(
+            arch="lm-10m", optimizer="adam", lr=3e-4,
+            lr_schedule="warmup_cosine", warmup_steps=20,
+        ),
+        cost=CostSpec(workload="none"),
+        run=RunSpec(num_rounds=24, eval_every=0),
     )
 
 

@@ -22,13 +22,12 @@ and added to the next upload.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ops
-
-Tree = Dict[str, torch.Tensor]
+from repro_torch.tree import Tree, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -115,10 +114,10 @@ class Int8BlockCodec:
         if self.error_feedback:
             if residual is None:
                 raise ValueError("error-feedback codec needs a residual tree in FedState")
-            e = {k: d.to(torch.float32) + residual[k].to(torch.float32) for k, d in tree.items()}
-            decoded = {k: _roundtrip_leaf(x, self.block) for k, x in e.items()}
-            return decoded, {k: e[k] - decoded[k] for k in e}
-        return {k: _roundtrip_leaf(x, self.block) for k, x in tree.items()}, residual
+            e = tree_map(lambda d, r: d.to(torch.float32) + r.to(torch.float32), tree, residual)
+            decoded = tree_map(lambda x: _roundtrip_leaf(x, self.block), e)
+            return decoded, tree_map(torch.sub, e, decoded)
+        return tree_map(lambda x: _roundtrip_leaf(x, self.block), tree), residual
 
 
 def int8_ef(block: int = 256) -> Int8BlockCodec:

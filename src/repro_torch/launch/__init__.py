@@ -1,1 +1,2 @@
-"""Launchers: ``serve`` (prefill a request batch, decode with caches)."""
+"""Launchers: ``serve`` (prefill a request batch, decode with caches) and
+``train`` (federated training of a registry arch)."""

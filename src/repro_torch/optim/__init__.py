@@ -1,5 +1,5 @@
 """Functional optimizers and learning-rate schedules."""
-from repro_torch.optim.schedule import constant, exponential_decay
+from repro_torch.optim.schedule import constant, cosine_decay, exponential_decay, warmup_cosine
 from repro_torch.optim.transforms import (
     GradientTransformation,
     TraceState,
@@ -19,9 +19,11 @@ __all__ = [
     "apply_updates",
     "chain",
     "constant",
+    "cosine_decay",
     "exponential_decay",
     "momentum",
     "scale_by_learning_rate",
     "sgd",
     "trace",
+    "warmup_cosine",
 ]

@@ -1,4 +1,4 @@
-"""Optax-style gradient transformations over dicts of stacked tensors.
+"""Optax-style gradient transformations over trees of stacked tensors.
 
 Port of ``repro.optim.transforms`` (``sgd``, ``momentum``, ``adam``,
 ``chain``, ``trace``, ``scale_by_learning_rate``, ``apply_updates``),
@@ -9,20 +9,21 @@ written functionally:
     updates, state = opt.update(grads, state, params)
     params = apply_updates(params, updates)
 
-Parameters, gradients and updates are ``{name: (N, ...) tensor}`` dicts
-with the client axis first, so each client carries its own slice of any
+Parameters, gradients and updates are trees (``repro_torch.tree``) of
+(N, ...) tensors with the client axis first, so each client carries its own slice of any
 per-parameter optimizer state. The schedule count is one shared scalar for
 all clients, as in the JAX package (``transforms.py:96``).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Union
+from typing import Callable, NamedTuple, Union
 
 import torch
 
 from repro_torch.optim.schedule import constant
+from repro_torch.tree import Tree, first_leaf, tree_map
 
-Params = Dict[str, torch.Tensor]
+Params = Tree
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 ScalarOrSchedule = Union[float, Schedule]
 
@@ -47,7 +48,7 @@ class ScaleByAdamState(NamedTuple):
 
 
 def _device_of(params: Params) -> torch.device:
-    return next(iter(params.values())).device
+    return first_leaf(params).device
 
 
 def apply_updates(params: Params, updates: Params) -> Params:
@@ -56,8 +57,7 @@ def apply_updates(params: Params, updates: Params) -> Params:
     In place where the JAX package returns new arrays: the training loop
     owns its state the way a donated JAX buffer is owned, so the stacked
     parameters are updated without a second allocation."""
-    for k, p in params.items():
-        p.add_(updates[k].to(p.dtype))
+    tree_map(lambda p, u: p.add_(u.to(p.dtype)), params, updates)
     return params
 
 
@@ -84,7 +84,7 @@ def scale_by_learning_rate(lr: ScalarOrSchedule, *, flip_sign: bool = True) -> G
 
     def update(grads, state, params=None):
         step_lr = schedule(state.count) * sign
-        updates = {k: g * step_lr.to(g.dtype) for k, g in grads.items()}
+        updates = tree_map(lambda g: g * step_lr.to(g.dtype), grads)
         return updates, ScaleByScheduleState(count=state.count + 1)
 
     return GradientTransformation(init, update)
@@ -96,12 +96,12 @@ def trace(decay: float, *, nesterov: bool = False) -> GradientTransformation:
     bf16 trace, as in the JAX package)."""
 
     def init(params):
-        return TraceState(trace={k: torch.zeros_like(p) for k, p in params.items()})
+        return TraceState(trace=tree_map(torch.zeros_like, params))
 
     def update(grads, state, params=None):
-        new_trace = {k: g + decay * state.trace[k] for k, g in grads.items()}
+        new_trace = tree_map(lambda g, t: g + decay * t, grads, state.trace)
         if nesterov:
-            updates = {k: g + decay * new_trace[k] for k, g in grads.items()}
+            updates = tree_map(lambda g, t: g + decay * t, grads, new_trace)
         else:
             updates = new_trace
         return updates, TraceState(trace=new_trace)
@@ -111,7 +111,7 @@ def trace(decay: float, *, nesterov: bool = False) -> GradientTransformation:
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
     def init(params):
-        zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+        zeros = lambda: tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         return ScaleByAdamState(
             count=torch.zeros((), dtype=torch.int32, device=_device_of(params)),
             mu=zeros(),
@@ -120,15 +120,14 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Grad
 
     def update(grads, state, params=None):
         count = state.count + 1
-        mu = {k: b1 * state.mu[k] + (1 - b1) * g.float() for k, g in grads.items()}
-        nu = {k: b2 * state.nu[k] + (1 - b2) * torch.square(g.float()) for k, g in grads.items()}
+        mu = tree_map(lambda g, m: b1 * m + (1 - b1) * g.float(), grads, state.mu)
+        nu = tree_map(lambda g, v: b2 * v + (1 - b2) * torch.square(g.float()), grads, state.nu)
         cf = count.to(torch.float32)
         mu_hat_scale = 1.0 / (1 - torch.pow(b1, cf))
         nu_hat_scale = 1.0 / (1 - torch.pow(b2, cf))
-        updates = {
-            k: ((mu[k] * mu_hat_scale) / (torch.sqrt(nu[k] * nu_hat_scale) + eps)).to(g.dtype)
-            for k, g in grads.items()
-        }
+        updates = tree_map(
+            lambda g, m, v: ((m * mu_hat_scale) / (torch.sqrt(v * nu_hat_scale) + eps)).to(g.dtype), grads, mu, nu
+        )
         return updates, ScaleByAdamState(count=count, mu=mu, nu=nu)
 
     return GradientTransformation(init, update)

@@ -1,0 +1,278 @@
+"""Federated LM training in the port against the JAX package, on the CPU:
+the token corpus, the partition, the batcher's ``batch_fn``, the
+warmup-cosine schedule, the ``lm_edge_niid`` scenario and the
+``launch.train`` launcher (the engine on smoke LMs' nested trees is in
+``test_torch_hierfavg.py``).
+
+Both packages get the same numpy data and the JAX init (carried across with
+``params_from_numpy``). Tolerances:
+
+* corpus, partitions and batches: bit-equal (numpy on both sides);
+* schedules: one f32 ulp of the result plus one rounding in each of the
+  cosine's operations carried to it (lr x 2^-22: ``frac`` and ``pi *
+  frac`` move ``cos`` by up to 2 pi x 2^-24, ``cos`` itself one ulp, all
+  halved by ``0.5 (1 + cos)``). ``torch.cos`` and XLA's ``cos`` differ by
+  up to one ulp, XLA's jit may divide by a reciprocal, and near the end of
+  the decay ``1 + cos`` cancels, so a result can sit 20 of its own ulps
+  apart;
+* ``lm_edge_niid`` at lm-10m over 4 rounds: loss and grad_norm
+  ``rtol=1e-4``, as the MLP scenarios (measured: losses equal, grad_norm
+  within 1.7e-6), final parameters ``atol=1e-5`` (measured 7.2e-7, against
+  moves of 1.5e-3); ``wire_mb`` equal. Adam needed nothing looser: a run
+  whose warmup is one step longer misses both (loss 1.4e-4 to 5.2e-3
+  relative, parameters 7e-5), which the control test asserts.
+
+The scenario's 16 local steps stay inside its 20-step warmup; the cosine
+half of the schedule runs in ``test_torch_hierfavg.py``'s LM engine test
+(warmup 2 of 8 steps).
+"""
+import dataclasses
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.data import partition as jpartition
+from repro.data import pipeline as jpipeline
+from repro.data import synthetic as jsyn
+from repro.fed import api as japi
+from repro.fed import scenarios as jscen
+from repro import optim as joptim
+from repro_torch.configs import registry as treg
+from repro_torch.data import make_partition, pipeline as tpipeline, synthetic as tsyn
+from repro_torch.fed import api as tapi
+from repro_torch.fed import scenarios as tscen
+from repro_torch.kernels import ops
+from repro_torch.launch import train as ttrain
+from repro_torch import optim as toptim
+from repro_torch.testing.parity import assert_close, to_numpy
+from repro_torch.tree import leaves
+
+LOSS_RTOL = 1e-4
+PARAM_ATOL = 1e-5
+LM_SHORT = ["run.num_rounds=4", "data.num_samples=128"]
+INT8_EF = ["run.num_rounds=2", "data.num_samples=128", "transport.levels=int8_ef:128/int8_ef:128"]
+
+
+# -- data -----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_token_corpus_is_bit_equal_to_jax(seed):
+    kw = dict(num_sequences=96, seq_len=24, vocab=40, num_classes=6, concentration=0.2)
+    want = jsyn.token_corpus(np.random.default_rng(seed), **kw)
+    got = tsyn.token_corpus(np.random.default_rng(seed), **kw)
+    assert got.tokens.dtype == want.tokens.dtype == np.int32
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    assert (got.num_samples, got.num_classes) == (want.num_samples, want.num_classes)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_embedding_corpus_is_bit_equal_to_jax(seed):
+    kw = dict(num_sequences=40, seq_len=12, d_model=16, num_classes=5)
+    for got, want in zip(tsyn.embedding_corpus(np.random.default_rng(seed), **kw),
+                         jsyn.embedding_corpus(np.random.default_rng(seed), **kw)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["iid", "simple_niid", "edge_iid", "edge_niid"])
+def test_make_partition_is_bit_equal_to_jax(kind):
+    labels = np.random.default_rng(3).integers(0, 8, size=400).astype(np.int32)
+    want = jpartition.partition(kind, labels, 2, 4, np.random.default_rng(5))
+    got = make_partition(kind, labels, 2, 4, np.random.default_rng(5))
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def _token_batchers():
+    corp = jsyn.token_corpus(np.random.default_rng(0), num_sequences=64, seq_len=16, vocab=30, num_classes=4)
+    parts = jpartition.partition("edge_niid", corp.labels, 2, 2, np.random.default_rng(1))
+    shift = lambda b: {"inputs": b["tokens"][..., :-1], "targets": b["tokens"][..., 1:]}
+    make = lambda mod: mod.FederatedBatcher({"tokens": corp.tokens}, parts, batch_size=3, seed=7, batch_fn=shift)
+    return make(jpipeline), make(tpipeline), make
+
+
+def _assert_batches_equal(got, want):
+    assert sorted(got) == sorted(want) == ["inputs", "targets"]
+    for k in want:
+        assert got[k].dtype == want[k].dtype == np.int32
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_batcher_batch_fn_gives_jax_batches_and_survives_a_state_round_trip():
+    jb, tb, make = _token_batchers()
+    for _ in range(10):  # 10 draws cross several epochs of the 16-sample clients
+        _assert_batches_equal(tb.next_batch(), jb.next_batch())
+    _assert_batches_equal(tb.next_batches(3), jb.next_batches(3))
+    state = tb.state_dict()
+    assert state == jb.state_dict()
+    fresh = make(tpipeline)
+    fresh.load_state_dict(state)
+    for _ in range(4):
+        want = jb.next_batch()
+        _assert_batches_equal(tb.next_batch(), want)
+        _assert_batches_equal(fresh.next_batch(), want)
+
+
+# -- schedules ------------------------------------------------------------------------
+
+
+def _f32_ulp(x: np.ndarray) -> np.ndarray:
+    return np.spacing(np.abs(x).astype(np.float32))
+
+
+@pytest.mark.parametrize("lr,warmup,total", [(3e-4, 20, 96), (3e-4, 20, 16), (0.15, 7, 50), (1e-2, 0, 10),
+                                             (3e-4, 1, 1)])
+def test_warmup_cosine_within_a_rounding_per_operation_of_jax(lr, warmup, total):
+    counts = np.arange(0, max(3 * warmup, total) + 2)  # 0 ... 3 x warmup, the boundary included
+    jf, tf = joptim.warmup_cosine(lr, warmup, total), toptim.warmup_cosine(lr, warmup, total)
+    got = np.array([float(tf(torch.tensor(c, dtype=torch.int32))) for c in counts], np.float32)
+    tol = _f32_ulp(got) + np.float32(lr) * 2.0**-22
+    for fn in (jf, jax.jit(jf)):  # XLA may divide by a reciprocal under jit
+        want = np.array([float(fn(jnp.asarray(c, jnp.int32))) for c in counts], np.float32)
+        bad = np.abs(got - want) > tol
+        assert not bad.any(), (counts[bad], got[bad], want[bad])
+    if warmup:
+        assert got[0] == 0.0  # the first local step does not move the parameters
+    assert got.dtype == np.float32
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.1])
+def test_cosine_decay_within_a_rounding_per_operation_of_jax(alpha):
+    counts = np.arange(0, 40)
+    jf, tf = joptim.cosine_decay(0.2, 30, alpha), toptim.cosine_decay(0.2, 30, alpha)
+    got = np.array([float(tf(torch.tensor(c))) for c in counts], np.float32)
+    want = np.array([float(jf(jnp.asarray(c))) for c in counts], np.float32)
+    np.testing.assert_array_less(np.abs(got - want), _f32_ulp(got) + np.float32(0.2) * 2.0**-22 + 1e-30)
+
+
+# -- the scenario ---------------------------------------------------------------------
+
+
+def _run_both(overrides, port_overrides=()):
+    jspec = jscen.get("lm_edge_niid", overrides=overrides)
+    tspec = tscen.get("lm_edge_niid", overrides=list(overrides) + list(port_overrides))
+    np_params = jax.device_get(jspec.init_params(jax.random.PRNGKey(jspec.run.seed + 1)))
+    jr, js = jspec.run_experiment()
+    tr, ts = tspec.run_experiment(device="cpu", params=tspec.params_from_numpy(np_params, "cpu"))
+    return (jr, js), (tr, ts)
+
+
+def _check_lm_run(jr, js, tr, ts):
+    """The scenario's tolerance: every record's loss and grad_norm within
+    ``LOSS_RTOL``, wire_mb equal, final parameters within ``PARAM_ATOL``."""
+    assert len(tr.history) == len(jr.history) == jr.cfg.num_rounds
+    for a, b in zip(jr.history, tr.history):
+        assert (b.round, b.step, b.mask_alive) == (a.round, a.step, a.mask_alive)
+        assert b.loss == pytest.approx(a.loss, rel=LOSS_RTOL), f"round {a.round} loss {b.loss} vs {a.loss}"
+        assert b.grad_norm == pytest.approx(a.grad_norm, rel=LOSS_RTOL), f"round {a.round} grad_norm"
+        assert a.accuracy is None and b.accuracy is None
+        assert b.sim_time_s == a.sim_time_s == 0.0 and b.sim_energy_j == a.sim_energy_j == 0.0
+        assert b.wire_mb == pytest.approx(a.wire_mb, rel=1e-12)
+    assert int(ts.step) == int(js.step)
+    assert_close(to_numpy(ts.params), jax.device_get(js.params), rtol=0.0, atol=PARAM_ATOL, what="final params")
+
+
+@pytest.fixture(scope="module")
+def lm_edge_niid_runs():
+    return _run_both(LM_SHORT)
+
+
+def test_lm_edge_niid_tracks_jax(lm_edge_niid_runs):
+    (jr, js), (tr, ts) = lm_edge_niid_runs
+    _check_lm_run(jr, js, tr, ts)
+    assert tr.history[-1].loss < tr.history[0].loss
+    assert tr.spec.model.arch == "lm-10m" and tr.eval_fn is None and tr.costs is None
+    n_params = sum(x[0].numel() for x in leaves(ts.params))
+    assert n_params == 3_410_176  # lm-10m at the scenario's vocabulary of 512
+
+
+def test_the_lm_tolerance_fails_a_warmup_one_step_longer(lm_edge_niid_runs):
+    """The control: the same run with ``model.warmup_steps`` 21 in place of
+    20 (every learning rate 5 % lower) must miss the tolerance."""
+    (jr, js), _ = lm_edge_niid_runs
+    tspec = tscen.get("lm_edge_niid", overrides=LM_SHORT + ["model.warmup_steps=21"])
+    np_params = jax.device_get(jscen.get("lm_edge_niid").init_params(jax.random.PRNGKey(1)))
+    tr, ts = tspec.run_experiment(device="cpu", params=tspec.params_from_numpy(np_params, "cpu"))
+    with pytest.raises(AssertionError):
+        _check_lm_run(jr, js, tr, ts)
+    with pytest.raises(AssertionError):
+        assert_close(to_numpy(ts.params), jax.device_get(js.params), rtol=0.0, atol=PARAM_ATOL, what="control")
+
+
+def test_int8_ef_variant_tracks_jax_and_counts_its_calls(monkeypatch):
+    """Error-feedback int8 on both hops over 2 rounds; on the CPU the
+    kernels' plain versions run, one call per leaf per level mean (K1: the
+    edge sync one stage, the cloud sync two) and per compressed sync (K4,
+    K5), the counts ``chip_smoke.py`` asserts on the card."""
+    calls = {"grouped_mean": 0, "quantize_stacked": 0, "dequantize_stacked": 0}
+    for name in calls:
+        def counted(*a, _f=getattr(ops, name), _n=name, **k):
+            calls[_n] += 1
+            return _f(*a, **k)
+        monkeypatch.setattr(ops, name, counted)
+    (jr, js), (tr, ts) = _run_both(INT8_EF)
+    _check_lm_run(jr, js, tr, ts)
+    n_leaves = len(list(leaves(ts.params)))
+    assert n_leaves == 12
+    assert calls == {"grouped_mean": n_leaves * (1 + 2), "quantize_stacked": n_leaves * 2,
+                     "dequantize_stacked": n_leaves * 2}
+    assert tr.history[-1].wire_mb == pytest.approx(jr.history[-1].wire_mb, rel=1e-12)
+
+
+@pytest.mark.parametrize("overrides", [[], ["model.arch=lm-100m", "run.num_rounds=8"], INT8_EF])
+def test_lm_spec_json_round_trips_between_packages(overrides):
+    jspec, tspec = jscen.get("lm_edge_niid", overrides=overrides), tscen.get("lm_edge_niid", overrides=overrides)
+    assert tapi.ExperimentSpec.from_json(jspec.to_json()) == tspec
+    assert japi.ExperimentSpec.from_json(tspec.to_json()) == jspec
+    assert tspec.describe() == jspec.describe()
+
+
+def test_lm_configs_match_jax():
+    for arch in ("lm-10m", "lm-100m"):
+        jspec = jscen.get("lm_edge_niid", overrides=[f"model.arch={arch}"])
+        tspec = tscen.get("lm_edge_niid", overrides=[f"model.arch={arch}"])
+        jcfg, tcfg = japi._lm_config(jspec), tapi._lm_config(tspec)
+        fields = [f.name for f in dataclasses.fields(jcfg) if f.name != "fed"]
+        assert {f: getattr(tcfg, f) for f in fields} == {f: getattr(jcfg, f) for f in fields}
+        assert tcfg.vocab_size == 512
+
+
+@pytest.mark.parametrize("overrides", [["model.arch=lm-10m"], ["data.dataset=tokens"]])
+def test_lm_data_mismatch_raises_jax_value_error(overrides):
+    with pytest.raises(ValueError) as want:
+        jscen.get("quickstart", overrides=overrides).build()
+    with pytest.raises(ValueError, match=re.escape(str(want.value))):
+        tscen.get("quickstart", overrides=overrides).build(device="cpu")
+
+
+# -- the launcher ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "recurrentgemma-9b", "internvl2-2b"])
+def test_train_main_runs_and_prints_its_records(arch, capsys):
+    runner = ttrain.main(["--arch", arch, "--smoke", "--rounds", "2", "--device", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == len(runner.history) == 2
+    for line, h in zip(out, runner.history):
+        assert re.fullmatch(rf"round +{h.round} step +{h.step} loss \d+\.\d{{4}} alive 4", line), line
+        assert np.isfinite(h.loss)
+    assert runner.history[-1].step == 2 * min(treg.get_smoke(arch).fed.kappa1, 4)
+
+
+@pytest.mark.parametrize("flag,item", [(["--ckpt-dir", "ckpt"], 5), (["--resume"], 5),
+                                       (["--inject-failures"], 9), (["--stragglers"], 9)])
+def test_train_flags_name_their_roadmap_item(flag, item):
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md Queue 1 item {item} "):
+        ttrain.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu"] + flag)
+
+
+def test_train_with_unported_blocks_names_item_13():
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 13 "):
+        ttrain.main(["--arch", "xlstm-350m", "--smoke", "--device", "cpu"])

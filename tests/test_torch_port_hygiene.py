@@ -104,9 +104,6 @@ def test_resolve_device_turns_tf32_off():
         (["participation.cohort_size=8"], 10),
         (["deadline.enabled=true"], 11),
         (["topology.mesh_axes=clients"], 12),
-        (["model.lr_schedule=warmup_cosine"], 13),
-        (["model.arch=lm-10m"], 13),
-        (["data.dataset=tokens"], 13),
         (["run.checkpoint_dir=ckpt"], 5),
     ],
 )
@@ -118,7 +115,29 @@ def test_unported_features_name_their_roadmap_item(overrides, item):
         spec.build(device="cpu")
 
 
-@pytest.mark.parametrize("name", ["trimmed_int8", "trimmed_edge", "lm_edge_niid", "n1m_cohort4096", "fedbuff_k4"])
+@pytest.mark.parametrize(
+    "overrides,error",
+    [
+        (["model.arch=lm-10m"], "'lm-10m' is a language model and needs data.dataset=tokens"),
+        (["data.dataset=tokens"], "data.dataset=tokens needs a language model, got model.arch='mlp'"),
+        (["model.lr_schedule=warmup_cosine"], None),
+    ],
+)
+def test_lm_options_on_quickstart_behave_like_jax(overrides, error):
+    """The LM options, once raising item 13, now do what the JAX package
+    does on the MLP quickstart: an LM on gaussians and tokens on the MLP
+    raise JAX's ValueError, and ``warmup_cosine`` builds."""
+    from repro_torch.fed import scenarios
+
+    spec = scenarios.get("quickstart", overrides=overrides)
+    if error is None:
+        assert spec.build(device="cpu").optimizer is not None
+    else:
+        with pytest.raises(ValueError, match=re.escape(error)):
+            spec.build(device="cpu")
+
+
+@pytest.mark.parametrize("name", ["trimmed_int8", "trimmed_edge", "n1m_cohort4096", "fedbuff_k4"])
 def test_unported_scenarios_name_their_roadmap_item(name):
     from repro_torch.fed import scenarios
 
@@ -134,6 +153,7 @@ def test_unknown_scenario_lists_the_ported_ones():
     assert scenarios.names() == sorted([
         "quickstart", "favg", "hierfavg_iid", "hierfavg_edge_iid", "hierfavg_edge_niid",
         "kappa_sweep_fast", "edge_only", "ragged_edges", "three_level", "int8_cloud", "int8_ef_both",
+        "lm_edge_niid",
     ])
 
 
