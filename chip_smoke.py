@@ -64,6 +64,22 @@ Phases, one JSON line each; any failure exits non-zero:
   mlp307k_megakernel_bf16
               the same with bf16 client state: bf16 leaves, losses and
               accuracy against the f32 megakernel run, lower peak memory
+  trimmed_edge
+              the robust scenario (10%-trimmed edge sync under client
+              failures) on cuda, then on the CPU: losses, accuracies and the
+              survivors round by round agree; K1 runs every cloud sync with
+              the round's mask
+  median_cloud, trimmed_int8
+              the coordinate-median cloud sync, and the trimmed edge sync over
+              an int8 cloud hop (cut to 20 rounds), cuda then CPU; K1, K4 and
+              K5 launch as counted
+  mlp307k_robust
+              the full-width MLP with a 25%-trimmed edge sync (2 of 8 dropped
+              at each end), failures and stragglers: loss falls, accuracy
+              within 0.05 of mlp307k; the run cut after its round-4
+              checkpoint and resumed by a fresh runner ends bit-equal to the
+              uninterrupted run; an outlier client (+1e3) moves the weighted
+              edge mean but neither the trimmed mean nor the median
   attention_kernel
               K7 flash attention against its plain version on the card: the
               JAX package's test cases, kernel_bench's shape, the lm-100m
@@ -101,6 +117,13 @@ Phases, one JSON line each; any failure exits non-zero:
               round's loss (finite, falling), K1 as counted and K7 = K8 = 0;
               one round on the CPU from the same init against the first
               round; then one warm cloud interval timed and profiled
+  train_lm100m_robust
+              one cloud interval of those settings with a coordinate-median
+              edge sync and client failures, with remat off and on: device
+              time per local step, peak memory, K1 at the cloud sync, K7 = K8
+              = 0, remat's final params against the plain run's; the median
+              and trimmed mean timed over the whole tree and on its largest
+              leaf
   serve_lm100m
               ``repro_torch.launch.serve.serve`` on lm-100m at full width, f32,
               4 prompts of 1024 tokens, 32 generated: 12 K7 launches per
@@ -191,6 +214,17 @@ K_F32, K_BF16 = 1e-4, 0.1
 # K8's chunked order against the sequential loop: within this share of
 # max(1, max|h|) (f32 rounding, composed over at most S / CHUNK carries)
 K8_LOOP_TOL = 1e-6
+# robustness: the trimmed edge sync at 0.25 drops 2 of 8 members at each end
+# (at 0.1 an 8-client edge trims nothing), with failures and stragglers
+ROBUST_MLP = ["aggregators.levels=trimmed_mean:0.25/weighted_mean", "failures.p_fail=0.1",
+              "failures.straggler_sigma=0.3"]
+# one cloud interval (2 rounds of kappa (4, 2)) of lm_edge_niid with a
+# median edge sync under failures; remat's final params within
+# REMAT_RTOL of the largest |param| of each leaf of the plain run's
+LM_ROBUST = ["aggregators.levels=coordinate_median/weighted_mean", "failures.p_fail=0.1", "run.num_rounds=2"]
+REMAT = ["precision.remat=true"]
+REMAT_RTOL = 1e-6
+CKPT_DIR = ROOT / "build" / "chip_smoke_checkpoints"  # removed when the phase ends
 
 
 def emit(obj) -> None:
@@ -692,26 +726,28 @@ def phase_megakernel_vs_k3(torch, mods, mk):
     return counted
 
 
-def run_scenario(torch, mods, name, overrides, device, params=None, profiler=None):
+def run_scenario(torch, mods, name, overrides, device, params=None, profiler=None, resume=False):
     """Build, init and run a scenario; returns (runner, state, seconds,
     launches, params) with the launch counts of every kernel module in
     ``mods`` reset just before the run and read just after it, so they count
     this run only. ``profiler`` (a ``torch.profiler.profile``) wraps
-    ``runner.run`` alone."""
+    ``runner.run`` alone. ``resume`` starts from the latest checkpoint of
+    ``run.checkpoint_dir`` (``restore_or_init``)."""
     from repro_torch.fed import scenarios
 
     spec = scenarios.get(name, overrides=overrides)
     runner = spec.build(device=device)
     if params is None:
         params = spec.init_params(spec.run.seed + 1, "cpu")
-    state = runner.init(torch.Generator(device=device).manual_seed(spec.run.seed), params)
+    rng = torch.Generator(device=device).manual_seed(spec.run.seed)
+    state, start = runner.restore_or_init(rng, params) if resume else (runner.init(rng, params), 0)
     if device == "cuda":
         torch.cuda.synchronize()
     for m in mods:
         m.reset_launch_counts()
     with profiler if profiler is not None else contextlib.nullcontext():
         t0 = time.perf_counter()
-        state = runner.run(state)
+        state = runner.run(state, start_round=start)
         if device == "cuda":
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -1195,6 +1231,163 @@ def phase_train_lm100m(torch, mods):
     return launches
 
 
+def phase_robust_scenario(torch, mods, name, overrides, want):
+    """A robust scenario on the card, then on the CPU from the same init:
+    per-round losses and accuracies within ``history_agreement``'s
+    tolerances, the survivors round by round equal, launches as in
+    ``want``."""
+    runner, state, secs, launches, params = run_scenario(torch, mods, name, overrides, "cuda")
+    check_launches(launches, want, name)
+    check(all(bool(torch.isfinite(v).all()) for v in state.params.values()), f"{name} params not finite")
+    check(runner.history[-1].loss < runner.history[0].loss, f"{name} loss did not fall")
+    cpu_runner, *_ = run_scenario(torch, mods, name, overrides, "cpu", params=params)
+    agreement = history_agreement(runner, cpu_runner, f"{name} cuda vs cpu", "cpu")
+    alive = [h.mask_alive for h in runner.history]
+    check(alive == [h.mask_alive for h in cpu_runner.history], f"{name}: survivors differ from the CPU run's")
+    masked = runner.failures is not None or runner.stragglers is not None
+    if masked:
+        check(min(alive) < runner.topology.num_clients, f"{name}: no client ever failed: {alive}")
+    emit({"phase": name, **path_report(runner, secs, launches, {
+        **agreement, "aggregators": runner.hier_config.aggregators.describe(), "mask_alive": alive,
+        # with a failure model every sync takes the round's mask
+        "k1_masked_launches": launches["grouped_mean"] if masked else 0,
+        "transport": runner.hier_config.transport.describe() if runner.hier_config.transport else "identity",
+        "final_accuracy": runner.history[-1].accuracy})})
+    return launches
+
+
+def phase_mlp307k_robust(torch, mods, mlp_params, uncompressed_accuracy):
+    """The full-width MLP with a 25%-trimmed edge sync, failures and
+    stragglers; a cut-and-resumed run against the straight one, bit for bit;
+    the outlier control on its final client models."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core import aggregation
+    from repro_torch.core.hierarchy import as_hierarchy
+
+    straight = MLP307K + ROBUST_MLP + ["run.checkpoint_every=4", f"run.checkpoint_dir={CKPT_DIR / 'straight'}"]
+    cut = MLP307K + ROBUST_MLP + ["run.checkpoint_every=4", f"run.checkpoint_dir={CKPT_DIR / 'cut'}"]
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        runner, state, secs, launches, _ = run_scenario(torch, mods, "hierfavg_edge_iid", straight, "cuda", mlp_params)
+        check_launches(launches, {"grouped_mean": 4 * 2 * 4}, "mlp307k_robust")  # 4 cloud syncs, 2 stages, 4 leaves
+        check(all(bool(torch.isfinite(v).all()) for v in state.params.values()), "mlp307k_robust params not finite")
+        check(runner.history[-1].loss < runner.history[0].loss, "mlp307k_robust loss did not fall")
+        acc = runner.history[-1].accuracy
+        check(abs(acc - uncompressed_accuracy) <= 0.05, f"mlp307k_robust accuracy {acc} vs {uncompressed_accuracy}")
+        alive = [h.mask_alive for h in runner.history]
+        check(min(alive) < 32, f"mlp307k_robust: no client ever failed: {alive}")
+        run_scenario(torch, mods, "hierfavg_edge_iid", cut + ["run.num_rounds=4"], "cuda", mlp_params)
+        resumed, r_state, r_secs, r_launches, _ = run_scenario(torch, mods, "hierfavg_edge_iid", cut, "cuda",
+                                                               mlp_params, resume=True)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    fields = lambda h: (h.round, h.step, h.loss, h.grad_norm, h.mask_alive, h.accuracy)
+    check([h.round for h in resumed.history] == list(range(4, 8)), "mlp307k_robust resume: rounds")
+    check([fields(h) for h in resumed.history] == [fields(h) for h in runner.history[4:]],
+          "mlp307k_robust resume: the records differ from the uninterrupted run's")
+    check(all(bit_equal(r_state.params[k], state.params[k]) for k in state.params),
+          "mlp307k_robust resume: final params differ from the uninterrupted run's")
+
+    # the control: client 3's rows + 1e3 before an edge sync (edge 0 holds
+    # clients 0-7): the weighted mean of its edge moves by at least
+    # 1e3 * w_3 / sum(w); the trimmed mean and the median stay within the
+    # range of the other members
+    spec = as_hierarchy(runner.topology)
+    w = runner.weights
+    x = {"w1": state.params["w1"].reshape(32, -1).clone()}
+    x["w1"][3] += 1e3
+    others = torch.cat([state.params["w1"].reshape(32, -1)[:3], state.params["w1"].reshape(32, -1)[4:8]])
+    lo, hi = others.min(0).values, others.max(0).values
+    moved = aggregation.hierarchical_segment_mean(x, w, spec, 1)["w1"][0] - aggregation.hierarchical_segment_mean(
+        {"w1": state.params["w1"].reshape(32, -1)}, w, spec, 1)["w1"][0]
+    want_move = 1e3 * float(w[3] / w[:8].sum())
+    check(float(moved.min()) >= want_move * (1 - 1e-4), f"control: weighted mean moved {float(moved.min())}")
+    inside = {}
+    for agg in (aggregation.TrimmedMeanAggregator(0.25), aggregation.CoordinateMedianAggregator()):
+        out = agg(x, w, spec, 1)["w1"][0]
+        inside[agg.name] = bool(((out >= lo) & (out <= hi)).all())
+        check(inside[agg.name], f"control: {agg.name} left the range of the other members")
+    torch.cuda.synchronize()
+    emit({"phase": "mlp307k_robust", **path_report(runner, secs, launches, {
+        "aggregators": runner.hier_config.aggregators.describe(), "mask_alive": alive,
+        "k1_masked_launches": launches["grouped_mean"], "final_accuracy": acc,
+        "uncompressed_final_accuracy": uncompressed_accuracy,
+        "resume": {"from_round": 4, "records_equal": True, "params_bit_equal": True, "seconds": r_secs,
+                   "launches": r_launches},
+        "control": {"client": 3, "plus": 1e3, "weighted_mean_min_move": float(moved.min()),
+                    "want_at_least": want_move, "inside_other_members_range": inside}})})
+    return launches
+
+
+def phase_train_lm100m_robust(torch, mods):
+    """One cloud interval of ``train_lm100m``'s settings with a median edge
+    sync and client failures, remat off and on; the robust statistics timed
+    at lm-100m."""
+    import numpy as np
+
+    from repro_torch.core import aggregation
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    report, finals, params = {}, {}, None
+    for tag, extra in (("plain", []), ("remat", REMAT)):
+        ov = LM100M + LM_ROBUST + extra
+        torch.cuda.empty_cache()
+        base = reset_peak(torch)
+        runner, state, secs, launches, params = run_scenario(torch, mods, "lm_edge_niid", ov, "cuda", params)
+        peak = torch.cuda.max_memory_allocated() - base
+        n_leaves = len(list(leaves(state.params)))
+        # the median edge syncs launch nothing; the cloud sync's staged
+        # weighted mean launches K1 once per leaf per stage
+        check_launches(launches, {"grouped_mean": 2 * n_leaves}, f"train_lm100m_robust {tag}")
+        losses = [h.loss for h in runner.history]
+        check(all(bool(torch.isfinite(x).all()) for x in leaves(state.params)), f"train_lm100m_robust {tag} params")
+        steps = runner.cfg.num_rounds * runner.hier_config.kappa1
+        profile = device_profile(torch, mods, "lm_edge_niid", ov, params)
+        report[tag] = {"first_call_wall_s": secs, "peak_memory_bytes": peak, "launches": launches,
+                       "k1_cloud_sync_launches": launches["grouped_mean"], "losses": losses,
+                       "mask_alive": [h.mask_alive for h in runner.history],
+                       "device_ms_per_local_step": profile["device_busy_ms_per_interval"]
+                       * profile["cloud_intervals"] / steps,
+                       "warm_wall_ms_per_interval": profile["warm_wall_ms_per_interval"],
+                       "device_busy_share_of_warm_wall": profile["device_busy_share_of_warm_wall"],
+                       "busy_ms_per_interval_by_class": profile["busy_ms_per_interval_by_class"]}
+        finals[tag] = state.params
+        del state
+    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(leaves(finals["remat"]), leaves(finals["plain"])))
+    check(rel <= REMAT_RTOL, f"train_lm100m_robust: remat params {rel} from the plain run's")
+
+    # the robust statistics at lm-100m: the median edge sync over the whole
+    # tree (8 clients in 2 edges of 4), and both statistics on its largest
+    # leaf, against the least time of the function (read once, write once)
+    flush = flush_buffer(torch)
+    p = finals["plain"]
+    ids = np.repeat(np.arange(2), 4)
+    mask = torch.tensor([1, 1, 0, 1, 1, 1, 1, 0], dtype=torch.float32, device="cuda")
+    whole_ms = time_ms(lambda: aggregation.segment_coordinate_median(p, ids, 2, mask), flush=flush, reps=5, warmup=1)
+    leaf = p["blocks"]["b0"]["mlp"]["w1"]
+    leaf_bound = 2 * leaf.numel() * leaf.element_size() / HBM_BYTES_PER_S * 1e3
+    tree_bytes = 2 * sum(x.numel() * x.element_size() for x in leaves(p))
+    stats = {}
+    for name, fn in (("coordinate_median", lambda: aggregation.segment_coordinate_median({"x": leaf}, ids, 2, mask)),
+                     ("trimmed_mean:0.25", lambda: aggregation.segment_trimmed_mean({"x": leaf}, ids, 2, mask,
+                                                                                     trim=0.25))):
+        stats[name] = {"case": f"{tuple(leaf.shape)} f32, 2 x 4, one client masked per edge",
+                       "ms": time_ms(fn, flush=flush, reps=10, warmup=2), "bound_ms": leaf_bound, "bound_by": "bytes"}
+    del flush, finals, p, leaf
+    torch.cuda.empty_cache()
+    emit({"phase": "train_lm100m_robust", "arch": "lm-100m", "aggregators": "coordinate_median/weighted_mean",
+          "failures": "p_fail=0.1", **report, "remat_params_max_rel_err": rel, "tolerance": {"rtol": REMAT_RTOL},
+          "median_edge_sync_whole_tree_ms": whole_ms,
+          "median_edge_sync_whole_tree_bound_ms": tree_bytes / HBM_BYTES_PER_S * 1e3,
+          "robust_statistics_largest_leaf": stats, "phase_seconds": time.perf_counter() - t0})
+    return {k: report["plain"]["launches"][k] + report["remat"]["launches"][k] for k in report["plain"]["launches"]}
+
+
 def profile_call(torch, fn):
     """One call under torch.profiler: wall ms (host clock to a synchronise),
     device-busy ms by kernel class, busy share of the wall, top kernels."""
@@ -1508,12 +1701,25 @@ def main() -> int:
         "loss_max_abs_err_vs_f32": float((l16 - l32).abs().max()), "final_accuracy": acc16,
         "f32_final_accuracy": acc32, "peak_memory_bytes": peak, "f32_peak_memory_bytes": mk_peak})})
 
+    # robust aggregators under failure masks. trimmed_edge (16 rounds of
+    # kappa (4, 2)): 8 cloud syncs x 2 stages x 4 leaves of K1, the trimmed
+    # edge syncs none; median_cloud (20 rounds of (6, 10)): 18 weighted edge
+    # syncs x 4 leaves, the median cloud syncs none; trimmed_int8: 2 cloud
+    # syncs x 2 stages x 4 leaves, and K4 = K5 once per leaf per int8 cloud
+    # sync
+    count(phase_robust_scenario(torch, mods, "trimmed_edge", (), {"grouped_mean": 64}))
+    count(phase_robust_scenario(torch, mods, "median_cloud", INT8_CLOUD, {"grouped_mean": 72}))
+    count(phase_robust_scenario(torch, mods, "trimmed_int8", INT8_CLOUD,
+                                {"grouped_mean": 16, "quantize": 8, "dequantize": 8}))
+    count(phase_mlp307k_robust(torch, mods, mlp_params, uncompressed_accuracy))
+
     # federated LM training: K1 per leaf per level mean, K4/K5 per leaf per
     # compressed sync, K7/K8 never (the layer code runs under torch.func)
     del runner, state, mk_runner, mlp_runner, mlp_params, params
     count(phase_train_lm10m(torch, mods, "train_lm10m", LM_TRAIN))
     count(phase_train_lm10m(torch, mods, "train_lm10m_int8_ef", LM_INT8_EF))
     count(phase_train_lm100m(torch, mods))
+    count(phase_train_lm100m_robust(torch, mods))
 
     # LM serving: K7 in every attention layer and K8 in every RG-LRU layer of
     # the prefill

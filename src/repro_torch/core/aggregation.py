@@ -22,10 +22,17 @@ tensor every grouped / segment mean launches K1 / K2
 their plain PyTorch versions. That is a lowering of the same operator, not
 a new feature; the tests hold both against the JAX operator.
 ``cloud_model`` (the eval reduction) stays plain PyTorch, as in JAX.
+
+The robust statistics (``segment_trimmed_mean``,
+``segment_coordinate_median``) and the per-level ``AggregatorSpec``
+registry port ``repro/core/aggregation.py:333-572``. JAX computes them with
+``jnp.sort`` outside any Pallas call, so they are ``torch.sort`` /
+gathers here, on either device.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -211,3 +218,230 @@ def delta_weighted_mean(
     deltas = tree_map(lambda x, a: x - a.to(x.dtype), tree, anchor)
     mean_delta = weighted_mean(deltas, weights, mask)
     return tree_map(lambda a, d: (a.to(torch.float32) + d.to(torch.float32)).to(a.dtype), anchor, mean_delta)
+
+
+# ---------------------------------------------------------------------------
+# Robust per-segment aggregators (the per-level AggregatorSpec axis)
+# ---------------------------------------------------------------------------
+#
+# Coordinate-wise trimmed mean and median (Yin et al., ICML'18) over the
+# surviving members of each segment: unweighted order statistics, so they
+# use the survival mask but not the dataset-size weights. A group with zero
+# survivors keeps its members' current parameters, as the weighted means do.
+
+
+def _segment_members(segment_ids, num_segments: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Static (G, Cmax) member-index matrix and validity mask for sorted
+    host-side segment ids (``HierarchySpec.segments``)."""
+    ids = np.asarray(segment_ids, np.int64)
+    sizes = np.bincount(ids, minlength=num_segments)
+    cmax = int(sizes.max())
+    members = np.zeros((num_segments, cmax), np.int32)
+    valid = np.zeros((num_segments, cmax), bool)
+    for g in range(num_segments):
+        ix = np.where(ids == g)[0]
+        members[g, : ix.shape[0]] = ix
+        valid[g, : ix.shape[0]] = True
+    return members, valid
+
+
+def _sorted_segment_values(x: torch.Tensor, members: np.ndarray, validb: np.ndarray,
+                           mask: Optional[torch.Tensor]):
+    """Gather one (N, ...) leaf into (G, Cmax, ...) f32, masked entries at
+    +inf, sorted ascending along the member axis. Returns (sorted, m_g),
+    m_g (G,) the surviving members per segment."""
+    idx = torch.as_tensor(members, dtype=torch.long, device=x.device)
+    vals = x.to(torch.float32)[idx]  # (G, Cmax, ...)
+    alive = torch.as_tensor(validb, device=x.device)
+    if mask is not None:
+        alive = alive & (mask.to(torch.float32)[idx] > 0)
+    m_g = torch.sum(alive, dim=1).to(torch.int32)
+    alive_b = alive.reshape(alive.shape + (1,) * (vals.dim() - 2))
+    vals = torch.where(alive_b, vals, torch.full((), float("inf"), device=x.device))
+    return torch.sort(vals, dim=1).values, m_g
+
+
+def _broadcast_back(per_segment: torch.Tensor, x: torch.Tensor, seg: torch.Tensor, m_g: torch.Tensor) -> torch.Tensor:
+    """(G, ...) statistic -> (N, ...); zero-survivor groups keep ``x``."""
+    back = per_segment[seg]
+    keep = (m_g > 0)[seg].reshape((-1,) + (1,) * (back.dim() - 1))
+    return torch.where(keep, back, x.to(torch.float32)).to(x.dtype)
+
+
+def segment_trimmed_mean(tree: Tree, segment_ids, num_segments: int, mask: Optional[torch.Tensor] = None, *,
+                         trim: float = 0.1) -> Tree:
+    """Coordinate-wise ``trim``-trimmed mean per segment, broadcast back.
+
+    Per segment with m surviving members, each coordinate drops its
+    ``floor(trim * m)`` smallest and largest member values and averages the
+    rest (unweighted; where floor(trim * m) is 0 this is the plain member
+    mean). ``trim`` must be in [0, 0.5).
+    """
+    if not 0.0 <= trim < 0.5:
+        raise ValueError(f"trim must be in [0, 0.5), got {trim}")
+    members, validb = _segment_members(segment_ids, num_segments)
+
+    def leaf(x):
+        seg = torch.as_tensor(np.asarray(segment_ids), dtype=torch.long, device=x.device)
+        svals, m_g = _sorted_segment_values(x, members, validb, mask)
+        k_g = torch.floor(trim * m_g.to(torch.float32)).to(torch.int32)
+        ranks = torch.arange(svals.shape[1], dtype=torch.int32, device=x.device)
+        keep = (ranks[None, :] >= k_g[:, None]) & (ranks[None, :] < (m_g - k_g)[:, None])
+        count = torch.clamp(m_g - 2 * k_g, min=1).to(torch.float32)
+        keep_b = keep.reshape(keep.shape + (1,) * (svals.dim() - 2))
+        sums = torch.sum(torch.where(keep_b, svals, torch.zeros((), device=x.device)), dim=1)
+        mean = sums / count.reshape((-1,) + (1,) * (sums.dim() - 1))
+        return _broadcast_back(mean, x, seg, m_g)
+
+    return tree_map(leaf, tree)
+
+
+def segment_coordinate_median(tree: Tree, segment_ids, num_segments: int,
+                              mask: Optional[torch.Tensor] = None) -> Tree:
+    """Coordinate-wise median per segment over surviving members, broadcast
+    back (the midpoint of the two central order statistics for even m)."""
+    members, validb = _segment_members(segment_ids, num_segments)
+
+    def leaf(x):
+        seg = torch.as_tensor(np.asarray(segment_ids), dtype=torch.long, device=x.device)
+        svals, m_g = _sorted_segment_values(x, members, validb, mask)
+        # central order statistics: odd m -> both (m-1)//2; even m -> m//2-1, m//2
+        lo = torch.clamp((m_g - 1).div(2, rounding_mode="floor"), min=0).long()
+        hi = m_g.div(2, rounding_mode="floor").long()
+        rows = torch.arange(svals.shape[0], device=x.device)
+        med = 0.5 * (svals[rows, lo] + svals[rows, hi])
+        return _broadcast_back(med, x, seg, m_g)
+
+    return tree_map(leaf, tree)
+
+
+# -- aggregator registry ------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightedMeanAggregator:
+    """The paper's |D_i|-weighted mean (staged ``hierarchical_segment_mean``),
+    the default at every level; ``build_level_sync`` takes its own path for
+    it, so an all-default spec keeps the unchanged numbers."""
+
+    @property
+    def name(self) -> str:
+        return "weighted_mean"
+
+    @property
+    def is_default(self) -> bool:
+        return True
+
+    def __call__(self, tree, weights, spec, level, mask=None):
+        return hierarchical_segment_mean(tree, weights, spec, level, mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrimmedMeanAggregator:
+    """Coordinate-wise trimmed mean over each level-l segment's survivors."""
+
+    trim: float = 0.1
+
+    def __post_init__(self):
+        if not 0.0 <= self.trim < 0.5:
+            raise ValueError(f"trim must be in [0, 0.5), got {self.trim}")
+
+    @property
+    def name(self) -> str:
+        return f"trimmed_mean:{self.trim:g}"
+
+    @property
+    def is_default(self) -> bool:
+        return False
+
+    def __call__(self, tree, weights, spec, level, mask=None):
+        return self.segment_call(tree, spec.segments(level), spec.num_nodes(level), mask)
+
+    def segment_call(self, tree, segment_ids, num_segments, mask=None):
+        return segment_trimmed_mean(tree, segment_ids, num_segments, mask, trim=self.trim)
+
+
+@dataclasses.dataclass(frozen=True)
+class CoordinateMedianAggregator:
+    """Coordinate-wise median over each level-l segment's survivors."""
+
+    @property
+    def name(self) -> str:
+        return "coordinate_median"
+
+    @property
+    def is_default(self) -> bool:
+        return False
+
+    def __call__(self, tree, weights, spec, level, mask=None):
+        return self.segment_call(tree, spec.segments(level), spec.num_nodes(level), mask)
+
+    def segment_call(self, tree, segment_ids, num_segments, mask=None):
+        return segment_coordinate_median(tree, segment_ids, num_segments, mask)
+
+
+_AGGREGATOR_FACTORIES = {
+    "weighted_mean": lambda arg: WeightedMeanAggregator(),
+    "mean": lambda arg: WeightedMeanAggregator(),
+    "trimmed_mean": lambda arg: TrimmedMeanAggregator(trim=float(arg) if arg else 0.1),
+    "coordinate_median": lambda arg: CoordinateMedianAggregator(),
+    "median": lambda arg: CoordinateMedianAggregator(),
+}
+
+
+def parse_aggregator(text: str):
+    """'weighted_mean' | 'trimmed_mean[:trim]' | 'coordinate_median', e.g.
+    'trimmed_mean:0.2'."""
+    name, _, arg = text.strip().partition(":")
+    if name not in _AGGREGATOR_FACTORIES:
+        raise ValueError(f"unknown aggregator {name!r}; choose from {sorted(_AGGREGATOR_FACTORIES)}")
+    return _AGGREGATOR_FACTORIES[name](arg)
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregatorSpec:
+    """One aggregator per tree level, bottom-up: ``aggregators[0]`` at the
+    client->edge sync (level 1), ``aggregators[-1]`` at the cloud sync,
+    aligned with ``HierFAVGConfig.kappa_vector``."""
+
+    aggregators: Tuple[Any, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "aggregators", tuple(self.aggregators))
+        if not self.aggregators:
+            raise ValueError("AggregatorSpec needs at least one level")
+
+    @classmethod
+    def default(cls, depth: int) -> "AggregatorSpec":
+        return cls(aggregators=tuple(WeightedMeanAggregator() for _ in range(depth)))
+
+    @classmethod
+    def uniform(cls, aggregator, depth: int) -> "AggregatorSpec":
+        return cls(aggregators=tuple(aggregator for _ in range(depth)))
+
+    @classmethod
+    def parse(cls, text: str) -> "AggregatorSpec":
+        """'/'-separated aggregator per level, bottom-up:
+        'trimmed_mean:0.1/weighted_mean' trims at the edge sync and keeps
+        the paper's weighted mean at the cloud."""
+        parts = [p for p in text.split("/") if p]
+        if not parts:
+            raise ValueError(f"empty aggregator spec: {text!r}")
+        return cls(aggregators=tuple(parse_aggregator(p) for p in parts))
+
+    @property
+    def depth(self) -> int:
+        return len(self.aggregators)
+
+    def aggregator(self, level: int):
+        if not 1 <= level <= self.depth:
+            raise ValueError(f"level must be in 1..{self.depth}, got {level}")
+        return self.aggregators[level - 1]
+
+    @property
+    def is_trivial(self) -> bool:
+        """True iff every level is the default weighted mean."""
+        return all(a.is_default for a in self.aggregators)
+
+    def describe(self) -> str:
+        return "/".join(a.name for a in self.aggregators)

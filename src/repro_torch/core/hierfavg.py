@@ -25,12 +25,15 @@ Since the port updates ``params`` in place, the anchor is always a copy
 A ``PrecisionSpec`` with a non-f32 ``param_dtype`` stores and steps the
 stacked client state in that dtype (batches are cast on the way into the
 loss); every aggregation still accumulates in f32.
-``build_megakernel_super_round`` is the client-blocked lowering of the
-superround (``engine="megakernel"``).
+``PrecisionSpec.remat`` recomputes each client's forward in the backward
+(``_remat``). ``build_megakernel_super_round`` is the client-blocked
+lowering of the superround (``engine="megakernel"``). A non-default
+``AggregatorSpec`` level (``core.aggregation``: trimmed mean, coordinate
+median) replaces that level's weighted mean in ``build_level_sync``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 item): robust aggregators and ``remat`` (8), sampled participation
-(10), the deadline lowering (11), the client-sharded lowering (12).
+Queue 1 item): sampled participation (10), the deadline lowering (11), the
+client-sharded lowering (12).
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ from repro_torch.core import aggregation
 from repro_torch.core.hierarchy import HierarchySpec, as_hierarchy
 from repro_torch.errors import unported
 from repro_torch.optim import GradientTransformation, apply_updates
-from repro_torch.tree import Tree, first_leaf, leaves, tree_map
+from repro_torch.tree import Tree, first_leaf, leaves, tree_map, unflatten
 
 Params = Tree
 LossFn = Callable[[Params, Dict[str, torch.Tensor], Any], torch.Tensor]  # (params_i, batch_i, rng)
@@ -74,8 +77,9 @@ class PrecisionSpec:
     ``precision`` section). ``param_dtype`` is the storage and compute
     dtype of the stacked client params and their stacked optimizer rows
     (``"bfloat16"`` halves them); aggregation accumulates in f32 and casts
-    back, and the loss / grad-norm metrics are reduced in f32. ``remat`` is
-    not ported: a config with it raises (ROADMAP.md item 8)."""
+    back, and the loss / grad-norm metrics are reduced in f32. ``remat``
+    keeps only each client loss's inputs for the backward, which reruns the
+    forward (``_remat``), as JAX's ``jax.checkpoint`` of the loss does."""
 
     param_dtype: str = "float32"
     remat: bool = False
@@ -137,9 +141,23 @@ class HierFAVGConfig:
                     "the anchor slot); drop the flag"
                 )
         if self.aggregators is not None:
-            raise unported("a non-default aggregator", 8)
-        if self.precision is not None and self.precision.remat:
-            raise unported("precision.remat (activation recomputation)", 8)
+            if not hasattr(self.aggregators, "aggregator") or not hasattr(self.aggregators, "is_trivial"):
+                raise TypeError(
+                    f"aggregators must be a core.aggregation.AggregatorSpec, got "
+                    f"{type(self.aggregators).__name__}"
+                )
+            n_levels = len(self.kappas) if self.kappas is not None else 2
+            if self.aggregators.depth != n_levels:
+                raise ValueError(
+                    f"aggregators has {self.aggregators.depth} levels but the schedule "
+                    f"has {n_levels} (kappas={self.kappas or (self.kappa1, self.kappa2)})"
+                )
+            if not self.aggregators.is_trivial:
+                if self.delta_cloud and not self.aggregators.aggregator(n_levels).is_default:
+                    raise ValueError(
+                        "delta_cloud requires the default weighted_mean at the top "
+                        "level (delta aggregation is a weighted-mean identity)"
+                    )
         if self.participation is not None:
             raise unported("sampled participation", 10)
         if self.kappas is not None:
@@ -190,16 +208,16 @@ class HierFAVGConfig:
         residual)."""
         return self.transport is not None and not self.transport.is_trivial
 
-    # The JAX config's other feature predicates. Aggregators and
-    # participation are rejected in __post_init__ until their slices land,
-    # so those read False.
-
     @property
     def aggregators_active(self) -> bool:
-        return self.aggregators is not None
+        """True iff some level replaces the paper's weighted mean (an
+        all-``weighted_mean`` spec keeps the unchanged code path)."""
+        return self.aggregators is not None and not self.aggregators.is_trivial
 
     @property
     def participation_active(self) -> bool:
+        # any participation spec is rejected in __post_init__ until its
+        # slice lands (ROADMAP.md item 10)
         return self.participation is not None
 
     @property
@@ -261,18 +279,68 @@ def _copy(tree: Params) -> Params:
     return tree_map(torch.clone, tree)
 
 
+class _RematLoss(torch.autograd.Function):
+    """One client's loss whose backward reruns the forward: ``forward``
+    keeps no activations, ``setup_context`` saves the loss's inputs (the
+    params and batch leaves in ``tree.leaves`` order) and ``backward``
+    reruns the loss under ``torch.func.vjp`` for the params' cotangents.
+
+    ``torch.utils.checkpoint`` cannot run inside ``torch.func.grad`` (saved
+    tensor hooks), so this is the port's ``jax.checkpoint``. Under the
+    engine's ``grad(vmap(...))`` the generated vmap rule runs the forward
+    and the backward under ``vmap``: their inputs are functorch-wrapped, so
+    the LM layers take their layer code in both (``layers._use_kernels``),
+    never K7/K8 in one and the layer code in the other."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(loss_fn, pskel, bskel, rng, n_params, *flat):
+        return loss_fn(unflatten(pskel, flat[:n_params]), unflatten(bskel, flat[n_params:]), rng)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        loss_fn, pskel, bskel, rng, n_params, *flat = inputs
+        ctx.save_for_backward(*flat)
+        ctx.loss_fn, ctx.pskel, ctx.bskel, ctx.rng, ctx.n_params = loss_fn, pskel, bskel, rng, n_params
+
+    @staticmethod
+    def backward(ctx, g):
+        flat = ctx.saved_tensors
+        n = ctx.n_params
+        batch = unflatten(ctx.bskel, flat[n:])
+        _, vjp_fn = torch.func.vjp(lambda *p: ctx.loss_fn(unflatten(ctx.pskel, p), batch, ctx.rng), *flat[:n])
+        return (None,) * 5 + tuple(vjp_fn(g)) + (None,) * (len(flat) - n)
+
+
+def _remat(loss_fn: LossFn) -> LossFn:
+    """``loss_fn`` through ``_RematLoss``: the same value, gradients from a
+    rerun of the forward."""
+
+    def remat_loss(params, batch, rng):
+        p, b = list(leaves(params)), list(leaves(batch))
+        skel = lambda t: tree_map(lambda _: 0, t)
+        return _RematLoss.apply(loss_fn, skel(params), skel(batch), rng, len(p), *p, *b)
+
+    return remat_loss
+
+
 def _apply_precision(loss_fn: LossFn, precision: Optional[PrecisionSpec]) -> LossFn:
-    """Wrap a per-client loss with the precision policy: the batch's
-    floating leaves are cast to the policy dtype on the way in, so the
-    forward and backward run in it. The inert policy (or None) returns
-    ``loss_fn`` unchanged."""
-    if precision is None or precision.dtype == torch.float32:
+    """Wrap a per-client loss with the precision policy: ``remat`` reruns
+    the forward in the backward (``_remat``), and the batch's floating
+    leaves are cast to the policy dtype on the way in, so the forward and
+    backward run in it. The inert policy (or None) returns ``loss_fn``
+    unchanged."""
+    if precision is None or not precision.is_active:
         return loss_fn
+    inner = _remat(loss_fn) if precision.remat else loss_fn
     dt = precision.dtype
+    if dt == torch.float32:
+        return inner
 
     def cast_loss(params, batch, rng):
         batch = {k: x.to(dt) if x.is_floating_point() else x for k, x in batch.items()}
-        return loss_fn(params, batch, rng)
+        return inner(params, batch, rng)
 
     return cast_loss
 
@@ -337,7 +405,10 @@ def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.
     ``repro/core/hierfavg.py:611-667``. Level 1 is edge aggregation, level
     ``depth`` cloud aggregation, computed as the staged bottom-up
     composition (``hierarchical_segment_mean``); the top level honours
-    ``delta_cloud``.
+    ``delta_cloud``. A non-default aggregator at this level
+    (``config.aggregators``: trimmed mean, coordinate median) replaces the
+    weighted mean, applied to what the transport delivered, so robustness
+    composes with codecs and masks; the default keeps the path unchanged.
 
     With a non-identity codec at this level each client uploads its delta
     w - anchor through the codec's round trip, and the group mean is taken
@@ -356,6 +427,9 @@ def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.
     codec = config.transport.codec(level) if config.transport_active else None
     if codec is not None and codec.is_identity:
         codec = None
+    robust = config.aggregators.aggregator(level) if config.aggregators_active else None
+    if robust is not None and robust.is_default:
+        robust = None
     stages = aggregation.level_stages(spec, level)  # uniform vs ragged, decided once
     seg = torch.as_tensor(spec.segments(level), dtype=torch.long, device=weights.device)
     num_segs = spec.num_nodes(level)
@@ -373,7 +447,10 @@ def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.
             params = agg(uploaded)
             anchor = _copy(params)
         else:
-            agg = lambda t: aggregation.staged_mean(t, weights, stages, mask)
+            if robust is not None:
+                agg = lambda t: robust(t, weights, spec, level, mask)
+            else:
+                agg = lambda t: aggregation.staged_mean(t, weights, stages, mask)
             params = agg(uploaded)
             anchor = _copy(params) if config.transport_active else state.anchor
         if codec is not None:

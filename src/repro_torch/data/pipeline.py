@@ -121,6 +121,11 @@ class SuperBatchPrefetcher:
     exactly after the engine's rounds (a per-round remainder continues from
     it). The worker is the sole batcher consumer while the prefetcher is
     active.
+
+    Restart safety: the worker runs ahead of the computation, so after each
+    ``get()`` the batcher's ``state_dict`` as of the end of the block just
+    returned is on ``snapshot``; checkpoints store that, never
+    ``batcher.state_dict()`` itself.
     """
 
     _OK = "ok"
@@ -142,6 +147,7 @@ class SuperBatchPrefetcher:
         self.num_blocks = num_blocks
         self._produced = 0
         self._consumed = 0
+        self.snapshot: Optional[Dict[str, Any]] = None
         self._queue: queue.Queue = queue.Queue(maxsize=1)  # double buffering
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, name="super-batch-prefetch", daemon=True)
@@ -160,7 +166,8 @@ class SuperBatchPrefetcher:
             while not self._stop.is_set() and (
                 self.num_blocks is None or self._produced < self.num_blocks
             ):
-                item = (self._OK, self._make_host_block())
+                block = self._make_host_block()
+                item = (self._OK, (block, self.batcher.state_dict()))
                 self._produced += 1
                 while not self._stop.is_set():
                     try:
@@ -176,9 +183,10 @@ class SuperBatchPrefetcher:
         ready; the device copy is enqueued on the current stream."""
         if self.num_blocks is not None and self._consumed >= self.num_blocks:
             raise RuntimeError(f"prefetcher exhausted: all {self.num_blocks} blocks consumed")
-        kind, block = self._queue.get()
+        kind, item = self._queue.get()
         if kind == self._ERR:
-            raise RuntimeError("super-batch prefetch worker failed") from block
+            raise RuntimeError("super-batch prefetch worker failed") from item
+        block, self.snapshot = item
         self._consumed += 1
         return {k: v.to(self.device, non_blocking=True) for k, v in block.items()}
 

@@ -166,31 +166,45 @@ class TransportSpec:
 
 @dataclasses.dataclass(frozen=True)
 class AggregatorSpec:
-    """Per-level aggregation statistic, bottom-up. Only the paper's
-    weighted mean at every level runs here."""
+    """Per-level aggregation statistic, bottom-up, in the
+    ``core.aggregation`` grammar: ``"trimmed_mean:0.1/weighted_mean"`` trims
+    at the edge sync and keeps the paper's weighted mean at the cloud. A
+    single name applies to every level."""
 
     levels: str = "weighted_mean"
 
     def build(self, depth: int):
-        names = {p.partition(":")[0].strip() for p in _levels(self.levels, "weighted_mean")}
-        if not names <= {"weighted_mean", "mean"}:
-            raise unported(f"aggregators.levels={self.levels!r}", 8)
-        return None
+        """The ``core.aggregation.AggregatorSpec``, or None when every
+        level is the weighted mean."""
+        from repro_torch.core import aggregation
+
+        aggs = _parse_levels(self.levels, depth, aggregation.parse_aggregator, "aggregators.levels", "weighted_mean")
+        spec = aggregation.AggregatorSpec(aggregators=aggs)
+        return None if spec.is_trivial else spec
 
 
 @dataclasses.dataclass(frozen=True)
 class FailureSpec:
-    """Host-side failure / straggler injection (off by default)."""
+    """Host-side failure / straggler injection (``fed.failures``)."""
 
-    p_fail: float = 0.0
+    p_fail: float = 0.0  # per-boundary P(alive -> dead); 0 = no failures
     p_recover: float = 0.5
-    straggler_sigma: float = 0.0
+    straggler_sigma: float = 0.0  # lognormal step-latency sigma; 0 = off
     straggler_mean_s: float = 1.0
     seed: int = 1
 
-    def check(self) -> None:
-        if self.p_fail > 0 or self.straggler_sigma > 0:
-            raise unported("failure / straggler injection", 9)
+    def build(self, num_clients: int):
+        """(FailureSimulator or None, StragglerModel or None)."""
+        from repro_torch.fed.failures import FailureSimulator, StragglerModel
+
+        failures = stragglers = None
+        if self.p_fail > 0:
+            failures = FailureSimulator(num_clients, p_fail=self.p_fail, p_recover=self.p_recover, seed=self.seed)
+        if self.straggler_sigma > 0:
+            stragglers = StragglerModel(
+                num_clients, mean_step_s=self.straggler_mean_s, sigma=self.straggler_sigma, seed=self.seed
+            )
+        return failures, stragglers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -340,11 +354,8 @@ class ExperimentSpec:
         """Raise for run-level features this slice does not port."""
         if self.topology.mesh_axes:
             raise unported(f"topology.mesh_axes={self.topology.mesh_axes!r}", 12)
-        self.failures.check()
         if self.deadline.enabled or self.schedule.async_cloud:
             raise unported("the semi-synchronous deadline engine", 11)
-        if self.run.checkpoint_dir or self.run.checkpoint_every:
-            raise unported("checkpointing (checkpoint/manager.py)", 5)
 
     def model_bundle(self, device: DeviceLike = None) -> Dict[str, Any]:
         """{"module", "init", "apply", "loss"} for this spec's model."""
@@ -371,9 +382,16 @@ class ExperimentSpec:
         device = resolve_device(device)
         self._check_ported()
         topo = self.topology.build()
-        hier = self.hier_config(_depth=as_hierarchy(topo).depth)
+        tree = as_hierarchy(topo)
+        hier = self.hier_config(_depth=tree.depth)
         bundle = _model_bundle(self, device)
         batcher, eval_fn = _build_data(self, topo, bundle, device)
+        failures, stragglers = self.failures.build(tree.num_clients)
+        checkpointer = None
+        if self.run.checkpoint_dir:
+            from repro_torch.checkpoint import CheckpointManager
+
+            checkpointer = CheckpointManager(self.run.checkpoint_dir, keep=2)
         runner = FederatedRunner(
             loss_fn=bundle["loss"],
             optimizer=_build_optimizer(self.model, self.run.num_rounds * hier.kappa1),
@@ -384,26 +402,40 @@ class ExperimentSpec:
             runner_config=RunnerConfig(
                 num_rounds=self.run.num_rounds,
                 eval_every=self.run.eval_every,
+                checkpoint_every=self.run.checkpoint_every,
                 target_accuracy=self.run.target_accuracy,
                 engine=self.run.engine,
             ),
             eval_fn=eval_fn,
             costs=self.cost.build(),
+            failures=failures,
+            stragglers=stragglers,
+            checkpointer=checkpointer,
             device=device,
         )
         runner.spec = self  # provenance: the runner knows its declarative form
         return runner
 
-    def run_experiment(self, *, device: DeviceLike = None, params=None):
+    def run_experiment(self, *, device: DeviceLike = None, params=None, resume: bool = False):
         """Build, initialize, and train: returns ``(runner, final_state)``.
         ``params`` (unstacked) replaces the spec's own init, e.g. a JAX init
-        carried across with ``params_from_numpy``."""
+        carried across with ``params_from_numpy``. ``resume=True`` restores
+        the latest checkpoint of ``run.checkpoint_dir`` when one exists."""
         device = resolve_device(device)
         runner = self.build(device=device)
         if params is None:
             params = self.init_params(self.run.seed + 1, device)
         rng = torch.Generator(device=device).manual_seed(self.run.seed)
-        state = runner.run(runner.init(rng, params))
+        if resume:
+            if runner.checkpointer is None:
+                raise ValueError(
+                    "run_experiment(resume=True) needs run.checkpoint_dir set on "
+                    "the spec — without a checkpointer there is nothing to resume from"
+                )
+            state, start = runner.restore_or_init(rng, params)
+        else:
+            state, start = runner.init(rng, params), 0
+        state = runner.run(state, start_round=start)
         return runner, state
 
     def describe(self) -> str:
@@ -411,8 +443,12 @@ class ExperimentSpec:
         extras = []
         if self.transport.levels != "identity":
             extras.append(f"transport={self.transport.levels}")
+        if self.aggregators.levels != "weighted_mean":
+            extras.append(f"agg={self.aggregators.levels}")
         if self.precision.is_active:
             extras.append(f"precision={self.precision.param_dtype}" + ("+remat" if self.precision.remat else ""))
+        if self.failures.p_fail > 0:
+            extras.append(f"p_fail={self.failures.p_fail:g}")
         tail = (" " + " ".join(extras)) if extras else ""
         return (
             f"{self.name}: {topo} kappas={','.join(map(str, self.schedule.kappas))} "

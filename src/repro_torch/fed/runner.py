@@ -15,6 +15,13 @@ compressed wire: T/E through ``WorkloadCosts.with_bits`` (edge hop = level
 1, cloud hop = the top level) and ``wire_mb`` at each level's bits per
 parameter.
 
+Failure and straggler models (``fed.failures``, host-side numpy) give each
+round a survival mask (``_mask_for_round``): the round's syncs and its eval
+take it, and ``RoundRecord.mask_alive`` counts its survivors. A
+``checkpointer`` (``checkpoint.CheckpointManager``) saves the state every
+``checkpoint_every`` rounds with the round, the batcher's cursors and the
+failure models' states; ``restore_or_init`` resumes from the latest.
+
 The runner consumes the ``FedState`` it is given: stacked parameters are
 updated in place (see ``optim.apply_updates``).
 """
@@ -41,6 +48,8 @@ from repro_torch.core.hierfavg import (
 from repro_torch.data.pipeline import to_device
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist import collectives
+from repro_torch.errors import unported
+from repro_torch.fed.failures import FailureSimulator, StragglerModel, compose_masks
 from repro_torch.tree import leaves, tree_map
 
 
@@ -48,7 +57,12 @@ from repro_torch.tree import leaves, tree_map
 class RunnerConfig:
     num_rounds: int  # edge intervals to run (= K / kappa1)
     eval_every: int = 0  # rounds between evals (0 = never)
+    checkpoint_every: int = 0  # rounds between checkpoints (0 = never)
     target_accuracy: float = 0.0  # stop early when reached (0 = never)
+    # the straggler deadline: this percentile of the latency model (times
+    # StragglerModel.deadline_for's slack); at the default 95 the masks are
+    # the JAX runner's, which ignores the field
+    straggler_deadline_pct: float = 95.0
     # "auto": superround engine for every whole cloud interval whose
     # boundaries satisfy the eval cadence, per-round otherwise;
     # "superround" forces the engine (raises if ineligible); "megakernel"
@@ -91,6 +105,9 @@ class FederatedRunner:
         runner_config: RunnerConfig,
         eval_fn: Optional[Callable[[Params], float]] = None,
         costs: Optional[cm.WorkloadCosts] = None,
+        failures: Optional[FailureSimulator] = None,
+        stragglers: Optional[StragglerModel] = None,
+        checkpointer=None,  # checkpoint.CheckpointManager
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -108,6 +125,12 @@ class FederatedRunner:
             self.costs = self.costs.with_bits(
                 self.transport.bits_per_param(1), self.transport.bits_per_param(self.transport.depth)
             )
+        self.failures = failures
+        self.stragglers = stragglers
+        # the last mask composition's channels (dead vs late), kept apart
+        # for the deadline engine (ROADMAP.md item 11)
+        self._last_mask_parts = None
+        self.checkpointer = checkpointer
         self._engine = None  # lazily built (and cached) SuperRoundEngine
         self._megakernel_reason: Optional[str] = None
         self._round = build_hier_round(loss_fn, optimizer, topology, hier_config, self.weights)
@@ -119,9 +142,64 @@ class FederatedRunner:
         params = tree_map(lambda v: v.to(self.device), params)
         return init_state(rng, params, self.optimizer, self.topology, self.hier_config)
 
+    def restore_or_init(self, rng: torch.Generator, params: Params) -> tuple:
+        """(state, start_round): the latest checkpoint if any, else a fresh
+        ``init``. Restores the batcher's cursors and the failure and
+        straggler models' states saved beside it."""
+        state = self.init(rng, params)
+        if self.checkpointer is None:
+            return state, 0
+        if self.hier_config.participation_active:
+            raise unported("resuming a cohort-sampled run", 10)
+        restored = self.checkpointer.restore_latest(state)
+        if restored is None:
+            return state, 0
+        state, meta = restored
+        if "batcher" in meta:
+            self.batcher.load_state_dict(meta["batcher"])
+        if self.failures is not None and "failures" in meta:
+            self.failures.load_state_dict(meta["failures"])
+        if self.stragglers is not None and "stragglers" in meta:
+            self.stragglers.load_state_dict(meta["stragglers"])
+        return state, int(meta.get("round", 0))
+
+    def _mask_for_round(self) -> Optional[np.ndarray]:
+        """The round's (N,) survival mask on the host (None without failure
+        models): the product of every model's mask, with the dead (outage)
+        and late (deadline miss) channels kept on ``_last_mask_parts``."""
+        dead, late = [], []
+        if self.failures is not None:
+            dead.append(self.failures.step())
+        if self.stragglers is not None:
+            k1 = self.hier_config.kappa1
+            deadline = self.stragglers.deadline_for(k1, percentile=self.cfg.straggler_deadline_pct)
+            late.append(self.stragglers.survivors(k1, deadline)[0])
+        parts = compose_masks(dead=dead, late=late)
+        self._last_mask_parts = parts
+        return parts.effective
+
+    def _mask_to_device(self, mask: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+        return None if mask is None else torch.as_tensor(mask, dtype=torch.float32).to(self.device)
+
+    def _checkpoint_meta(self, end_round: int, batcher_state: dict) -> dict:
+        meta = {"round": end_round, "batcher": batcher_state}
+        if self.failures is not None:
+            meta["failures"] = self.failures.state_dict()
+        if self.stragglers is not None:
+            meta["stragglers"] = self.stragglers.state_dict()
+        return meta
+
     def eval_model(self, params: Params, mask: Optional[torch.Tensor] = None) -> Params:
         """The single cloud model the eval path scores: the weighted mean of
-        the client models, without the (N, ...) broadcast."""
+        the client models without the (N, ...) broadcast, or, where the
+        schedule sets a non-default top-level aggregator, that statistic
+        (the model the cloud would publish)."""
+        cfg = self.hier_config
+        if cfg.aggregators_active:
+            top = cfg.aggregators.aggregator(cfg.num_levels)
+            if not top.is_default:
+                spec = as_hierarchy(self.topology)
+                return tree_map(lambda x: x[0], top(params, self.weights, spec, spec.depth, mask))
         return aggregation.cloud_model(params, self.weights, mask)
 
     def _wire_bytes_per_step(self, state: FedState) -> float:
@@ -170,29 +248,31 @@ class FederatedRunner:
         """None if whole cloud intervals can run through the client-blocked
         lowering, else why the engine falls back to the superround; cached
         on ``_megakernel_reason`` so the fallback is named, not silent.
-        The JAX runner checks its runner-level seams first (a mesh,
-        failure masks, microbatch accumulation, an overridden failure
-        detector); the port's runner has none of them yet (a spec that
-        needs a mesh or failures raises as unported before a run), so the
-        schedule-level predicate decides."""
-        reason = megakernel_incompatibility(self.hier_config, self.topology)
+        Runner-level seams first (failure masks, an overridden failure
+        detector; a mesh and microbatching come with ROADMAP.md items 12
+        and 4), then the schedule-level predicate, in JAX's words."""
+        if self.failures is not None or self.stragglers is not None:
+            reason = "failure/straggler masks need the scan-fused survival plumbing"
+        elif getattr(self._mask_for_round, "__func__", None) is not FederatedRunner._mask_for_round:
+            reason = "an overridden failure detector is a live per-round mask seam"
+        else:
+            reason = megakernel_incompatibility(self.hier_config, self.topology)
         self._megakernel_reason = reason
         return reason
 
     def _superround_eligible(self, start_round: int) -> bool:
         """The engine returns to the host at cloud boundaries only, so the
-        start and the eval cadence must land on them."""
+        start and the eval and checkpoint cadences must land on them."""
         k2 = self.hier_config.kappa2_effective
         if start_round % k2:
             return False
-        return not (self.cfg.eval_every and self.cfg.eval_every % k2)
+        return not any(every and every % k2 for every in (self.cfg.eval_every, self.cfg.checkpoint_every))
 
     def _flush_rounds(self, pending: list, wire_per_step: float) -> None:
         """Per-round metrics to records, one host fetch per round."""
-        n = self.topology.num_clients
-        for r, step, metrics in pending:
+        for r, step, metrics, alive in pending:
             self._record_round(
-                r, int(step), float(metrics["loss"]), float(metrics["grad_norm"]), n, wire_per_step
+                r, int(step), float(metrics["loss"]), float(metrics["grad_norm"]), alive, wire_per_step
             )
         pending.clear()
 
@@ -203,9 +283,9 @@ class FederatedRunner:
             full = (self.cfg.num_rounds - start_round) // k2 if self._superround_eligible(start_round) else 0
             if mode in ("superround", "megakernel") and full <= 0:
                 raise ValueError(
-                    f"engine={mode!r} needs a cloud-aligned start_round, eval_every "
-                    f"a multiple of kappa2_effective={k2}, and at least one whole cloud "
-                    "interval of rounds"
+                    f"engine={mode!r} needs a cloud-aligned start_round, eval_every/"
+                    f"checkpoint_every multiples of kappa2_effective={k2}, and at least "
+                    "one whole cloud interval of rounds"
                 )
             if full > 0:
                 if self._engine is None:
@@ -218,20 +298,32 @@ class FederatedRunner:
                 start_round += full * k2
         # per-round path: the remainder (partial trailing interval), or
         # everything when the eval cadence is finer than a cloud interval.
-        # Metrics stay on the device until an eval point or the end.
+        # Metrics stay on the device until an eval or checkpoint point or the
+        # end.
         k1 = self.hier_config.kappa1
+        n = self.topology.num_clients
         wire_per_step = self._wire_bytes_per_step(state)
         pending: list = []
         for r in range(start_round, self.cfg.num_rounds):
             batches = to_device(self.batcher.next_batches(k1), self.device)
-            state, metrics = self._round(state, batches, r, None)
-            pending.append((r, state.step, metrics))
-            if self.eval_fn is not None and self.cfg.eval_every and (r + 1) % self.cfg.eval_every == 0:
+            mask = self._mask_for_round()
+            mask_dev = self._mask_to_device(mask)
+            alive = int(mask.sum()) if mask is not None else n
+            state, metrics = self._round(state, batches, r, mask_dev)
+            pending.append((r, state.step, metrics, alive))
+            do_eval = self.eval_fn is not None and self.cfg.eval_every and (r + 1) % self.cfg.eval_every == 0
+            do_ckpt = self.checkpointer is not None and self.cfg.checkpoint_every and (
+                (r + 1) % self.cfg.checkpoint_every == 0)
+            if do_eval or do_ckpt:
                 self._flush_rounds(pending, wire_per_step)
-                acc = float(self.eval_fn(self.eval_model(state.params)))
+            acc = None
+            if do_eval:
+                acc = float(self.eval_fn(self.eval_model(state.params, mask_dev)))
                 self.history[-1].accuracy = acc
-                if self.cfg.target_accuracy and acc >= self.cfg.target_accuracy:
-                    break
+            if do_ckpt:
+                self.checkpointer.save(int(state.step), state, self._checkpoint_meta(r + 1, self.batcher.state_dict()))
+            if acc is not None and self.cfg.target_accuracy and acc >= self.cfg.target_accuracy:
+                break
         self._flush_rounds(pending, wire_per_step)
         return state
 

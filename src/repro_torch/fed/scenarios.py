@@ -16,9 +16,11 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 from repro_torch.errors import unported
 from repro_torch.fed.api import (
+    AggregatorSpec,
     CostSpec,
     DataSpec,
     ExperimentSpec,
+    FailureSpec,
     ModelSpec,
     RunSpec,
     ScheduleSpec,
@@ -31,13 +33,10 @@ _REGISTRY: Dict[str, Tuple[Callable[[], ExperimentSpec], str]] = {}
 # JAX scenarios that need an unported feature: (what it needs, ROADMAP.md
 # Queue 1 item that brings it)
 _LATER = {
-    "trimmed_edge": ("robust aggregators and failure injection", 8),
-    "median_cloud": ("robust aggregators", 8),
-    "trimmed_int8": ("robust aggregators", 8),
     "n1m_cohort4096": ("sampled participation", 10),
     "congested_backhaul": ("the round-replay simulator", 11),
     "hetero_clients_assoc": ("the round-replay simulator", 11),
-    "straggler_tail": ("the simulator and straggler injection", 11),
+    "straggler_tail": ("the round-replay simulator", 11),
     "deadline_straggler": ("the deadline engine", 11),
     "fedbuff_k4": ("the deadline engine", 11),
     "stale_decay": ("the deadline engine", 11),
@@ -78,7 +77,7 @@ def get(name: str, overrides: Sequence[str] = ()) -> ExperimentSpec:
 _BENCH_MODEL = ModelSpec(lr=0.15, lr_schedule="exponential")
 
 
-def _bench(name, *, kappas, partition, rounds, transport=None) -> ExperimentSpec:
+def _bench(name, *, kappas, partition, rounds, transport=None, aggregators=None) -> ExperimentSpec:
     return ExperimentSpec(
         name=name,
         topology=TopologySpec(num_edges=5, clients_per_edge=10),
@@ -86,6 +85,7 @@ def _bench(name, *, kappas, partition, rounds, transport=None) -> ExperimentSpec
         data=DataSpec(partition=partition),
         model=_BENCH_MODEL,
         transport=transport or TransportSpec(),
+        aggregators=aggregators or AggregatorSpec(),
         run=RunSpec(num_rounds=rounds),
     )
 
@@ -156,6 +156,40 @@ def _int8_ef_both() -> ExperimentSpec:
     return _bench(
         "int8_ef_both", kappas=(6, 10), partition="edge_iid", rounds=40,
         transport=TransportSpec(levels="int8_ef:128/int8_ef:128"),
+    )
+
+
+@register("trimmed_edge", "robust edge sync: 10%-trimmed mean under client failures")
+def _trimmed_edge() -> ExperimentSpec:
+    # as in the JAX package, 5-client edges never trim at 0.1:
+    # floor(0.1 * m) = 0 for m <= 9 survivors, so the edge sync is the
+    # unweighted member mean
+    return ExperimentSpec(
+        name="trimmed_edge",
+        topology=TopologySpec(num_edges=4, clients_per_edge=5),
+        schedule=ScheduleSpec(kappas=(4, 2)),
+        data=DataSpec(partition="edge_niid", num_samples=2000),
+        model=ModelSpec(lr=0.15),
+        aggregators=AggregatorSpec(levels="trimmed_mean:0.1/weighted_mean"),
+        failures=FailureSpec(p_fail=0.05, p_recover=0.5),
+        run=RunSpec(num_rounds=16, eval_every=4),
+    )
+
+
+@register("median_cloud", "coordinate-median cloud sync (Byzantine-robust top hop)")
+def _median_cloud() -> ExperimentSpec:
+    return _bench(
+        "median_cloud", kappas=(6, 10), partition="edge_iid", rounds=40,
+        aggregators=AggregatorSpec(levels="weighted_mean/coordinate_median"),
+    )
+
+
+@register("trimmed_int8", "robustness x compression: trimmed edge sync over an int8 cloud hop")
+def _trimmed_int8() -> ExperimentSpec:
+    return _bench(
+        "trimmed_int8", kappas=(6, 10), partition="edge_iid", rounds=40,
+        aggregators=AggregatorSpec(levels="trimmed_mean:0.1/weighted_mean"),
+        transport=TransportSpec(levels="identity/int8:256"),
     )
 
 

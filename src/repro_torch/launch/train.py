@@ -1,7 +1,8 @@
 """Federated training launcher; the counterpart of ``repro.launch.train``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b --smoke \\
-        --rounds 8 [--device cpu]
+        --rounds 8 [--ckpt-dir DIR [--resume]] [--inject-failures] [--stragglers] \\
+        [--device cpu]
 
 Trains ``--arch`` (``--smoke``: its reduced config) federatedly on the
 config's own topology (``cfg.fed``: edges x clients per edge, kappa1 capped
@@ -15,10 +16,11 @@ of GB of host memory (lm-100m's 32,768: 68.7 GB), so train a full-width
 model through the spec path (``scenarios.get("lm_edge_niid",
 overrides=["model.arch=lm-100m"])``, vocabulary ``data.vocab``).
 
-``--ckpt-dir`` / ``--resume`` need checkpointing (ROADMAP.md item 5) and
-``--inject-failures`` / ``--stragglers`` the failure models (item 9); each
-raises naming its item. Configs with unported blocks (MoE, MLA, xLSTM)
-raise item 13.
+``--ckpt-dir`` checkpoints every 4 rounds (keeping 2) and ``--resume``
+restarts from its latest checkpoint; ``--inject-failures`` adds
+``FailureSimulator(n, p_fail=0.1, seed=1)`` and ``--stragglers``
+``StragglerModel(n, seed=2)``, as the JAX launcher does. Configs with
+unported blocks (MoE, MLA, xLSTM) raise item 13.
 """
 from __future__ import annotations
 
@@ -27,12 +29,12 @@ import argparse
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke
 from repro_torch.core import FedTopology, HierFAVGConfig
 from repro_torch.data import FederatedBatcher, embedding_corpus, make_partition, token_corpus
 from repro_torch.device import resolve_device
-from repro_torch.errors import unported
-from repro_torch.fed import FederatedRunner, RunnerConfig
+from repro_torch.fed import FailureSimulator, FederatedRunner, RunnerConfig, StragglerModel
 from repro_torch.models import transformer
 from repro_torch.optim import exponential_decay, sgd
 
@@ -52,10 +54,6 @@ def main(argv=None) -> FederatedRunner:
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir or args.resume:
-        raise unported("checkpointing (--ckpt-dir / --resume)", 5)
-    if args.inject_failures or args.stragglers:
-        raise unported("failure / straggler injection (--inject-failures / --stragglers)", 9)
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke and args.arch in ARCH_IDS else get_config(args.arch)
     params = transformer.init_params(torch.Generator(device=device).manual_seed(0), cfg)
@@ -87,11 +85,19 @@ def main(argv=None) -> FederatedRunner:
         hier_config=hier,
         data_sizes=batcher.data_sizes,
         batcher=batcher,
-        runner_config=RunnerConfig(num_rounds=args.rounds),
+        runner_config=RunnerConfig(num_rounds=args.rounds, checkpoint_every=4 if args.ckpt_dir else 0),
+        checkpointer=CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None,
+        failures=FailureSimulator(n, p_fail=0.1, seed=1) if args.inject_failures else None,
+        stragglers=StragglerModel(n, seed=2) if args.stragglers else None,
         device=device,
     )
-    state = runner.init(torch.Generator(device=device).manual_seed(1), params)
-    runner.run(state)
+    rng = torch.Generator(device=device).manual_seed(1)
+    if args.resume and args.ckpt_dir:
+        state, start = runner.restore_or_init(rng, params)
+        print(f"resumed at round {start}")
+    else:
+        state, start = runner.init(rng, params), 0
+    runner.run(state, start_round=start)
     for h in runner.history:
         print(f"round {h.round:3d} step {h.step:4d} loss {h.loss:.4f} alive {h.mask_alive}")
     return runner

@@ -44,4 +44,25 @@ def first_leaf(tree: Tree) -> torch.Tensor:
     return next(leaves(tree))
 
 
-__all__ = ["Tree", "first_leaf", "leaves", "tree_map"]
+def unflatten(template: Tree, flat) -> Tree:
+    """The tree shaped like ``template`` whose leaves, in ``leaves`` order,
+    are ``flat`` (the inverse of ``leaves``); dicts keep their key order."""
+    it = iter(flat)
+
+    def build(t):
+        if isinstance(t, dict):
+            vals = {k: build(t[k]) for k in sorted(t)}
+            return {k: vals[k] for k in t}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(build(v) for v in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("unflatten: more leaves than the template holds")
+    return out
+
+
+__all__ = ["Tree", "first_leaf", "leaves", "tree_map", "unflatten"]

@@ -208,8 +208,8 @@ def test_config_validation():
     with pytest.raises(ValueError, match="depth"):
         th.build_super_round(None, toptim.sgd(0.1), tparse("2,2/2"), th.HierFAVGConfig.multi_level((1, 1, 1)),
                              torch.ones(4))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        th.HierFAVGConfig.multi_level((2, 2), precision=th.PrecisionSpec(remat=True))
+    cfg = th.HierFAVGConfig.multi_level((2, 2), precision=th.PrecisionSpec(remat=True))
+    assert cfg.precision_active and cfg.precision.dtype == torch.float32
     assert th.PrecisionSpec(param_dtype="float").param_dtype == "float64"  # numpy's name rules, as jnp.dtype
     with pytest.raises(ValueError, match="floating"):
         th.PrecisionSpec(param_dtype="int32")

@@ -27,6 +27,7 @@ half of the schedule runs in ``test_torch_hierfavg.py``'s LM engine test
 (warmup 2 of 8 steps).
 """
 import dataclasses
+import os
 import re
 
 import jax
@@ -266,11 +267,36 @@ def test_train_main_runs_and_prints_its_records(arch, capsys):
     assert runner.history[-1].step == 2 * min(treg.get_smoke(arch).fed.kappa1, 4)
 
 
-@pytest.mark.parametrize("flag,item", [(["--ckpt-dir", "ckpt"], 5), (["--resume"], 5),
-                                       (["--inject-failures"], 9), (["--stragglers"], 9)])
-def test_train_flags_name_their_roadmap_item(flag, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md Queue 1 item {item} "):
-        ttrain.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu"] + flag)
+@pytest.mark.parametrize("flags", [["--inject-failures"], ["--stragglers"], ["--inject-failures", "--stragglers"],
+                                   []])
+def test_train_checkpoints_and_resumes_with_failure_models(flags, tmp_path, capsys):
+    """``--ckpt-dir`` saves every 4 rounds (keeping 2); ``--resume`` goes on
+    from the latest, restoring the failure models; the resumed rounds equal
+    those of a straight run. ``--inject-failures`` is
+    ``FailureSimulator(n, p_fail=0.1, seed=1)`` and ``--stragglers``
+    ``StragglerModel(n, seed=2)``, as in the JAX launcher."""
+    from repro.fed.failures import FailureSimulator as JFailures, StragglerModel as JStragglers
+
+    base = ["--arch", "granite-3-2b", "--smoke", "--device", "cpu", *flags]
+    straight = ttrain.main(base + ["--rounds", "6"])
+    ttrain.main(base + ["--rounds", "4", "--ckpt-dir", str(tmp_path)])
+    assert sorted(os.listdir(tmp_path)) == ["step_000000000008", "step_000000000008.COMMITTED"]
+    capsys.readouterr()
+    resumed = ttrain.main(base + ["--rounds", "6", "--ckpt-dir", str(tmp_path), "--resume"])
+    assert capsys.readouterr().out.splitlines()[0] == "resumed at round 4"
+    key = lambda h: (h.round, h.step, h.loss, h.mask_alive)
+    assert [key(h) for h in resumed.history] == [key(h) for h in straight.history[4:]]
+    n = straight.topology.num_clients
+    jf, js = JFailures(n, p_fail=0.1, seed=1), JStragglers(n, seed=2)
+    want = []
+    for _ in range(6):
+        m = np.ones(n, np.float32)
+        if "--inject-failures" in flags:
+            m = m * jf.step()
+        if "--stragglers" in flags:
+            m = m * js.survivors(straight.hier_config.kappa1)[0]
+        want.append(int(m.sum()))
+    assert [h.mask_alive for h in straight.history] == want
 
 
 def test_train_with_unported_blocks_names_item_13():

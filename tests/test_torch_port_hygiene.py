@@ -96,15 +96,10 @@ def test_resolve_device_turns_tf32_off():
 @pytest.mark.parametrize(
     "overrides,item",
     [
-        (["aggregators.levels=weighted_mean/coordinate_median"], 8),
         (["schedule.async_cloud=true"], 11),
-        (["aggregators.levels=trimmed_mean:0.1/weighted_mean"], 8),
-        (["precision.remat=true"], 8),
-        (["failures.p_fail=0.1"], 9),
         (["participation.cohort_size=8"], 10),
         (["deadline.enabled=true"], 11),
         (["topology.mesh_axes=clients"], 12),
-        (["run.checkpoint_dir=ckpt"], 5),
     ],
 )
 def test_unported_features_name_their_roadmap_item(overrides, item):
@@ -113,6 +108,34 @@ def test_unported_features_name_their_roadmap_item(overrides, item):
     spec = scenarios.get("quickstart", overrides=overrides)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md Queue 1 item {item} "):
         spec.build(device="cpu")
+
+
+@pytest.mark.parametrize(
+    "overrides,attr,want",
+    [
+        (["aggregators.levels=weighted_mean/coordinate_median"], "aggregators", "weighted_mean/coordinate_median"),
+        (["aggregators.levels=trimmed_mean:0.1/weighted_mean"], "aggregators", "trimmed_mean:0.1/weighted_mean"),
+        (["precision.remat=true"], "remat", True),
+        (["failures.p_fail=0.1"], "failures", "FailureSimulator"),
+        (["failures.straggler_sigma=0.3"], "stragglers", "StragglerModel"),
+        (["run.checkpoint_dir=ckpt"], "checkpointer", "CheckpointManager"),
+    ],
+)
+def test_features_of_items_5_8_and_9_build_on_the_cpu(overrides, attr, want, tmp_path, monkeypatch):
+    """Robust aggregators, remat (item 8), failure and straggler models
+    (9) and checkpointing (5), once raising their items, build into the
+    runner."""
+    from repro_torch.fed import scenarios
+
+    monkeypatch.chdir(tmp_path)
+    runner = scenarios.get("quickstart", overrides=overrides).build(device="cpu")
+    if attr == "aggregators":
+        got = runner.hier_config.aggregators.describe()
+    elif attr == "remat":
+        got = runner.hier_config.precision.remat
+    else:
+        got = type(getattr(runner, attr)).__name__
+    assert got == want
 
 
 @pytest.mark.parametrize(
@@ -137,7 +160,7 @@ def test_lm_options_on_quickstart_behave_like_jax(overrides, error):
             spec.build(device="cpu")
 
 
-@pytest.mark.parametrize("name", ["trimmed_int8", "trimmed_edge", "n1m_cohort4096", "fedbuff_k4"])
+@pytest.mark.parametrize("name", ["straggler_tail", "stale_decay", "n1m_cohort4096", "fedbuff_k4"])
 def test_unported_scenarios_name_their_roadmap_item(name):
     from repro_torch.fed import scenarios
 
@@ -153,7 +176,7 @@ def test_unknown_scenario_lists_the_ported_ones():
     assert scenarios.names() == sorted([
         "quickstart", "favg", "hierfavg_iid", "hierfavg_edge_iid", "hierfavg_edge_niid",
         "kappa_sweep_fast", "edge_only", "ragged_edges", "three_level", "int8_cloud", "int8_ef_both",
-        "lm_edge_niid",
+        "lm_edge_niid", "trimmed_edge", "median_cloud", "trimmed_int8",
     ])
 
 

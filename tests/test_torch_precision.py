@@ -73,12 +73,26 @@ def test_hier_config_precision_field():
         th.HierFAVGConfig(kappa1=2, kappa2=2, precision="bfloat16")
 
 
-def test_remat_raises_naming_item_8():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 8 "):
-        th.HierFAVGConfig(kappa1=2, kappa2=2, precision=th.PrecisionSpec(param_dtype="bfloat16", remat=True))
-    spec = tapi.ExperimentSpec.parse(SPEC + ["precision.remat=true"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 8 "):
-        spec.build(device="cpu")
+@pytest.mark.parametrize("engine", ENGINES)
+def test_remat_is_numerically_transparent(engine):
+    """remat=True reruns each client's forward in the backward: the same
+    operations, so the run is bit for bit the plain one at f32 (JAX's
+    ``test_remat_policy_is_numerically_transparent``), on every engine, and
+    the state stays f32."""
+    np_params = _jax_init()
+    (r1, s1), (r2, s2) = (_run([f"run.engine={engine}", *extra], np_params)
+                          for extra in ((), ("precision.remat=true",)))
+    assert r2.hier_config.precision_active and r2.hier_config.precision.remat
+    assert [h.loss for h in r1.history] == [h.loss for h in r2.history]
+    for k in s1.params:
+        assert s2.params[k].dtype == torch.float32 and torch.equal(s1.params[k], s2.params[k])
+
+
+def test_remat_with_bf16_matches_bf16_bit_for_bit():
+    np_params = _jax_init()
+    (_, s1), (_, s2) = (_run([*BF16, *extra], np_params) for extra in ((), ("precision.remat=true",)))
+    for k in s1.params:
+        assert s2.params[k].dtype == torch.bfloat16 and torch.equal(s1.params[k], s2.params[k])
 
 
 @pytest.mark.parametrize("overrides", [BF16, ["precision.param_dtype=bfloat16", "precision.remat=true"],
@@ -188,3 +202,54 @@ def test_bf16_trajectory_tracks_the_port_f32_run(engine):
     assert losses["bf16"][-1] < losses["bf16"][0]
     accs = {tag: [h.accuracy for h in r.history if h.accuracy is not None][-1] for tag, r in runs.items()}
     assert abs(accs["bf16"] - accs["f32"]) < 0.05, accs
+
+
+def _stack_clients(tree, n):
+    return th.replicate_for_clients(tree, n)
+
+
+@pytest.mark.parametrize("arch", ["lm-10m", "granite-3-2b", "recurrentgemma-9b"])
+def test_remat_client_grads_are_bit_for_bit_on_lm_trees_and_take_the_layer_code(arch, monkeypatch):
+    """On lm-10m (the ``lm_edge_niid`` tree) and smoke LMs with attention and
+    RG-LRU blocks, ``_client_grads`` with remat gives the plain losses and
+    gradients bit for bit. With the card test forced true, neither the
+    remat forward nor its rerun in the backward calls K7 or K8 (both run
+    under vmap, on wrapped tensors), so the forward takes the route of the
+    rerun."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import rglru_scan as trg
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import transformer as tt
+    from repro_torch.tree import leaves
+
+    if arch == "lm-10m":
+        cfg = tapi._lm_config(tapi.ExperimentSpec.parse(["model.arch=lm-10m", "data.dataset=tokens"]))
+    else:
+        cfg = treg.get_smoke(arch)
+    calls = {"attention": 0, "rglru_scan": 0}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(tfa, "attention", counted("attention", tfa.attention))
+    monkeypatch.setattr(trg, "rglru_scan", counted("rglru_scan", trg.rglru_scan))
+    monkeypatch.setattr(tlayers, "_on_card", lambda t: True)
+    params = _stack_clients(tt.init_params(torch.Generator().manual_seed(0), cfg), 2)
+    rng = np.random.default_rng(0)
+    if cfg.embed_inputs:
+        x = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 2, 16)).astype(np.int32))
+    else:
+        x = torch.from_numpy(rng.normal(size=(2, 2, 16, cfg.d_model)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 2, 16)).astype(np.int32))
+    batch = {"inputs": x, "targets": y}
+    loss = tt.make_loss_fn(cfg)
+    g0, l0 = th._client_grads(loss, None)(params, batch, None)
+    g1, l1 = th._client_grads(loss, th.PrecisionSpec(remat=True))(params, batch, None)
+    assert calls == {"attention": 0, "rglru_scan": 0}
+    assert torch.equal(l0, l1)
+    for a, b in zip(leaves(g0), leaves(g1)):
+        assert torch.equal(a, b)

@@ -168,3 +168,22 @@ def test_run_consumes_the_state_but_not_the_init_params():
         assert np.array_equal(params[k].numpy(), before[k].numpy())
     assert int(out.step) == 8 and int(state.step) == 0
     assert not np.array_equal(stacked.numpy(), np.zeros_like(stacked.numpy()))  # trained in place
+
+
+@pytest.mark.parametrize("engine", ["per_round", "auto"])
+@pytest.mark.parametrize("name,overrides", [
+    ("trimmed_edge", ["run.num_rounds=8"]),
+    ("median_cloud", ["run.num_rounds=10", "run.eval_every=10", "data.num_samples=1000"]),
+    ("trimmed_int8", ["run.num_rounds=10", "run.eval_every=10", "data.num_samples=1000"]),
+])
+def test_robust_scenarios_track_jax(name, overrides, engine):
+    """The robust scenarios on both engines: the trimmed edge sync under
+    client failures (its survivors round by round equal to JAX's), the
+    coordinate-median cloud sync and eval model, and the trimmed edge sync
+    over an int8 cloud hop."""
+    (jr, js), (tr, ts) = _run_both(name, overrides + [f"run.engine={engine}"])
+    assert (tr._engine is None) == (engine == "per_round")
+    _check_histories(jr, tr)
+    assert_close(to_numpy(ts.params), jax.device_get(js.params), rtol=0.0, atol=1e-4, what=f"{name} final params")
+    if name == "trimmed_edge":
+        assert min(h.mask_alive for h in tr.history) < tr.topology.num_clients
