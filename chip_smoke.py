@@ -9,7 +9,9 @@ Phases, one JSON line each; any failure exits non-zero:
   build       compile every CUDA source of the port with nvcc (sm_90a)
   kernels     K1 grouped_mean and K2 segment_mean against their plain
               versions on the card, at the main path's shapes (lm-100m's
-              largest leaf and a norm among them), f32 and bf16,
+              largest leaf and a norm among them; n1m_cohort4096's cloud
+              root over 4096 rows, and its compacted edge stage with the
+              prefetched offsets table), f32 and bf16,
               with masked clients and a dead group; times by CUDA events
   transport_kernels
               K4 quantize and K5 dequantize against their plain versions at
@@ -80,6 +82,33 @@ Phases, one JSON line each; any failure exits non-zero:
               checkpoint and resumed by a fresh runner ends bit-equal to the
               uninterrupted run; an outlier client (+1e3) moves the weighted
               edge mean but neither the trimmed mean nor the median
+  n1m_cohort4096
+              the population scenario uncut: 1,000,000 virtual clients on
+              1000 edges of 1000, stratified cohorts of 4096, kappa (4, 2),
+              8 rounds: every params leaf 4096 rows, the loss falls, K2 and
+              K1 as counted (ragged cohort segments take K2, the cloud
+              sync's root stage K1), the first cloud interval against the
+              same on the CPU (its rounds' losses and grad norms, and the
+              params after its cloud sync); the host time to draw and
+              build one interval's cohort and block
+  mlp307k_cohort
+              the full-width MLP under sampled participation: 1024 virtual
+              clients on 4 edges of 256, uniform cohorts of 32, Adam and
+              int8 with error feedback on both hops (sticky rows: Adam's
+              moments and the residual): K2, K1, K4 and K5 as counted, the
+              store touched by exactly the clients drawn, the whole run
+              against the CPU (losses, grad norms, the params after every
+              interval, the store's touched rows, with a shifted-rows
+              control that must fail), the store swap bit for bit on the
+              card, the no-cohort control within the params tolerance; a
+              run cut at its round-4 checkpoint and resumed bit-equal to
+              the straight run (records, params, store); the warm wall
+              with the prefetched K2 tables against the same run building
+              them on the dispatch thread
+  cohort_identity
+              ``quickstart`` with round-robin cohorts of 20 (the whole
+              population in order) against plain ``quickstart`` on the card:
+              history and final params bit for bit, the same K1 launches
   attention_kernel
               K7 flash attention against its plain version on the card: the
               JAX package's test cases, kernel_bench's shape, the lm-100m
@@ -139,8 +168,9 @@ Phases, one JSON line each; any failure exits non-zero:
               the layer code; a warm prefill and decode step under
               torch.profiler
 
-The quickstart, mlp307k, mlp307k_int8_ef, mlp307k_megakernel and
-train_lm100m phases then run their scenario twice more, warm: once timed,
+The quickstart, mlp307k, mlp307k_int8_ef, mlp307k_megakernel,
+n1m_cohort4096, mlp307k_cohort and train_lm100m phases then run their
+scenario twice more, warm: once timed,
 once under
 ``torch.profiler``, and report where the device time of a cloud interval
 goes (by kernel class and top kernels) and the device's idle share.
@@ -225,6 +255,31 @@ LM_ROBUST = ["aggregators.levels=coordinate_median/weighted_mean", "failures.p_f
 REMAT = ["precision.remat=true"]
 REMAT_RTOL = 1e-6
 CKPT_DIR = ROOT / "build" / "chip_smoke_checkpoints"  # removed when the phase ends
+# the full-width MLP under sampled participation: 1024 virtual clients on 4
+# edges of 256, uniform cohorts of 32 (mlp307k's own client count), with
+# Adam's moments and the EF residual as sticky rows (3.7 MB a client)
+COHORT_MLP = ["data.virtual_clients=1024", "data.samples_per_client=64", "topology.clients_per_edge=256",
+              "participation.cohort_size=32", "participation.sampler=uniform", "model.optimizer=adam",
+              "model.lr=1e-3", "transport.levels=int8_ef:128"]
+# mlp307k_cohort against the CPU: per-round loss and grad norm within rtol
+# 1e-4 (the grad norm with an atol of 1e-6 of the run's largest, since it
+# falls by 17 orders once the loss underflows), final params within 1e-4,
+# the scenario tolerance of tests/test_torch_runner.py: full-width Adam
+# leaves the card and the CPU about as far apart with or without cohorts
+# (the phase's control measures it)
+COHORT_RTOL, COHORT_GNORM_ATOL, COHORT_PARAMS_ATOL = 1e-4, 1e-6, 1e-4
+# its store's touched rows against the CPU's, relative to each leaf's
+# largest |value|: Adam's moments within COHORT_STORE_RTOL, twice the gap
+# of the no-cohort control's moments (9.5e-3 on an H100: as with the
+# params, Adam parts the two devices with or without cohorts); of the EF
+# residual's values at most COHORT_STORE_RES_SHARE further apart than
+# COHORT_STORE_RES_RTOL (an int8 code that rounds the other way moves a
+# value by a whole code step: 4-7 % of them on an H100). Another client's
+# rows are 1.0 apart in the moments and about half their residual values
+N1M_PARAMS_ATOL = 1e-5  # n1m's params after its first cloud sync, card vs CPU
+COHORT_STORE_RTOL, COHORT_STORE_RES_RTOL, COHORT_STORE_RES_SHARE = 2e-2, 1e-3, 0.15
+# round-robin cohorts of the whole quickstart population, in order
+COHORT_IDENTITY = ["participation.cohort_size=20", "participation.sampler=round_robin"]
 
 
 def emit(obj) -> None:
@@ -282,13 +337,40 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def n1m_cohort_edge_stage():
+    """The edge stage of one ``n1m_cohort4096`` cohort as the cohort engine
+    builds it: the scenario's stratified draw of 4096 of its 1,000,000
+    clients, the members' edge ids (quotas of 4 or 5 over 1000 edges),
+    compacted by ``cohort_stages``. Ragged, so the engine takes K2 with the
+    table ``stage_host_tables`` builds."""
+    import numpy as np
+
+    from repro_torch.core import aggregation
+    from repro_torch.core.hierarchy import as_hierarchy
+    from repro_torch.fed import scenarios
+
+    spec = scenarios.get("n1m_cohort4096")
+    hier = as_hierarchy(spec.topology.build())
+    ids = spec.participation.build_sampler(hier).sample()
+    edges = np.asarray(hier.segments(1), np.int64)[ids]
+    stage = aggregation.cohort_stages(edges[None], ids.shape[0])[0]
+    check(not stage.uniform, "n1m's cohort edge stage is not ragged")
+    return stage
+
+
 def kernel_cases():
-    """(kernel, label, N, D, groups or segment ids) at the main path's shapes."""
+    """(kernel, label, N, D, the group count, segment ids or a cohort
+    ``Stage``) at the main path's shapes. A ``Stage`` is called as the
+    cohort engine calls K2: with the ``offsets=`` table that
+    ``stage_host_tables`` builds, uploaded."""
     import numpy as np
 
     ragged = np.repeat(np.arange(5), [16, 12, 10, 7, 5])
     return [
         ("grouped_mean", "quickstart w1 edge (20x768, G=4)", 20, 768, 4),
+        # n1m_cohort4096's cloud sync: its root stage over the cohort, w1
+        # (16 x 48) the widest leaf
+        ("grouped_mean", "n1m cohort w1 cloud root (4096x768, G=1)", 4096, 768, 1),
         ("grouped_mean", "mlp307k w1 edge (32x262144, G=4)", 32, 262144, 4),
         ("grouped_mean", "mlp307k w1 cloud (32x262144, G=1)", 32, 262144, 1),
         # lm_edge_niid's leaves at lm-100m: the final norm, and the stacked
@@ -296,6 +378,9 @@ def kernel_cases():
         ("grouped_mean", "lm-100m final_norm edge (8x768, G=2)", 8, 768, 2),
         ("grouped_mean", "lm-100m mlp w1 edge (8x18874368, G=2)", 8, 18874368, 2),
         ("grouped_mean", "lm-100m mlp w1 cloud (8x18874368, G=1)", 8, 18874368, 1),
+        # n1m_cohort4096's edge sync and its cloud sync's first stage
+        ("segment_mean", "n1m cohort w1 edges, compacted, offsets= (4096x768, G=1000)", 4096, 768,
+         n1m_cohort_edge_stage()),
         ("segment_mean", "ragged 16,12,10,7,5 (50x262144)", 50, 262144, ragged),
     ]
 
@@ -303,14 +388,20 @@ def kernel_cases():
 def phase_kernels(torch, ha):
     import numpy as np
 
+    from repro_torch.core import aggregation
+
     flush = flush_buffer(torch)
     rng = np.random.default_rng(0)
     rows, summary = [], {}
     for name, label, n, d, groups in kernel_cases():
+        offsets = None
+        if isinstance(groups, aggregation.Stage):
+            offsets = torch.from_numpy(aggregation.stage_host_tables(groups)[0]).cuda()
+            groups = groups.ids
         ids = groups if name == "segment_mean" else np.repeat(np.arange(groups), n // groups)
         num = int(ids.max()) + 1
         kernel = (lambda x, w: ha.grouped_mean(x, w, num)) if name == "grouped_mean" else (
-            lambda x, w: ha.segment_mean(x, w, ids, num))
+            lambda x, w: ha.segment_mean(x, w, ids, num, offsets=offsets))
         plain = (lambda x, w: ha.grouped_mean_plain(x, w, num)) if name == "grouped_mean" else (
             lambda x, w: ha.segment_mean_plain(x, w, ids, num))
         base = rng.uniform(0.5, 4.0, n).astype(np.float32)
@@ -726,13 +817,14 @@ def phase_megakernel_vs_k3(torch, mods, mk):
     return counted
 
 
-def run_scenario(torch, mods, name, overrides, device, params=None, profiler=None, resume=False):
+def run_scenario(torch, mods, name, overrides, device, params=None, profiler=None, resume=False, spy=None):
     """Build, init and run a scenario; returns (runner, state, seconds,
     launches, params) with the launch counts of every kernel module in
     ``mods`` reset just before the run and read just after it, so they count
     this run only. ``profiler`` (a ``torch.profiler.profile``) wraps
     ``runner.run`` alone. ``resume`` starts from the latest checkpoint of
-    ``run.checkpoint_dir`` (``restore_or_init``)."""
+    ``run.checkpoint_dir`` (``restore_or_init``). ``spy(runner)`` is called
+    after the init (``spy_cohort_engine``)."""
     from repro_torch.fed import scenarios
 
     spec = scenarios.get(name, overrides=overrides)
@@ -741,6 +833,8 @@ def run_scenario(torch, mods, name, overrides, device, params=None, profiler=Non
         params = spec.init_params(spec.run.seed + 1, "cpu")
     rng = torch.Generator(device=device).manual_seed(spec.run.seed)
     state, start = runner.restore_or_init(rng, params) if resume else (runner.init(rng, params), 0)
+    if spy is not None:
+        spy(runner)
     if device == "cuda":
         torch.cuda.synchronize()
     for m in mods:
@@ -780,13 +874,19 @@ def cpu_agreement(torch, mods, runner, name, overrides, params):
     return history_agreement(runner, cpu_runner, f"{name} cuda vs cpu", "cpu")
 
 
+def resident_clients(runner) -> int:
+    """The clients a local step trains: the cohort under sampled
+    participation, else every client."""
+    return runner.participation.cohort_size if runner.participation is not None else runner.topology.num_clients
+
+
 def path_report(runner, seconds, launches, extra=None):
     hier = runner.hier_config
     steps = runner.cfg.num_rounds * hier.kappa1
     out = {
         "rounds": len(runner.history),
         "seconds": seconds,
-        "client_steps_per_s": runner.topology.num_clients * steps / seconds,
+        "client_steps_per_s": resident_clients(runner) * steps / seconds,
         "launches": launches,
         "loss_first": runner.history[0].loss,
         "loss_last": runner.history[-1].loss,
@@ -833,10 +933,13 @@ def device_profile(torch, mods, name, overrides, params):
     check(busy_us > 0, f"{name}: the profiler saw no device time")
     intervals = runner.cfg.num_rounds / runner.hier_config.kappa2_effective
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    swap = {} if runner.participation is None else {
+        "warm_host_swap_ms_per_interval": runner._engine.swap_seconds * 1e3 / intervals}
     return {
         "cloud_intervals": intervals,
         "warm_wall_ms_per_interval": warm_s * 1e3 / intervals,
-        "warm_client_steps_per_s": runner.topology.num_clients * runner.cfg.num_rounds
+        **swap,
+        "warm_client_steps_per_s": resident_clients(runner) * runner.cfg.num_rounds
         * runner.hier_config.kappa1 / warm_s,
         "profiled_wall_ms_per_interval": window_s * 1e3 / intervals,
         "device_busy_ms_per_interval": busy_us / 1e3 / intervals,
@@ -1322,6 +1425,312 @@ def phase_mlp307k_robust(torch, mods, mlp_params, uncompressed_accuracy):
     return launches
 
 
+def drawn_ids(runner):
+    """The distinct ids a fresh copy of the run's sampler draws over the
+    run's cloud intervals (the cohorts the run trained)."""
+    import numpy as np
+
+    from repro_torch.core.hierarchy import as_hierarchy
+
+    sampler = runner.participation.build_sampler(as_hierarchy(runner.topology))
+    intervals = runner.cfg.num_rounds // runner.hier_config.kappa2_effective
+    return np.unique(np.concatenate([sampler.sample() for _ in range(intervals)]))
+
+
+def spy_cohort_engine(runner, params_after):
+    """Give ``runner`` a ``CohortEngine`` that appends a host copy of the
+    params to ``params_after`` after each cloud interval and checks its
+    store swap bit for bit: after ``_load_cohort`` the state's sticky rows
+    are the store's rows of the sampled ids, and after ``_writeback`` the
+    store's rows of those ids are the state's rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fed.client_store import sticky_rows
+    from repro_torch.fed.engine import CohortEngine
+    from repro_torch.tree import leaves
+
+    engine = CohortEngine(runner)
+    load, writeback, step = engine._load_cohort, engine._writeback, engine._super
+    c = engine.cohort_size
+
+    def same_rows(state, ids, what):
+        rows = [(x.view(torch.int16) if x.dtype == torch.bfloat16 else x).cpu().numpy()
+                for x in leaves(sticky_rows(state, c))]
+        check(all(np.array_equal(a, b) for a, b in zip(rows, leaves(runner.client_store.gather(ids)))),
+              f"{what}: the state's sticky rows are not the store's rows of the cohort")
+
+    def spied_load(state, ids):
+        load(state, ids)
+        same_rows(state, ids, "after _load_cohort")
+
+    def spied_writeback(state, ids):
+        writeback(state, ids)
+        same_rows(state, ids, "after _writeback")
+
+    def spied_step(state, *args):
+        state, metrics = step(state, *args)
+        params_after.append({k: v.detach().cpu().clone() for k, v in state.params.items()})
+        return state, metrics
+
+    engine._load_cohort, engine._writeback, engine._super = spied_load, spied_writeback, spied_step
+    runner._engine = engine
+
+
+def store_rows_agreement(state, cohort_size, store, ref_store, ids, ref_ids=None):
+    """Two runs' stores at the rows ``ids`` (of ``ref_store``: ``ref_ids``,
+    by default the same), leaf by leaf, relative to the reference leaf's
+    largest |value|: the optimizer rows' largest difference, and for each
+    residual leaf (the share of values further apart than
+    COHORT_STORE_RES_RTOL of it, the largest difference): an int8 code that
+    rounds the other way moves a residual by a whole code step."""
+    import numpy as np
+
+    from repro_torch.fed.client_store import sticky_rows
+
+    n_opt = len(sticky_rows(state, cohort_size)["opt"])
+    opt, res = [], []
+    for i, (a, b) in enumerate(zip(store.state()["leaves"], ref_store.state()["leaves"])):
+        a, b = a[ids].astype(np.float64), b[ids if ref_ids is None else ref_ids].astype(np.float64)
+        scale = float(np.abs(b).max()) or 1.0
+        err = np.abs(a - b) / scale
+        if i < n_opt:
+            opt.append(float(err.max()))
+        else:
+            res.append((float((err > COHORT_STORE_RES_RTOL).mean()), float(err.max())))
+    return opt, res
+
+
+def offsets_miss_cost(torch, mods, overrides, params):
+    """What the prefetched K2 tables save: the warm wall per interval of
+    the run as it is against the same run with its stages' tables taken
+    out, so that ``segment_mean`` builds and uploads each one itself
+    (``_device_offsets``, its cache cleared first; a uniform cohort's ids
+    change every interval, so each interval misses), in the order A B B A;
+    and the host time of one such miss on an idle device."""
+    import numpy as np
+
+    from repro_torch.core import aggregation
+    from repro_torch.kernels import hier_aggregate as ha
+
+    upload = aggregation.stages_to_device
+    without = lambda *a, **k: tuple(st._replace(offsets=None) for st in upload(*a, **k))
+    walls, misses = {"prefetched": [], "built_on_dispatch": []}, 0
+    for mode in ("prefetched", "built_on_dispatch", "built_on_dispatch", "prefetched"):
+        ha._device_offsets.cache_clear()
+        aggregation.stages_to_device = without if mode == "built_on_dispatch" else upload
+        try:
+            runner, _, secs, *_ = run_scenario(torch, mods, "hierfavg_edge_iid", overrides, "cuda", params)
+        finally:
+            aggregation.stages_to_device = upload
+        walls[mode].append(secs * 1e3 / (runner.cfg.num_rounds // runner.hier_config.kappa2_effective))
+        misses += ha._device_offsets.cache_info().misses if mode == "built_on_dispatch" else 0
+    ha._device_offsets.cache_clear()
+    one = []
+    for k in range(20):
+        ids = np.sort(np.random.default_rng(k).integers(0, 4, 32))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ha._device_offsets(ids.tobytes(), 4, torch.device("cuda"))
+        one.append((time.perf_counter() - t0) * 1e3)
+    ha._device_offsets.cache_clear()
+    return {"warm_wall_ms_per_interval": walls, "misses_in_two_runs": misses,
+            "one_miss_host_ms_idle_device": statistics.median(one)}
+
+
+def phase_n1m_cohort4096(torch, mods):
+    """``n1m_cohort4096`` uncut on the card, its first cloud interval on the
+    CPU. Launches: the stratified quotas (4 or 5 of each 1000-client edge)
+    are ragged, so the edge sync and the cloud sync's first stage take K2
+    once per leaf (4 leaves each) and the cloud sync's root stage K1: 8 K2
+    and 4 K1 an interval, 4 intervals."""
+    from repro_torch.core import aggregation
+    from repro_torch.core.hierarchy import as_hierarchy
+
+    base = reset_peak(torch)
+    runner, state, secs, launches, params = run_scenario(torch, mods, "n1m_cohort4096", (), "cuda")
+    peak = torch.cuda.max_memory_allocated() - base
+    check_launches(launches, {"segment_mean": 32, "grouped_mean": 16}, "n1m_cohort4096")
+    check(all(v.shape[0] == 4096 for v in state.params.values()), "n1m_cohort4096: a params leaf is not 4096 rows")
+    check(all(bool(torch.isfinite(v).all()) for v in state.params.values()), "n1m_cohort4096 params not finite")
+    check(runner.history[-1].loss < runner.history[0].loss, "n1m_cohort4096 loss did not fall")
+    cpu_runner, cpu_state, *_ = run_scenario(torch, mods, "n1m_cohort4096", ["run.num_rounds=2"], "cpu", params)
+    agreement = lm_agreement(runner, cpu_runner, "n1m_cohort4096 cuda vs cpu, first cloud interval")
+    # the params after that interval's cloud sync (K2 over the compacted
+    # edges with the prefetched table, K1 at the root), which neither the
+    # loss nor the grad norm of its rounds sees
+    _, synced, *_ = run_scenario(torch, mods, "n1m_cohort4096", ["run.num_rounds=2"], "cuda", params)
+    synced_err = params_max_err(synced, cpu_state)
+    check(synced_err <= N1M_PARAMS_ATOL, f"n1m_cohort4096 params after the first cloud sync: {synced_err} from the CPU's")
+    agreement.update(params_max_abs_err_after_first_cloud_sync=synced_err, params_atol=N1M_PARAMS_ATOL)
+    del cpu_runner, cpu_state, synced
+    # the host work of one interval's cohort and block, as the prefetch
+    # worker does it (the run is over, so its batcher may move on)
+    sampler = runner.participation.build_sampler(as_hierarchy(runner.topology))
+    table = runner._engine._segments_table()
+    t0 = time.perf_counter()
+    ids = sampler.sample()
+    t1 = time.perf_counter()
+    runner.batcher.next_batches_for(ids, 8)
+    t2 = time.perf_counter()
+    aggregation.cohort_stages(table[:, ids], ids.shape[0])
+    t3 = time.perf_counter()
+    distinct = drawn_ids(runner)
+    emit({"phase": "n1m_cohort4096", **path_report(runner, secs, launches, {
+        "cpu_agreement": agreement, "cohort_size": 4096, "virtual_clients": runner.topology.num_clients,
+        "params_leading_dims": sorted({int(v.shape[0]) for v in state.params.values()}),
+        "peak_memory_bytes": peak, "client_store_num_touched": runner.client_store.num_touched,
+        "client_store_is_empty": runner.client_store.is_empty, "distinct_clients_drawn": int(distinct.shape[0]),
+        "host_ms_one_interval": {"sample": (t1 - t0) * 1e3, "virtual_batches": (t2 - t1) * 1e3,
+                                 "cohort_stages": (t3 - t2) * 1e3},
+        "profile": device_profile(torch, mods, "n1m_cohort4096", (), params)})})
+    return launches
+
+
+def phase_mlp307k_cohort(torch, mods, mlp_params):
+    """The full-width MLP under sampled participation, against the CPU, and
+    cut-and-resumed against straight. Launches: every uniform cohort of 32
+    over the 4 edges is ragged, so per interval the edge sync and the cloud
+    sync's first stage take K2 once per leaf (8) and the root stage K1 (4);
+    int8_ef on both hops: K4 and K5 once per leaf per sync (2 syncs x 4
+    leaves); 4 intervals."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.fed.client_store import sticky_rows
+
+    overrides = MLP307K + COHORT_MLP
+    want = {"segment_mean": 32, "grouped_mean": 16, "quantize": 32, "dequantize": 32}
+    base = reset_peak(torch)
+    runner, state, secs, launches, _ = run_scenario(torch, mods, "hierfavg_edge_iid", overrides, "cuda", mlp_params)
+    peak = torch.cuda.max_memory_allocated() - base
+    check_launches(launches, want, "mlp307k_cohort")
+    check(all(bool(torch.isfinite(v).all()) for v in state.params.values()), "mlp307k_cohort params not finite")
+    check(tuple(state.params["w1"].shape) == (32, 64, 4096), "mlp307k_cohort w1 shape")
+    check(runner.history[-1].loss < runner.history[0].loss, "mlp307k_cohort loss did not fall")
+    distinct = drawn_ids(runner)
+    store = runner.client_store
+    check(store.num_touched == distinct.shape[0], f"store touched {store.num_touched}, drawn {distinct.shape[0]}")
+    check(bool(np.array_equal(np.flatnonzero(store.state()["touched"]), distinct)), "store touched other clients")
+    first_swap_ms = runner._engine.swap_seconds * 1e3 / 4
+    # the same run spied on the card and on the CPU: the swap bit for bit
+    # (spy_cohort_engine), the params after every interval and the store's
+    # touched rows against the CPU's
+    card_params, cpu_params = [], []
+    spied, spied_state, *_ = run_scenario(torch, mods, "hierfavg_edge_iid", overrides, "cuda", mlp_params,
+                                          spy=lambda r: spy_cohort_engine(r, card_params))
+    cpu_runner, cpu_state, *_ = run_scenario(torch, mods, "hierfavg_edge_iid", overrides, "cpu", mlp_params,
+                                             spy=lambda r: spy_cohort_engine(r, cpu_params))
+    check(all(bit_equal(spied_state.params[k], state.params[k]) for k in state.params),
+          "mlp307k_cohort: the spied card run differs from the first")
+    agreement = history_agreement(runner, cpu_runner, "mlp307k_cohort cuda vs cpu", "cpu")
+    check(len(card_params) == len(cpu_params) == 4, "mlp307k_cohort: params after 4 intervals")
+    interval_err = [max(float((a[k] - b[k]).abs().max()) for k in a) for a, b in zip(card_params, cpu_params)]
+    check(max(interval_err) <= COHORT_PARAMS_ATOL, f"mlp307k_cohort params vs cpu by interval: {interval_err}")
+    opt_err, res_off = store_rows_agreement(spied_state, 32, spied.client_store, cpu_runner.client_store, distinct)
+    check(max(opt_err) <= COHORT_STORE_RTOL, f"mlp307k_cohort store: optimizer rows {opt_err} of the leaf's largest")
+    check(max(share for share, _ in res_off) <= COHORT_STORE_RES_SHARE,
+          f"mlp307k_cohort store: residual values off {res_off}")
+    # the store comparison's control: the CPU's rows of the next drawn
+    # client in place of each client's own must fail it
+    shifted_opt, shifted_res = store_rows_agreement(spied_state, 32, spied.client_store, cpu_runner.client_store,
+                                                    distinct, np.roll(distinct, 1))
+    check(min(shifted_opt) > COHORT_STORE_RTOL and min(share for share, _ in shifted_res) > COHORT_STORE_RES_SHARE,
+          f"mlp307k_cohort store control: other clients' rows pass ({shifted_opt}, {shifted_res})")
+    del spied, spied_state, card_params, cpu_params
+    # the loss underflows to 0 by round 3 and the gradient norm falls from
+    # ~1e3 to ~1e-14, so the grad norms are held as allclose with an atol
+    # of COHORT_GNORM_ATOL times the run's largest
+    gnorms = [(a.grad_norm, b.grad_norm) for a, b in zip(runner.history, cpu_runner.history)]
+    g_atol = COHORT_GNORM_ATOL * max(b for _, b in gnorms)
+    gnorm_excess = max(abs(a - b) / (COHORT_RTOL * abs(b) + g_atol) for a, b in gnorms)
+    params_err = params_max_err(state, cpu_state)
+    check(gnorm_excess <= 1.0 and params_err <= COHORT_PARAMS_ATOL,
+          f"mlp307k_cohort vs cpu: grad_norm at {gnorm_excess} of its tolerance, params {params_err}")
+    del cpu_runner, cpu_state
+    # the control: the same optimizer and codec without participation (the
+    # 32 clients of mlp307k), card against CPU; Adam moves a coordinate
+    # whose gradient is near zero by about lr whatever its size, so the two
+    # devices' roundings part by this much with or without cohorts
+    control = MLP307K + [o for o in COHORT_MLP if o.startswith(("model.", "transport."))]
+    _, c_state, *_ = run_scenario(torch, mods, "hierfavg_edge_iid", control, "cuda", mlp_params)
+    _, c_cpu_state, *_ = run_scenario(torch, mods, "hierfavg_edge_iid", control, "cpu", mlp_params)
+    control_err = params_max_err(c_state, c_cpu_state)
+    control_opt = [float((a.cpu() - b).abs().max() / (b.abs().max() or 1.0))
+                   for a, b in zip(sticky_rows(c_state, 32)["opt"], sticky_rows(c_cpu_state, 32)["opt"])]
+    check(control_err <= COHORT_PARAMS_ATOL and max(control_opt) <= COHORT_STORE_RTOL,
+          f"mlp307k_cohort control (no cohorts) vs cpu: params {control_err}, optimizer rows {control_opt}")
+    del c_state, c_cpu_state
+
+    ckpt = ["run.checkpoint_every=4", f"run.checkpoint_dir={CKPT_DIR / 'cohort'}"]
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        run_scenario(torch, mods, "hierfavg_edge_iid", overrides + ckpt + ["run.num_rounds=4"], "cuda", mlp_params)
+        cut_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in CKPT_DIR.rglob("*") if f.is_file())
+        resumed, r_state, r_secs, r_launches, _ = run_scenario(torch, mods, "hierfavg_edge_iid", overrides + ckpt,
+                                                               "cuda", mlp_params, resume=True)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    fields = lambda h: (h.round, h.step, h.loss, h.grad_norm, h.mask_alive, h.accuracy, h.wire_mb)
+    check([h.round for h in resumed.history] == list(range(4, 8)), "mlp307k_cohort resume: rounds")
+    check([fields(h) for h in resumed.history] == [fields(h) for h in runner.history[4:]],
+          "mlp307k_cohort resume: the records differ from the uninterrupted run's")
+    check(all(bit_equal(r_state.params[k], state.params[k]) for k in state.params),
+          "mlp307k_cohort resume: final params differ from the uninterrupted run's")
+    a, b = store.state(), resumed.client_store.state()
+    check(bool(np.array_equal(a["touched"], b["touched"])), "mlp307k_cohort resume: touched clients differ")
+    check(all(bool(np.array_equal(x[distinct], y[distinct])) for x, y in zip(a["leaves"], b["leaves"])),
+          "mlp307k_cohort resume: store rows differ")
+    torch.cuda.synchronize()
+    emit({"phase": "mlp307k_cohort", **path_report(runner, secs, launches, {
+        **agreement, "cpu_grad_norm_share_of_tolerance": gnorm_excess,
+        "cpu_grad_norm_max_rel_err": max(abs(a - b) / abs(b) for a, b in gnorms if b),
+        "cpu_grad_norms": [b for _, b in gnorms], "params_max_abs_err_vs_cpu": params_err,
+        "control_no_cohort_params_max_abs_err_vs_cpu": control_err,
+        "control_no_cohort_opt_rows_max_err_of_leaf_max": control_opt,
+        "params_max_abs_err_vs_cpu_by_interval": interval_err, "swap_bit_equal_on_card": True,
+        "store_vs_cpu": {"opt_max_err_of_leaf_max": opt_err, "residual_share_off_and_max_err": res_off,
+                         "control_other_clients_rows": {"opt": shifted_opt, "residual": shifted_res}},
+        "tolerance": {"loss_rtol": 1e-4, "grad_norm_rtol": COHORT_RTOL, "grad_norm_atol_of_max": COHORT_GNORM_ATOL,
+                      "params_atol": COHORT_PARAMS_ATOL, "store_opt_rtol_of_leaf_max": COHORT_STORE_RTOL,
+                      "store_residual_rtol_of_leaf_max": COHORT_STORE_RES_RTOL,
+                      "store_residual_share_off": COHORT_STORE_RES_SHARE},
+        "transport": runner.hier_config.transport.describe(), "final_accuracy": runner.history[-1].accuracy,
+        "peak_memory_bytes": peak, "client_store_num_touched": store.num_touched,
+        "distinct_clients_drawn": int(distinct.shape[0]), "client_store_logical_bytes": store.nbytes,
+        "sticky_bytes_per_client": sum(x[0].nbytes for x in a["leaves"]),
+        "first_run_host_swap_ms_per_interval": first_swap_ms,
+        "resume": {"from_round": 4, "records_equal": True, "params_bit_equal": True, "store_equal": True,
+                   "cut_run_seconds": cut_s, "checkpoint_bytes": ckpt_bytes, "resumed_seconds": r_secs,
+                   "launches": r_launches},
+        "profile": device_profile(torch, mods, "hierfavg_edge_iid", overrides, mlp_params),
+        "k2_tables": offsets_miss_cost(torch, mods, overrides, mlp_params)})})
+    return launches
+
+
+def phase_cohort_identity(torch, mods):
+    """Round-robin cohorts of the whole quickstart population against plain
+    quickstart on the card, from the same init: the cohort stages are the
+    full tree's, so both take K1 12 times an interval (edge 4, cloud 2 x 4)
+    over 12 intervals, and agree bit for bit."""
+    plain, p_state, p_secs, p_launches, params = run_scenario(torch, mods, "quickstart", (), "cuda")
+    runner, state, secs, launches, _ = run_scenario(torch, mods, "quickstart", COHORT_IDENTITY, "cuda", params)
+    check_launches(launches, {"grouped_mean": 144}, "cohort_identity")
+    check(launches == p_launches, f"cohort_identity launches {launches} vs quickstart's {p_launches}")
+    fields = lambda h: (h.round, h.step, h.loss, h.grad_norm, h.mask_alive, h.accuracy, h.wire_mb)
+    check([fields(h) for h in runner.history] == [fields(h) for h in plain.history],
+          "cohort_identity: the history differs from quickstart's")
+    check(all(bit_equal(state.params[k], p_state.params[k]) for k in state.params),
+          "cohort_identity: final params differ from quickstart's")
+    emit({"phase": "cohort_identity", **path_report(runner, secs, launches, {
+        "history_bit_equal": True, "params_bit_equal": True, "quickstart_seconds": p_secs,
+        "final_accuracy": runner.history[-1].accuracy})})
+    return launches
+
+
 def phase_train_lm100m_robust(torch, mods):
     """One cloud interval of ``train_lm100m``'s settings with a median edge
     sync and client failures, remat off and on; the robust statistics timed
@@ -1712,6 +2121,12 @@ def main() -> int:
     count(phase_robust_scenario(torch, mods, "trimmed_int8", INT8_CLOUD,
                                 {"grouped_mean": 16, "quantize": 8, "dequantize": 8}))
     count(phase_mlp307k_robust(torch, mods, mlp_params, uncompressed_accuracy))
+
+    # sampled participation: the population scenario, the full-width MLP
+    # with sticky rows, and the identity cohort
+    count(phase_n1m_cohort4096(torch, mods))
+    count(phase_mlp307k_cohort(torch, mods, mlp_params))
+    count(phase_cohort_identity(torch, mods))
 
     # federated LM training: K1 per leaf per level mean, K4/K5 per leaf per
     # compressed sync, K7/K8 never (the layer code runs under torch.func)

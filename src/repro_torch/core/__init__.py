@@ -5,7 +5,10 @@ from repro_torch.core.hierfavg import (
     FedTopology,
     HierFAVGConfig,
     PrecisionSpec,
+    build_cohort_super_round,
     build_megakernel_super_round,
+    cohort_incompatibility,
+    init_cohort_state,
     megakernel_incompatibility,
 )
 
@@ -16,7 +19,10 @@ __all__ = [
     "HierarchySpec",
     "PrecisionSpec",
     "as_hierarchy",
+    "build_cohort_super_round",
     "build_megakernel_super_round",
+    "cohort_incompatibility",
+    "init_cohort_state",
     "megakernel_incompatibility",
     "parse_fanouts",
 ]

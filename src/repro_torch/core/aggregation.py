@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.hier_aggregate import segment_offsets
 from repro_torch.tree import Tree, tree_map
 
 
@@ -112,16 +113,56 @@ def _static_uniform_groups(segment_ids, num_segments: int) -> Optional[int]:
 class Stage(NamedTuple):
     """One segment mean of a staged aggregation, decided on the host once:
     sorted (N,) int64 segment ids, their count, and whether they form equal
-    contiguous blocks (K1) or ragged segments (K2)."""
+    contiguous blocks (K1) or ragged segments (K2). A cohort's stages
+    (``cohort_stages``) may also carry K2's (G+1,) int32 offsets table and
+    the ids as a device tensor, uploaded ahead of the sync."""
 
     ids: np.ndarray
     num_segments: int
     uniform: bool
+    offsets: Optional[torch.Tensor] = None
+    device_ids: Optional[torch.Tensor] = None
 
 
 def _stage(segment_ids, num_segments: int) -> Stage:
     ids = np.asarray(segment_ids, np.int64)
     return Stage(ids, int(num_segments), _static_uniform_groups(ids, num_segments) is not None)
+
+
+def cohort_stages(segments: np.ndarray, cohort_size: int) -> Tuple[Stage, ...]:
+    """The stages of a sampled cohort's staged mean, bottom-up, one per
+    tree level: ``segments`` is the (depth-1, C) table of the members'
+    ORIGINAL node ids below the root (``CohortEngine._segments_table``
+    columned at the cohort's ids), and the top stage maps every member to
+    the root. Each stage is compacted to the nodes the cohort holds (ids
+    renumbered 0..G'-1 in order): a node with no member writes no row, so
+    the means are those over the original ids, and K2's grid stays under
+    its 65,535-segment limit for any cohort smaller than that. Compacted
+    ids that form equal blocks take K1, as the top stage (G' = 1) always
+    does; ragged ones take K2. Host-side only: ``stages_to_device`` uploads
+    the tables."""
+    out = []
+    for col in np.asarray(segments).reshape(-1, int(cohort_size)):
+        present, compact = np.unique(np.asarray(col, np.int64), return_inverse=True)
+        out.append(_stage(compact.reshape(-1), present.shape[0]))
+    out.append(Stage(np.zeros(int(cohort_size), np.int64), 1, True))
+    return tuple(out)
+
+
+def stage_host_tables(st: Stage) -> Tuple[Optional[np.ndarray], np.ndarray]:
+    """(K2's offsets table or None for a K1 stage, the ids): what
+    ``stages_to_device`` uploads."""
+    return (None if st.uniform else segment_offsets(st.ids, st.num_segments)), st.ids
+
+
+def stages_to_device(stages: Sequence[Stage], tables, device: torch.device, non_blocking: bool = False):
+    """``stages`` with their host ``tables`` (``stage_host_tables``, as
+    tensors, pinned for a non-blocking copy) on ``device``."""
+    return tuple(
+        st._replace(offsets=None if off is None else off.to(device, non_blocking=non_blocking),
+                    device_ids=ids.to(device, non_blocking=non_blocking))
+        for st, (off, ids) in zip(stages, tables)
+    )
 
 
 def level_stages(spec, level: Optional[int] = None) -> Tuple[Stage, ...]:
@@ -141,7 +182,10 @@ def _stage_mean(tree: Tree, w: torch.Tensor, st: Stage) -> Tree:
     n = w.shape[0]
     if st.uniform:
         return tree_map(lambda x: ops.grouped_mean(x.reshape(n, -1), w, st.num_segments).reshape(x.shape), tree)
-    return tree_map(lambda x: ops.segment_mean(x.reshape(n, -1), w, st.ids, st.num_segments).reshape(x.shape), tree)
+    return tree_map(
+        lambda x: ops.segment_mean(x.reshape(n, -1), w, st.ids, st.num_segments, offsets=st.offsets).reshape(x.shape),
+        tree,
+    )
 
 
 def segment_weighted_mean(

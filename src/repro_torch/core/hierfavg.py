@@ -31,9 +31,12 @@ lowering of the superround (``engine="megakernel"``). A non-default
 ``AggregatorSpec`` level (``core.aggregation``: trimmed mean, coordinate
 median) replaces that level's weighted mean in ``build_level_sync``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 item): sampled participation (10), the deadline lowering (11), the
-client-sharded lowering (12).
+Sampled participation (``HierFAVGConfig.participation``) runs through
+``build_cohort_super_round``: the state stacks the C sampled clients, and
+each sync's staged mean runs over the cohort members' original node ids
+(``aggregation.cohort_stages``). Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP.md Queue 1 item): the deadline
+lowering (11), the client-sharded lowerings (12).
 """
 from __future__ import annotations
 
@@ -48,7 +51,6 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core import aggregation
 from repro_torch.core.hierarchy import HierarchySpec, as_hierarchy
-from repro_torch.errors import unported
 from repro_torch.optim import GradientTransformation, apply_updates
 from repro_torch.tree import Tree, first_leaf, leaves, tree_map, unflatten
 
@@ -159,7 +161,17 @@ class HierFAVGConfig:
                         "level (delta aggregation is a weighted-mean identity)"
                     )
         if self.participation is not None:
-            raise unported("sampled participation", 10)
+            if not hasattr(self.participation, "cohort_size") or not hasattr(self.participation, "is_active"):
+                raise TypeError(
+                    f"participation must be a fed.participation.ParticipationSpec, got "
+                    f"{type(self.participation).__name__}"
+                )
+            if self.participation.is_active and self.aggregators_active:
+                raise ValueError(
+                    "sampled participation requires the default weighted mean at "
+                    "every level (a robust statistic over a sampled cohort is not "
+                    "the population statistic)"
+                )
         if self.kappas is not None:
             kv = tuple(int(k) for k in self.kappas)
             object.__setattr__(self, "kappas", kv)
@@ -216,9 +228,9 @@ class HierFAVGConfig:
 
     @property
     def participation_active(self) -> bool:
-        # any participation spec is rejected in __post_init__ until its
-        # slice lands (ROADMAP.md item 10)
-        return self.participation is not None
+        """True iff cohort sampling is on (a cohort_size=0 spec is inert and
+        every engine keeps its full-population behaviour)."""
+        return self.participation is not None and self.participation.is_active
 
     @property
     def precision_active(self) -> bool:
@@ -243,15 +255,18 @@ def init_state(
     rng: torch.Generator,
     params: Params,
     optimizer: GradientTransformation,
-    topology: Topology,
+    topology: Optional[Topology],
     config: HierFAVGConfig,
+    *,
+    already_stacked: bool = False,
 ) -> FedState:
-    """Every client starts from ``params`` (unstacked), with fresh
-    optimizer state and step 0. Under an active precision policy the
-    stacked floating params are cast to its dtype before the optimizer
+    """Every client starts from ``params`` (unstacked; with
+    ``already_stacked`` the rows are given and ``topology`` is unused),
+    with fresh optimizer state and step 0. Under an active precision policy
+    the stacked floating params are cast to its dtype before the optimizer
     state is made, so stacked optimizer rows follow (Adam's moments stay
     f32)."""
-    stacked = replicate_for_clients(params, topology.num_clients)
+    stacked = params if already_stacked else replicate_for_clients(params, topology.num_clients)
     if config.precision_active:
         dt = config.precision.dtype
         stacked = tree_map(lambda p: p.to(dt) if p.is_floating_point() else p, stacked)
@@ -399,6 +414,54 @@ def _maybe_sync_opt_state(opt_state, agg_fn, sync: bool):
     return walk(opt_state)
 
 
+def _level_codec(config: HierFAVGConfig, level: int):
+    """The level's non-identity link codec, or None."""
+    codec = config.transport.codec(level) if config.transport_active else None
+    return None if codec is None or codec.is_identity else codec
+
+
+def _sync_state(state: FedState, config: HierFAVGConfig, codec, is_top: bool, weights: torch.Tensor,
+                mask: Optional[torch.Tensor], mean, seg: torch.Tensor, num_segs: int) -> FedState:
+    """The body of a level sync, shared by ``build_level_sync`` and the
+    cohort lowering: the codec's round trip of the uploads, ``mean`` over
+    them (or the top level's ``delta_cloud`` form), the anchor's re-sync,
+    the keep-dead rules over the level's groups (``seg`` (N,) device ids in
+    [0, ``num_segs``)), and ``sync_opt_state``."""
+    uploaded = state.params
+    residual = state.residual
+    if codec is not None:
+        delta = tree_map(lambda x, a: x.to(torch.float32) - a.to(torch.float32), state.params, state.anchor)
+        delta_hat, residual = codec.roundtrip(delta, residual)
+        uploaded = tree_map(lambda a, d, x: (a.to(torch.float32) + d).to(x.dtype),
+                            state.anchor, delta_hat, state.params)
+    if is_top and config.delta_cloud and state.anchor is not None:
+        agg = lambda t: aggregation.delta_weighted_mean(t, state.anchor, weights, mask)
+        params = agg(uploaded)
+        anchor = _copy(params)
+    else:
+        agg = mean
+        params = agg(uploaded)
+        anchor = _copy(params) if config.transport_active else state.anchor
+    if codec is not None:
+        w_eff = weights.to(torch.float32)
+        if mask is not None:
+            w_eff = w_eff * mask.to(torch.float32)
+        den = torch.zeros(num_segs, dtype=torch.float32, device=w_eff.device).index_add_(0, seg, w_eff)
+        received = (den > 0)[seg]  # (N,) the client's group had a survivor
+        sent = w_eff > 0  # (N,) the client uploaded
+
+        def keep(flags, new, old):
+            f = flags.reshape((-1,) + (1,) * (new.dim() - 1))
+            return torch.where(f, new, old.to(new.dtype))
+
+        params = tree_map(lambda v, old: keep(received, v, old), params, state.params)
+        anchor = tree_map(lambda v, old: keep(received, v, old), anchor, state.anchor)
+        if residual is not None and state.residual is not None:
+            residual = tree_map(lambda v, old: keep(sent, v, old), residual, state.residual)
+    opt_state = _maybe_sync_opt_state(state.opt_state, agg, config.sync_opt_state)
+    return state._replace(params=params, opt_state=opt_state, anchor=anchor, residual=residual)
+
+
 def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.Tensor, level: int):
     """Aggregation at one hierarchy level (Algorithm 1 l.25-31 generalized)
     with an optional (N,) survival mask: the single-device branch of
@@ -424,9 +487,7 @@ def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.
     is_top = level == spec.depth
     if is_top and config.delta_cloud and config.sync_opt_state:
         raise ValueError("delta_cloud + sync_opt_state do not compose (the optimizer state has no anchor)")
-    codec = config.transport.codec(level) if config.transport_active else None
-    if codec is not None and codec.is_identity:
-        codec = None
+    codec = _level_codec(config, level)
     robust = config.aggregators.aggregator(level) if config.aggregators_active else None
     if robust is not None and robust.is_default:
         robust = None
@@ -435,42 +496,11 @@ def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.
     num_segs = spec.num_nodes(level)
 
     def level_sync(state: FedState, mask: Optional[torch.Tensor] = None) -> FedState:
-        uploaded = state.params
-        residual = state.residual
-        if codec is not None:
-            delta = tree_map(lambda x, a: x.to(torch.float32) - a.to(torch.float32), state.params, state.anchor)
-            delta_hat, residual = codec.roundtrip(delta, residual)
-            uploaded = tree_map(lambda a, d, x: (a.to(torch.float32) + d).to(x.dtype),
-                                state.anchor, delta_hat, state.params)
-        if is_top and config.delta_cloud and state.anchor is not None:
-            agg = lambda t: aggregation.delta_weighted_mean(t, state.anchor, weights, mask)
-            params = agg(uploaded)
-            anchor = _copy(params)
+        if robust is not None:
+            mean = lambda t: robust(t, weights, spec, level, mask)
         else:
-            if robust is not None:
-                agg = lambda t: robust(t, weights, spec, level, mask)
-            else:
-                agg = lambda t: aggregation.staged_mean(t, weights, stages, mask)
-            params = agg(uploaded)
-            anchor = _copy(params) if config.transport_active else state.anchor
-        if codec is not None:
-            w_eff = weights.to(torch.float32)
-            if mask is not None:
-                w_eff = w_eff * mask.to(torch.float32)
-            den = torch.zeros(num_segs, dtype=torch.float32, device=w_eff.device).index_add_(0, seg, w_eff)
-            received = (den > 0)[seg]  # (N,) the client's group had a survivor
-            sent = w_eff > 0  # (N,) the client uploaded
-
-            def keep(flags, new, old):
-                f = flags.reshape((-1,) + (1,) * (new.dim() - 1))
-                return torch.where(f, new, old.to(new.dtype))
-
-            params = tree_map(lambda v, old: keep(received, v, old), params, state.params)
-            anchor = tree_map(lambda v, old: keep(received, v, old), anchor, state.anchor)
-            if residual is not None and state.residual is not None:
-                residual = tree_map(lambda v, old: keep(sent, v, old), residual, state.residual)
-        opt_state = _maybe_sync_opt_state(state.opt_state, agg, config.sync_opt_state)
-        return state._replace(params=params, opt_state=opt_state, anchor=anchor, residual=residual)
+            mean = lambda t: aggregation.staged_mean(t, weights, stages, mask)
+        return _sync_state(state, config, codec, is_top, weights, mask, mean, seg, num_segs)
 
     return level_sync
 
@@ -738,5 +768,141 @@ def build_megakernel_super_round(
         )
         metrics = {"loss": torch.stack(loss_r), "grad_norm": torch.stack(gnorm_r), "step": torch.stack(step_r)}
         return new_state, metrics
+
+    return super_round
+
+
+# ---------------------------------------------------------------------------
+# Sampled-participation (cohort) lowering
+# ---------------------------------------------------------------------------
+
+
+def cohort_incompatibility(config: HierFAVGConfig, topology: Topology, cohort_size: int) -> Optional[str]:
+    """None if the schedule can run cohort-sampled, else why not, in the
+    JAX package's words (``repro/core/hierfavg.py:1367-1392``): the one
+    predicate ``build_cohort_super_round`` (raises) and the runner (reports)
+    consult."""
+    spec = as_hierarchy(topology)
+    if config.aggregators_active:
+        return "a robust statistic over a sampled cohort is not the population statistic"
+    if not 1 <= int(cohort_size) <= spec.num_clients:
+        return f"cohort_size {cohort_size} outside 1..{spec.num_clients} (population)"
+    part = config.participation
+    if part is not None and getattr(part, "sampler", None) == "stratified" and spec.depth >= 2:
+        num_edges = spec.num_nodes(1)
+        if int(cohort_size) < num_edges:
+            return (
+                f"stratified sampling needs cohort_size >= num_edges "
+                f"({cohort_size} < {num_edges}): every alive edge gets a "
+                f"floor-1 quota, so a smaller cohort cannot cover the edges"
+            )
+    return None
+
+
+def init_cohort_state(
+    rng: torch.Generator,
+    params: Params,
+    optimizer: GradientTransformation,
+    config: HierFAVGConfig,
+    cohort_size: int,
+) -> FedState:
+    """The cohort-resident ``FedState``: C stacked rows, not N. Its zero
+    optimizer and residual rows are what ``ClientStateStore`` hands back
+    for never-sampled clients, so a fresh state is "every member
+    participates for the first time"."""
+    stacked = replicate_for_clients(params, int(cohort_size))
+    return init_state(rng, stacked, optimizer, None, config, already_stacked=True)
+
+
+def _with_stages(cohort: Dict[str, Any], cohort_size: int, device: torch.device) -> Dict[str, Any]:
+    """The cohort dict with its weights on ``device`` and its stages built
+    (``aggregation.cohort_stages``) when the caller passed only JAX's
+    ``{"segments", "weights"}``; the engine's prefetcher builds and uploads
+    them ahead."""
+    w = cohort["weights"]
+    w = w.to(device) if isinstance(w, torch.Tensor) else torch.as_tensor(np.asarray(w, np.float32), device=device)
+    if "stages" in cohort:
+        return {**cohort, "weights": w}
+    seg = cohort["segments"]
+    seg = seg.cpu().numpy() if isinstance(seg, torch.Tensor) else np.asarray(seg)
+    return {**cohort, "weights": w, "stages": aggregation.cohort_stages(seg, cohort_size)}
+
+
+def _build_cohort_level_sync(spec: HierarchySpec, config: HierFAVGConfig, level: int, cohort_size: int):
+    """``build_level_sync`` lowered for a sampled cohort
+    (``repro/core/hierfavg.py:1411-1510``):
+    ``level_sync(state, cohort, mask=None)``.
+
+    The cohort's per-level segment ids change every interval and arrive in
+    ``cohort["stages"]`` (``aggregation.cohort_stages``: the members'
+    original node ids, compacted to the nodes the cohort holds), with its
+    (C,) weights in ``cohort["weights"]``. Nodes with no sampled member
+    contribute nothing, so clients outside the cohort carry zero weight in
+    every mean: the partial-participation HierFAVG semantics. The top stage
+    maps every member to the root (K1 with G = 1, as the full-population
+    top stage); compacted sub-top ids that form equal blocks take K1 too,
+    ragged ones K2 with the table uploaded beside the cohort. ``mask`` is an
+    optional (C,) survival vector over the cohort's columns; the codec's
+    keep-dead rules, ``delta_cloud`` and ``sync_opt_state`` are
+    ``build_level_sync``'s."""
+    is_top = level == spec.depth
+    if is_top and config.delta_cloud and config.sync_opt_state:
+        raise ValueError("delta_cloud + sync_opt_state do not compose (the optimizer state has no anchor)")
+    codec = _level_codec(config, level)
+
+    def level_sync(state: FedState, cohort: Dict[str, Any], mask: Optional[torch.Tensor] = None) -> FedState:
+        weights = cohort["weights"]
+        stages = cohort["stages"][:level]
+        st = stages[-1]
+        seg = st.device_ids if st.device_ids is not None else torch.as_tensor(st.ids, device=weights.device)
+        mean = lambda t: aggregation.staged_mean(t, weights, stages, mask)
+        return _sync_state(state, config, codec, is_top, weights, mask, mean, seg, st.num_segments)
+
+    return level_sync
+
+
+def build_cohort_super_round(
+    loss_fn: LossFn,
+    optimizer: GradientTransformation,
+    topology: Topology,
+    config: HierFAVGConfig,
+    *,
+    cohort_size: int,
+):
+    """``build_super_round`` for a sampled cohort of C clients
+    (``repro/core/hierfavg.py:1513-1581``):
+
+        super_round(state, batches, cohort, masks=None) -> (state, metrics)
+
+    ``state`` stacks C rows (``init_cohort_state``); batch leaves carry a
+    leading (kappa2_eff, kappa1) pair over cohort-shaped batches;
+    ``cohort`` is ``{"segments": (depth-1, C) original node ids, "weights":
+    (C,)}`` as in JAX, or the engine's prefetched form, which adds the
+    built ``"stages"``; ``masks`` is an optional (kappa2_eff, C) stack of
+    survival vectors over the cohort's columns. Metrics as
+    ``build_super_round``'s. With the identity cohort (C = N, the full
+    population's weights and segments) this is ``build_super_round``'s
+    computation op for op, so the two agree bit for bit.
+    """
+    spec = as_hierarchy(topology)
+    depth = _check_levels(spec, config)
+    reason = cohort_incompatibility(config, spec, cohort_size)
+    if reason is not None:
+        raise ValueError(f"schedule cannot run cohort-sampled: {reason}")
+    local_step = build_local_step(loss_fn, optimizer, precision=config.precision)
+    level_syncs = [_build_cohort_level_sync(spec, config, lvl, cohort_size) for lvl in range(1, depth + 1)]
+    schedule = super_round_schedule(config)
+
+    def super_round(state: FedState, batches, cohort, masks: Optional[torch.Tensor] = None):
+        cohort = _with_stages(cohort, cohort_size, first_leaf(state.params).device)
+        losses, gnorms, steps = [], [], []
+        for r, deepest in enumerate(schedule):
+            state, loss, gnorm = _edge_interval(local_step, state, _step_slice(batches, r), config.kappa1)
+            state = level_syncs[deepest - 1](state, cohort, None if masks is None else masks[r])
+            losses.append(loss)
+            gnorms.append(gnorm)
+            steps.append(state.step)
+        metrics = {"loss": torch.stack(losses), "grad_norm": torch.stack(gnorms), "step": torch.stack(steps)}
+        return state, metrics
 
     return super_round

@@ -1,12 +1,15 @@
 """Federated batching: per-client iterators -> stacked (N, b, ...) batches,
 and the background prefetch of superround blocks onto the device.
 
-``FederatedBatcher`` is a copy-port of ``repro.data.pipeline``'s (numpy):
-same per-client, per-epoch shuffles, so its blocks are byte-identical to
-the JAX package's. Batches are flat dicts of numpy arrays; a ``batch_fn``
-maps the gathered sample arrays to them (the LM's maps its token rows to
-``inputs`` / ``targets``, kept int32 as JAX keeps them: the embedding
-lookup and the loss's gather index with int32 on the device).
+``FederatedBatcher`` and ``VirtualClientBatcher`` are copy-ports of
+``repro.data.pipeline``'s (numpy): same per-client, per-epoch shuffles (and
+a virtual client's shard from the same seeds), so their blocks are
+byte-identical to the JAX package's. ``CohortPrefetcher`` adds sampled
+participation to ``SuperBatchPrefetcher``. Batches are flat dicts of numpy
+arrays; a ``batch_fn`` maps the gathered sample arrays to them (the LM's
+maps its token rows to ``inputs`` / ``targets``, kept int32 as JAX keeps
+them: the embedding lookup and the loss's gather index with int32 on the
+device).
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.core import aggregation
 
 Batch = Dict[str, np.ndarray]
 
@@ -83,6 +88,18 @@ class FederatedBatcher:
         outs = [self.next_batch() for _ in range(count)]
         return {k: np.stack([o[k] for o in outs]) for k in outs[0]}
 
+    def next_batch_for(self, ids: Sequence[int]) -> Batch:
+        """One cohort batch: leaves (C, b, ...); advances only the sampled
+        clients' cursors. With ids == range(N) this is ``next_batch``
+        exactly (the same per-client draw order)."""
+        idx = np.stack([self._next_for(int(i)) for i in ids])  # (C, b)
+        return self.batch_fn({k: v[idx] for k, v in self.arrays.items()})
+
+    def next_batches_for(self, ids: Sequence[int], count: int) -> Batch:
+        """``count`` cohort batches with a leading step axis: (count, C, b, ...)."""
+        outs = [self.next_batch_for(ids) for _ in range(count)]
+        return {k: np.stack([o[k] for o in outs]) for k in outs[0]}
+
     def state_dict(self) -> Dict[str, Any]:
         """The cursors (restart safety)."""
         return {"seed": self.seed, "cursors": [(c.epoch, c.pos) for c in self.cursors]}
@@ -92,6 +109,109 @@ class FederatedBatcher:
         for c, (e, p) in zip(self.cursors, state["cursors"]):
             c.epoch, c.pos = e, p
         self._orders = [self._order(i) for i in range(self.num_clients)]
+
+
+class VirtualClientBatcher:
+    """A population of N *virtual* clients over a shared sample pool
+    (``repro/data/pipeline.py:126-236``).
+
+    A client's shard is a pure function of ``(seed, client_id)``:
+    ``samples_per_client`` bootstrap draws from the pool, realized only
+    when the client is sampled into a cohort; its per-epoch order comes
+    from ``(seed, client_id, epoch)``. The cursors hold only the clients
+    that ever participated, so host memory grows with the participants, not
+    with N. The draws are the JAX package's generator for generator, so
+    the batches are bit-equal to its.
+    """
+
+    _SHARD_NS = 0x5A4D  # namespaces the shard draw away from the order draw
+
+    def __init__(
+        self,
+        arrays: Dict[str, np.ndarray],
+        *,
+        num_clients: int,
+        samples_per_client: int,
+        batch_size: int,
+        seed: int = 0,
+        batch_fn: Optional[Callable[[Batch], Batch]] = None,
+    ):
+        self.arrays = arrays
+        self.num_clients = int(num_clients)
+        self.samples_per_client = int(samples_per_client)
+        self.batch_size = int(batch_size)
+        self.seed = int(seed)
+        self.batch_fn = batch_fn or (lambda d: d)
+        self.num_samples = int(next(iter(arrays.values())).shape[0])
+        if self.samples_per_client < self.batch_size:
+            raise ValueError(f"samples_per_client {self.samples_per_client} < batch_size {self.batch_size}")
+        self.cursors: Dict[int, ClientCursor] = {}
+
+    @property
+    def data_sizes(self) -> np.ndarray:
+        return np.full(self.num_clients, self.samples_per_client, np.float64)
+
+    def _shard(self, client: int) -> np.ndarray:
+        """(samples_per_client,) pool indices: the client's virtual dataset."""
+        rng = np.random.default_rng((self.seed, self._SHARD_NS, client))
+        return rng.integers(0, self.num_samples, self.samples_per_client)
+
+    def _order(self, client: int, epoch: int) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, client, epoch))
+        return rng.permutation(self.samples_per_client)
+
+    def _take_rows(self, client: int, nbatches: int) -> np.ndarray:
+        """(nbatches, b) pool indices; advances the client's cursor, with
+        ``FederatedBatcher._next_for``'s epochs (no partial batch: the
+        epoch reshuffles instead)."""
+        cur = self.cursors.setdefault(client, ClientCursor())
+        shard = self._shard(client)
+        b = self.batch_size
+        order = None
+        out = np.empty((nbatches, b), np.int64)
+        for j in range(nbatches):
+            if cur.pos + b > self.samples_per_client:
+                cur.epoch += 1
+                cur.pos = 0
+                order = None
+            if order is None:
+                order = self._order(client, cur.epoch)
+            out[j] = shard[order[cur.pos : cur.pos + b]]
+            cur.pos += b
+        return out
+
+    def next_batch_for(self, ids: Sequence[int]) -> Batch:
+        """One cohort batch: leaves (C, b, ...)."""
+        rows = np.stack([self._take_rows(int(c), 1)[0] for c in ids])  # (C, b)
+        return self.batch_fn({k: v[rows] for k, v in self.arrays.items()})
+
+    def next_batches_for(self, ids: Sequence[int], count: int) -> Batch:
+        """``count`` cohort batches with a leading step axis: (count, C, b, ...)."""
+        rows = np.stack([self._take_rows(int(c), count) for c in ids], axis=1)
+        return self.batch_fn({k: v[rows] for k, v in self.arrays.items()})
+
+    def next_batch(self) -> Batch:
+        """Full-population batch (small N only)."""
+        return self.next_batch_for(range(self.num_clients))
+
+    def next_batches(self, count: int) -> Batch:
+        outs = [self.next_batch() for _ in range(count)]
+        return {k: np.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def state_dict(self) -> Dict[str, Any]:
+        # string keys: the dict rides checkpoint metadata through JSON,
+        # which stringifies int keys
+        return {"seed": self.seed, "cursors": {str(c): (cur.epoch, cur.pos) for c, cur in self.cursors.items()}}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.seed = int(state["seed"])
+        self.cursors = {int(c): ClientCursor(epoch=int(e), pos=int(p)) for c, (e, p) in state["cursors"].items()}
+
+
+def _pinned(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` in pinned host memory when it is bound for a CUDA device, so
+    the copy can be non-blocking."""
+    return t.pin_memory() if device.type == "cuda" else t
 
 
 def to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -153,21 +273,28 @@ class SuperBatchPrefetcher:
         self._thread = threading.Thread(target=self._worker, name="super-batch-prefetch", daemon=True)
         self._thread.start()
 
-    def _make_host_block(self) -> Dict[str, torch.Tensor]:
-        flat = self.batcher.next_batches(self.rounds_per_block * self.steps_per_round)
+    def _host_block(self, flat: Batch) -> Dict[str, torch.Tensor]:
+        """(count, ...) batches -> the (rounds, steps, ...) block, pinned
+        for a CUDA device."""
         lead = (self.rounds_per_block, self.steps_per_round)
-        block = {k: torch.from_numpy(v.reshape(lead + v.shape[1:])) for k, v in flat.items()}
-        if self.device.type == "cuda":
-            block = {k: v.pin_memory() for k, v in block.items()}
-        return block
+        return {k: _pinned(torch.from_numpy(v.reshape(lead + v.shape[1:])), self.device) for k, v in flat.items()}
+
+    def _produce(self):
+        """Worker side: (host item, the snapshot a checkpoint at its end
+        records)."""
+        block = self._host_block(self.batcher.next_batches(self.rounds_per_block * self.steps_per_round))
+        return block, self.batcher.state_dict()
+
+    def _upload(self, block):
+        """Consumer side: the host item on the device, on the current stream."""
+        return {k: v.to(self.device, non_blocking=True) for k, v in block.items()}
 
     def _worker(self) -> None:
         try:
             while not self._stop.is_set() and (
                 self.num_blocks is None or self._produced < self.num_blocks
             ):
-                block = self._make_host_block()
-                item = (self._OK, (block, self.batcher.state_dict()))
+                item = (self._OK, self._produce())
                 self._produced += 1
                 while not self._stop.is_set():
                     try:
@@ -178,7 +305,7 @@ class SuperBatchPrefetcher:
         except Exception as e:  # surface worker failures at the next get()
             self._queue.put((self._ERR, e))
 
-    def get(self) -> Dict[str, torch.Tensor]:
+    def get(self):
         """The next block on the device. Blocks until the host block is
         ready; the device copy is enqueued on the current stream."""
         if self.num_blocks is not None and self._consumed >= self.num_blocks:
@@ -186,9 +313,9 @@ class SuperBatchPrefetcher:
         kind, item = self._queue.get()
         if kind == self._ERR:
             raise RuntimeError("super-batch prefetch worker failed") from item
-        block, self.snapshot = item
+        host, self.snapshot = item
         self._consumed += 1
-        return {k: v.to(self.device, non_blocking=True) for k, v in block.items()}
+        return self._upload(host)
 
     def stop(self) -> None:
         """Stop the worker (idempotent). Call when abandoning blocks early."""
@@ -199,3 +326,67 @@ class SuperBatchPrefetcher:
         except queue.Empty:
             pass
         self._thread.join(timeout=5.0)
+
+
+class CohortPrefetcher(SuperBatchPrefetcher):
+    """``SuperBatchPrefetcher`` for sampled participation
+    (``repro/data/pipeline.py:372-466``, single device).
+
+    The worker also draws the next cloud interval's cohort from a
+    ``fed.participation`` sampler and builds everything that is a pure
+    function of the cohort ids: the (kappa2, kappa1, C, b, ...) batch
+    block, the cohort's (C,) weights, and its staged-mean stages
+    (``core.aggregation.cohort_stages``: each level's ids compacted to the
+    nodes present, with K2's offsets table where the ids are ragged), all
+    in pinned host memory, so sampling, the gathers and the tables overlap
+    the previous interval's compute; ``get()`` copies them to the device
+    without blocking. The clients' sticky optimizer rows are not
+    prefetched: consecutive cohorts may overlap, so the engine swaps them
+    after the previous interval's write-back.
+
+    ``get()`` returns ``(ids, cohort, block)``: the host-side int64 ids,
+    ``{"segments": (depth-1, C) host ids, "weights": (C,), "stages": ...}``
+    on the device, and the block. Restart safety: ``snapshot`` is then
+    ``{"batcher": ..., "sampler": ...}`` as of that block's end (both run
+    ahead of the computation). The placement branch (a sharded cohort)
+    comes with ROADMAP.md Queue 1 item 12.
+    """
+
+    def __init__(
+        self,
+        batcher,
+        sampler,
+        *,
+        segments: np.ndarray,
+        weights: np.ndarray,
+        rounds_per_block: int,
+        steps_per_round: int,
+        device: torch.device,
+        num_blocks: Optional[int] = None,
+    ):
+        # fields first: the base __init__ starts the worker
+        self.sampler = sampler
+        self._segments = np.ascontiguousarray(np.asarray(segments, np.int32))
+        self._weights = np.asarray(weights, np.float32)
+        super().__init__(batcher, rounds_per_block=rounds_per_block, steps_per_round=steps_per_round,
+                         device=device, num_blocks=num_blocks)
+
+    def _produce(self):
+        ids = np.asarray(self.sampler.sample(), np.int64)
+        block = self._host_block(
+            self.batcher.next_batches_for(ids, self.rounds_per_block * self.steps_per_round))
+        segments = self._segments[:, ids]
+        stages = aggregation.cohort_stages(segments, ids.shape[0])
+        pin = lambda a: _pinned(torch.from_numpy(a), self.device)
+        tables = [tuple(None if a is None else pin(a) for a in aggregation.stage_host_tables(st)) for st in stages]
+        host = (ids, segments, pin(np.ascontiguousarray(self._weights[ids])), stages, tables, block)
+        return host, {"batcher": self.batcher.state_dict(), "sampler": self.sampler.state_dict()}
+
+    def _upload(self, host):
+        ids, segments, weights, stages, tables, block = host
+        cohort = {
+            "segments": segments,
+            "weights": weights.to(self.device, non_blocking=True),
+            "stages": aggregation.stages_to_device(stages, tables, self.device, non_blocking=True),
+        }
+        return ids, cohort, super()._upload(block)

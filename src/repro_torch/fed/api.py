@@ -445,6 +445,8 @@ class ExperimentSpec:
             extras.append(f"transport={self.transport.levels}")
         if self.aggregators.levels != "weighted_mean":
             extras.append(f"agg={self.aggregators.levels}")
+        if self.participation.is_active:
+            extras.append(f"cohort={self.participation.cohort_size}/{self.participation.sampler}")
         if self.precision.is_active:
             extras.append(f"precision={self.precision.param_dtype}" + ("+remat" if self.precision.remat else ""))
         if self.failures.p_fail > 0:
@@ -623,7 +625,13 @@ def _build_data(spec: ExperimentSpec, topo, bundle, device: torch.device):
     (dataset draw, then partition, both from ``default_rng(data.seed)``), so
     the two packages train on the same batches."""
     from repro_torch.core.hierarchy import as_hierarchy, parse_fanouts
-    from repro_torch.data import FederatedBatcher, clustered_gaussians, partition_hierarchy, token_corpus
+    from repro_torch.data import (
+        FederatedBatcher,
+        VirtualClientBatcher,
+        clustered_gaussians,
+        partition_hierarchy,
+        token_corpus,
+    )
     from repro_torch.models.cnn import accuracy
 
     d = spec.data
@@ -639,8 +647,6 @@ def _build_data(spec: ExperimentSpec, topo, bundle, device: torch.device):
             f"data.dataset=tokens needs a language model, got "
             f"model.arch={spec.model.arch!r}; choose one of {_LM_PRESETS}"
         )
-    if d.virtual_clients:
-        raise unported("data.virtual_clients (population mode)", 10)
     rng = np.random.default_rng(d.seed)
     pspec = parse_fanouts(d.partition_topology) if d.partition_topology else as_hierarchy(topo)
     n = as_hierarchy(topo).num_clients
@@ -666,8 +672,23 @@ def _build_data(spec: ExperimentSpec, topo, bundle, device: torch.device):
     data = clustered_gaussians(
         rng, num_samples=d.num_samples, num_classes=d.num_classes, dim=(d.dim,), class_sep=d.class_sep
     )
-    parts = partition_hierarchy(d.partition, data.y, pspec, rng, **kw)[:n]
-    batcher = FederatedBatcher({"inputs": data.x, "targets": data.y}, parts, batch_size=d.batch_size, seed=d.seed)
+    if d.virtual_clients:
+        # population mode: no partition is drawn; a client's shard is a
+        # function of (seed, client id), realized when it is sampled
+        if d.virtual_clients != n:
+            raise ValueError(
+                f"data.virtual_clients={d.virtual_clients} must equal the "
+                f"topology's {n} clients (the population IS the client set)"
+            )
+        batcher = VirtualClientBatcher(
+            {"inputs": data.x, "targets": data.y}, num_clients=n, samples_per_client=d.samples_per_client,
+            batch_size=d.batch_size, seed=d.seed,
+        )
+    else:
+        parts = partition_hierarchy(d.partition, data.y, pspec, rng, **kw)[:n]
+        batcher = FederatedBatcher(
+            {"inputs": data.x, "targets": data.y}, parts, batch_size=d.batch_size, seed=d.seed)
+    # the eval scores the cloud model on the whole pool, in population mode too
     apply_fn = bundle["apply"]
     x_all = torch.from_numpy(data.x).to(device)
     y_all = torch.from_numpy(data.y).to(device)

@@ -38,16 +38,32 @@ block.
 
 Nothing in this path synchronises the device except those fetches, the
 eval and the checkpoint saves.
+
+``CohortEngine`` is the engine for sampled participation: only the C
+sampled clients live on the device, their sticky optimizer and residual
+rows swap in and out of the host ``ClientStateStore`` around each cloud
+interval, and a ``CohortPrefetcher`` draws the cohorts and uploads their
+blocks and aggregation tables ahead of time.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.hierfavg import FedState, build_megakernel_super_round, build_super_round
-from repro_torch.data.pipeline import SuperBatchPrefetcher
+from repro_torch.core import aggregation
+from repro_torch.core.hierarchy import as_hierarchy
+from repro_torch.core.hierfavg import (
+    FedState,
+    build_cohort_super_round,
+    build_megakernel_super_round,
+    build_super_round,
+)
+from repro_torch.data.pipeline import CohortPrefetcher, SuperBatchPrefetcher
+from repro_torch.fed.client_store import sticky_rows
+from repro_torch.tree import leaves
 
 
 class SuperRoundEngine:
@@ -146,6 +162,189 @@ class SuperRoundEngine:
                     r.history[-1].accuracy = acc
                 if do_ckpt:
                     r.checkpointer.save(r.history[-1].step, state, r._checkpoint_meta(end_round, prefetcher.snapshot))
+                if acc is not None and r.cfg.target_accuracy and acc >= r.cfg.target_accuracy:
+                    stopped = True
+                    break
+            self._flush(wire_per_step)
+        finally:
+            prefetcher.stop()
+        return state, stopped
+
+
+class CohortEngine:
+    """The superround engine for sampled participation, single device
+    (``repro/fed/engine.py:481-795`` without its mesh branch, which comes
+    with ROADMAP.md Queue 1 item 12).
+
+    Per cloud interval: take the prefetched ``(ids, cohort, block)`` (see
+    ``CohortPrefetcher``), copy the cohort's sticky rows (stacked optimizer
+    leaves and the EF residual) from the host ``ClientStateStore`` into the
+    state's own leaves, run the cohort superround, and write the rows back
+    by original client id. Model params and anchors never touch the store:
+    control returns only at cloud boundaries, where every stacked row is the
+    fresh broadcast. Device memory grows with C; the (N, ...) population
+    exists only on the host (store, sampler, batcher cursors).
+
+    The swap goes through one pinned (C, ...) staging buffer per sticky
+    leaf: the gathered rows are copied into the leaves without blocking
+    (``_load_cohort``), and ``_writeback`` waits for the interval's device
+    work, copies the rows back and scatters them, so the store is current
+    before the next interval's optimizer steps and at every checkpoint.
+    ``swap_seconds`` adds up the host time of the swaps, without the wait.
+
+    Cadences are cloud-interval granular (the runner checks them first).
+    Checkpoints hold ``{"fed": state, "store": store.state()}`` with the
+    prefetcher's batcher and sampler snapshots in the metadata, so a resumed
+    run replays the same cohorts and batches.
+    """
+
+    def __init__(self, runner):
+        self.runner = runner
+        hier = runner.hier_config
+        self.k1 = hier.kappa1
+        self.k2 = hier.kappa2_effective
+        self.cohort_size = int(hier.participation.cohort_size)
+        self.spec = as_hierarchy(runner.topology)
+        self._weights_np = runner.weights.cpu().numpy()
+        self._super = build_cohort_super_round(
+            runner.loss_fn, runner.optimizer, runner.topology, hier, cohort_size=self.cohort_size)
+        self._pending: List[Tuple[int, List[int], dict]] = []
+        self._staging: Optional[List[torch.Tensor]] = None
+        self.swap_seconds = 0.0
+
+    def _segments_table(self) -> np.ndarray:
+        """(depth-1, N) host table of each client's sub-top ancestor ids;
+        the prefetcher takes the cohort's columns."""
+        depth = self.spec.depth
+        if depth == 1:
+            return np.zeros((0, self.spec.num_clients), np.int32)
+        return np.stack([np.asarray(self.spec.segments(lvl), np.int32) for lvl in range(1, depth)])
+
+    def _masks_for_interval(self, ids: np.ndarray):
+        """kappa2 survival draws over the population, columned at the
+        sampled ids: (the (kappa2, C) stack or None, alive counts per round,
+        the last round's columns for the boundary eval)."""
+        r = self.runner
+        masks = [r._mask_for_round() for _ in range(self.k2)]
+        if all(m is None for m in masks):
+            return None, [self.cohort_size] * self.k2, None
+        n = r.topology.num_clients
+        stack = np.stack([m if m is not None else np.ones(n, np.float32) for m in masks])
+        cols = stack[:, ids]
+        return cols, [int(row.sum()) for row in cols], cols[-1]
+
+    def _buffers(self, rows: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The pinned staging buffers (host dtype: bf16 rows as int16 bits)."""
+        if self._staging is None:
+            pin = rows[0].device.type == "cuda"
+            self._staging = [
+                torch.empty(tuple(x.shape), dtype=torch.int16 if x.dtype == torch.bfloat16 else x.dtype,
+                            pin_memory=pin)
+                for x in rows
+            ]
+        return self._staging
+
+    def _load_cohort(self, state: FedState, ids: np.ndarray) -> None:
+        """Copy the sampled clients' sticky rows from the store into the
+        state's leaves (in place: no leaf is rebound)."""
+        store = self.runner.client_store
+        if store.is_empty:
+            return
+        t0 = time.perf_counter()
+        rows = list(leaves(sticky_rows(state, self.cohort_size)))
+        bufs = self._buffers(rows)
+        store.gather_into(ids, [b.numpy() for b in bufs])
+        for x, b in zip(rows, bufs):
+            x.copy_(b.view(x.dtype), non_blocking=True)
+        self.swap_seconds += time.perf_counter() - t0
+
+    def _writeback(self, state: FedState, ids: np.ndarray) -> None:
+        """Persist the cohort's post-interval sticky rows by original id.
+        Waits for the interval's device work first: the sync point that
+        keeps the store current before the next interval's in-place steps."""
+        store = self.runner.client_store
+        if store.is_empty:
+            return
+        rows = list(leaves(sticky_rows(state, self.cohort_size)))
+        cuda = rows[0].device.type == "cuda"
+        if cuda:
+            torch.cuda.current_stream(rows[0].device).synchronize()
+        t0 = time.perf_counter()
+        bufs = self._buffers(rows)
+        for x, b in zip(rows, bufs):
+            b.copy_(x.view(b.dtype), non_blocking=cuda)
+        if cuda:
+            torch.cuda.current_stream(rows[0].device).synchronize()
+        store.scatter(ids, [b.numpy() for b in bufs])
+        self.swap_seconds += time.perf_counter() - t0
+
+    def _flush(self, wire_per_step: float) -> None:
+        r = self.runner
+        for round_base, alive, metrics in self._pending:
+            vals = {k: v.tolist() for k, v in metrics.items()}
+            for j in range(self.k2):
+                r._record_round(
+                    round_base + j, int(vals["step"][j]), float(vals["loss"][j]),
+                    float(vals["grad_norm"][j]), alive[j], wire_per_step,
+                )
+        self._pending.clear()
+
+    def run_intervals(self, state: FedState, *, start_round: int, num_intervals: int) -> Tuple[FedState, bool]:
+        """Run ``num_intervals`` cloud intervals from a cloud-aligned
+        ``start_round``. Returns (state, stopped_early)."""
+        r = self.runner
+        if start_round % self.k2:
+            raise ValueError(
+                f"cohort engine must start at a cloud boundary: "
+                f"start_round={start_round} is not a multiple of {self.k2}"
+            )
+        r._ensure_client_store(state)
+        wire_per_step = r._wire_bytes_per_step(state)
+        stopped = False
+        from repro_torch.fed.runner import FederatedRunner
+
+        no_failures = (
+            r.failures is None
+            and r.stragglers is None
+            and getattr(r._mask_for_round, "__func__", None) is FederatedRunner._mask_for_round
+        )
+        static_masks = (None, [self.cohort_size] * self.k2, None)
+        prefetcher = CohortPrefetcher(
+            r.batcher,
+            r._cohort_sampler(),
+            segments=self._segments_table(),
+            weights=self._weights_np,
+            rounds_per_block=self.k2,
+            steps_per_round=self.k1,
+            device=r.device,
+            num_blocks=num_intervals,
+        )
+        try:
+            for q in range(num_intervals):
+                round_base = start_round + q * self.k2
+                ids, cohort, block = prefetcher.get()
+                mask_stack, alive, last_mask = static_masks if no_failures else self._masks_for_interval(ids)
+                self._load_cohort(state, ids)
+                state, metrics = self._super(state, block, cohort, r._mask_to_device(mask_stack))
+                self._writeback(state, ids)
+                self._pending.append((round_base, alive, metrics))
+                end_round = round_base + self.k2
+                do_eval = r.eval_fn is not None and r.cfg.eval_every and end_round % r.cfg.eval_every == 0
+                do_ckpt = r.checkpointer is not None and r.cfg.checkpoint_every and (
+                    end_round % r.cfg.checkpoint_every == 0)
+                if do_eval or do_ckpt:
+                    self._flush(wire_per_step)
+                acc = None
+                if do_eval:
+                    # the cohort-weighted cloud model: at C = N the runner's
+                    # full-population eval, bit for bit
+                    cloud = aggregation.cloud_model(state.params, cohort["weights"], r._mask_to_device(last_mask))
+                    acc = float(r.eval_fn(cloud))
+                    r.history[-1].accuracy = acc
+                if do_ckpt:
+                    meta = {**r._checkpoint_meta(end_round, prefetcher.snapshot["batcher"]),
+                            "sampler": prefetcher.snapshot["sampler"]}
+                    r.checkpointer.save(r.history[-1].step, {"fed": state, "store": r.client_store.state()}, meta)
                 if acc is not None and r.cfg.target_accuracy and acc >= r.cfg.target_accuracy:
                     stopped = True
                     break

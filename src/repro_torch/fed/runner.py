@@ -22,6 +22,16 @@ take it, and ``RoundRecord.mask_alive`` counts its survivors. A
 ``checkpoint_every`` rounds with the round, the batcher's cursors and the
 failure models' states; ``restore_or_init`` resumes from the latest.
 
+Under sampled participation (``hier_config.participation`` with a
+positive cohort size) every cloud interval goes to the cohort engine
+(``fed.engine.CohortEngine``): the state stacks the C sampled clients, and
+their sticky optimizer and residual rows live in a host
+``ClientStateStore`` between intervals. There is no per-round fallback
+(the full-population state it needs never exists), so a schedule or
+cadence the cohort engine cannot run is an error that names the reason
+(``_cohort_reason``). Cohort checkpoints hold the state and the store, with
+the cohort sampler's state beside the batcher's.
+
 The runner consumes the ``FedState`` it is given: stacked parameters are
 updated in place (see ``optim.apply_updates``).
 """
@@ -42,13 +52,15 @@ from repro_torch.core.hierfavg import (
     Params,
     Topology,
     build_hier_round,
+    cohort_incompatibility,
+    init_cohort_state,
     init_state,
     megakernel_incompatibility,
 )
 from repro_torch.data.pipeline import to_device
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist import collectives
-from repro_torch.errors import unported
+from repro_torch.fed.client_store import ClientStateStore, sticky_rows
 from repro_torch.fed.failures import FailureSimulator, StragglerModel, compose_masks
 from repro_torch.tree import leaves, tree_map
 
@@ -131,37 +143,76 @@ class FederatedRunner:
         # for the deadline engine (ROADMAP.md item 11)
         self._last_mask_parts = None
         self.checkpointer = checkpointer
-        self._engine = None  # lazily built (and cached) SuperRoundEngine
+        self._engine = None  # lazily built (and cached) SuperRoundEngine / CohortEngine
         self._megakernel_reason: Optional[str] = None
-        self._round = build_hier_round(loss_fn, optimizer, topology, hier_config, self.weights)
+        # sampled participation: the active ParticipationSpec (or None), the
+        # host store (built from the first state seen, which fixes the
+        # sticky-row template) and the run's one cohort sampler
+        self.participation = hier_config.participation if hier_config.participation_active else None
+        self.client_store: Optional[ClientStateStore] = None
+        self._sampler = None
+        # the per-round lowering never runs under sampled participation
+        self._round = None if self.participation is not None else build_hier_round(
+            loss_fn, optimizer, topology, hier_config, self.weights)
         self.history: List[RoundRecord] = []
 
     def init(self, rng: torch.Generator, params: Params) -> FedState:
         """Stacked initial state from unstacked ``params`` (moved to the
-        runner's device)."""
+        runner's device): N rows, or C under sampled participation."""
         params = tree_map(lambda v: v.to(self.device), params)
+        if self.participation is not None:
+            return init_cohort_state(rng, params, self.optimizer, self.hier_config, self.participation.cohort_size)
         return init_state(rng, params, self.optimizer, self.topology, self.hier_config)
 
-    def restore_or_init(self, rng: torch.Generator, params: Params) -> tuple:
-        """(state, start_round): the latest checkpoint if any, else a fresh
-        ``init``. Restores the batcher's cursors and the failure and
-        straggler models' states saved beside it."""
-        state = self.init(rng, params)
-        if self.checkpointer is None:
-            return state, 0
-        if self.hier_config.participation_active:
-            raise unported("resuming a cohort-sampled run", 10)
-        restored = self.checkpointer.restore_latest(state)
-        if restored is None:
-            return state, 0
-        state, meta = restored
+    def _restore_meta(self, meta: dict) -> int:
+        """Load the batcher, sampler and failure-model states saved beside a
+        checkpoint; returns its round."""
         if "batcher" in meta:
             self.batcher.load_state_dict(meta["batcher"])
+        if self.participation is not None and "sampler" in meta:
+            self._cohort_sampler().load_state_dict(meta["sampler"])
         if self.failures is not None and "failures" in meta:
             self.failures.load_state_dict(meta["failures"])
         if self.stragglers is not None and "stragglers" in meta:
             self.stragglers.load_state_dict(meta["stragglers"])
-        return state, int(meta.get("round", 0))
+        return int(meta.get("round", 0))
+
+    def restore_or_init(self, rng: torch.Generator, params: Params) -> tuple:
+        """(state, start_round): the latest checkpoint if any, else a fresh
+        ``init``. Restores the batcher's cursors, the cohort sampler's state
+        and the failure and straggler models' states saved beside it; a
+        cohort checkpoint is ``{"fed": state, "store": store.state()}``."""
+        state = self.init(rng, params)
+        if self.checkpointer is None:
+            return state, 0
+        if self.participation is not None:
+            store = self._ensure_client_store(state)
+            restored = self.checkpointer.restore_latest({"fed": state, "store": store.state()})
+            if restored is None:
+                return state, 0
+            payload, meta = restored
+            store.load(payload["store"])
+            return payload["fed"], self._restore_meta(meta)
+        restored = self.checkpointer.restore_latest(state)
+        if restored is None:
+            return state, 0
+        state, meta = restored
+        return state, self._restore_meta(meta)
+
+    def _cohort_sampler(self):
+        """The run's one cohort sampler (cached: its random stream is the
+        cohort sequence)."""
+        if self._sampler is None:
+            self._sampler = self.participation.build_sampler(as_hierarchy(self.topology))
+        return self._sampler
+
+    def _ensure_client_store(self, state: FedState) -> ClientStateStore:
+        """Build (once) the host store from the cohort state's sticky rows:
+        the stacked optimizer leaves and the EF residual."""
+        if self.client_store is None:
+            rows = sticky_rows(state, int(self.participation.cohort_size))
+            self.client_store = ClientStateStore.from_rows(self.topology.num_clients, rows)
+        return self.client_store
 
     def _mask_for_round(self) -> Optional[np.ndarray]:
         """The round's (N,) survival mask on the host (None without failure
@@ -276,8 +327,43 @@ class FederatedRunner:
             )
         pending.clear()
 
+    def _cohort_reason(self, start_round: int) -> Optional[str]:
+        """None if the run can go cohort-sampled end to end, else why not,
+        in the JAX runner's words (its mesh reasons come with ROADMAP.md
+        Queue 1 item 12). Every constraint is an error, not a fallback."""
+        k2 = self.hier_config.kappa2_effective
+        reason = cohort_incompatibility(self.hier_config, self.topology, self.participation.cohort_size)
+        if reason is not None:
+            return reason
+        if self.cfg.engine == "per_round":
+            return "engine='per_round' has no cohort lowering"
+        if start_round % k2:
+            return f"start_round {start_round} is not a cloud boundary (kappa2_eff={k2})"
+        if (self.cfg.num_rounds - start_round) % k2:
+            return f"num_rounds {self.cfg.num_rounds} is not a whole number of cloud intervals"
+        for name, every in (("eval_every", self.cfg.eval_every), ("checkpoint_every", self.cfg.checkpoint_every)):
+            if every and every % k2 != 0:
+                return f"{name}={every} is finer than a cloud interval (kappa2_eff={k2})"
+        return None
+
+    def _run_cohort(self, state: FedState, start_round: int) -> FedState:
+        reason = self._cohort_reason(start_round)
+        if reason is not None:
+            raise ValueError(f"sampled participation cannot run: {reason}")
+        intervals = (self.cfg.num_rounds - start_round) // self.hier_config.kappa2_effective
+        if intervals <= 0:
+            return state
+        if self._engine is None:
+            from repro_torch.fed.engine import CohortEngine
+
+            self._engine = CohortEngine(self)
+        state, _ = self._engine.run_intervals(state, start_round=start_round, num_intervals=intervals)
+        return state
+
     def run(self, state: FedState, *, start_round: int = 0) -> FedState:
         mode = self.cfg.engine
+        if self.participation is not None:
+            return self._run_cohort(state, start_round)
         k2 = self.hier_config.kappa2_effective
         if mode != "per_round":
             full = (self.cfg.num_rounds - start_round) // k2 if self._superround_eligible(start_round) else 0

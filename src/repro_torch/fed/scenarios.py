@@ -22,6 +22,7 @@ from repro_torch.fed.api import (
     ExperimentSpec,
     FailureSpec,
     ModelSpec,
+    ParticipationSpec,
     RunSpec,
     ScheduleSpec,
     TopologySpec,
@@ -33,7 +34,6 @@ _REGISTRY: Dict[str, Tuple[Callable[[], ExperimentSpec], str]] = {}
 # JAX scenarios that need an unported feature: (what it needs, ROADMAP.md
 # Queue 1 item that brings it)
 _LATER = {
-    "n1m_cohort4096": ("sampled participation", 10),
     "congested_backhaul": ("the round-replay simulator", 11),
     "hetero_clients_assoc": ("the round-replay simulator", 11),
     "straggler_tail": ("the round-replay simulator", 11),
@@ -234,6 +234,27 @@ def _lm_edge_niid() -> ExperimentSpec:
         ),
         cost=CostSpec(workload="none"),
         run=RunSpec(num_rounds=24, eval_every=0),
+    )
+
+
+@register(
+    "n1m_cohort4096",
+    "1M virtual clients / 1000 edges, stratified 4096-client cohorts — "
+    "population-scale streaming participation (device state ∝ cohort)",
+)
+def _n1m_cohort4096() -> ExperimentSpec:
+    return ExperimentSpec(
+        name="n1m_cohort4096",
+        topology=TopologySpec(num_edges=1000, clients_per_edge=1000),
+        schedule=ScheduleSpec(kappas=(4, 2)),
+        data=DataSpec(
+            partition="iid", num_samples=20000, batch_size=8,
+            virtual_clients=1_000_000, samples_per_client=64,
+        ),
+        model=ModelSpec(lr=0.1),
+        participation=ParticipationSpec(cohort_size=4096, sampler="stratified"),
+        cost=CostSpec(workload="none"),
+        run=RunSpec(num_rounds=8, eval_every=0),
     )
 
 

@@ -25,7 +25,7 @@ went through the kernels.
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -129,7 +129,7 @@ def grouped_mean(x: torch.Tensor, w: torch.Tensor, num_groups: int) -> torch.Ten
 def segment_offsets(segment_ids, num_segments: int) -> np.ndarray:
     """(G+1,) int32 row offsets of each segment for sorted ids in [0, G):
     segment g owns rows [offsets[g], offsets[g+1]). Raises on unsorted or
-    out-of-range ids (the ids are static per ``HierarchySpec``)."""
+    out-of-range ids."""
     ids = np.asarray(segment_ids)
     if ids.ndim != 1 or ids.size == 0:
         raise ValueError(f"segment_ids must be a non-empty vector, got shape {ids.shape}")
@@ -148,17 +148,25 @@ def _device_offsets(ids_bytes: bytes, num_segments: int, device: torch.device) -
     return torch.from_numpy(offsets).to(device)
 
 
-def segment_mean(x: torch.Tensor, w: torch.Tensor, segment_ids, num_segments: int) -> torch.Tensor:
+def segment_mean(x: torch.Tensor, w: torch.Tensor, segment_ids, num_segments: int, *,
+                 offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: per segment of sorted ``segment_ids`` (host-side, (N,)), the f32
     weighted mean of the rows of ``x`` (N, D), broadcast back; zero-weight
-    segments keep their rows."""
+    segments keep their rows. ``offsets``, when given, is the ids'
+    ``segment_offsets`` table already on x's device (a sampled cohort's
+    ids change every interval, so its table comes uploaded with the
+    cohort rather than from the per-level cache)."""
     ids = np.asarray(segment_ids, np.int64)
     if ids.shape != (x.shape[0],):
         raise ValueError(f"segment_ids shape {ids.shape} != ({x.shape[0]},)")
     if x.device.type == "cpu":
         return segment_mean_plain(x, w, ids, num_segments)
     _check_cuda(x, w, "segment_mean")
-    offsets = _device_offsets(ids.tobytes(), int(num_segments), x.device)
+    if offsets is None:
+        offsets = _device_offsets(ids.tobytes(), int(num_segments), x.device)
+    elif offsets.dtype != torch.int32 or tuple(offsets.shape) != (int(num_segments) + 1,) or offsets.device != x.device:
+        raise ValueError(f"segment_mean: offsets must be int32 of shape ({int(num_segments) + 1},) on {x.device}, "
+                         f"got {offsets.dtype} {tuple(offsets.shape)} on {offsets.device}")
     out = torch.empty_like(x)
     err = _build.load("hier_aggregate").hier_segment_mean(
         x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],

@@ -25,11 +25,13 @@ def grouped_mean(x: torch.Tensor, weights: torch.Tensor, num_groups: int) -> tor
     return _ha.grouped_mean(x, weights, num_groups)
 
 
-def segment_mean(x: torch.Tensor, weights: torch.Tensor, segment_ids, num_segments: int) -> torch.Tensor:
+def segment_mean(x: torch.Tensor, weights: torch.Tensor, segment_ids, num_segments: int, *,
+                 offsets=None) -> torch.Tensor:
     """K2: ragged groups over sorted host-side segment ids (N,). Callers
     that may hold equal blocks pick K1 themselves (``core.aggregation``
-    decides once per level)."""
-    return _ha.segment_mean(x, weights, segment_ids, num_segments)
+    decides once per level). ``offsets``: K2's table of those ids, already
+    on the device (a cohort's, uploaded by the prefetcher)."""
+    return _ha.segment_mean(x, weights, segment_ids, num_segments, offsets=offsets)
 
 
 def segment_dequant_mean(q: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor, segment_ids,

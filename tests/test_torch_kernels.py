@@ -12,7 +12,9 @@ K5 are bit-equal to their plain versions (the same IEEE divisions and
 round-half-to-even); K6 agrees within ``1e-5 * max|x|``, dead groups bit
 for bit. K3 agrees at the JAX kernel-vs-oracle ``rtol=3e-6, atol=5e-7``
 (bf16 rows: plus one bf16 ulp), repeats itself bit for bit and is one
-kernel launch per call.
+kernel launch per call. A sampled cohort's stages (compacted segment ids
+with K2's table uploaded ahead) run K2 and K1 on the card, and
+``n1m_cohort4096`` runs through them.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,8 @@ import torch
 
 from pathlib import Path
 
+from repro_torch.core import aggregation
+from repro_torch.core.hierarchy import HierarchySpec
 from repro_torch.kernels import _build
 from repro_torch.kernels import hier_aggregate as ha
 from repro_torch.kernels import megakernel as mk
@@ -281,3 +285,51 @@ def test_edge_interval_wrapper_checks_its_inputs_on_gpu(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         mk.edge_interval(params, torch.zeros(4, 1, 4096, 3, device=cuda), torch.zeros(4, 1, 4096, 2, device=cuda), w,
                          num_edges=1, feat=3, lr=0.1)
+
+
+# -- sampled participation on the card: cohort stages through K1 and K2 -----------
+
+
+@pytest.mark.cuda
+def test_a_cohort_sync_launches_k2_with_its_compact_table(cuda):
+    spec = HierarchySpec.uniform(70_000, 2)
+    c = 64
+    ids = np.sort(np.concatenate([[0, 1], np.random.default_rng(0).choice(np.arange(2, 140_000, 2), c - 2,
+                                                                        replace=False)]))
+    segments = np.asarray(spec.segments(1), np.int32)[ids][None]
+    stages = aggregation.cohort_stages(segments, c)
+    assert not stages[0].uniform and stages[0].num_segments == c - 1  # clients 0 and 1 share edge 0
+    tables = [tuple(None if a is None else torch.from_numpy(a).pin_memory() for a in aggregation.stage_host_tables(st))
+              for st in stages]
+    dev_stages = aggregation.stages_to_device(stages, tables, cuda, non_blocking=True)
+    rng = np.random.default_rng(1)
+    tree = {"w": torch.from_numpy(rng.normal(size=(c, 48, 10)).astype(np.float32))}
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, size=c).astype(np.float32))
+    want = aggregation.staged_mean(tree, w, stages[:1])
+    ha.reset_launch_counts()
+    got = aggregation.staged_mean({"w": tree["w"].to(cuda)}, w.to(cuda), dev_stages[:1])
+    assert ha.LAUNCHES["segment_mean"] == 1 and ha.LAUNCHES["grouped_mean"] == 0
+    torch.testing.assert_close(got["w"].cpu(), want["w"], rtol=1e-5, atol=1e-6)
+    full = aggregation.staged_mean({"w": tree["w"].to(cuda)}, w.to(cuda), dev_stages)
+    assert ha.LAUNCHES["grouped_mean"] == 1
+    torch.testing.assert_close(full["w"].cpu(), aggregation.staged_mean(tree, w, stages)["w"], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_population_scenario_runs_on_the_card_through_k1_and_k2(cuda):
+    from repro_torch.fed import scenarios
+
+    spec = scenarios.get("n1m_cohort4096", overrides=["run.num_rounds=2"])
+    params = spec.init_params(spec.run.seed + 1, "cpu")
+    ha.reset_launch_counts()
+    runner, state = spec.run_experiment(device=cuda, params=params)
+    assert ha.LAUNCHES["segment_mean"] == 8 and ha.LAUNCHES["grouped_mean"] == 4
+    assert all(v.shape[0] == 4096 and v.is_cuda for v in state.params.values())
+    # one cloud interval against the plain versions on the CPU from the same
+    # init: its rounds, and the params after its cloud sync (K2 over the
+    # compacted edges with the prefetched table, K1 at the root)
+    ref, ref_state = spec.run_experiment(device="cpu", params=params)
+    for a, b in zip(runner.history, ref.history):
+        assert a.loss == pytest.approx(b.loss, rel=1e-4) and a.grad_norm == pytest.approx(b.grad_norm, rel=1e-4)
+    for k, v in state.params.items():
+        torch.testing.assert_close(v.cpu(), ref_state.params[k], rtol=0, atol=1e-5)

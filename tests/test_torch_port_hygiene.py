@@ -97,7 +97,7 @@ def test_resolve_device_turns_tf32_off():
     "overrides,item",
     [
         (["schedule.async_cloud=true"], 11),
-        (["participation.cohort_size=8"], 10),
+        (["participation.cohort_size=8", "topology.mesh_axes=clients"], 12),
         (["deadline.enabled=true"], 11),
         (["topology.mesh_axes=clients"], 12),
     ],
@@ -160,7 +160,7 @@ def test_lm_options_on_quickstart_behave_like_jax(overrides, error):
             spec.build(device="cpu")
 
 
-@pytest.mark.parametrize("name", ["straggler_tail", "stale_decay", "n1m_cohort4096", "fedbuff_k4"])
+@pytest.mark.parametrize("name", ["straggler_tail", "stale_decay", "deadline_straggler", "fedbuff_k4"])
 def test_unported_scenarios_name_their_roadmap_item(name):
     from repro_torch.fed import scenarios
 
@@ -176,7 +176,7 @@ def test_unknown_scenario_lists_the_ported_ones():
     assert scenarios.names() == sorted([
         "quickstart", "favg", "hierfavg_iid", "hierfavg_edge_iid", "hierfavg_edge_niid",
         "kappa_sweep_fast", "edge_only", "ragged_edges", "three_level", "int8_cloud", "int8_ef_both",
-        "lm_edge_niid", "trimmed_edge", "median_cloud", "trimmed_int8",
+        "lm_edge_niid", "trimmed_edge", "median_cloud", "trimmed_int8", "n1m_cohort4096",
     ])
 
 
