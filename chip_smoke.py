@@ -10,9 +10,16 @@ Phases, one JSON line each; any failure exits non-zero:
   kernels     K1 grouped_mean and K2 segment_mean against their plain
               versions on the card, at the main path's shapes (lm-100m's
               largest leaf and a norm among them; n1m_cohort4096's cloud
-              root over 4096 rows, and its compacted edge stage with the
-              prefetched offsets table), f32 and bf16,
-              with masked clients and a dead group; times by CUDA events
+              root over 4096 rows, all four leaves, and its compacted edge
+              stage with the prefetched segment table; one 4096-row
+              segment; 70,000 groups, more than a grid's y dimension
+              takes), f32 and bf16, with masked clients and a dead group;
+              per case the schedule (one pass, or split into row chunks),
+              the device kernels one call runs (profiler, against the
+              schedule), a relaunch and an input one element off 16-byte
+              alignment bit-equal to the first launch; times by CUDA events,
+              beside one copy of the same rows (``copy_ms``), and the time
+              the same timing gives one and two tiny kernels
   transport_kernels
               K4 quantize and K5 dequantize against their plain versions at
               the transport's leaf shapes, f32 and bf16, qblock 256 and 128,
@@ -22,7 +29,8 @@ Phases, one JSON line each; any failure exits non-zero:
               vectors or scalar, read from the kernel's name in a profiler
               trace) must follow the shape; K6
               segment_dequant_mean against its plain version and against K5
-              then K2, with masked clients and a dead group
+              then K2, with masked clients and a dead group, also over
+              70,000 ragged segments
   quickstart  the ``quickstart`` scenario on cuda, then on the CPU (plain
               versions): per-round losses and accuracies must agree
   ragged      ``ragged_edges`` on cuda: K2 must launch, the loss must fall
@@ -366,11 +374,18 @@ def kernel_cases():
     import numpy as np
 
     ragged = np.repeat(np.arange(5), [16, 12, 10, 7, 5])
+    # more segments than a grid's y dimension takes: 140,000 clients on
+    # 70,000 edges of the quickstart MLP (its widest leaf), sizes 1, 3, 0, 4
+    many = np.repeat(np.arange(70_000), np.tile([1, 3, 0, 4], 17_500))
     return [
         ("grouped_mean", "quickstart w1 edge (20x768, G=4)", 20, 768, 4),
-        # n1m_cohort4096's cloud sync: its root stage over the cohort, w1
-        # (16 x 48) the widest leaf
+        # n1m_cohort4096's cloud sync: its root stage over the cohort, all
+        # four leaves (w1 16 x 48, b1 48, w2 48 x 10, b2 10)
         ("grouped_mean", "n1m cohort w1 cloud root (4096x768, G=1)", 4096, 768, 1),
+        ("grouped_mean", "n1m cohort w2 cloud root (4096x480, G=1)", 4096, 480, 1),
+        ("grouped_mean", "n1m cohort b1 cloud root (4096x48, G=1)", 4096, 48, 1),
+        ("grouped_mean", "n1m cohort b2 cloud root (4096x10, G=1)", 4096, 10, 1),
+        ("grouped_mean", "70,000 edges of 2 (140000x768, G=70000)", 140_000, 768, 70_000),
         ("grouped_mean", "mlp307k w1 edge (32x262144, G=4)", 32, 262144, 4),
         ("grouped_mean", "mlp307k w1 cloud (32x262144, G=1)", 32, 262144, 1),
         # lm_edge_niid's leaves at lm-100m: the final norm, and the stacked
@@ -381,11 +396,27 @@ def kernel_cases():
         # n1m_cohort4096's edge sync and its cloud sync's first stage
         ("segment_mean", "n1m cohort w1 edges, compacted, offsets= (4096x768, G=1000)", 4096, 768,
          n1m_cohort_edge_stage()),
+        ("segment_mean", "one tall segment (4096x768, G=1)", 4096, 768, np.zeros(4096, np.int64)),
+        ("segment_mean", "70,000 ragged edges (140000x768)", 140_000, 768, many),
         ("segment_mean", "ragged 16,12,10,7,5 (50x262144)", 50, 262144, ragged),
     ]
 
 
+def k1k2_schedule(ha, name, n, d, num, itemsize, table):
+    """The schedule the wrapper runs (``hier_aggregate._schedule``) and its
+    device kernels per call: 1 for one pass, 2 for a split."""
+    if name == "grouped_mean":
+        sched = ha._schedule(n // num, d, num, itemsize)
+    else:
+        sched = ha._segment_schedule(n, d, num, itemsize, ha.table_items(table.numel(), num))
+    return sched._asdict(), sched.kernels
+
+
 def phase_kernels(torch, ha):
+    """K1 and K2 against their plain versions at the main path's shapes;
+    per case the schedule, the device kernels one call runs (profiler,
+    against the schedule's count), two launches and an input one element
+    off 16-byte alignment (element loads) bit-equal to the first launch."""
     import numpy as np
 
     from repro_torch.core import aggregation
@@ -400,14 +431,18 @@ def phase_kernels(torch, ha):
             groups = groups.ids
         ids = groups if name == "segment_mean" else np.repeat(np.arange(groups), n // groups)
         num = int(ids.max()) + 1
+        if name == "segment_mean" and offsets is None:
+            table = ha._device_table(ids.astype(np.int64).tobytes(), num, torch.device("cuda"))
+        else:
+            table = offsets
         kernel = (lambda x, w: ha.grouped_mean(x, w, num)) if name == "grouped_mean" else (
             lambda x, w: ha.segment_mean(x, w, ids, num, offsets=offsets))
         plain = (lambda x, w: ha.grouped_mean_plain(x, w, num)) if name == "grouped_mean" else (
             lambda x, w: ha.segment_mean_plain(x, w, ids, num))
         base = rng.uniform(0.5, 4.0, n).astype(np.float32)
         masked = base * (rng.random(n) > 0.3)
-        for g in range(num):  # keep >= 1 survivor per group
-            masked[np.flatnonzero(ids == g)[0]] = base[np.flatnonzero(ids == g)[0]]
+        firsts = np.searchsorted(ids, np.unique(ids))  # keep >= 1 survivor per (non-empty) group
+        masked[firsts] = base[firsts]
         dead = masked * (ids != 0)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to("cuda", dtype)
@@ -434,8 +469,23 @@ def phase_kernels(torch, ha):
                 row = {"kernel": name, "case": label, "dtype": str(dtype)[6:], "variant": variant,
                        "max_abs_err": err}
                 if variant == "weights":
+                    sched, per_call = k1k2_schedule(ha, name, n, d, num, x.element_size(), table)
+                    traced = traced_kernels(torch, lambda: kernel(x, w), "group_mean", want=per_call)
+                    check(len(traced) == per_call, f"{name} {label} {dtype}: {len(traced)} device kernels a call "
+                                                   f"({[t[:60] for t in traced]}), the schedule runs {per_call}")
+                    check(bit_equal(kernel(x, w), got), f"{name} {label} {dtype}: a relaunch differs")
+                    shifted = off_by_one(torch, x)
+                    check(bit_equal(kernel(shifted, w), got),
+                          f"{name} {label} {dtype}: an input off 16-byte alignment gives other bits")
+                    del shifted
+                    row.update(schedule=sched, device_kernels_per_call=len(traced), relaunch_bit_equal=True,
+                               unaligned_bit_equal=True)
                     nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
                     row["ms"] = time_ms(lambda: kernel(x, w), flush=flush)
+                    # a yardstick: one copy of x moves the same bytes in one kernel
+                    dst = torch.empty_like(x)
+                    row["copy_ms"] = time_ms(lambda: dst.copy_(x), flush=flush)
+                    del dst
                     row["plain_ms"] = time_ms(lambda: plain(x, w), flush=flush)
                     row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
                     row["bound_by"] = "bytes"
@@ -445,7 +495,12 @@ def phase_kernels(torch, ha):
                     s["max_abs_err"] = max(s["max_abs_err"], err)
                     if variant == "weights":  # the last (largest) case of each kernel wins
                         s.update({k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, case=label)
-    emit({"phase": "kernels", "kernels": ["grouped_mean", "segment_mean"], "cases": rows})
+    # what this timing gives one and two tiny kernels: the floor under every
+    # case above (a split runs two kernels a call)
+    tiny = torch.zeros(16, device="cuda")
+    floor = {"one_kernel_ms": time_ms(lambda: tiny.add_(1), flush=flush),
+             "two_kernels_ms": time_ms(lambda: (tiny.add_(1), tiny.add_(1)), flush=flush)}
+    emit({"phase": "kernels", "kernels": ["grouped_mean", "segment_mean"], "cases": rows, "timing_floor": floor})
     return summary
 
 
@@ -516,19 +571,20 @@ def phase_transport_kernels(torch, ha, qz):
 
     k6 = summary.setdefault("segment_dequant_mean", {"max_abs_err": 0.0, "library_ms": None})
     ragged = np.repeat(np.arange(5), [16, 12, 10, 7, 5])
-    for label, n, ids in (("mlp307k w1 edge (32x262144, G=4)", 32, np.repeat(np.arange(4), 8)),
-                          ("mlp307k w1 cloud (32x262144, G=1)", 32, np.zeros(32, np.int64)),
-                          ("ragged 16,12,10,7,5 (50x262144)", 50, ragged)):
-        d, qblock = 262144, 256
+    many = np.repeat(np.arange(70_000), np.tile([1, 3, 0, 4], 17_500))  # beyond a grid's 65,535 y
+    for label, n, d, ids in (("mlp307k w1 edge (32x262144, G=4)", 32, 262144, np.repeat(np.arange(4), 8)),
+                             ("mlp307k w1 cloud (32x262144, G=1)", 32, 262144, np.zeros(32, np.int64)),
+                             ("70,000 ragged edges (140000x768)", 140_000, 768, many),
+                             ("ragged 16,12,10,7,5 (50x262144)", 50, 262144, ragged)):
+        qblock = 256
         num = int(ids.max()) + 1
         q, s = qz.quantize_stacked(torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).cuda(), qblock)
         decoded = qz.dequantize_stacked(q, s, d)
         tol = 1e-5 * float(decoded.abs().max())
         base = rng.uniform(0.5, 4.0, n).astype(np.float32)
         masked = base * (rng.random(n) > 0.3)
-        for g in range(num):  # keep >= 1 survivor per group
-            first = np.flatnonzero(ids == g)[0]
-            masked[first] = base[first]
+        firsts = np.searchsorted(ids, np.unique(ids))  # keep >= 1 survivor per (non-empty) group
+        masked[firsts] = base[firsts]
         dead = masked * (ids != 0)
         for variant, wn in (("weights", base), ("masked", masked), ("dead group 0", dead)):
             w = torch.from_numpy(wn).cuda()
@@ -608,22 +664,29 @@ def k3_inputs(torch, rng, n, k1, b, feat, out, mom, dtype):
 TRACES_TAKEN_AGAIN = [0]  # short traces that showed no kernel and were taken again
 
 
-def traced_kernels(torch, fn, needle: str, attempts: int = 5) -> list:
+def traced_kernels(torch, fn, needle: str, attempts: int = 5, want: int = 0) -> list:
     """The names of the device kernels holding ``needle`` that one call of
-    ``fn`` ran, from a profiler trace (one entry per launch). The tracer can
-    lose a short window whole, so a trace that shows no such kernel is taken
-    again, up to ``attempts`` traces of one call each; a kernel that never
-    ran still shows none."""
-    from torch.profiler import ProfilerActivity, profile
+    ``fn`` ran, from a profiler trace (one entry per launch): ``fn`` runs
+    once while the tracer warms up, unrecorded, then once recorded. The
+    tracer can still lose a short window whole, or one of two kernels of a
+    call (K1/K2's split), so a trace that shows no such kernel, or fewer
+    than ``want``, is taken again, up to ``attempts`` traces of one call
+    each; a kernel that never ran still shows none."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(attempts):
+        names = []
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and needle in e.name]
-        if names:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: names.extend(
+                         e.name for e in p.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA and needle in e.name)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if names and len(names) >= want:
             break
         TRACES_TAKEN_AGAIN[0] += 1
     return names
@@ -897,7 +960,7 @@ def path_report(runner, seconds, launches, extra=None):
 
 
 def kernel_class(name: str) -> str:
-    if "grouped_mean_kernel" in name or "segment_mean_kernel" in name:
+    if "group_mean_kernel" in name or "group_mean_finish_kernel" in name:  # K1 and K2 share both
         return "aggregation (K1/K2)"
     if "quantize_kernel" in name:  # K4 quantize_kernel, K5 dequantize_kernel and dequantize_kernel_vec16
         return "transport codec (K4/K5)"
@@ -1505,7 +1568,7 @@ def offsets_miss_cost(torch, mods, overrides, params):
     """What the prefetched K2 tables save: the warm wall per interval of
     the run as it is against the same run with its stages' tables taken
     out, so that ``segment_mean`` builds and uploads each one itself
-    (``_device_offsets``, its cache cleared first; a uniform cohort's ids
+    (``_device_table``, its cache cleared first; a uniform cohort's ids
     change every interval, so each interval misses), in the order A B B A;
     and the host time of one such miss on an idle device."""
     import numpy as np
@@ -1517,23 +1580,23 @@ def offsets_miss_cost(torch, mods, overrides, params):
     without = lambda *a, **k: tuple(st._replace(offsets=None) for st in upload(*a, **k))
     walls, misses = {"prefetched": [], "built_on_dispatch": []}, 0
     for mode in ("prefetched", "built_on_dispatch", "built_on_dispatch", "prefetched"):
-        ha._device_offsets.cache_clear()
+        ha._device_table.cache_clear()
         aggregation.stages_to_device = without if mode == "built_on_dispatch" else upload
         try:
             runner, _, secs, *_ = run_scenario(torch, mods, "hierfavg_edge_iid", overrides, "cuda", params)
         finally:
             aggregation.stages_to_device = upload
         walls[mode].append(secs * 1e3 / (runner.cfg.num_rounds // runner.hier_config.kappa2_effective))
-        misses += ha._device_offsets.cache_info().misses if mode == "built_on_dispatch" else 0
-    ha._device_offsets.cache_clear()
+        misses += ha._device_table.cache_info().misses if mode == "built_on_dispatch" else 0
+    ha._device_table.cache_clear()
     one = []
     for k in range(20):
         ids = np.sort(np.random.default_rng(k).integers(0, 4, 32))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ha._device_offsets(ids.tobytes(), 4, torch.device("cuda"))
+        ha._device_table(ids.tobytes(), 4, torch.device("cuda"))
         one.append((time.perf_counter() - t0) * 1e3)
-    ha._device_offsets.cache_clear()
+    ha._device_table.cache_clear()
     return {"warm_wall_ms_per_interval": walls, "misses_in_two_runs": misses,
             "one_miss_host_ms_idle_device": statistics.median(one)}
 

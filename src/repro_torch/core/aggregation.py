@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.hier_aggregate import segment_offsets
+from repro_torch.kernels.hier_aggregate import segment_table
 from repro_torch.tree import Tree, tree_map
 
 
@@ -114,7 +114,8 @@ class Stage(NamedTuple):
     """One segment mean of a staged aggregation, decided on the host once:
     sorted (N,) int64 segment ids, their count, and whether they form equal
     contiguous blocks (K1) or ragged segments (K2). A cohort's stages
-    (``cohort_stages``) may also carry K2's (G+1,) int32 offsets table and
+    (``cohort_stages``) may also carry K2's int32 ``segment_table`` (the
+    offsets, and the work items of a segment too tall for one block) and
     the ids as a device tensor, uploaded ahead of the sync."""
 
     ids: np.ndarray
@@ -136,11 +137,12 @@ def cohort_stages(segments: np.ndarray, cohort_size: int) -> Tuple[Stage, ...]:
     columned at the cohort's ids), and the top stage maps every member to
     the root. Each stage is compacted to the nodes the cohort holds (ids
     renumbered 0..G'-1 in order): a node with no member writes no row, so
-    the means are those over the original ids, and K2's grid stays under
-    its 65,535-segment limit for any cohort smaller than that. Compacted
-    ids that form equal blocks take K1, as the top stage (G' = 1) always
-    does; ragged ones take K2. Host-side only: ``stages_to_device`` uploads
-    the tables."""
+    the means are those over the original ids, and K2 runs over at most C
+    segments, not over every node of the level (1000 edges at n1m, where
+    the cohort holds 4 or 5 clients of each), so its table and its grid
+    stay as small as the cohort. Compacted ids that form equal blocks take
+    K1, as the top stage (G' = 1) always does; ragged ones take K2.
+    Host-side only: ``stages_to_device`` uploads the tables."""
     out = []
     for col in np.asarray(segments).reshape(-1, int(cohort_size)):
         present, compact = np.unique(np.asarray(col, np.int64), return_inverse=True)
@@ -150,9 +152,9 @@ def cohort_stages(segments: np.ndarray, cohort_size: int) -> Tuple[Stage, ...]:
 
 
 def stage_host_tables(st: Stage) -> Tuple[Optional[np.ndarray], np.ndarray]:
-    """(K2's offsets table or None for a K1 stage, the ids): what
+    """(K2's ``segment_table`` or None for a K1 stage, the ids): what
     ``stages_to_device`` uploads."""
-    return (None if st.uniform else segment_offsets(st.ids, st.num_segments)), st.ids
+    return (None if st.uniform else segment_table(st.ids, st.num_segments)), st.ids
 
 
 def stages_to_device(stages: Sequence[Stage], tables, device: torch.device, non_blocking: bool = False):

@@ -28,9 +28,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # stream as c_void_p: a plain int would be cut to 32 bits).
 SIGNATURES = {
     "hier_aggregate": {
-        "hier_grouped_mean": (_P, _P, _P, _I, _I, _I, _I, _P),
-        "hier_segment_mean": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "hier_grouped_mean": (_P,) * 4 + (_I,) * 10 + (_P,),
+        "hier_segment_mean": (_P,) * 5 + (_I,) * 11 + (_P,),
         "hier_segment_dequant_mean": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "hier_error_name": (_I,),
+        "hier_error_string": (_I,),
     },
     "quantize": {
         "quant_quantize": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -51,6 +53,8 @@ SIGNATURES = {
     },
 }
 RESTYPES = {  # every other entry point returns int
+    "hier_error_name": ctypes.c_char_p,
+    "hier_error_string": ctypes.c_char_p,
     "mk_edge_interval_smem": ctypes.c_longlong,
     "rg_scan_header_bytes": ctypes.c_longlong,
     "rg_scan_aggregate_bytes": ctypes.c_longlong,
@@ -123,10 +127,19 @@ def build_all(names=SOURCES) -> Dict[str, Path]:
     return paths
 
 
-def raise_on_error(err: int, what: str) -> None:
-    """Raise for the cudaError_t a kernel's C entry point returned."""
+def error_text(err: int) -> str:
+    """The CUDA runtime's name and description of a cudaError_t, e.g.
+    ``cudaErrorInvalidValue (1): invalid argument`` (every library links the
+    same runtime; ``hier_aggregate`` exports the lookup)."""
+    lib = load("hier_aggregate")
+    return f"{lib.hier_error_name(err).decode()} ({err}): {lib.hier_error_string(err).decode()}"
+
+
+def raise_on_error(err: int, what: str, given: str = "") -> None:
+    """Raise for the cudaError_t a kernel's C entry point returned, naming
+    the error, the kernel and what it was given (``given``: its shapes)."""
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed with cudaError {err}")
+        raise RuntimeError(f"{what} kernel launch failed with {error_text(err)}" + (f"; given {given}" if given else ""))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,16 +16,24 @@ and f32 block scales (N, D / qblock), the row layout of
 its decoded rows. The source notes what bounds the kernels on the card and
 how they are laid out.
 
+The wrappers choose K1/K2's schedule from the shape alone (``_schedule``:
+one pass, or a tall group's rows split over blocks in two kernels) and
+the C entry points execute it; K2's split reads its work items from the
+level's ``segment_table``, built once with the offsets. Groups run on
+grid.x, so every group count the int32 sizes admit is taken; a shape
+beyond a limit is refused with a message that names it.
+
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel on the current stream (no
 synchronisation) or raises. There is no fallback from one to the other.
-``LAUNCHES`` counts kernel launches per kernel, so a run can show that it
+``LAUNCHES`` counts wrapper calls that launched (one per call, whether
+the schedule runs one device kernel or two), so a run can show that it
 went through the kernels.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -84,6 +92,119 @@ def segment_dequant_mean_plain(
     return segment_mean_plain(x, w, segment_ids, num_segments)
 
 
+# -- the schedule ----------------------------------------------------------------
+
+THREADS = 256  # threads per block (kThreads in csrc/hier_aggregate.cu)
+SMS = 132  # streaming multiprocessors of an H100 SXM
+FILL_BLOCKS = 2 * SMS  # a split aims at two blocks per SM
+SPLIT_ABOVE = 64  # a group of at most this many rows always takes one pass
+SPLIT_LANES = 32  # column slots per tile of a split: 512 contiguous bytes of f32 a row
+SPLIT_ROWS = 16  # row threads per block of a split, at most
+GRID_LIMIT = 2**31 - 1  # blocks on grid.x
+
+
+class Schedule(NamedTuple):
+    """How K1/K2 cover an (N, D) leaf, chosen on the host from the shape
+    alone (``_schedule``); the C entry points execute it. A block holds
+    ``groups_per_block`` groups x ``rows`` row threads x ``lanes`` column
+    slots; a slot is ``vec`` columns (16 bytes, or one column where D is no
+    multiple of 16 bytes). ``chunks`` > 1 splits each group into work items
+    of ``chunk_rows`` rows and takes two kernels (partial sums, then the
+    combine and the stores); 1 takes one kernel."""
+
+    vec: int
+    lanes: int
+    rows: int
+    groups_per_block: int
+    tiles: int
+    chunk_rows: int
+    chunks: int
+
+    @property
+    def threads(self) -> int:
+        return self.lanes * self.rows * self.groups_per_block
+
+    @property
+    def kernels(self) -> int:
+        """Device kernels one call runs."""
+        return 1 if self.chunks == 1 else 2
+
+    def blocks(self, groups: int, items: Optional[int] = None) -> int:
+        """Blocks of each kernel (on grid.x): the work items (K1: groups x
+        chunks; K2: its table's) or the blocks of groups, times the tiles."""
+        if self.chunks > 1:
+            return (groups * self.chunks if items is None else items) * self.tiles
+        return -(-groups // self.groups_per_block) * self.tiles
+
+
+def _layout(d: int, itemsize: int, rows_per_group: int, groups: int, split: bool):
+    """(vec, lanes, rows, groups_per_block, tiles). One pass: a tile spans up
+    to 256 slots with one row thread each (row threads and their tree in
+    shared memory made mlp307k's cloud mean slower on an H100), a narrow leaf
+    (D = 10, 48) gets row threads, and short groups share a block, so no
+    warp idles. Split: tiles of at most 32 slots and up to 16 row threads
+    (256 threads at 16 or more slots; a narrow leaf's block stays small, so
+    its rows spread over more blocks)."""
+    vec = 16 // itemsize if d % (16 // itemsize) == 0 else 1
+    slots = d // vec
+    if split:
+        lanes = min(slots, SPLIT_LANES)
+        rows, per_block = min(THREADS // lanes, SPLIT_ROWS), 1
+    else:
+        lanes = min(slots, THREADS)
+        rows = max(1, min(rows_per_group, THREADS // lanes))
+        per_block = max(1, min(groups, THREADS // (lanes * rows)))
+    return vec, lanes, rows, per_block, -(-slots // lanes)
+
+
+@functools.lru_cache(maxsize=256)
+def _schedule(rows_per_group: int, d: int, groups: int, itemsize: int,
+              chunk_rows: Optional[int] = None) -> Schedule:
+    """K1's schedule for ``groups`` groups of ``rows_per_group`` rows over
+    ``d`` columns of ``itemsize`` bytes; a pure function of the shape. A
+    group of more than ``SPLIT_ABOVE`` rows is split when one pass would
+    give fewer than ``FILL_BLOCKS`` blocks: into enough chunks for that
+    many, each of at least as many rows as the block has row threads (and
+    at least 2 chunks). ``chunk_rows``, when given, fixes the chunk instead
+    (K2: its table's, ``_segment_chunk_rows``)."""
+    if chunk_rows is None:
+        chunk_rows = rows_per_group
+        if rows_per_group > SPLIT_ABOVE:
+            *_, per_block, tiles = _layout(d, itemsize, rows_per_group, groups, False)
+            if -(-groups // per_block) * tiles < FILL_BLOCKS:
+                *_, rows, _, tiles = _layout(d, itemsize, rows_per_group, groups, True)
+                want = -(-FILL_BLOCKS // (groups * tiles))
+                chunks = max(2, min(want, rows_per_group // rows))
+                chunk_rows = -(-rows_per_group // chunks)
+    chunks = -(-rows_per_group // chunk_rows)
+    vec, lanes, rows, per_block, tiles = _layout(d, itemsize, rows_per_group, groups, chunks > 1)
+    return Schedule(vec, lanes, rows, per_block, tiles, chunk_rows, chunks)
+
+
+def _segment_schedule(n: int, d: int, num_segments: int, itemsize: int, items: int) -> Schedule:
+    """K2's schedule over ``n`` rows: a split's layout over its table's
+    ``items`` work items, or (no items) one pass at the segments' mean
+    height."""
+    if items:
+        return _schedule(n, d, num_segments, itemsize, chunk_rows=_segment_chunk_rows(n))
+    rows = -(-n // num_segments)
+    return _schedule(rows, d, num_segments, itemsize, chunk_rows=rows)
+
+
+def _segment_chunk_rows(n: int) -> int:
+    """Rows per work item in K2's table over ``n`` rows: a segment longer
+    than this is split. It depends on ``n`` alone, so a level's table
+    serves every leaf: a power of two at least twice sqrt(n) (at most
+    n / chunk_rows^2 <= 1/4 of a segment's bytes re-read as partials), or
+    ``n`` where no segment can exceed ``SPLIT_ABOVE`` rows."""
+    if n <= SPLIT_ABOVE:
+        return max(n, 1)
+    r = 32
+    while r * r < 4 * n:
+        r *= 2
+    return r
+
+
 # -- kernel wrappers -------------------------------------------------------------
 
 
@@ -104,7 +225,20 @@ def _check_cuda(x: torch.Tensor, w: torch.Tensor, what: str, dtypes=tuple(_DTYPE
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{what}: x and weights must be contiguous")
     if x.numel() >= 2**31:
-        raise ValueError(f"{what}: x has {x.numel()} elements; the kernel indexes with int32 sizes")
+        raise ValueError(f"{what}: x has {x.numel()} elements; the kernel indexes with int32 sizes (limit 2^31 - 1)")
+
+
+def _check_grid(blocks: int, what: str, shape) -> None:
+    if blocks > GRID_LIMIT:
+        raise ValueError(f"{what}: shape {tuple(shape)} needs {blocks} blocks, beyond grid.x's limit of 2^31 - 1")
+
+
+def _run(sched: Schedule, x: torch.Tensor, out: torch.Tensor, items: int):
+    """(scratch for a split's partials, or None; the 16-byte-aligned flag)."""
+    scratch = None
+    if sched.chunks > 1:
+        scratch = torch.empty(items * (x.shape[1] + 1), dtype=torch.float32, device=x.device)
+    return scratch, int(x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
 
 
 def grouped_mean(x: torch.Tensor, w: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -116,12 +250,17 @@ def grouped_mean(x: torch.Tensor, w: torch.Tensor, num_groups: int) -> torch.Ten
     if x.device.type == "cpu":
         return grouped_mean_plain(x, w, num_groups)
     _check_cuda(x, w, "grouped_mean")
+    d = x.shape[1]
+    sched = _schedule(n // num_groups, d, num_groups, x.element_size())
+    _check_grid(sched.blocks(num_groups), "grouped_mean", x.shape)
     out = torch.empty_like(x)
+    scratch, aligned = _run(sched, x, out, num_groups * sched.chunks)
     err = _build.load("hier_aggregate").hier_grouped_mean(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), n, x.shape[1], num_groups,
-        _DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream,
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(), n, d,
+        num_groups, _DTYPE_CODES[x.dtype], sched.vec, sched.lanes, sched.rows, sched.groups_per_block,
+        sched.chunk_rows, aligned, torch.cuda.current_stream().cuda_stream,
     )
-    _build.raise_on_error(err, "grouped_mean")
+    _build.raise_on_error(err, "grouped_mean", f"x {tuple(x.shape)} {x.dtype}, {num_groups} groups, {sched}")
     LAUNCHES["grouped_mean"] += 1
     return out
 
@@ -140,12 +279,32 @@ def segment_offsets(segment_ids, num_segments: int) -> np.ndarray:
     return np.searchsorted(ids, np.arange(num_segments + 1), side="left").astype(np.int32)
 
 
+def segment_table(segment_ids, num_segments: int) -> np.ndarray:
+    """K2's int32 table for sorted ids: their ``segment_offsets``; and, when
+    a segment holds more than ``_segment_chunk_rows(N)`` rows, the work
+    items of the split appended: the (G+1) first item of each segment (a
+    segment has ceil(rows / chunk) items), then the segment of each item.
+    K6 reads only the offsets."""
+    offsets = segment_offsets(segment_ids, num_segments)
+    counts = -(-np.diff(offsets) // _segment_chunk_rows(int(offsets[-1])))
+    if counts.max() <= 1:
+        return offsets
+    first = np.concatenate([[0], np.cumsum(counts)])
+    return np.concatenate([offsets, first, np.repeat(np.arange(num_segments), counts)]).astype(np.int32)
+
+
+def table_items(table_size: int, num_segments: int) -> int:
+    """Work items in a segment table of ``table_size`` entries (0: no
+    segment is split)."""
+    return 0 if table_size == num_segments + 1 else table_size - 2 * (num_segments + 1)
+
+
 @functools.lru_cache(maxsize=64)
-def _device_offsets(ids_bytes: bytes, num_segments: int, device: torch.device) -> torch.Tensor:
-    """The offsets table on ``device``, built once per (tree level, device):
+def _device_table(ids_bytes: bytes, num_segments: int, device: torch.device) -> torch.Tensor:
+    """The segment table on ``device``, built once per (tree level, device):
     a fresh host-to-device copy per sync would stall the stream."""
-    offsets = segment_offsets(np.frombuffer(ids_bytes, np.int64), num_segments)
-    return torch.from_numpy(offsets).to(device)
+    table = segment_table(np.frombuffer(ids_bytes, np.int64), num_segments)
+    return torch.from_numpy(table).to(device)
 
 
 def segment_mean(x: torch.Tensor, w: torch.Tensor, segment_ids, num_segments: int, *,
@@ -153,26 +312,38 @@ def segment_mean(x: torch.Tensor, w: torch.Tensor, segment_ids, num_segments: in
     """K2: per segment of sorted ``segment_ids`` (host-side, (N,)), the f32
     weighted mean of the rows of ``x`` (N, D), broadcast back; zero-weight
     segments keep their rows. ``offsets``, when given, is the ids'
-    ``segment_offsets`` table already on x's device (a sampled cohort's
-    ids change every interval, so its table comes uploaded with the
-    cohort rather than from the per-level cache)."""
+    ``segment_table`` already on x's device (a sampled cohort's ids change
+    every interval, so its table comes uploaded with the cohort rather than
+    from the per-level cache); a bare ``segment_offsets`` table takes one
+    pass whatever the segments' heights."""
     ids = np.asarray(segment_ids, np.int64)
     if ids.shape != (x.shape[0],):
         raise ValueError(f"segment_ids shape {ids.shape} != ({x.shape[0]},)")
     if x.device.type == "cpu":
         return segment_mean_plain(x, w, ids, num_segments)
     _check_cuda(x, w, "segment_mean")
+    g = int(num_segments)
     if offsets is None:
-        offsets = _device_offsets(ids.tobytes(), int(num_segments), x.device)
-    elif offsets.dtype != torch.int32 or tuple(offsets.shape) != (int(num_segments) + 1,) or offsets.device != x.device:
-        raise ValueError(f"segment_mean: offsets must be int32 of shape ({int(num_segments) + 1},) on {x.device}, "
+        offsets = _device_table(ids.tobytes(), g, x.device)
+    elif (offsets.dtype != torch.int32 or offsets.dim() != 1 or offsets.device != x.device
+          or not (offsets.numel() == g + 1 or offsets.numel() > 2 * (g + 1))):
+        raise ValueError(f"segment_mean: offsets must be an int32 segment_table of {g} segments on {x.device} "
+                         f"(G+1 = {g + 1} entries, or more than {2 * (g + 1)}), "
                          f"got {offsets.dtype} {tuple(offsets.shape)} on {offsets.device}")
+    n, d = x.shape
+    items = table_items(offsets.numel(), g)
+    sched = _segment_schedule(n, d, g, x.element_size(), items)
+    _check_grid(sched.blocks(g, items), "segment_mean", x.shape)
     out = torch.empty_like(x)
+    scratch, aligned = _run(sched, x, out, items)
     err = _build.load("hier_aggregate").hier_segment_mean(
-        x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-        int(num_segments), _DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream,
+        x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), n, d, g, items, _DTYPE_CODES[x.dtype], sched.vec,
+        sched.lanes, sched.rows, sched.groups_per_block, sched.chunk_rows, aligned,
+        torch.cuda.current_stream().cuda_stream,
     )
-    _build.raise_on_error(err, "segment_mean")
+    _build.raise_on_error(err, "segment_mean", f"x {tuple(x.shape)} {x.dtype}, {g} segments, {items} work items, "
+                                               f"{sched}")
     LAUNCHES["segment_mean"] += 1
     return out
 
@@ -195,12 +366,12 @@ def segment_dequant_mean(
     _check_cuda(q, w, "segment_dequant_mean", dtypes=(torch.int8,))
     if scales.dtype != torch.float32 or scales.device != q.device or not scales.is_contiguous():
         raise ValueError("segment_dequant_mean: scales must be contiguous float32 on the device of q")
-    offsets = _device_offsets(ids.tobytes(), int(num_segments), q.device)
+    offsets = _device_table(ids.tobytes(), int(num_segments), q.device)
     out = torch.empty((n, d), dtype=torch.float32, device=q.device)
     err = _build.load("hier_aggregate").hier_segment_dequant_mean(
         q.data_ptr(), scales.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(), n, d,
         d // scales.shape[1], int(num_segments), torch.cuda.current_stream().cuda_stream,
     )
-    _build.raise_on_error(err, "segment_dequant_mean")
+    _build.raise_on_error(err, "segment_dequant_mean", f"q {tuple(q.shape)}, {num_segments} segments")
     LAUNCHES["segment_dequant_mean"] += 1
     return out

@@ -29,8 +29,8 @@ def segment_mean(x: torch.Tensor, weights: torch.Tensor, segment_ids, num_segmen
                  offsets=None) -> torch.Tensor:
     """K2: ragged groups over sorted host-side segment ids (N,). Callers
     that may hold equal blocks pick K1 themselves (``core.aggregation``
-    decides once per level). ``offsets``: K2's table of those ids, already
-    on the device (a cohort's, uploaded by the prefetcher)."""
+    decides once per level). ``offsets``: K2's ``segment_table`` of those
+    ids, already on the device (a cohort's, uploaded by the prefetcher)."""
     return _ha.segment_mean(x, weights, segment_ids, num_segments, offsets=offsets)
 
 

@@ -208,6 +208,64 @@ def test_segment_mean_plain_vs_ref_and_pallas(sizes, d, dtype):
     assert torch.equal(got[: sizes[0]], tx[: sizes[0]])  # dead first segment kept
 
 
+@pytest.mark.parametrize("kernel", ["grouped_mean", "segment_mean"])
+@pytest.mark.parametrize("mask_kind", ["none", "random", "all_dead"])
+@pytest.mark.parametrize("d", [10, 48])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_means_vs_ref_at_a_tall_group(kernel, mask_kind, d, dtype):
+    """One group of 4096 rows (a cohort's root stage: K1 at G = 1, or K2
+    over one segment), at the narrow widths of n1m's bias leaves; the card
+    splits such a group over blocks, the plain version is what it is held
+    to."""
+    rng = np.random.default_rng(d)
+    x, w = _xw(rng, 4096, d)
+    if mask_kind == "random":
+        w = w * (rng.random(4096) > 0.3)
+    elif mask_kind == "all_dead":
+        w = np.zeros_like(w)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jx, jw = jnp.asarray(x, jdt), jnp.asarray(w)
+    tx, tw = torch.from_numpy(x).to(getattr(torch, dtype)), torch.from_numpy(w)
+    ids = np.zeros(4096, np.int32)
+    if kernel == "grouped_mean":
+        got = ha.grouped_mean_plain(tx, tw, 1)
+        want = jref.grouped_mean_ref(jx, jw, 1)
+    else:
+        got = ha.segment_mean_plain(tx, tw, ids, 1)
+        want = jref.segment_mean_ref(jx, jw, ids, 1)
+    assert got.dtype == tx.dtype
+    tol = F32 if dtype == "float32" else BF16
+    assert_close(to_numpy(got), np.asarray(jnp.asarray(want, jnp.float32)), what=f"{kernel}_plain vs ref", **tol)
+    if mask_kind == "all_dead":  # the dead group keeps its rows exactly
+        assert torch.equal(got, tx)
+
+
+@pytest.mark.parametrize("kernel", ["grouped_mean", "segment_mean"])
+def test_plain_means_vs_jax_at_70000_groups(kernel):
+    """More groups than a CUDA grid's y dimension takes (65,535): 140,000
+    rows at d = 4, the first group dead. K1 against ``grouped_mean_ref``; K2
+    over ragged segments (1, 3, 0, 4 rows, repeated) against the JAX
+    package's ``segment_sum`` operator, since the Pallas path and
+    ``segment_mean_ref`` build a (G, N) one-hot."""
+    n, g = 140_000, 70_000
+    rng = np.random.default_rng(7)
+    x, w = _xw(rng, n, 4)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    if kernel == "grouped_mean":
+        w[:2] = 0.0
+        got = ha.grouped_mean_plain(tx, tw, g)
+        want = np.asarray(jref.grouped_mean_ref(jnp.asarray(x), jnp.asarray(w), g))
+        dead = slice(0, 2)
+    else:
+        ids = np.repeat(np.arange(g), np.tile([1, 3, 0, 4], g // 4)).astype(np.int32)
+        w[:1] = 0.0
+        got = ha.segment_mean_plain(tx, tw, ids, g)
+        want = np.asarray(jagg.segment_weighted_mean({"x": jnp.asarray(x)}, jnp.asarray(w), ids, g)["x"])
+        dead = slice(0, 1)
+    assert_close(to_numpy(got), want, what=f"{kernel}_plain at 70,000 groups", **F32)
+    assert torch.equal(got[dead], tx[dead])
+
+
 def test_static_uniform_groups_matches_jax():
     for ids, g in [([0, 0, 1, 1], 2), ([0, 0, 0, 1], 2), ([0, 1, 2], 3), ([0, 0, 1, 1, 2, 2], 2)]:
         assert tagg._static_uniform_groups(np.array(ids), g) == jagg._static_uniform_groups(np.array(ids), g)

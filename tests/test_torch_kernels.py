@@ -14,7 +14,11 @@ for bit. K3 agrees at the JAX kernel-vs-oracle ``rtol=3e-6, atol=5e-7``
 (bf16 rows: plus one bf16 ulp), repeats itself bit for bit and is one
 kernel launch per call. A sampled cohort's stages (compacted segment ids
 with K2's table uploaded ahead) run K2 and K1 on the card, and
-``n1m_cohort4096`` runs through them.
+``n1m_cohort4096`` runs through them. K1/K2's schedule (``_schedule``: one
+pass, or a tall group split over blocks) and K2's segment table are host
+code, checked here on the CPU; on the card, the tall root leaves of
+``n1m_cohort4096``, dead groups over several chunks, relaunches and
+unaligned inputs (bit for bit) and 70,000 groups (K1, K2, K6).
 """
 import numpy as np
 import pytest
@@ -73,6 +77,93 @@ def test_launch_counts_stay_zero_on_cpu():
     ha.grouped_mean(x, torch.ones(8), 2)
     ha.segment_mean(x, torch.ones(8), [0, 0, 0, 1, 1, 1, 1, 2], 3)
     assert ha.LAUNCHES == {"grouped_mean": 0, "segment_mean": 0, "segment_dequant_mean": 0}
+
+
+# -- K1/K2's schedule and K2's table: pure host code, checked here ------------------
+
+N1M_ROOT_WIDTHS = (768, 480, 48, 10)  # n1m_cohort4096's leaves w1, w2, b1, b2 at the root (G = 1)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("d", N1M_ROOT_WIDTHS)
+def test_schedule_splits_n1m_root_leaves_over_the_card(d, itemsize):
+    s = ha._schedule(4096, d, 1, itemsize)
+    assert s.chunks > 1 and s.kernels == 2 and s.groups_per_block == 1
+    assert s.blocks(1) >= ha.SMS  # at least one block per SM
+    assert s.chunks * s.chunk_rows >= 4096 > (s.chunks - 1) * s.chunk_rows
+    # a narrow leaf fills its warps with row threads: at most half a warp idle
+    assert 64 <= s.threads <= ha.THREADS and (-s.threads) % 32 <= 16
+    assert s.chunk_rows >= s.rows  # every row thread has a row in its chunk
+    assert s.vec == (16 // itemsize if d % (16 // itemsize) == 0 else 1)
+
+
+@pytest.mark.parametrize("n,d,groups,itemsize", [
+    (8, 18874368, 1, 4), (8, 18874368, 2, 4), (8, 18874368, 1, 2), (8, 18874368, 2, 2),  # lm-100m mlp w1
+    (32, 262144, 1, 4), (32, 262144, 4, 4),  # mlp307k w1
+    (20, 768, 4, 4), (8, 768, 2, 4),  # quickstart, lm-100m final_norm
+])
+def test_schedule_keeps_short_groups_in_one_pass(n, d, groups, itemsize):
+    s = ha._schedule(n // groups, d, groups, itemsize)
+    assert s.chunks == 1 and s.kernels == 1 and s.chunk_rows == n // groups
+    assert s.vec == 16 // itemsize  # 16-byte slots
+    assert s.threads <= ha.THREADS and s.blocks(groups) >= 1
+
+
+@pytest.mark.parametrize("d", [4, 10, 48, 768])
+def test_schedule_stays_inside_the_grid_at_70000_groups(d):
+    n, g = 140_000, 70_000
+    s = ha._schedule(n // g, d, g, 4)
+    assert s.chunks == 1 and s.threads <= ha.THREADS
+    assert g <= s.blocks(g) * s.groups_per_block // s.tiles + s.groups_per_block
+    assert s.blocks(g) <= ha.GRID_LIMIT
+    # K2 over 70,000 ragged segments (some empty): no segment is taller
+    # than the chunk, so the table is the offsets alone and one pass runs
+    ids = np.repeat(np.arange(g), np.tile([1, 3, 0, 4], g // 4))
+    table = ha.segment_table(ids, g)
+    assert ha.table_items(table.size, g) == 0
+    np.testing.assert_array_equal(table, ha.segment_offsets(ids, g))
+    assert ha._segment_schedule(n, d, g, 4, 0).blocks(g) <= ha.GRID_LIMIT
+
+
+def test_schedule_depends_on_the_shape_alone():
+    shapes = [(4096, 768, 1, 4), (4096, 10, 1, 2), (8, 18874368, 2, 4), (2, 768, 70_000, 4), (100, 96, 3, 4)]
+    for shape in shapes:
+        assert ha._schedule(*shape) == ha._schedule(*shape)
+    # the same rows per group at another width, group count or item size
+    # may take another schedule, but never a different answer for the same
+    # shape; and K2's table depends on the ids alone, so a tree level's
+    # table serves every leaf
+    ids = np.repeat(np.arange(3), [200, 5, 3000])
+    np.testing.assert_array_equal(ha.segment_table(ids, 3), ha.segment_table(ids.copy(), 3))
+    for n in (1, 50, 64, 65, 4096, 140_000):
+        r = ha._segment_chunk_rows(n)
+        assert r == ha._segment_chunk_rows(n) and (r == n if n <= ha.SPLIT_ABOVE else r * r >= 4 * n)
+
+
+def test_segment_table_work_items_cover_each_segment_once():
+    sizes = [200, 5, 0, 3000, 129, 128, 1]
+    ids = np.repeat(np.arange(len(sizes)), sizes)
+    g, n = len(sizes), ids.size
+    table = ha.segment_table(ids, g)
+    offsets, chunk = table[: g + 1], ha._segment_chunk_rows(n)
+    np.testing.assert_array_equal(offsets, ha.segment_offsets(ids, g))
+    items = ha.table_items(table.size, g)
+    first, seg = table[g + 1: 2 * (g + 1)], table[2 * (g + 1):]
+    assert table.dtype == np.int32 and seg.size == items == first[-1]
+    covered = np.zeros(n, np.int64)
+    for item, s in enumerate(seg):  # what the kernels compute for each item
+        lo = offsets[s] + (item - first[s]) * chunk
+        hi = min(lo + chunk, offsets[s + 1])
+        assert first[s] <= item < first[s + 1] and lo < hi
+        covered[lo:hi] += 1
+    np.testing.assert_array_equal(covered, 1)
+    np.testing.assert_array_equal(np.diff(first), -(-np.asarray(sizes) // chunk))
+
+
+def test_grid_limit_is_refused_by_name():
+    with pytest.raises(ValueError, match=r"grid.x's limit of 2\^31 - 1"):
+        ha._check_grid(ha.GRID_LIMIT + 1, "grouped_mean", (2**20, 4096))
+    ha._check_grid(ha.GRID_LIMIT, "grouped_mean", (2**20, 4096))
 
 
 # -- on the card: the kernels against their plain versions -----------------------
@@ -285,6 +376,98 @@ def test_edge_interval_wrapper_checks_its_inputs_on_gpu(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         mk.edge_interval(params, torch.zeros(4, 1, 4096, 3, device=cuda), torch.zeros(4, 1, 4096, 2, device=cuda), w,
                          num_edges=1, feat=3, lr=0.1)
+
+
+def _tolerance_ok(got, want, x):
+    """f32: within 1e-5 of the largest |x| (another summation order); bf16:
+    plus one bf16 ulp of the result, where the two f32 means round apart."""
+    diff = (got.float() - want.float()).abs()
+    tol = 1e-5 * float(x.float().abs().max())
+    if got.dtype == torch.bfloat16:
+        mag = want.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+        return bool((diff <= torch.exp2(torch.floor(torch.log2(mag)) - 7) + tol).all())
+    return float(diff.max()) <= tol
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["grouped_mean", "segment_mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", N1M_ROOT_WIDTHS)
+def test_tall_group_kernels_match_plain_on_gpu(cuda, kernel, dtype, d):
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn(4096, d, generator=g).to(cuda, dtype)
+    w = (torch.rand(4096, generator=g) + 0.5) * (torch.rand(4096, generator=g) > 0.3)
+    w = w.to(cuda)
+    ids = np.zeros(4096, np.int64)
+    if kernel == "grouped_mean":
+        got, want = ha.grouped_mean(x, w, 1), ha.grouped_mean_plain(x, w, 1)
+    else:
+        got, want = ha.segment_mean(x, w, ids, 1), ha.segment_mean_plain(x, w, ids, 1)
+        assert ha.table_items(ha._device_table(ids.tobytes(), 1, x.device).numel(), 1) > 1  # split
+    assert _tolerance_ok(got, want, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_dead_group_over_several_chunks_keeps_its_rows_on_gpu(cuda, dtype):
+    x = torch.randn(8192, 48, device=cuda).to(dtype)
+    w = torch.rand(8192, device=cuda) + 0.5
+    w[:4096] = 0.0  # group 0 (K1) / segment 0 (K2): 4096 rows over many chunks, all dead
+    assert ha._schedule(4096, 48, 2, x.element_size()).chunks > 1
+    got = ha.grouped_mean(x, w, 2)
+    assert torch.equal(_bits(got[:4096]), _bits(x[:4096]))
+    assert _tolerance_ok(got, ha.grouped_mean_plain(x, w, 2), x)
+    ids = np.repeat(np.arange(3), [4096, 4000, 96])
+    got = ha.segment_mean(x, w, ids, 3)
+    assert torch.equal(_bits(got[:4096]), _bits(x[:4096]))
+    assert _tolerance_ok(got, ha.segment_mean_plain(x, w, ids, 3), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,groups", [(4096, 768, 1), (4096, 10, 1), (8, 262144, 2), (20, 768, 4), (50, 48, 5)])
+def test_relaunches_and_unaligned_inputs_are_bit_equal_on_gpu(cuda, n, d, groups):
+    x = torch.randn(n, d, device=cuda)
+    w = torch.rand(n, device=cuda) + 0.5
+    ids = np.sort(np.random.default_rng(n).integers(0, groups, n))
+    ids[:groups] = np.arange(groups)
+    ids.sort()
+    # one element past a 16-byte boundary: element loads instead of 16-byte
+    # ones, the same sums in the same order
+    shifted = torch.empty(x.numel() + 1, device=cuda)[1:].view(n, d).copy_(x)
+    for run in (lambda t: ha.grouped_mean(t, w, groups), lambda t: ha.segment_mean(t, w, ids, groups)):
+        first = run(x)
+        assert torch.equal(_bits(run(x)), _bits(first))
+        assert torch.equal(_bits(run(shifted)), _bits(first))
+
+
+@pytest.mark.cuda
+def test_70000_groups_run_on_gpu(cuda):
+    """F2: more groups than a grid's y dimension takes (65,535)."""
+    n, g = 140_000, 70_000
+    x = torch.randn(n, 48, device=cuda)
+    w = torch.rand(n, device=cuda) + 0.5
+    w[:2] = 0.0  # group 0 dead
+    got = ha.grouped_mean(x, w, g)
+    assert _tolerance_ok(got, ha.grouped_mean_plain(x, w, g), x) and torch.equal(got[:2], x[:2])
+    ids = np.repeat(np.arange(g), np.tile([1, 3, 0, 4], g // 4))
+    w[:1] = 0.0
+    got = ha.segment_mean(x, w, ids, g)
+    assert _tolerance_ok(got, ha.segment_mean_plain(x, w, ids, g), x)
+    q, s = qz.quantize_stacked(torch.randn(n, 256, device=cuda), 128)
+    got = ha.segment_dequant_mean(q, s, w, ids, g)
+    want = ha.segment_dequant_mean_plain(q, s, w, ids, g)
+    assert float((got - want).abs().max()) <= 1e-5 * float(qz.dequantize_stacked(q, s, 256).abs().max())
+
+
+@pytest.mark.cuda
+def test_launch_errors_name_the_cuda_error(cuda):
+    with pytest.raises(RuntimeError, match=r"grouped_mean kernel launch failed with cudaErrorInvalidValue \(1\): "
+                                           r".*; given x \(4, 8\)"):
+        _build.raise_on_error(1, "grouped_mean", "x (4, 8)")
 
 
 # -- sampled participation on the card: cohort stages through K1 and K2 -----------
