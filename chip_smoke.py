@@ -117,6 +117,32 @@ Phases, one JSON line each; any failure exits non-zero:
               ``quickstart`` with round-robin cohorts of 20 (the whole
               population in order) against plain ``quickstart`` on the card:
               history and final params bit for bit, the same K1 launches
+  deadline_barrier
+              ``quickstart`` with the deadline engine at the full barrier
+              (quorum 1.0) on the card against plain ``quickstart``: the
+              engine is the DeadlineEngine, no interval gated, history
+              (without ``wall_clock_s``) and final params bit for bit, the
+              same K1 launches, the event clock strictly increasing
+  deadline_scenarios
+              ``deadline_straggler``, ``fedbuff_k4`` and ``stale_decay`` (20
+              rounds, eval every 10) on the card, then on the CPU from the
+              same init: losses and accuracies agree, final params within
+              1e-4, ``wall_clock_s`` equal, at least one gated interval
+              (the top stage's K1 over mask x gate), K1 as the synchronous
+              run (88); the registered eval_every=1 refused in JAX's words
+  deadline_ragged
+              ``ragged_edges`` under a 60 % quorum with lognormal edge
+              speeds: K2 under the gate, K2 80 and K1 8, at least one gated
+              interval, the loss falls
+  mlp307k_deadline
+              ``deadline_straggler`` at the full-width MLP's shape (32
+              clients on 4 edges, kappa (8, 2), 8 rounds): K1 48, the gated
+              intervals counted (at least 1), the CPU run's losses,
+              accuracies, params (1e-4) and wall clock; cut at its round-4
+              checkpoint and resumed bit-equal to the straight run; warm
+              profile and peak memory beside mlp307k's and beside the
+              synchronous engine's under the same straggler masks (warm
+              walls in turns, A B B A)
   attention_kernel
               K7 flash attention against its plain version on the card: the
               JAX package's test cases, kernel_bench's shape, the lm-100m
@@ -177,7 +203,8 @@ Phases, one JSON line each; any failure exits non-zero:
               torch.profiler
 
 The quickstart, mlp307k, mlp307k_int8_ef, mlp307k_megakernel,
-n1m_cohort4096, mlp307k_cohort and train_lm100m phases then run their
+n1m_cohort4096, mlp307k_cohort, mlp307k_deadline and train_lm100m phases
+then run their
 scenario twice more, warm: once timed,
 once under
 ``torch.profiler``, and report where the device time of a cloud interval
@@ -288,6 +315,14 @@ N1M_PARAMS_ATOL = 1e-5  # n1m's params after its first cloud sync, card vs CPU
 COHORT_STORE_RTOL, COHORT_STORE_RES_RTOL, COHORT_STORE_RES_SHARE = 2e-2, 1e-3, 0.15
 # round-robin cohorts of the whole quickstart population, in order
 COHORT_IDENTITY = ["participation.cohort_size=20", "participation.sampler=round_robin"]
+# the deadline engine: the full barrier; the registered scenarios' run
+# (eval_every=1 is finer than their 10-round cloud interval, which the
+# engine refuses, as JAX's does); a ragged tree under a partial quorum
+DEADLINE_BARRIER = ["deadline.enabled=true", "deadline.quorum=1.0"]
+DEADLINE_RUN = ["run.num_rounds=20", "run.eval_every=10"]
+DEADLINE_RAGGED = DEADLINE_RUN + ["deadline.enabled=true", "deadline.quorum=0.6", "deadline.edge_speed=lognormal:0.5"]
+DEADLINE_REFUSAL = "the deadline engine cannot run: eval_every=1 is finer than a cloud interval (kappa2_eff=10)"
+DEADLINE_PARAMS_ATOL = 1e-4  # card vs CPU final params, the scenario tolerance of the CPU tests
 
 
 def emit(obj) -> None:
@@ -1794,6 +1829,145 @@ def phase_cohort_identity(torch, mods):
     return launches
 
 
+def history_rows(runner, skip=()):
+    import dataclasses
+
+    return [tuple(getattr(h, f.name) for f in dataclasses.fields(h) if f.name not in skip) for h in runner.history]
+
+
+def deadline_engine(runner, what):
+    check(type(runner._engine).__name__ == "DeadlineEngine", f"{what} ran {type(runner._engine).__name__}")
+    walls = [h.wall_clock_s for h in runner.history]
+    check(walls[0] > 0 and all(b > a for a, b in zip(walls, walls[1:])), f"{what}: wall clock {walls}")
+    return runner._engine.gated_intervals
+
+
+def phase_deadline_barrier(torch, mods):
+    """The full-barrier deadline engine against the synchronous quickstart,
+    bit for bit, from the same init."""
+    sync, s_sync, _, l_sync, params = run_scenario(torch, mods, "quickstart", (), "cuda")
+    runner, state, secs, launches, _ = run_scenario(torch, mods, "quickstart", DEADLINE_BARRIER, "cuda", params)
+    gated = deadline_engine(runner, "deadline_barrier")
+    check(gated == 0, f"deadline_barrier gated {gated} intervals")
+    check(launches == l_sync, f"deadline_barrier launches {launches} vs {l_sync}")
+    check(history_rows(runner, ("wall_clock_s",)) == history_rows(sync, ("wall_clock_s",)),
+          "deadline_barrier: history differs from the synchronous run's")
+    check(all(bit_equal(state.params[k], s_sync.params[k]) for k in state.params),
+          "deadline_barrier: params differ from the synchronous run's")
+    emit({"phase": "deadline_barrier", **path_report(runner, secs, launches, {
+        "engine": "DeadlineEngine", "gated_intervals": gated, "history_bit_equal": True, "params_bit_equal": True,
+        "wall_clock_s": [h.wall_clock_s for h in runner.history]})})
+    return launches
+
+
+def deadline_vs_cpu(torch, mods, runner, state, name, overrides, params):
+    """The same run on the CPU from the same init: losses and accuracies
+    (``history_agreement``), survivors and the event clock equal, final
+    params within DEADLINE_PARAMS_ATOL, the same gated intervals."""
+    cpu, c_state, *_ = run_scenario(torch, mods, name, overrides, "cpu", params=params)
+    agreement = history_agreement(runner, cpu, f"{name} cuda vs cpu", "cpu")
+    check([h.mask_alive for h in runner.history] == [h.mask_alive for h in cpu.history], f"{name}: survivors differ")
+    check([h.wall_clock_s for h in runner.history] == [h.wall_clock_s for h in cpu.history],
+          f"{name}: wall_clock_s differs from the CPU run's")
+    err = params_max_err(state, c_state)
+    check(err <= DEADLINE_PARAMS_ATOL, f"{name}: params {err} from the CPU run's")
+    check(cpu._engine.gated_intervals == runner._engine.gated_intervals, f"{name}: gated intervals differ")
+    return {**agreement, "cpu_params_max_abs_err": err, "wall_clock_s_equal_cpu": True}
+
+
+def phase_deadline_scenarios(torch, mods):
+    """The three registered deadline scenarios, card then CPU; the
+    registered eval_every=1 refused."""
+    from repro_torch.fed import scenarios
+
+    total = {}
+    for name in ("deadline_straggler", "fedbuff_k4", "stale_decay"):
+        runner, state, secs, launches, params = run_scenario(torch, mods, name, DEADLINE_RUN, "cuda")
+        # 18 edge syncs x 4 leaves + 2 cloud syncs x 2 stages x 4 leaves,
+        # gated or not: the gate rides the top stage's weights
+        check_launches(launches, {"grouped_mean": 2 * 44}, name)
+        gated = deadline_engine(runner, name)
+        check(gated >= 1, f"{name}: no gated interval")
+        agreement = deadline_vs_cpu(torch, mods, runner, state, name, DEADLINE_RUN, params)
+        try:
+            scenarios.get(name, overrides=["run.num_rounds=20"]).run_experiment(device="cuda")
+            refusal = None
+        except ValueError as e:
+            refusal = str(e)
+        check(refusal == DEADLINE_REFUSAL, f"{name} with eval_every=1: {refusal!r}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        emit({"phase": f"deadline_scenarios/{name}", **path_report(runner, secs, launches, {
+            **agreement, "gated_intervals": gated, "describe": runner.spec.describe(),
+            "wall_clock_s": [h.wall_clock_s for h in runner.history], "eval_every_1_refused": refusal})})
+    return total
+
+
+def phase_deadline_ragged(torch, mods):
+    runner, state, secs, launches, _ = run_scenario(torch, mods, "ragged_edges", DEADLINE_RAGGED, "cuda")
+    check_launches(launches, {"segment_mean": 2 * 40, "grouped_mean": 2 * 4}, "deadline_ragged")
+    gated = deadline_engine(runner, "deadline_ragged")
+    check(gated >= 1, "deadline_ragged: no gated interval")
+    check(all(bool(torch.isfinite(v).all()) for v in state.params.values()), "deadline_ragged params not finite")
+    check(runner.history[-1].loss < runner.history[0].loss, "deadline_ragged loss did not fall")
+    emit({"phase": "deadline_ragged", **path_report(runner, secs, launches, {
+        "gated_intervals": gated, "wall_clock_s": [h.wall_clock_s for h in runner.history]})})
+    return launches
+
+
+def phase_mlp307k_deadline(torch, mods, mlp_params, mlp_profile):
+    """``deadline_straggler`` at the full-width MLP: launches, gated
+    intervals, the CPU run, a cut-and-resumed run bit for bit, the warm
+    profile beside mlp307k's."""
+    import shutil
+
+    name, overrides = "deadline_straggler", MLP307K
+    ckpt = lambda d: overrides + ["run.checkpoint_every=4", f"run.checkpoint_dir={CKPT_DIR / d}"]
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    base = reset_peak(torch)
+    try:
+        runner, state, secs, launches, _ = run_scenario(torch, mods, name, ckpt("straight"), "cuda", mlp_params)
+        peak = torch.cuda.max_memory_allocated() - base
+        check_launches(launches, {"grouped_mean": 4 * 12}, "mlp307k_deadline")  # as mlp307k: 16 edge + 32 cloud
+        gated = deadline_engine(runner, "mlp307k_deadline")
+        check(gated >= 1, "mlp307k_deadline: no gated interval")
+        check(tuple(state.params["w1"].shape) == (32, 64, 4096), "mlp307k_deadline w1 shape")
+        check(all(bool(torch.isfinite(v).all()) for v in state.params.values()), "mlp307k_deadline params not finite")
+        run_scenario(torch, mods, name, ckpt("cut") + ["run.num_rounds=4"], "cuda", mlp_params)
+        resumed, r_state, r_secs, r_launches, _ = run_scenario(torch, mods, name, ckpt("cut"), "cuda", mlp_params,
+                                                               resume=True)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    check([h.round for h in resumed.history] == list(range(4, 8)), "mlp307k_deadline resume: rounds")
+    check(history_rows(resumed) == history_rows(runner)[4:],
+          "mlp307k_deadline resume: the records (wall clock included) differ from the uninterrupted run's")
+    check(all(bit_equal(r_state.params[k], state.params[k]) for k in state.params),
+          "mlp307k_deadline resume: final params differ from the uninterrupted run's")
+    agreement = deadline_vs_cpu(torch, mods, runner, state, name, overrides, mlp_params)
+    # the synchronous engine under the same straggler masks (the deadline
+    # section off), so the deadline engine's own cost is apart from the
+    # masks': warm walls in turns (A B B A), then its profile
+    sync = overrides + ["deadline.enabled=false"]
+    turns = []
+    for label, ov in (("sync", sync), ("deadline", overrides), ("deadline", overrides), ("sync", sync)):
+        r, _, t, *_ = run_scenario(torch, mods, name, ov, "cuda", mlp_params)
+        check(type(r._engine).__name__ == ("DeadlineEngine" if label == "deadline" else "SuperRoundEngine"), label)
+        turns.append([label, t * 1e3 / (r.cfg.num_rounds // 2)])
+    emit({"phase": "mlp307k_deadline", **path_report(runner, secs, launches, {
+        **agreement, "gated_intervals": gated, "cloud_intervals": runner.cfg.num_rounds // 2,
+        "wall_clock_s": [h.wall_clock_s for h in runner.history], "mask_alive": [h.mask_alive for h in runner.history],
+        "final_accuracy": runner.history[-1].accuracy, "peak_memory_bytes": peak,
+        "resume": {"from_round": 4, "records_equal": True, "params_bit_equal": True, "seconds": r_secs,
+                   "launches": r_launches},
+        "profile": device_profile(torch, mods, name, overrides, mlp_params),
+        "warm_wall_ms_per_interval_turns": turns,
+        "sync_same_stragglers_profile": device_profile(torch, mods, name, sync, mlp_params),
+        "mlp307k_profile_same_run": {k: mlp_profile[k] for k in (
+            "warm_wall_ms_per_interval", "device_busy_ms_per_interval", "device_busy_share_of_warm_wall",
+            "device_ops_per_interval", "busy_ms_per_interval_by_class")}})})
+    return launches
+
+
 def phase_train_lm100m_robust(torch, mods):
     """One cloud interval of ``train_lm100m``'s settings with a median edge
     sync and client failures, remat off and on; the robust statistics timed
@@ -2056,10 +2230,10 @@ def main() -> int:
     uncompressed_accuracy = runner.history[-1].accuracy
     mlp_runner, mlp_params, mlp_peak = runner, params, torch.cuda.max_memory_allocated() - base
     count(launches)
+    mlp_profile = device_profile(torch, mods, "hierfavg_edge_iid", MLP307K, params)
     emit({"phase": "mlp307k", **path_report(runner, secs, launches, {
         "params_per_client": sum(v[0].numel() for v in state.params.values()),
-        "peak_memory_bytes": mlp_peak,
-        "profile": device_profile(torch, mods, "hierfavg_edge_iid", MLP307K, params)})})
+        "peak_memory_bytes": mlp_peak, "profile": mlp_profile})})
 
     # the compressed transport. One K4 and one K5 launch per leaf (4 for the
     # MLP) per compressed sync: int8_cloud compresses the cloud syncs only
@@ -2184,6 +2358,13 @@ def main() -> int:
     count(phase_robust_scenario(torch, mods, "trimmed_int8", INT8_CLOUD,
                                 {"grouped_mean": 16, "quantize": 8, "dequantize": 8}))
     count(phase_mlp307k_robust(torch, mods, mlp_params, uncompressed_accuracy))
+
+    # the semi-synchronous deadline engine: the barrier bit for bit, the
+    # registered scenarios against the CPU, K2 under the gate, full width
+    count(phase_deadline_barrier(torch, mods))
+    count(phase_deadline_scenarios(torch, mods))
+    count(phase_deadline_ragged(torch, mods))
+    count(phase_mlp307k_deadline(torch, mods, mlp_params, mlp_profile))
 
     # sampled participation: the population scenario, the full-width MLP
     # with sticky rows, and the identity cohort

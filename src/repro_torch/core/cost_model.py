@@ -1,7 +1,9 @@
 """Latency / energy cost model (Section IV, Eq. 4-5, Tables I-II).
 
-Copy-port of the wireless part of ``repro.core.cost_model`` (pure
-Python): ``RoundRecord.sim_time_s`` / ``sim_energy_j`` read it.
+Copy-port of ``repro.core.cost_model`` (pure Python):
+``RoundRecord.sim_time_s`` / ``sim_energy_j`` read the wireless model, and
+the replay simulator (``sim.calibrate``) reads it and ``ClusterCosts``, the
+cluster variant whose collective times take the place of T_comm.
 
     T_comp = c*D / f                 E_comp = (alpha/2) * c * D * f^2
     T_comm = M / (B * log2(1 + h*p/sigma))     E_comm = p * T_comm
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,3 +136,85 @@ def energy_at_step(costs: WorkloadCosts, kappa1: int, kappa2: int, k: int) -> fl
     e += rem * costs.e_comp
     e += (rem // kappa1) * costs.e_comm_edge
     return e
+
+
+def time_energy_to_accuracy(
+    costs: WorkloadCosts,
+    kappa1: int,
+    kappa2: int,
+    steps_to_accuracy: int,
+) -> Tuple[float, float]:
+    """(T_alpha, E_alpha): wall-clock and device energy to reach the step at
+    which the training run first hit accuracy alpha (measured externally)."""
+    return (
+        time_at_step(costs, kappa1, kappa2, steps_to_accuracy),
+        energy_at_step(costs, kappa1, kappa2, steps_to_accuracy),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Cluster cost variant (collective times from a roofline model)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ClusterCosts:
+    """Per-local-step compute time and per-aggregation collective times, in
+    seconds, normally filled from analysis.roofline terms."""
+
+    t_step: float  # one local update (compute+memory roofline max)
+    t_edge_agg: float  # grouped intra-pod all-reduce (ICI)
+    t_cloud_agg: float  # cross-pod all-reduce (DCN)
+
+    def with_bits(self, edge_bits_per_param: float = 32.0, cloud_bits_per_param: float = 32.0) -> "ClusterCosts":
+        """Collective times under compressed transport: bandwidth-bound
+        all-reduce time scales with the wire bytes."""
+        if edge_bits_per_param <= 0 or cloud_bits_per_param <= 0:
+            raise ValueError("bits per parameter must be positive")
+        return dataclasses.replace(
+            self,
+            t_edge_agg=self.t_edge_agg * edge_bits_per_param / 32.0,
+            t_cloud_agg=self.t_cloud_agg * cloud_bits_per_param / 32.0,
+        )
+
+    def interval_time(self, kappa1: int, kappa2: int) -> float:
+        return kappa1 * kappa2 * self.t_step + kappa2 * self.t_edge_agg + self.t_cloud_agg
+
+    def per_step_overhead(self, kappa1: int, kappa2: int) -> float:
+        """Amortized aggregation cost per local step — the quantity HierFAVG
+        drives down (the paper's contribution in roofline terms)."""
+        return self.t_edge_agg / kappa1 + self.t_cloud_agg / (kappa1 * kappa2)
+
+
+def tune_kappas(
+    costs,
+    steps_to_accuracy_fn: Callable[[int, int], float],
+    kappa1s: Sequence[int],
+    kappa2s: Sequence[int],
+    *,
+    objective: str = "time",
+) -> Tuple[int, int, float]:
+    """Beyond-paper: pick (kappa1, kappa2) minimizing T_alpha or E_alpha.
+
+    steps_to_accuracy_fn(k1, k2) -> expected local steps to target accuracy;
+    callers supply either a measured curve or the Theorem-1 bound inverted.
+    `costs` is WorkloadCosts or ClusterCosts.
+    """
+    best = None
+    for k1 in kappa1s:
+        for k2 in kappa2s:
+            steps = steps_to_accuracy_fn(k1, k2)
+            if not math.isfinite(steps):
+                continue
+            if isinstance(costs, ClusterCosts):
+                n_int = steps / (k1 * k2)
+                t = n_int * costs.interval_time(k1, k2)
+                e = t  # no separate device-energy notion on the cluster
+            else:
+                t = time_at_step(costs, k1, k2, int(round(steps)))
+                e = energy_at_step(costs, k1, k2, int(round(steps)))
+            val = t if objective == "time" else e
+            if best is None or val < best[2]:
+                best = (k1, k2, val)
+    if best is None:
+        raise ValueError("no feasible (kappa1, kappa2)")
+    return best

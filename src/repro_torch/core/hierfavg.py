@@ -34,9 +34,11 @@ median) replaces that level's weighted mean in ``build_level_sync``.
 Sampled participation (``HierFAVGConfig.participation``) runs through
 ``build_cohort_super_round``: the state stacks the C sampled clients, and
 each sync's staged mean runs over the cohort members' original node ids
-(``aggregation.cohort_stages``). Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP.md Queue 1 item): the deadline
-lowering (11), the client-sharded lowerings (12).
+(``aggregation.cohort_stages``). The semi-synchronous deadline engine runs
+``build_deadline_super_round``: the superround with its top-level sync
+gated by a per-client arrival weight, K1/K2 for every stage as in the
+synchronous sync. The client-sharded lowerings are not ported yet
+(ROADMAP.md Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -606,6 +608,101 @@ def build_super_round(
         return state, metrics
 
     return super_round
+
+
+def deadline_incompatibility(config: HierFAVGConfig, topology: Topology) -> Optional[str]:
+    """Why this schedule cannot run under the semi-synchronous deadline
+    engine (``build_deadline_super_round``), or None when it can: the one
+    predicate that function (raises) and the runner (reports) consult. The
+    reasons and their words are the JAX package's
+    (``repro/core/hierfavg.py:988-1021``): the gate is a per-client weight,
+    a sound reweighting only of the default weighted mean at the top, and a
+    late edge that misses the broadcast has no keep path for anchors or
+    averaged optimizer state."""
+    spec = as_hierarchy(topology)
+    if config.transport_active:
+        return (
+            "compressed transports re-sync every client's anchor at each "
+            "boundary; a late edge that missed the broadcast would desync "
+            "its delta reference"
+        )
+    if config.delta_cloud:
+        return "delta_cloud's anchor rebroadcast assumes every edge receives each round"
+    if config.sync_opt_state:
+        return "optimizer-state averaging has no per-edge keep path for late subtrees yet"
+    if config.aggregators_active and not config.aggregators.aggregator(spec.depth).is_default:
+        return (
+            "the staleness gate reweights client columns, which is only a "
+            "sound transformation of the default weighted mean at the top level"
+        )
+    if config.participation_active:
+        return "sampled participation runs through the cohort engine"
+    return None
+
+
+def build_deadline_super_round(
+    loss_fn: LossFn,
+    optimizer: GradientTransformation,
+    topology: Topology,
+    config: HierFAVGConfig,
+    weights: torch.Tensor,
+):
+    """One semi-synchronous cloud interval (``repro/core/hierfavg.py:1024-1131``):
+    ``build_super_round`` with the top-level sync gated by a per-client
+    cloud-arrival weight.
+
+        deadline_round(state, batches, gate, masks=None) -> (state, metrics)
+
+    ``gate`` is (N,) f32 on the state's device: each client's edge arrival
+    x staleness weight for this interval's cloud aggregation
+    (``fed.deadline.RoundPlan.client_gate``). At the interval's last round
+    the sub-top stages are the synchronous staged mean with the survival
+    mask alone (every edge syncs, late ones included); the top stage takes
+    ``mask * gate`` (K1 with one group on the card: folded edges count at
+    their decayed weight, late and dropped ones at 0; an all-zero gate
+    keeps the rows, so ``mid`` comes back); a client whose gate is 0 missed
+    the broadcast and keeps the edge-synced model (``torch.where`` per
+    leaf). The other rounds are ``build_super_round``'s level syncs. The
+    engine dispatches the stock superround for trivial plans, so the
+    barrier's bit-exactness never rests on this function."""
+    spec = as_hierarchy(topology)
+    depth = _check_levels(spec, config)
+    reason = deadline_incompatibility(config, spec)
+    if reason is not None:
+        raise ValueError(f"schedule cannot run the deadline engine: {reason}")
+    local_step = build_local_step(loss_fn, optimizer, precision=config.precision)
+    level_syncs = [build_level_sync(spec, config, weights, l) for l in range(1, depth)]
+    sub_top = aggregation.level_stages(spec, depth - 1) if depth > 1 else ()
+    top = aggregation.level_stages(spec, depth)[-1:]
+    schedule = super_round_schedule(config)
+
+    def gated_top_sync(state: FedState, mask, gate) -> FedState:
+        mid = aggregation.staged_mean(state.params, weights, sub_top, mask) if sub_top else state.params
+        top_mask = gate if mask is None else mask * gate
+        new = aggregation.staged_mean(mid, weights, top, top_mask)
+        received = gate > 0  # this client's unit got the broadcast
+
+        def select(n, m):
+            return torch.where(received.reshape((-1,) + (1,) * (n.dim() - 1)), n, m)
+
+        return state._replace(params=tree_map(select, new, mid))
+
+    def deadline_round(state: FedState, batches, gate: torch.Tensor, masks: Optional[torch.Tensor] = None):
+        losses, gnorms, steps = [], [], []
+        for r, deepest in enumerate(schedule):
+            state, loss, gnorm = _edge_interval(local_step, state, _step_slice(batches, r), config.kappa1)
+            mask = None if masks is None else masks[r]
+            if deepest == depth:
+                state = gated_top_sync(state, mask, gate)
+            else:
+                state = level_syncs[deepest - 1](state, mask)
+            losses.append(loss)
+            gnorms.append(gnorm)
+            steps.append(state.step)
+        metrics = {"loss": torch.stack(losses), "grad_norm": torch.stack(gnorms), "step": torch.stack(steps)}
+        return state, metrics
+
+    return deadline_round
 
 
 # ---------------------------------------------------------------------------

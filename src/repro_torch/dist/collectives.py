@@ -1,8 +1,10 @@
 """Analytic per-link traffic of the HierFAVG collective schedule.
 
-Copy-port of ``repro.dist.collectives.hierarchy_traffic_per_step``
-(numpy), which ``RoundRecord.wire_mb`` reads. Ring model: an all-reduce of
-S bytes over n participants moves 2*S*(n-1)/n per participant; level l's hop
+Copy-port of ``repro.dist.collectives`` (numpy):
+``hierarchy_traffic_per_step``, which ``RoundRecord.wire_mb`` reads, and
+its two-level closed form ``hierfavg_traffic_per_step``. Ring model: an
+all-reduce of S bytes over n participants moves 2*S*(n-1)/n per
+participant; level l's hop
 is a grouped all-reduce over each tier-l node's children every prod(kappa[:l])
 steps, and the per-level figure is the maximum over groups (the bottleneck
 link), at the level's codec bits per parameter.
@@ -10,7 +12,7 @@ link), at the level's codec bits per parameter.
 from __future__ import annotations
 
 from math import prod
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -19,6 +21,29 @@ def ring_allreduce_bytes(payload_bytes: float, participants: int) -> float:
     """Per-participant wire bytes of a ring all-reduce."""
     n = max(int(participants), 1)
     return 2.0 * payload_bytes * (n - 1) / n
+
+
+def hierfavg_traffic_per_step(
+    per_dev_bytes: float,
+    clients_per_edge: int,
+    num_edges: int,
+    kappa1: int,
+    kappa2: int,
+    *,
+    edge_bits_per_param: float = 32.0,
+    cloud_bits_per_param: float = 32.0,
+) -> Tuple[float, float]:
+    """(edge_bytes_per_step, cloud_bytes_per_step) for the two-level tree.
+
+    ``per_dev_bytes`` is the uncompressed fp32 payload; the per-hop
+    bits-per-parameter (``fed.transport.TransportSpec.bits_per_param``)
+    scale it to the compressed wire size.
+    """
+    edge_payload = per_dev_bytes * edge_bits_per_param / 32.0
+    cloud_payload = per_dev_bytes * cloud_bits_per_param / 32.0
+    edge = ring_allreduce_bytes(edge_payload, clients_per_edge) / kappa1
+    cloud = ring_allreduce_bytes(cloud_payload, num_edges) / (kappa1 * kappa2)
+    return edge, cloud
 
 
 def hierarchy_traffic_per_step(

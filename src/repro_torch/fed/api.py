@@ -23,8 +23,8 @@ takes the same dotted-path overrides
 ``build(device=...)`` assembles the ``FederatedRunner``;
 ``run_experiment(device=...)`` builds, initializes and trains. Both run on
 ``cuda`` unless given ``device``, and raise without a GPU. A spec that
-needs a feature this slice does not port raises ``NotImplementedError``
-naming the ROADMAP.md item that brings it.
+needs a feature the port does not have yet (a device mesh) raises
+``NotImplementedError`` naming the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
@@ -84,7 +84,7 @@ class ScheduleSpec:
     kappas: Tuple[int, ...] = (6, 10)
     sync_opt_state: bool = False
     delta_cloud: bool = False
-    async_cloud: bool = False  # deprecated in the JAX package: maps to the deadline engine
+    async_cloud: bool = False  # deprecated: maps to the deadline engine (build)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,20 +209,73 @@ class FailureSpec:
 
 @dataclasses.dataclass(frozen=True)
 class DeadlineSpec:
-    """Semi-synchronous cloud rounds (off by default)."""
+    """Semi-synchronous cloud rounds (``fed.deadline``): edges run their
+    cloud intervals at their own cadence; the cloud closes a round at a
+    deadline or quorum and folds whatever arrived, staleness-decayed. Late
+    edges carry their upload into the next round instead of dropping it.
+
+    ``quorum=1.0`` with ``timeout_s=0`` is the full barrier: under uniform
+    cadences it is the synchronous engine bit for bit. ``buffer_size=K``
+    (FedBuff) replaces the fractional quorum by an arrival count.
+    ``staleness`` is ``fed.deadline.parse_staleness``'s grammar:
+    ``constant | poly:A | exp:A``.
+
+    Edge cadences: ``mean_interval_s`` sets the base edge-interval seconds;
+    at 0 they come from the straggler model (per-edge max client slowness x
+    kappa1 x mean step time) if there is one, else from the cost model's
+    ``kappa1 * t_comp + t_comm_edge``, else 1 s x kappa1. ``edge_speed`` /
+    ``edge_jitter`` are ``sim.distributions`` grammars for the per-edge
+    slowness (drawn once) and the per-round jitter."""
 
     enabled: bool = False
-    timeout_s: float = 0.0
-    quorum: float = 1.0
-    buffer_size: int = 0
-    max_staleness: int = 2
-    staleness: str = "constant"
-    edge_drop_rate: float = 0.0
-    retry_limit: int = 1
-    edge_speed: str = "det"
-    edge_jitter: str = "det"
-    mean_interval_s: float = 0.0
+    timeout_s: float = 0.0  # 0 = no deadline (pure quorum or barrier)
+    quorum: float = 1.0  # fraction of live edges that closes the round
+    buffer_size: int = 0  # absolute arrival count (FedBuff K); 0 = use quorum
+    max_staleness: int = 2  # force-wait bound on an edge's missed rounds
+    staleness: str = "constant"  # constant | poly:A | exp:A
+    edge_drop_rate: float = 0.0  # P(an arrived upload is lost mid-round)
+    retry_limit: int = 1  # bounded re-upload attempts for dropped edges
+    edge_speed: str = "det"  # per-edge slowness distribution (drawn once)
+    edge_jitter: str = "det"  # per-round interval jitter distribution
+    mean_interval_s: float = 0.0  # 0 = derive from stragglers / costs
     seed: int = 0
+
+    def build_scheduler(self, *, topology, kappa1: int, kappa2: int, stragglers=None, costs=None):
+        """The configured ``fed.deadline.SemiSyncScheduler`` over this
+        spec's cadence model (None when disabled)."""
+        if not self.enabled:
+            return None
+        from repro_torch.core.hierarchy import as_hierarchy
+        from repro_torch.fed.deadline import EdgeCadenceModel, SemiSyncScheduler
+
+        spec = as_hierarchy(topology)
+        num_edges = spec.num_nodes(spec.depth - 1) if spec.depth >= 2 else 1
+        if stragglers is not None and self.mean_interval_s <= 0:
+            segments = (
+                np.asarray(spec.segments(spec.depth - 1)) if spec.depth >= 2 else np.zeros(spec.num_clients, np.int64)
+            )
+            cadence = EdgeCadenceModel.from_stragglers(
+                stragglers, segments, num_edges, kappa1, jitter=self.edge_jitter, seed=self.seed)
+        else:
+            if self.mean_interval_s > 0:
+                base = self.mean_interval_s
+            elif costs is not None:
+                base = kappa1 * costs.t_comp + costs.t_comm_edge
+            else:
+                base = float(kappa1)
+            cadence = EdgeCadenceModel(num_edges, base, speed=self.edge_speed, jitter=self.edge_jitter, seed=self.seed)
+        return SemiSyncScheduler(
+            cadence,
+            intervals_per_round=kappa2,
+            quorum=self.quorum,
+            timeout_s=self.timeout_s,
+            buffer_size=self.buffer_size,
+            max_staleness=self.max_staleness,
+            staleness=self.staleness,
+            edge_drop_rate=self.edge_drop_rate,
+            retry_limit=self.retry_limit,
+            seed=self.seed,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -354,8 +407,6 @@ class ExperimentSpec:
         """Raise for run-level features this slice does not port."""
         if self.topology.mesh_axes:
             raise unported(f"topology.mesh_axes={self.topology.mesh_axes!r}", 12)
-        if self.deadline.enabled or self.schedule.async_cloud:
-            raise unported("the semi-synchronous deadline engine", 11)
 
     def model_bundle(self, device: DeviceLike = None) -> Dict[str, Any]:
         """{"module", "init", "apply", "loss"} for this spec's model."""
@@ -387,6 +438,26 @@ class ExperimentSpec:
         bundle = _model_bundle(self, device)
         batcher, eval_fn = _build_data(self, topo, bundle, device)
         failures, stragglers = self.failures.build(tree.num_clients)
+        costs = self.cost.build()
+        deadline_spec = self.deadline
+        if self.schedule.async_cloud and not deadline_spec.enabled:
+            import warnings
+
+            warnings.warn(
+                "schedule.async_cloud is deprecated: the staleness-1 async "
+                "lowering was retired. Routing to the semi-synchronous "
+                "deadline engine (quorum=0.5, poly:1 staleness decay) — the "
+                "cloud folds whatever arrived and late edges carry their "
+                "upload forward, matching the old semantics in kind, not "
+                "bit-for-bit. Under uniform edge cadences every edge arrives "
+                "together, so this reduces to the synchronous engine "
+                "exactly. Configure the deadline.* section directly instead.",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            deadline_spec = dataclasses.replace(deadline_spec, enabled=True, quorum=0.5, staleness="poly:1.0")
+        deadline = deadline_spec.build_scheduler(
+            topology=topo, kappa1=hier.kappa1, kappa2=hier.kappa2_effective, stragglers=stragglers, costs=costs)
         checkpointer = None
         if self.run.checkpoint_dir:
             from repro_torch.checkpoint import CheckpointManager
@@ -407,9 +478,10 @@ class ExperimentSpec:
                 engine=self.run.engine,
             ),
             eval_fn=eval_fn,
-            costs=self.cost.build(),
+            costs=costs,
             failures=failures,
             stragglers=stragglers,
+            deadline=deadline,
             checkpointer=checkpointer,
             device=device,
         )
@@ -451,6 +523,12 @@ class ExperimentSpec:
             extras.append(f"precision={self.precision.param_dtype}" + ("+remat" if self.precision.remat else ""))
         if self.failures.p_fail > 0:
             extras.append(f"p_fail={self.failures.p_fail:g}")
+        if self.deadline.enabled:
+            gate = (
+                f"buffer={self.deadline.buffer_size}" if self.deadline.buffer_size
+                else f"quorum={self.deadline.quorum:g}"
+            )
+            extras.append(f"deadline[{gate},{self.deadline.staleness}]")
         tail = (" " + " ".join(extras)) if extras else ""
         return (
             f"{self.name}: {topo} kappas={','.join(map(str, self.schedule.kappas))} "

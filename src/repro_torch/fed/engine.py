@@ -39,6 +39,11 @@ block.
 Nothing in this path synchronises the device except those fetches, the
 eval and the checkpoint saves.
 
+``DeadlineEngine`` runs semi-synchronous cloud rounds: a host
+``fed.deadline.SemiSyncScheduler`` plans each interval, trivial plans run
+the stock superround and the others the gated
+``build_deadline_super_round``.
+
 ``CohortEngine`` is the engine for sampled participation: only the C
 sampled clients live on the device, their sticky optimizer and residual
 rows swap in and out of the host ``ClientStateStore`` around each cloud
@@ -58,6 +63,7 @@ from repro_torch.core.hierarchy import as_hierarchy
 from repro_torch.core.hierfavg import (
     FedState,
     build_cohort_super_round,
+    build_deadline_super_round,
     build_megakernel_super_round,
     build_super_round,
 )
@@ -111,8 +117,28 @@ class SuperRoundEngine:
                 r._record_round(
                     round_base + j, int(vals["step"][j]), float(vals["loss"][j]),
                     float(vals["grad_norm"][j]), alive[j], wire_per_step,
+                    wall_clock_s=self._wall_clock_for(round_base + j),
                 )
         self._pending.clear()
+
+    # -- seams that DeadlineEngine overrides (repro/fed/engine.py:234-264) --
+    def _dispatch_interval(self, state: FedState, block, mask_stack: Optional[np.ndarray], round_base: int):
+        """Run one cloud interval: upload the (kappa2, N) mask stack and
+        call the superround."""
+        masks = None if mask_stack is None else torch.as_tensor(mask_stack).to(self.runner.device)
+        return self._super(state, block, masks)
+
+    def _eval_mask(self, last_mask: Optional[np.ndarray]) -> Optional[np.ndarray]:
+        """The mask of the cloud model the boundary eval scores."""
+        return last_mask
+
+    def _wall_clock_for(self, round_index: int) -> float:
+        """Event-clock seconds at a round's close (0.0: the synchronous
+        engine has no event clock)."""
+        return 0.0
+
+    def _checkpoint_meta(self, end_round: int, batcher_state: dict) -> dict:
+        return self.runner._checkpoint_meta(end_round, batcher_state)
 
     def run_intervals(self, state: FedState, *, start_round: int, num_intervals: int) -> Tuple[FedState, bool]:
         """Run ``num_intervals`` cloud intervals from a cloud-aligned
@@ -147,8 +173,7 @@ class SuperRoundEngine:
                 round_base = start_round + q * self.k2
                 block = prefetcher.get()
                 mask_stack, alive, last_mask = static_masks if no_failures else self._masks_for_interval()
-                masks = None if mask_stack is None else torch.as_tensor(mask_stack).to(r.device)
-                state, metrics = self._super(state, block, masks)
+                state, metrics = self._dispatch_interval(state, block, mask_stack, round_base)
                 self._pending.append((round_base, alive, metrics))
                 end_round = round_base + self.k2
                 do_eval = r.eval_fn is not None and r.cfg.eval_every and end_round % r.cfg.eval_every == 0
@@ -158,10 +183,11 @@ class SuperRoundEngine:
                     self._flush(wire_per_step)
                 acc = None
                 if do_eval:
-                    acc = float(r.eval_fn(r.eval_model(state.params, r._mask_to_device(last_mask))))
+                    mask_eval = r._mask_to_device(self._eval_mask(last_mask))
+                    acc = float(r.eval_fn(r.eval_model(state.params, mask_eval)))
                     r.history[-1].accuracy = acc
                 if do_ckpt:
-                    r.checkpointer.save(r.history[-1].step, state, r._checkpoint_meta(end_round, prefetcher.snapshot))
+                    r.checkpointer.save(r.history[-1].step, state, self._checkpoint_meta(end_round, prefetcher.snapshot))
                 if acc is not None and r.cfg.target_accuracy and acc >= r.cfg.target_accuracy:
                     stopped = True
                     break
@@ -169,6 +195,106 @@ class SuperRoundEngine:
         finally:
             prefetcher.stop()
         return state, stopped
+
+
+class DeadlineEngine(SuperRoundEngine):
+    """Semi-synchronous cloud rounds (``repro/fed/engine.py:356-480``): the
+    superround engine driven by the runner's ``fed.deadline.SemiSyncScheduler``.
+
+    Per cloud interval the scheduler advances every edge's upload clock on
+    the host and closes the round at its deadline or quorum, returning a
+    ``RoundPlan``. A trivial plan (every edge folded on time at weight 1)
+    dispatches the stock superround with the stock inputs, so the barrier
+    is bit-exact to ``SuperRoundEngine`` by construction; any other plan
+    dispatches ``build_deadline_super_round`` with the plan's (N,) gate,
+    uploaded with the interval's masks in one copy (pinned and
+    non-blocking on the card: planning never waits for the device).
+
+    The unit that talks to the cloud is the top-minus-one tier: edges on a
+    two-level tree, regions on ``three_level``, the whole client set when
+    clients report straight to the cloud. The scheduler plans from host
+    masks only: the outage channel of the runner's last mask composition
+    marks dead units, which are reweighted instead of waited for; late
+    stragglers are not dead, their upload is still coming.
+
+    Each record gets ``wall_clock_s`` from the event clock (rounds inside
+    an interval interpolate linearly to its close), the boundary eval
+    scores the model over the folded units only, and checkpoints carry the
+    scheduler's state under ``meta["deadline"]``.
+    """
+
+    def __init__(self, runner):
+        if runner.cfg.engine == "megakernel":
+            raise ValueError("the deadline engine and the megakernel lowering do not compose")
+        super().__init__(runner)
+        self.scheduler = runner.deadline
+        if self.scheduler is None:
+            raise ValueError("DeadlineEngine needs runner.deadline (a SemiSyncScheduler)")
+        spec = as_hierarchy(runner.topology)
+        if spec.depth >= 2:
+            self._gate_segments = np.asarray(spec.segments(spec.depth - 1))
+            num_units = spec.num_nodes(spec.depth - 1)
+        else:
+            self._gate_segments = np.zeros(spec.num_clients, np.int64)
+            num_units = 1
+        if self.scheduler.num_edges != num_units:
+            raise ValueError(
+                f"scheduler models {self.scheduler.num_edges} edge(s) but the "
+                f"tree has {num_units} cloud-facing unit(s)"
+            )
+        self._gated = build_deadline_super_round(
+            runner.loss_fn, runner.optimizer, runner.topology, runner.hier_config, runner.weights)
+        self._wall: dict = {}  # round index -> event-clock seconds at its close
+        self._last_plan = None
+        self.gated_intervals = 0  # intervals dispatched through the gated superround
+
+    def _dead_units(self, mask_stack: Optional[np.ndarray]) -> Optional[np.ndarray]:
+        """(E,) bool: units with no surviving client at the interval's cloud
+        boundary, from the outage channel when the runner tracked one."""
+        r = self.runner
+        parts = r._last_mask_parts
+        dead_clients = None
+        if parts is not None and parts.dead is not None:
+            dead_clients = parts.dead  # 1 = outage; the straggler channel is not dead
+        elif mask_stack is not None and r.stragglers is None:
+            dead_clients = (mask_stack[-1] == 0).astype(np.float32)
+        if dead_clients is None:
+            return None
+        alive_per_unit = np.zeros(self.scheduler.num_edges, np.float64)
+        np.add.at(alive_per_unit, self._gate_segments, 1.0 - dead_clients)
+        return alive_per_unit == 0
+
+    def _upload(self, mask_stack: Optional[np.ndarray], gate: np.ndarray):
+        """(masks or None, gate) on the device from one host block."""
+        rows = [gate] if mask_stack is None else [*mask_stack, gate]
+        block = torch.from_numpy(np.stack(rows).astype(np.float32))
+        device = self.runner.device
+        block = block.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else block.to(device)
+        return (None if mask_stack is None else block[:-1]), block[-1]
+
+    def _dispatch_interval(self, state, block, mask_stack, round_base):
+        plan = self.scheduler.next_round(dead=self._dead_units(mask_stack))
+        self._last_plan = plan
+        for j in range(self.k2):
+            self._wall[round_base + j] = plan.start + (plan.close - plan.start) * (j + 1) / self.k2
+        if plan.is_trivial:
+            return super()._dispatch_interval(state, block, mask_stack, round_base)
+        self.gated_intervals += 1
+        masks, gate = self._upload(mask_stack, plan.client_gate(self._gate_segments))
+        return self._gated(state, block, gate, masks)
+
+    def _eval_mask(self, last_mask):
+        plan = self._last_plan
+        if plan is None or plan.is_trivial:
+            return last_mask
+        folded = plan.folded[self._gate_segments].astype(np.float32)
+        return folded if last_mask is None else last_mask * folded
+
+    def _wall_clock_for(self, round_index: int) -> float:
+        return float(self._wall.get(round_index, 0.0))
+
+    def _checkpoint_meta(self, end_round: int, batcher_state: dict) -> dict:
+        return {**super()._checkpoint_meta(end_round, batcher_state), "deadline": self.scheduler.state_dict()}
 
 
 class CohortEngine:

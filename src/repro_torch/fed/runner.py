@@ -32,6 +32,12 @@ cadence the cohort engine cannot run is an error that names the reason
 (``_cohort_reason``). Cohort checkpoints hold the state and the store, with
 the cohort sampler's state beside the batcher's.
 
+With a ``deadline`` scheduler (``fed.deadline.SemiSyncScheduler``) every
+cloud interval goes to ``fed.engine.DeadlineEngine``, again with no
+fallback: a schedule or cadence it cannot run raises with the reason
+(``_deadline_reason``), in the JAX package's words. Its records carry the
+event clock in ``wall_clock_s``, and its checkpoints the scheduler's state.
+
 The runner consumes the ``FedState`` it is given: stacked parameters are
 updated in place (see ``optim.apply_updates``).
 """
@@ -53,6 +59,7 @@ from repro_torch.core.hierfavg import (
     Topology,
     build_hier_round,
     cohort_incompatibility,
+    deadline_incompatibility,
     init_cohort_state,
     init_state,
     megakernel_incompatibility,
@@ -101,7 +108,9 @@ class RoundRecord:
     accuracy: Optional[float] = None
     wire_mb: float = 0.0  # cumulative uplink MB/client
     grad_norm: Optional[float] = None  # mean stacked-gradient norm over the round
-    wall_clock_s: float = 0.0  # event clock of the deadline engine (0.0 here)
+    # event-clock seconds at the round's close under the deadline engine
+    # (0.0 for the synchronous loops, which have no event clock)
+    wall_clock_s: float = 0.0
 
 
 class FederatedRunner:
@@ -119,6 +128,7 @@ class FederatedRunner:
         costs: Optional[cm.WorkloadCosts] = None,
         failures: Optional[FailureSimulator] = None,
         stragglers: Optional[StragglerModel] = None,
+        deadline=None,  # fed.deadline.SemiSyncScheduler (semi-synchronous cloud)
         checkpointer=None,  # checkpoint.CheckpointManager
         device: DeviceLike = None,
     ):
@@ -139,11 +149,12 @@ class FederatedRunner:
             )
         self.failures = failures
         self.stragglers = stragglers
-        # the last mask composition's channels (dead vs late), kept apart
-        # for the deadline engine (ROADMAP.md item 11)
+        self.deadline = deadline
+        # the last mask composition's channels (dead vs late), kept apart:
+        # the deadline engine reweights dead units instead of waiting
         self._last_mask_parts = None
         self.checkpointer = checkpointer
-        self._engine = None  # lazily built (and cached) SuperRoundEngine / CohortEngine
+        self._engine = None  # lazily built (and cached) SuperRoundEngine / DeadlineEngine / CohortEngine
         self._megakernel_reason: Optional[str] = None
         # sampled participation: the active ParticipationSpec (or None), the
         # host store (built from the first state seen, which fixes the
@@ -175,6 +186,10 @@ class FederatedRunner:
             self.failures.load_state_dict(meta["failures"])
         if self.stragglers is not None and "stragglers" in meta:
             self.stragglers.load_state_dict(meta["stragglers"])
+        if self.deadline is not None and "deadline" in meta:
+            # the event queue and staleness state: the resumed run replays
+            # the uninterrupted run's event sequence
+            self.deadline.load_state_dict(meta["deadline"])
         return int(meta.get("round", 0))
 
     def restore_or_init(self, rng: torch.Generator, params: Params) -> tuple:
@@ -272,6 +287,7 @@ class FederatedRunner:
         mask_alive: int,
         wire_per_step: float,
         accuracy: Optional[float] = None,
+        wall_clock_s: float = 0.0,
     ) -> RoundRecord:
         """Assemble and append one round's record — the one site both
         loops share, so their histories match field for field."""
@@ -291,6 +307,7 @@ class FederatedRunner:
             accuracy=accuracy,
             wire_mb=step * wire_per_step / 1e6,
             grad_norm=grad_norm,
+            wall_clock_s=wall_clock_s,
         )
         self.history.append(record)
         return record
@@ -327,16 +344,11 @@ class FederatedRunner:
             )
         pending.clear()
 
-    def _cohort_reason(self, start_round: int) -> Optional[str]:
-        """None if the run can go cohort-sampled end to end, else why not,
-        in the JAX runner's words (its mesh reasons come with ROADMAP.md
-        Queue 1 item 12). Every constraint is an error, not a fallback."""
+    def _cadence_reason(self, start_round: int) -> Optional[str]:
+        """Why whole cloud intervals cannot cover the run from
+        ``start_round`` (the cohort and deadline engines have no per-round
+        fallback), or None, in the JAX runner's words."""
         k2 = self.hier_config.kappa2_effective
-        reason = cohort_incompatibility(self.hier_config, self.topology, self.participation.cohort_size)
-        if reason is not None:
-            return reason
-        if self.cfg.engine == "per_round":
-            return "engine='per_round' has no cohort lowering"
         if start_round % k2:
             return f"start_round {start_round} is not a cloud boundary (kappa2_eff={k2})"
         if (self.cfg.num_rounds - start_round) % k2:
@@ -346,24 +358,57 @@ class FederatedRunner:
                 return f"{name}={every} is finer than a cloud interval (kappa2_eff={k2})"
         return None
 
-    def _run_cohort(self, state: FedState, start_round: int) -> FedState:
-        reason = self._cohort_reason(start_round)
+    def _cohort_reason(self, start_round: int) -> Optional[str]:
+        """None if the run can go cohort-sampled end to end, else why not,
+        in the JAX runner's words (its mesh reasons come with ROADMAP.md
+        Queue 1 item 12). Every constraint is an error, not a fallback."""
+        reason = cohort_incompatibility(self.hier_config, self.topology, self.participation.cohort_size)
         if reason is not None:
-            raise ValueError(f"sampled participation cannot run: {reason}")
+            return reason
+        if self.cfg.engine == "per_round":
+            return "engine='per_round' has no cohort lowering"
+        return self._cadence_reason(start_round)
+
+    def _deadline_reason(self, start_round: int) -> Optional[str]:
+        """None if the run can go through the deadline engine, else why
+        not, in the JAX runner's words (its mesh reasons come with ROADMAP.md
+        Queue 1 item 12). A scheduler was configured, so running synchronous
+        instead would change the experiment: every constraint is an error."""
+        if self.participation is not None:
+            return "sampled participation runs through the cohort engine"
+        reason = deadline_incompatibility(self.hier_config, self.topology)
+        if reason is not None:
+            return reason
+        if self.cfg.engine == "per_round":
+            return "engine='per_round' has no deadline lowering"
+        if self.cfg.engine == "megakernel":
+            return "the deadline engine and the megakernel lowering do not compose"
+        return self._cadence_reason(start_round)
+
+    def _run_whole_intervals(self, state: FedState, start_round: int, engine_cls, reason: Optional[str],
+                             what: str) -> FedState:
+        """Every cloud interval from ``start_round`` through ``engine_cls``
+        (built once), or raise ``reason``."""
+        if reason is not None:
+            raise ValueError(f"{what} cannot run: {reason}")
         intervals = (self.cfg.num_rounds - start_round) // self.hier_config.kappa2_effective
         if intervals <= 0:
             return state
         if self._engine is None:
-            from repro_torch.fed.engine import CohortEngine
-
-            self._engine = CohortEngine(self)
+            self._engine = engine_cls(self)
         state, _ = self._engine.run_intervals(state, start_round=start_round, num_intervals=intervals)
         return state
 
     def run(self, state: FedState, *, start_round: int = 0) -> FedState:
+        from repro_torch.fed.engine import CohortEngine, DeadlineEngine, SuperRoundEngine
+
         mode = self.cfg.engine
         if self.participation is not None:
-            return self._run_cohort(state, start_round)
+            return self._run_whole_intervals(state, start_round, CohortEngine, self._cohort_reason(start_round),
+                                             "sampled participation")
+        if self.deadline is not None:
+            return self._run_whole_intervals(state, start_round, DeadlineEngine, self._deadline_reason(start_round),
+                                             "the deadline engine")
         k2 = self.hier_config.kappa2_effective
         if mode != "per_round":
             full = (self.cfg.num_rounds - start_round) // k2 if self._superround_eligible(start_round) else 0
@@ -375,8 +420,6 @@ class FederatedRunner:
                 )
             if full > 0:
                 if self._engine is None:
-                    from repro_torch.fed.engine import SuperRoundEngine
-
                     self._engine = SuperRoundEngine(self)
                 state, stopped = self._engine.run_intervals(state, start_round=start_round, num_intervals=full)
                 if stopped:

@@ -1,24 +1,22 @@
 """Named scenario registry: the paper's configurations as one-line lookups.
 
-Port of ``repro.fed.scenarios`` for the scenarios this slice can run:
+Port of ``repro.fed.scenarios``:
 
     from repro_torch.fed import scenarios
     runner, state = scenarios.get("quickstart").run_experiment()
 
 Every entry is a factory returning a fresh ``ExperimentSpec`` with the
-same fields as the JAX package's entry of that name. The JAX package's
-other scenarios need features later slices bring; ``get`` of one of them
-raises ``NotImplementedError`` naming the ROADMAP.md item.
+same fields as the JAX package's entry of that name.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Sequence, Tuple
 
-from repro_torch.errors import unported
 from repro_torch.fed.api import (
     AggregatorSpec,
     CostSpec,
     DataSpec,
+    DeadlineSpec,
     ExperimentSpec,
     FailureSpec,
     ModelSpec,
@@ -28,19 +26,9 @@ from repro_torch.fed.api import (
     TopologySpec,
     TransportSpec,
 )
+from repro_torch.sim.distributions import NetworkSpec
 
 _REGISTRY: Dict[str, Tuple[Callable[[], ExperimentSpec], str]] = {}
-
-# JAX scenarios that need an unported feature: (what it needs, ROADMAP.md
-# Queue 1 item that brings it)
-_LATER = {
-    "congested_backhaul": ("the round-replay simulator", 11),
-    "hetero_clients_assoc": ("the round-replay simulator", 11),
-    "straggler_tail": ("the round-replay simulator", 11),
-    "deadline_straggler": ("the deadline engine", 11),
-    "fedbuff_k4": ("the deadline engine", 11),
-    "stale_decay": ("the deadline engine", 11),
-}
 
 
 def register(name: str, description: str = ""):
@@ -64,9 +52,6 @@ def get(name: str, overrides: Sequence[str] = ()) -> ExperimentSpec:
     """A fresh spec for a registered scenario, with optional dotted-path
     overrides applied (``overrides=["run.num_rounds=8"]``)."""
     if name not in _REGISTRY:
-        if name in _LATER:
-            what, item = _LATER[name]
-            raise unported(f"scenario {name!r} (needs {what})", item)
         raise ValueError(f"unknown scenario {name!r}; choose from {names()}")
     spec = _REGISTRY[name][0]()
     return spec.with_overrides(overrides) if overrides else spec
@@ -77,16 +62,20 @@ def get(name: str, overrides: Sequence[str] = ()) -> ExperimentSpec:
 _BENCH_MODEL = ModelSpec(lr=0.15, lr_schedule="exponential")
 
 
-def _bench(name, *, kappas, partition, rounds, transport=None, aggregators=None) -> ExperimentSpec:
+def _bench(name, *, kappas, partition, rounds, **sections) -> ExperimentSpec:
+    """A 50-client / 5-edge benchmark spec; ``sections`` (``transport=``,
+    ``aggregators=``, ``failures=``, ``deadline=``, ``network=``) replace
+    the defaults. ``run.eval_every`` stays 1, as in the JAX package, so the
+    deadline scenarios refuse to run until it is a multiple of a cloud
+    interval (10 rounds)."""
     return ExperimentSpec(
         name=name,
         topology=TopologySpec(num_edges=5, clients_per_edge=10),
         schedule=ScheduleSpec(kappas=kappas),
         data=DataSpec(partition=partition),
         model=_BENCH_MODEL,
-        transport=transport or TransportSpec(),
-        aggregators=aggregators or AggregatorSpec(),
         run=RunSpec(num_rounds=rounds),
+        **sections,
     )
 
 
@@ -255,6 +244,110 @@ def _n1m_cohort4096() -> ExperimentSpec:
         participation=ParticipationSpec(cohort_size=4096, sampler="stratified"),
         cost=CostSpec(workload="none"),
         run=RunSpec(num_rounds=8, eval_every=0),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Simulation scenarios (repro_torch.sim: ``sim.simulate_spec``)
+# ---------------------------------------------------------------------------
+
+@register(
+    "congested_backhaul",
+    "sim: 10% of edges on an 8x-slower backhaul + lognormal link jitter — "
+    "p99 round time vs the analytic point estimate",
+)
+def _congested_backhaul() -> ExperimentSpec:
+    return _bench(
+        "congested_backhaul", kappas=(6, 10), partition="edge_iid", rounds=40,
+        network=NetworkSpec(
+            edge_backhaul="mixture:0.9@1,0.1@8",
+            backhaul_jitter="lognormal:0.25",
+            link_jitter="lognormal:0.15",
+            seed=11,
+        ),
+    )
+
+
+@register(
+    "hetero_clients_assoc",
+    "sim: heterogeneous client speeds + a congested uplink band with "
+    "contention — the association-optimizer target (HFEL)",
+)
+def _hetero_clients_assoc() -> ExperimentSpec:
+    return _bench(
+        "hetero_clients_assoc", kappas=(6, 10), partition="edge_iid", rounds=40,
+        network=NetworkSpec(
+            client_speed="lognormal:0.35",
+            edge_uplink="mixture:0.6@1,0.4@4",
+            link_jitter="lognormal:0.2",
+            contention=True,
+            seed=3,
+        ),
+    )
+
+
+@register(
+    "straggler_tail",
+    "sim: deadline-based straggler exclusion priced by the replay from the "
+    "same StragglerModel distribution the runner masks with",
+)
+def _straggler_tail() -> ExperimentSpec:
+    return _bench(
+        "straggler_tail", kappas=(6, 10), partition="edge_iid", rounds=40,
+        failures=FailureSpec(straggler_sigma=0.4, straggler_mean_s=1.0, seed=5),
+        network=NetworkSpec(
+            compute_jitter="lognormal:0.4", jitter_granularity="interval", seed=5
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Semi-synchronous deadline scenarios (fed.deadline; docs/robustness.md)
+# ---------------------------------------------------------------------------
+
+@register(
+    "deadline_straggler",
+    "semi-sync: 60% quorum over the straggler tail's edge cadences with "
+    "mid-round edge dropout — late edges carry, dead edges are reweighted",
+)
+def _deadline_straggler() -> ExperimentSpec:
+    return _bench(
+        "deadline_straggler", kappas=(6, 10), partition="edge_iid", rounds=40,
+        failures=FailureSpec(straggler_sigma=0.4, straggler_mean_s=1.0, seed=5),
+        deadline=DeadlineSpec(
+            enabled=True, quorum=0.6, max_staleness=3,
+            staleness="poly:0.5", edge_drop_rate=0.05, retry_limit=1, seed=5,
+        ),
+    )
+
+
+@register(
+    "fedbuff_k4",
+    "semi-sync: FedBuff-style buffered aggregation — the cloud folds the "
+    "first K=4 edge arrivals per round under heterogeneous edge speeds",
+)
+def _fedbuff_k4() -> ExperimentSpec:
+    return _bench(
+        "fedbuff_k4", kappas=(6, 10), partition="edge_iid", rounds=40,
+        deadline=DeadlineSpec(
+            enabled=True, buffer_size=4, max_staleness=3,
+            staleness="poly:0.5", edge_speed="lognormal:0.5", seed=7,
+        ),
+    )
+
+
+@register(
+    "stale_decay",
+    "semi-sync: 80% quorum with exponential staleness decay exp:0.7 — "
+    "stragglers' carried updates fold at geometrically shrinking weight",
+)
+def _stale_decay() -> ExperimentSpec:
+    return _bench(
+        "stale_decay", kappas=(6, 10), partition="edge_iid", rounds=40,
+        deadline=DeadlineSpec(
+            enabled=True, quorum=0.8, max_staleness=4,
+            staleness="exp:0.7", edge_speed="lognormal:0.4", seed=9,
+        ),
     )
 
 

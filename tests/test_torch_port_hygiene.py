@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX
 package, its entry points default to CUDA and refuse to fall back to the
 CPU, and configurations that need an unported feature say which ROADMAP
-item brings it."""
+item brings it; features of items once unported build."""
 import pathlib
 import re
 import subprocess
@@ -96,9 +96,7 @@ def test_resolve_device_turns_tf32_off():
 @pytest.mark.parametrize(
     "overrides,item",
     [
-        (["schedule.async_cloud=true"], 11),
         (["participation.cohort_size=8", "topology.mesh_axes=clients"], 12),
-        (["deadline.enabled=true"], 11),
         (["topology.mesh_axes=clients"], 12),
     ],
 )
@@ -160,12 +158,35 @@ def test_lm_options_on_quickstart_behave_like_jax(overrides, error):
             spec.build(device="cpu")
 
 
-@pytest.mark.parametrize("name", ["straggler_tail", "stale_decay", "deadline_straggler", "fedbuff_k4"])
-def test_unported_scenarios_name_their_roadmap_item(name):
+@pytest.mark.parametrize(
+    "name,overrides",
+    [
+        ("quickstart", ["schedule.async_cloud=true", "run.num_rounds=2"]),
+        ("quickstart", ["deadline.enabled=true", "run.num_rounds=2"]),
+        ("straggler_tail", []),
+        ("stale_decay", ["run.num_rounds=10", "run.eval_every=10"]),
+        ("deadline_straggler", ["run.num_rounds=10", "run.eval_every=10"]),
+        ("fedbuff_k4", ["run.num_rounds=10", "run.eval_every=10"]),
+    ],
+)
+def test_features_of_item_11_build_on_the_cpu(name, overrides, recwarn):
+    """The deadline engine and the scenarios of item 11, once raising it,
+    run: a deadline configuration (``async_cloud`` maps to one, with a
+    DeprecationWarning) through the ``DeadlineEngine``, a simulator
+    scenario into a synchronous runner (its ``network`` section is inert
+    for training) and a replay."""
+    from repro_torch import sim
     from repro_torch.fed import scenarios
+    from repro_torch.fed.engine import DeadlineEngine
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item \d+"):
-        scenarios.get(name)
+    assert name in scenarios.names()
+    spec = scenarios.get(name, overrides=overrides)
+    if spec.network.is_active:
+        assert spec.build(device="cpu").deadline is None
+        assert sim.simulate_spec(spec).round_time.shape == (1,)
+    else:
+        runner, _ = spec.run_experiment(device="cpu")
+        assert type(runner._engine) is DeadlineEngine and len(runner.history) == spec.run.num_rounds
 
 
 def test_unknown_scenario_lists_the_ported_ones():
@@ -177,6 +198,8 @@ def test_unknown_scenario_lists_the_ported_ones():
         "quickstart", "favg", "hierfavg_iid", "hierfavg_edge_iid", "hierfavg_edge_niid",
         "kappa_sweep_fast", "edge_only", "ragged_edges", "three_level", "int8_cloud", "int8_ef_both",
         "lm_edge_niid", "trimmed_edge", "median_cloud", "trimmed_int8", "n1m_cohort4096",
+        "congested_backhaul", "hetero_clients_assoc", "straggler_tail", "deadline_straggler", "fedbuff_k4",
+        "stale_decay",
     ])
 
 
