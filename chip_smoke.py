@@ -193,6 +193,21 @@ Phases, one JSON line each; any failure exits non-zero:
               prefill, none of K8; a 2 x 128 prefill on the card against the
               same on the CPU; decoding token P after prefill(P) against
               prefill(P + 1)
+  train_xlstm350m
+              ``lm_edge_niid`` on xlstm-350m at its published widths and
+              depth (24 layers, 3:1 mLSTM:sLSTM, bf16; the scenario's
+              vocabulary of 512) on 4 clients over 2 edges (8 do not fit
+              in 80 GB) for 8 rounds: K1 once per leaf per level mean (492),
+              K7 = K8 = 0, losses finite and falling, params finite, f32
+              exactly on the gate, recurrence and bias leaves, the peak;
+              one warm cloud interval timed, one local step profiled, K1
+              timed per leaf; one cloud interval at 4 layers in f32 on 4
+              clients (8-token sequences) against the CPU, with Adam and
+              with SGD (losses, and SGD's params after the cloud sync). K1
+              at this run's leaves is also among the kernels phase's cases.
+              ``python3 chip_smoke.py --xlstm-train-memory`` runs only the
+              build and this run's memory: 4 clients over one and four
+              intervals, with remat, and 8 without and with it
   serve_recurrentgemma9b
               the same on recurrentgemma-9b at full width (9.57B parameters,
               bf16), 2 prompts of 4096 tokens (the 2048-slot rings wrap), 16
@@ -201,6 +216,27 @@ Phases, one JSON line each; any failure exits non-zero:
               consistency; a cut-depth f32 check of the K7/K8 route against
               the layer code; a warm prefill and decode step under
               torch.profiler
+  serve_xlstm350m
+              xlstm-350m uncut (480,633,856 parameters, bf16), 2 prompts of
+              2048 tokens, 32 generated: no kernel launch (mLSTM and sLSTM
+              are plain PyTorch, as in JAX); decode against the chunkwise
+              forward over P + 1 tokens; card against the CPU in f32 on an
+              8-token prompt (the sLSTM is chaotic at this width) and, on a
+              cut of 3 mLSTM layers, on 2048 tokens (logits and each
+              layer's carry); a warm prefill (with the sLSTM layers' host
+              and device shares) and decode step under torch.profiler
+  serve_deepseekv3_l1
+              deepseek-v3-671b at full layer widths (MLA, 256 routed experts
+              top-8 and a shared one), one layer deep (26.7 GB of bf16),
+              1 prompt of 4096 tokens, 16 generated: K7 once per prefill (v
+              zero-padded from 128 to the q/k head dim 192); the prefill
+              against the layer code, the absorbed decode against prefill(P
+              + 1), the MoE's output for 64 tokens against a per-token dense
+              reference, the dropped assignments; a warm prefill and decode
+              step under torch.profiler; the expert product's two bf16
+              routes (bmm's f32 output, blocks upcast) timed; K7 at this
+              shape against its plain version, timed beside its bound and
+              SDPA
 
 The quickstart, mlp307k, mlp307k_int8_ef, mlp307k_megakernel,
 n1m_cohort4096, mlp307k_cohort, mlp307k_deadline and train_lm100m phases
@@ -323,6 +359,38 @@ DEADLINE_RUN = ["run.num_rounds=20", "run.eval_every=10"]
 DEADLINE_RAGGED = DEADLINE_RUN + ["deadline.enabled=true", "deadline.quorum=0.6", "deadline.edge_speed=lognormal:0.5"]
 DEADLINE_REFUSAL = "the deadline engine cannot run: eval_every=1 is finer than a cloud interval (kappa2_eff=10)"
 DEADLINE_PARAMS_ATOL = 1e-4  # card vs CPU final params, the scenario tolerance of the CPU tests
+# xlstm-350m's sLSTM recurrence at its published widths amplifies a
+# rounding by about 1.15x a token (the init's recurrent matrices have std
+# H^-0.5 = 0.5 over dh = 256 inputs), so two devices' f32 logits part by
+# 3.5e-5 of the largest at token 8 and by O(1) at token 256 (the serve
+# phase measures it on every run). Card against the CPU is therefore held
+# on 8-token sequences: the serve phase's f32 logits within K_F32, and the
+# training cut's loss within LM_RTOL (grad norm and params reported).
+XLSTM = ["model.arch=xlstm-350m"]
+XLSTM_CHAOS_PROMPTS = (4, 8, 16, 256)  # f32 card vs CPU distance measured at each
+XLSTM_CHECK_PROMPT = 8
+# federated training at the published widths and depth (bf16, as the config
+# stores it; the scenario's vocabulary of 512) on 4 clients over 2 edges: 8
+# clients take more than the card's 80 GB with and without remat
+# (``--xlstm-train-memory`` measures each)
+XLSTM_TRAIN = XLSTM + ["topology.clients_per_edge=2"]
+XLSTM_TRAIN_CUTS = ["4 clients on 2 edges, not 8: 8 run out of memory on 80 GB with and without remat"]
+# card against the CPU: one cloud interval (2 rounds: an edge sync, then the
+# cloud sync) at one period of the 3:1 pattern (4 layers) in f32 on 4
+# clients over 2 edges, 8-token sequences; SGD held to the params' atol, the
+# scenario's Adam reported beside it
+XLSTM_CUT = dict(num_layers=4, param_dtype="float32", compute_dtype="float32")
+XLSTM_CUT_RUN = ["run.num_rounds=2", "topology.clients_per_edge=2", f"data.seq_len={XLSTM_CHECK_PROMPT + 1}"]
+XLSTM_CUT_PARAMS_ATOL = 1e-5
+XLSTM_PROFILE_P = 256  # the profiled xlstm-350m prefill: one mLSTM chunk
+# the mLSTM layers alone against the CPU over the serving prompt's 8 chunks
+XLSTM_MLSTM_CUT = dict(block_pattern=("mlstm",), num_layers=3, param_dtype="float32", compute_dtype="float32")
+XLSTM_MLSTM_PROMPT = 2048
+# deepseek-v3's MoE output against the per-token dense reference (the same
+# roundings: h, g in f32, bf16 after silu(h) * g and after each expert's
+# down product): within MOE_REF_RTOL of the largest |y|, a bf16 ulp's order
+MOE_REF_RTOL = 2.0 ** -7
+MOE_REF_TOKENS = 64
 
 
 def emit(obj) -> None:
@@ -423,6 +491,13 @@ def kernel_cases():
         ("grouped_mean", "70,000 edges of 2 (140000x768, G=70000)", 140_000, 768, 70_000),
         ("grouped_mean", "mlp307k w1 edge (32x262144, G=4)", 32, 262144, 4),
         ("grouped_mean", "mlp307k w1 cloud (32x262144, G=1)", 32, 262144, 1),
+        # train_xlstm350m's syncs (4 clients on 2 edges): the largest leaf,
+        # wq of the 18 mLSTM layers (4 x 6 x 2048 x 2048, bf16 in the run),
+        # at the edge sync and the cloud sync's root stage, and the sLSTM's
+        # recurrent r_i (4 x 6 x 4 x 256 x 256, f32 in the run)
+        ("grouped_mean", "xlstm-350m wq edge (4x25165824, G=2)", 4, 25165824, 2),
+        ("grouped_mean", "xlstm-350m wq cloud root (2x25165824, G=1)", 2, 25165824, 1),
+        ("grouped_mean", "xlstm-350m r_i edge (4x1572864, G=2)", 4, 1572864, 2),
         # lm_edge_niid's leaves at lm-100m: the final norm, and the stacked
         # MLP weight of 12 layers (8 x 12 x 768 x 2048, the largest leaf)
         ("grouped_mean", "lm-100m final_norm edge (8x768, G=2)", 8, 768, 2),
@@ -2034,9 +2109,11 @@ def phase_train_lm100m_robust(torch, mods):
     return {k: report["plain"]["launches"][k] + report["remat"]["launches"][k] for k in report["plain"]["launches"]}
 
 
-def profile_call(torch, fn):
+def profile_call(torch, fn, ranges=()):
     """One call under torch.profiler: wall ms (host clock to a synchronise),
-    device-busy ms by kernel class, busy share of the wall, top kernels."""
+    device-busy ms by kernel class, busy share of the wall, top kernels;
+    for each ``record_function`` name in ``ranges``, its host ms and the
+    device ms of the kernels launched inside it, summed over its ranges."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2047,15 +2124,22 @@ def profile_call(torch, fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_class, by_name = {}, {}
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a record_function range also shows on the device's timeline: not busy time
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in ranges]
     for e in events:
         by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name), 0.0) + e.device_time_total
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     busy_us = sum(by_class.values())
     check(busy_us > 0, "the profiler saw no device time")
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e6 / wall,
-            "device_ops": len(events), "busy_ms_by_class": {k: v / 1e3 for k, v in sorted(by_class.items())},
-            "top_kernels_ms": [[n[:90], v / 1e3] for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]]}
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e6 / wall,
+           "device_ops": len(events), "busy_ms_by_class": {k: v / 1e3 for k, v in sorted(by_class.items())},
+           "top_kernels_ms": [[n[:90], v / 1e3] for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]]}
+    if ranges:
+        marks = {r: [e for e in prof.events() if e.name == r and e.device_type == torch.autograd.DeviceType.CPU]
+                 for r in ranges}
+        out["ranges"] = {r: {"count": len(es), "host_ms": sum(e.cpu_time_total for e in es) / 1e3,
+                             "device_ms": sum(e.device_time_total for e in es) / 1e3} for r, es in marks.items()}
+    return out
 
 
 def layer_code_last_logits(torch, transformer, params, cfg, tokens):
@@ -2164,6 +2248,582 @@ def phase_serve_recurrentgemma9b(torch, mods):
     return launches
 
 
+@contextlib.contextmanager
+def around_slstm(before, after):
+    """Each sLSTM block's sequence pass runs between ``before()`` and
+    ``after()`` while the block runs."""
+    from repro_torch.models import recurrent
+
+    inner = recurrent.slstm_sequence
+
+    def wrapped(*a, **k):
+        before()
+        try:
+            return inner(*a, **k)
+        finally:
+            after()
+
+    recurrent.slstm_sequence = wrapped
+    try:
+        yield
+    finally:
+        recurrent.slstm_sequence = inner
+
+
+def slstm_host_share(torch, fn):
+    """One call of ``fn`` timed by the host clock to a synchronise, with the
+    sLSTM passes timed the same way: (wall ms, sLSTM ms)."""
+    spent, t = [0.0], [0.0]
+
+    def start():
+        torch.cuda.synchronize()
+        t[0] = time.perf_counter()
+
+    def stop():
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t[0]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with around_slstm(start, stop):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, spent[0] * 1e3
+
+
+def slstm_profile(torch, fn):
+    """``profile_call`` of ``fn`` with each sLSTM block's sequence pass in
+    a ``record_function`` range: adds the ranges' host time and the device
+    time of the kernels they launched, and their shares of the call's wall
+    and device busy time."""
+    from torch.profiler import record_function
+
+    ranges = []
+    with around_slstm(lambda: ranges.append(record_function("slstm_sequence").__enter__()),
+                      lambda: ranges.pop().__exit__(None, None, None)):
+        out = profile_call(torch, fn, ranges=("slstm_sequence",))
+    r = out.pop("ranges")["slstm_sequence"]
+    check(r["count"] > 0 and r["device_ms"] > 0, f"the profiler saw no sLSTM range: {r}")
+    out["slstm"] = {**r, "host_share_of_wall": r["host_ms"] / out["wall_ms"],
+                    "device_share_of_busy": r["device_ms"] / out["device_busy_ms"]}
+    return out
+
+
+def phase_serve_xlstm350m(torch, mods):
+    """xlstm-350m uncut (bf16) through the serving entry point: no kernel
+    on its path (mLSTM, sLSTM plain); decode against the chunkwise forward
+    over P + 1 tokens (prefill(P + 1) takes whole chunks only); card
+    against the CPU at full width and depth in f32 (an 8-token prompt held,
+    the distance measured by prompt length), and on 2048 tokens through
+    mLSTM layers alone (``xlstm_mlstm_card_vs_cpu``); the sLSTM layers' share of the
+    prefill's host time, and a prefill of one chunk and a decode step
+    profiled, with the sLSTM layers' shares."""
+    import dataclasses
+
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.configs.base import param_count
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = get_config("xlstm-350m")
+    B, P, G = 2, 2048, 32
+    torch.cuda.empty_cache()
+    base = reset_peak(torch)
+    with torch.no_grad():
+        params = transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == param_count(cfg) == 480_633_856, f"xlstm-350m has {n_params} parameters")
+    out, launches = counted_serve(torch, mods, cfg, params, batch=B, prompt_len=P, gen=G)
+    peak = torch.cuda.max_memory_allocated() - base
+    check_launches(launches, {}, "serve_xlstm350m")
+    check(tuple(out["tokens"].shape) == (B, G) and bool(torch.isfinite(out["prefill_logits"]).all()),
+          "serve_xlstm350m: tokens or logits")
+    warm, _ = counted_serve(torch, mods, cfg, params, batch=B, prompt_len=P, gen=G)
+    del out["caches"], warm["caches"]
+
+    x = torch.from_numpy(serve.make_prompts(cfg, B, P + 1, seed=1)).cuda()
+    with torch.inference_mode():
+        last, caches = transformer.prefill(params, cfg, x[:, :P], P + G)
+        dec, _ = transformer.decode_step(params, cfg, caches, x[:, P],
+                                         torch.full((B,), P, dtype=torch.int32, device="cuda"))
+        chunkwise = transformer.forward(params, cfg, x)[:, -1]
+    dec_err, dec_scale = max_err(dec, chunkwise)
+    check(bool(torch.isfinite(dec).all()) and dec_err <= K_BF16 * dec_scale,
+          f"serve_xlstm350m: decode vs forward(P+1) err {dec_err} (scale {dec_scale})")
+    tok = last.argmax(-1).to(torch.int32)
+    pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        wall_ms, slstm_ms = slstm_host_share(torch, lambda: transformer.prefill(params, cfg, x[:, :P], P + G))
+        # the profiler's cost grows with the sLSTM's steps (150 device ops a
+        # token a layer): profile one chunk's prompt
+        prof_prefill = slstm_profile(torch, lambda: transformer.prefill(params, cfg, x[:, :XLSTM_PROFILE_P],
+                                                                        XLSTM_PROFILE_P + 1))
+        prof_decode = profile_call(torch, lambda: transformer.decode_step(params, cfg, caches, tok, pos))
+    del caches, last, dec, chunkwise
+
+    # card against the CPU at full width and depth in f32 (the same weights
+    # upcast): every position's logits of an 8-token prompt within K_F32 of
+    # the largest; the distance at each of XLSTM_CHAOS_PROMPTS measured (the
+    # sLSTM's recurrence amplifies roundings), and bf16's at 256 tokens
+    f32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        p32 = tree_map(lambda t: t.float(), params)
+        cpu32 = tree_map(lambda t: t.cpu(), p32)
+        chaos = {}
+        for n in XLSTM_CHAOS_PROMPTS:
+            prompt = torch.from_numpy(serve.make_prompts(cfg, 1, n, seed=2))
+            card = transformer.forward(p32, f32, prompt.cuda())[0].float().cpu()
+            cpu = transformer.forward(cpu32, f32, prompt)[0]
+            rel = (card - cpu).abs().amax(-1) / cpu.abs().amax(-1)
+            chaos[n] = {"max_rel_err": float(rel.max()), "last_rel_err": float(rel[-1])}
+        short = torch.from_numpy(serve.make_prompts(cfg, 1, 256, seed=2))
+        card16, _ = transformer.prefill(params, cfg, short.cuda(), 260)
+        cpu16, _ = transformer.prefill(tree_map(lambda t: t.cpu(), params), cfg, short, 260)
+    cpu_s = time.perf_counter() - t0
+    cpu_err = chaos[XLSTM_CHECK_PROMPT]["max_rel_err"]
+    check(cpu_err <= K_F32, f"serve_xlstm350m: f32 card vs CPU logits rel err {cpu_err} at {XLSTM_CHECK_PROMPT}")
+    del p32, cpu32
+    mlstm_long = xlstm_mlstm_card_vs_cpu(torch, cfg)
+    bf16_err, bf16_scale = max_err(card16, cpu16)
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_xlstm350m", "arch": cfg.name, "params": n_params, "dtype": "bfloat16",
+          "layers": {k: cfg.block_pattern.count(k) * cfg.num_superblocks for k in ("mlstm", "slstm")},
+          "batch": B, "prompt_len": P, "gen": G, **serve_report(out, warm, launches),
+          "launches_per_prefill": {}, "peak_memory_bytes": peak,
+          "decode_vs_chunkwise_forward": {"position": P, "max_abs_err": dec_err, "max_abs_logit": dec_scale,
+                                          "tolerance": f"{K_BF16} x max |logit|"},
+          "card_vs_cpu": {"dtype": "float32", "prompt_len": XLSTM_CHECK_PROMPT, "max_rel_err": cpu_err,
+                          "tolerance": f"{K_F32} x max |logit| at every position",
+                          "f32_by_prompt_len": chaos, "seconds": cpu_s,
+                          "bf16_prompt_256": {"max_abs_err": bf16_err, "max_abs_logit": bf16_scale},
+                          "mlstm_only": mlstm_long},
+          "prefill_host": {"wall_ms": wall_ms, "slstm_ms": slstm_ms, "slstm_share_of_wall": slstm_ms / wall_ms},
+          "profile_prefill": {"batch": B, "prompt_len": XLSTM_PROFILE_P, **prof_prefill},
+          "profile_decode_step": prof_decode})
+    return launches
+
+
+def xlstm_mlstm_card_vs_cpu(torch, cfg):
+    """Card against the CPU in f32 at xlstm-350m's widths over a
+    ``XLSTM_MLSTM_PROMPT``-token prompt, on a cut of ``XLSTM_MLSTM_CUT``
+    (mLSTM blocks alone: the sLSTM's chaos stays out, the chunks' carry is
+    in): the logits at every position and the last position's from the
+    prefill within K_F32 of the largest, and each layer's carry (C, n, m)
+    after the prefill within K_F32 of its largest; checked."""
+    import dataclasses
+
+    from torch.utils._pytree import tree_flatten_with_path, tree_map
+
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cut = dataclasses.replace(cfg, **XLSTM_MLSTM_CUT)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_p = transformer.init_params(torch.Generator().manual_seed(4), cut)
+    card_p = tree_map(lambda t: t.cuda(), cpu_p)
+    prompt = torch.from_numpy(serve.make_prompts(cut, 1, XLSTM_MLSTM_PROMPT, seed=5))
+    with torch.inference_mode():
+        logits = {dev: transformer.forward(p, cut, prompt.to(dev))[0].float().cpu()
+                  for dev, p in (("cuda", card_p), ("cpu", cpu_p))}
+        last = {dev: transformer.prefill(p, cut, prompt.to(dev), XLSTM_MLSTM_PROMPT + 1)
+                for dev, p in (("cuda", card_p), ("cpu", cpu_p))}
+    rel = ((logits["cuda"] - logits["cpu"]).abs().amax(-1) / logits["cpu"].abs().amax(-1))
+    out = {"config": {k: list(v) if isinstance(v, tuple) else v for k, v in XLSTM_MLSTM_CUT.items()},
+           "prompt_len": XLSTM_MLSTM_PROMPT, "chunks": XLSTM_MLSTM_PROMPT // cut.mlstm_chunk,
+           "logits_max_rel_err": float(rel.max()),
+           "prefill_last_rel_err": float((last["cuda"][0].cpu() - last["cpu"][0]).abs().max()
+                                         / last["cpu"][0].abs().max()),
+           "tolerance": f"{K_F32} x the largest |value|"}
+    carries = {}
+    for (path, got), (_, want) in zip(tree_flatten_with_path(last["cuda"][1])[0],
+                                      tree_flatten_with_path(last["cpu"][1])[0]):
+        name = path[-1].key
+        err = float((got.cpu() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+        carries[name] = max(carries.get(name, 0.0), err)
+    out["carry_max_rel_err"] = carries
+    out["seconds"] = time.perf_counter() - t0
+    check(sorted(carries) == ["C", "m", "n"], f"serve_xlstm350m mLSTM cut: carries {sorted(carries)}")
+    check(max(out["logits_max_rel_err"], out["prefill_last_rel_err"], *carries.values()) <= K_F32,
+          f"serve_xlstm350m mLSTM cut: card vs CPU at {XLSTM_MLSTM_PROMPT} tokens {out}")
+    return out
+
+
+@contextlib.contextmanager
+def lm_config_cut(**changes):
+    """The LM scenarios' model config with ``changes`` (a cut of depth or
+    dtype) while the block runs."""
+    import dataclasses
+
+    from repro_torch.fed import api
+
+    full = api._lm_config
+    api._lm_config = lambda spec: dataclasses.replace(full(spec), **changes)
+    try:
+        yield
+    finally:
+        api._lm_config = full
+
+
+def phase_train_xlstm350m(torch, mods):
+    """``lm_edge_niid`` on xlstm-350m at its published widths and depth (4
+    clients on 2 edges, kappa (4, 2), Adam with warmup-cosine, 8 rounds):
+    K1 on every leaf at every sync, losses finite and falling, params
+    finite, f32 exactly on the gate, recurrence and bias leaves; one warm
+    cloud interval timed, one local step profiled, K1 timed on every leaf
+    at the interval's syncs; then one cloud interval at 4 layers in f32,
+    card against the CPU (``xlstm_cut_vs_cpu``)."""
+    import math
+
+    from torch.utils._pytree import tree_flatten_with_path
+
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = reset_peak(torch)
+    runner, state, secs, launches, params = run_scenario(torch, mods, "lm_edge_niid", XLSTM_TRAIN + LM_TRAIN, "cuda")
+    peak = torch.cuda.max_memory_allocated() - base
+    want = lm_launches(runner, state, 0)
+    check_launches(launches, want, "train_xlstm350m")
+    n_leaves = len(list(leaves(state.params)))
+    check(n_leaves == 41 and want["grouped_mean"] == 12 * n_leaves, f"train_xlstm350m: {n_leaves} leaves, {want}")
+    n_params = sum(x[0].numel() for x in leaves(state.params))
+    f32_leaves = sorted({path[-1].key for path, x in tree_flatten_with_path(state.params)[0]
+                         if x.dtype == torch.float32})
+    check(f32_leaves == ["a_f", "a_i", "b", "r_f", "r_i", "r_o", "r_z"] and all(
+        x.dtype in (torch.float32, torch.bfloat16) for x in leaves(state.params)),
+        f"train_xlstm350m: f32 leaves {f32_leaves}")
+    wq = state.params["blocks"]["b0"]["cell"]["wq"]
+    check(tuple(wq.shape) == (4, 6, 2048, 2048) and wq.dtype == torch.bfloat16, f"train_xlstm350m wq {wq.shape}")
+    losses = [h.loss for h in runner.history]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"train_xlstm350m losses {losses}")
+    check(all(bool(torch.isfinite(x).all()) for x in leaves(state.params)), "train_xlstm350m params not finite")
+    del state
+    torch.cuda.empty_cache()
+    profile = xlstm_interval_profile(torch, mods, params)
+    del params
+    torch.cuda.empty_cache()
+    cut_vs_cpu = xlstm_cut_vs_cpu(torch, mods)
+    emit({"phase": "train_xlstm350m", **path_report(runner, secs, launches, {
+        "arch": runner.spec.model.arch, "params_per_client": n_params, "clients": runner.topology.num_clients,
+        "edges": runner.topology.num_edges, "leaves": n_leaves, "f32_leaves": f32_leaves, "cuts": XLSTM_TRAIN_CUTS,
+        "tokens_per_local_step": runner.topology.num_clients * runner.spec.data.batch_size * runner.spec.data.seq_len,
+        "launches_want": want, "losses": losses, "grad_norms": [h.grad_norm for h in runner.history],
+        "first_call_wall_s": secs, "allocated_at_start_bytes": base, "peak_memory_bytes": peak,
+        "profile": profile, "cut_vs_cpu": cut_vs_cpu,
+        "phase_seconds": time.perf_counter() - t0})})
+    return launches
+
+
+def xlstm_cut_vs_cpu(torch, mods):
+    """One cloud interval (round 0 ends in an edge sync, round 1 in the
+    cloud sync) of ``lm_edge_niid`` on xlstm-350m cut to ``XLSTM_CUT``, on
+    4 clients over 2 edges, on the card and on the CPU from one init, with
+    the scenario's Adam and with SGD: both rounds' losses within LM_RTOL
+    (round 1's steps start from the edge means), and SGD's params after
+    the cloud sync within XLSTM_CUT_PARAMS_ATOL. Adam's params are
+    reported: where a gradient is near zero, Adam's step is near +-lr
+    whatever the gradient's size, so two devices' roundings of it can part
+    by lr a step. Checked."""
+    from repro_torch.fed import scenarios
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    out = {"config": XLSTM_CUT, "clients": 4, "edges": 2, "rounds": 2, "seq_len": XLSTM_CHECK_PROMPT,
+           "tolerance": {"loss_rtol": LM_RTOL, "sgd_params_atol": XLSTM_CUT_PARAMS_ATOL}}
+    with lm_config_cut(**XLSTM_CUT):
+        cut = scenarios.get("lm_edge_niid", overrides=XLSTM + XLSTM_CUT_RUN)
+        cut_params = cut.init_params(cut.run.seed + 1, "cpu")
+        for opt in ("adam", "sgd"):
+            overrides = XLSTM + XLSTM_CUT_RUN + [f"model.optimizer={opt}"]
+            card, card_state, _, launches, _ = run_scenario(torch, mods, "lm_edge_niid", overrides, "cuda",
+                                                            params=cut_params)
+            cpu, cpu_state, *_ = run_scenario(torch, mods, "lm_edge_niid", overrides, "cpu", params=cut_params)
+            pairs = list(zip(card.history, cpu.history))
+            check(len(pairs) == 2 and launches["grouped_mean"] == 3 * len(list(leaves(card_state.params))),
+                  f"train_xlstm350m cut {opt}: rounds {len(pairs)}, launches {launches}")
+            out[opt] = {"loss_rel_err": [abs(a.loss - b.loss) / abs(b.loss) for a, b in pairs],
+                        "grad_norm_rel_err": [abs(a.grad_norm - b.grad_norm) / abs(b.grad_norm) for a, b in pairs],
+                        "params_max_abs_err": params_max_err(card_state, cpu_state),
+                        "launches": launches["grouped_mean"]}
+            del card_state, cpu_state
+    check(max(out["adam"]["loss_rel_err"] + out["sgd"]["loss_rel_err"]) <= LM_RTOL
+          and out["sgd"]["params_max_abs_err"] <= XLSTM_CUT_PARAMS_ATOL, f"train_xlstm350m cut: {out}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def xlstm_interval_profile(torch, mods, params):
+    """One warm cloud interval of the xlstm-350m run timed; one of its
+    local steps (the clients' grad(vmap(loss))) under the profiler, since a
+    whole interval's 380,000 device ops take the profiler minutes to read;
+    K1 timed (CUDA events) on every leaf at the interval's three stages (the
+    edge sync, and the cloud sync's edge and root stages), and on the
+    largest leaf beside its bound and its plain version."""
+    from repro_torch.core import hierfavg
+    from repro_torch.kernels import hier_aggregate as ha
+    from repro_torch.tree import leaves
+
+    runner, state, warm_s, launches, _ = run_scenario(torch, mods, "lm_edge_niid",
+                                                      XLSTM_TRAIN + ["run.num_rounds=2"], "cuda", params)
+    intervals = runner.cfg.num_rounds / runner.hier_config.kappa2_effective
+    batch = {k: torch.from_numpy(v).cuda() for k, v in runner.batcher.next_batch().items()}
+    grad_fn = hierfavg._client_grads(runner.loss_fn, runner.hier_config.precision)
+    grad_fn(state.params, batch, None)  # warm
+    step = profile_call(torch, lambda: grad_fn(state.params, batch, None))
+    flush = flush_buffer(torch)
+    n, edges = runner.topology.num_clients, runner.topology.num_edges
+    w = torch.ones(n, device="cuda")
+    k1_ms, largest = 0.0, None
+    for leaf in leaves(state.params):
+        rows = leaf.reshape(n, -1)
+        edge_ms = time_ms(lambda: ha.grouped_mean(rows, w, edges), flush=flush, reps=5)
+        k1_ms += 2 * edge_ms + time_ms(lambda: ha.grouped_mean(rows[:edges], w[:edges], 1), flush=flush, reps=5)
+        if largest is None or rows.numel() > largest["rows"][0] * largest["rows"][1]:
+            nbytes = 2 * rows.numel() * rows.element_size() + n * 4  # rows read and written, weights read
+            largest = {"rows": list(rows.shape), "dtype": str(rows.dtype).replace("torch.", ""), "groups": edges,
+                       "ms": edge_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                       "plain_ms": time_ms(lambda: ha.grouped_mean_plain(rows, w, edges), flush=flush, reps=5)}
+    del state, flush
+    steps = runner.hier_config.kappa1 * runner.hier_config.kappa2_effective
+    return {"cloud_intervals": intervals, "warm_wall_ms_per_interval": warm_s * 1e3 / intervals,
+            "local_steps_per_interval": steps, "local_step": step,
+            "local_step_busy_share": step["device_busy_share"],
+            "k1_ms_per_interval": k1_ms, "k1_launches_per_interval": launches["grouped_mean"] / intervals,
+            "k1_largest_leaf": largest}
+
+
+def xlstm_train_memory(torch, mods):
+    """``lm_edge_niid`` on xlstm-350m at full width: 4 clients over 2 edges
+    for one cloud interval and for four (the peak must not grow after the
+    first: the engine writes each interval back into the caller's state),
+    then with remat, then 8 clients without and with remat (one interval
+    each): whether it fits, the memory allocated before it and the peak
+    (both absolute: a run that ran out of memory may leave some
+    allocated)."""
+    import gc
+
+    rows = []
+    for clients_per_edge, remat, rounds in ((2, False, 2), (2, False, 8), (2, True, 2), (4, False, 2), (4, True, 2)):
+        overrides = XLSTM + [f"run.num_rounds={rounds}", f"topology.clients_per_edge={clients_per_edge}"]
+        overrides += REMAT if remat else []
+        torch.cuda.empty_cache()
+        row = {"clients": 2 * clients_per_edge, "remat": remat, "rounds": rounds,
+               "allocated_before_bytes": reset_peak(torch)}
+        try:
+            _, state, secs, *_ = run_scenario(torch, mods, "lm_edge_niid", overrides, "cuda")
+            row.update(fits=True, seconds=secs)
+            del state
+        except torch.OutOfMemoryError:
+            row.update(fits=False)
+        row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows.append(row)
+    emit({"phase": "xlstm_train_memory", "card_bytes": torch.cuda.get_device_properties(0).total_memory,
+          "runs": rows})
+
+
+def moe_dense_reference(torch, moe, x, cfg, n):
+    """The MoE layer's output for the first ``n`` of the tokens ``x`` (T,
+    d), one token and one expert at a time: the same routing over all T
+    tokens, each assignment's rank counted by a running sum (the
+    assignments to an expert before it, token-major), those of rank C or
+    more left out; h and g in f32, rounded after silu(h) * g, the down
+    product in bf16; the gated sum and the shared branch in f32. Returns
+    (y (n, d), the dropped assignments over all T tokens)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers
+
+    m = cfg.moe
+    T, K, E = x.shape[0], m.top_k, m.num_experts
+    C = layers.moe_capacity(T, cfg)
+    probs = torch.softmax(x.float() @ moe["router"], dim=-1)
+    gates, ids = torch.topk(probs, K, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    flat = ids.reshape(-1)
+    before = torch.cumsum((flat[:, None] == torch.arange(E, device=x.device)).int(), dim=0) - 1
+    kept = (before[torch.arange(T * K, device=x.device), flat] < C).reshape(T, K)
+    rows = []
+    for t in range(n):
+        acc = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+        for j in range(K):
+            if not bool(kept[t, j]):
+                continue
+            e = int(ids[t, j])
+            h = x[t].float() @ moe["w1"][e].float()
+            g = x[t].float() @ moe["w3"][e].float()
+            acc += (((F.silu(h) * g).to(x.dtype) @ moe["w2"][e]).to(x.dtype)).float() * gates[t, j]
+        rows.append(acc + layers.mlp_apply(moe["shared"], x[t:t + 1])[0].float())
+    return torch.stack(rows).to(x.dtype), int((~kept).sum())
+
+
+def mla_k7_bound(b, s, h, dqk, dv):
+    """(bound ms, "bytes" or "operations") of causal attention with q/k head
+    dim dqk and v head dim dv in bf16: q, k, v read once and the output
+    written once, against 2 (dqk + dv) operations per visible pair per head
+    at the tensor cores' bf16 rate."""
+    nbytes = b * s * h * (2 * dqk + 2 * dv) * 2
+    flops = 2 * (dqk + dv) * visible_pairs(s, 0) * b * h
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def phase_serve_deepseekv3_l1(torch, mods, fa):
+    """deepseek-v3-671b at full layer widths, one layer deep, through the
+    serving entry point: K7 once per prefill (MLA, v zero-padded to the
+    q/k head dim); the prefill against the layer code, the absorbed
+    decode against prefill(P + 1), the MoE's output on the path against
+    the per-token dense reference, a warm prefill and decode step
+    profiled, the expert product's two bf16 routes timed, and K7 at this
+    shape against its plain version, timed beside its bound and torch's
+    SDPA."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs.base import param_count
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, transformer
+
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"), num_layers=1)
+    B, P, G = 1, 4096, 16
+    torch.cuda.empty_cache()
+    base = reset_peak(torch)
+    with torch.no_grad():
+        params = transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == param_count(cfg), f"deepseek-v3 one layer has {n_params} parameters")
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted_serve(torch, mods, cfg, params, batch=B, prompt_len=P, gen=G)
+    peak = torch.cuda.max_memory_allocated() - base
+    check_launches(launches, {"flash_attention": 1}, "serve_deepseekv3_l1")
+    check(tuple(out["tokens"].shape) == (B, G) and bool(torch.isfinite(out["prefill_logits"]).all()),
+          "serve_deepseekv3_l1: tokens or logits")
+    warm, _ = counted_serve(torch, mods, cfg, params, batch=B, prompt_len=P, gen=G)
+    del out["caches"], warm["caches"]
+
+    # the prefill (K7) against the layer code; the MoE's input and output on
+    # the prefill's path kept for the dense reference
+    x = torch.from_numpy(serve.make_prompts(cfg, B, P + 1, seed=1)).cuda()
+    seen = []
+    moe_apply = layers.moe_apply
+
+    def kept(p, h, c):
+        y, aux = moe_apply(p, h, c)
+        seen.append((h, y))
+        return y, aux
+
+    for m in mods:
+        m.reset_launch_counts()
+    layers.moe_apply = kept
+    try:
+        with torch.inference_mode():
+            kern, caches = transformer.prefill(params, cfg, x[:, :P], P + G)
+    finally:
+        layers.moe_apply = moe_apply
+    with torch.inference_mode():
+        plain = layer_code_last_logits(torch, transformer, params, cfg, x[:, :P])
+    check_launches({k: v for m in mods for k, v in m.LAUNCHES.items()}, {"flash_attention": 1},
+                   "serve_deepseekv3_l1 kernel vs layer-code prefills")
+    plain_err, scale = max_err(kern, plain)
+    check(bool(torch.isfinite(kern).all()) and plain_err <= K_BF16 * scale,
+          f"serve_deepseekv3_l1: K7 vs layer code err {plain_err} (scale {scale})")
+    with torch.inference_mode():
+        dec, _ = transformer.decode_step(params, cfg, caches, x[:, P],
+                                         torch.full((B,), P, dtype=torch.int32, device="cuda"))
+        longer, _ = transformer.prefill(params, cfg, x, P + G)
+    dec_err, dec_scale = max_err(dec, longer)
+    check(bool(torch.isfinite(dec).all()) and dec_err <= K_BF16 * dec_scale,
+          f"serve_deepseekv3_l1: decode vs prefill(P+1) err {dec_err} (scale {dec_scale})")
+    tok = kern.argmax(-1).to(torch.int32)
+    pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        prof_prefill = profile_call(torch, lambda: transformer.prefill(params, cfg, x[:, :P], P + G))
+        prof_decode = profile_call(torch, lambda: transformer.decode_step(params, cfg, caches, tok, pos))
+    del caches, dec, longer, plain
+
+    check(len(seen) == 1 and seen[0][0].shape == (P, cfg.d_model), f"MoE calls in the prefill: {len(seen)}")
+    moe_in, moe_out = seen.pop()
+    moe = params["blocks"]["b0"]["moe"]
+    moe_p = {k: (v[0] if k != "shared" else {n: w[0] for n, w in v.items()}) for k, v in moe.items()}
+    with torch.inference_mode():
+        ref, dropped = moe_dense_reference(torch, moe_p, moe_in, cfg, MOE_REF_TOKENS)
+    moe_err, moe_scale = max_err(moe_out[:MOE_REF_TOKENS], ref)
+    check(moe_err <= MOE_REF_RTOL * moe_scale, f"serve_deepseekv3_l1: MoE vs dense reference err {moe_err} "
+          f"(scale {moe_scale})")
+    del moe_in, moe_out, ref
+
+    # the expert product (E, C, d) @ (E, d, f) at this prefill's shape by
+    # both of ``_expert_matmul_f32``'s bf16 routes: bmm's f32 output, and
+    # blocks of experts upcast
+    flush = flush_buffer(torch)
+    with torch.inference_mode():
+        w1 = moe_p["w1"]
+        buf = torch.randn((w1.shape[0], layers.moe_capacity(B * P, cfg), cfg.d_model), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(3)).to(torch.bfloat16)
+        direct = torch.bmm(buf, w1, out_dtype=torch.float32)
+        upcast = layers._expert_matmul_upcast(buf, w1)
+        routes = {"shape": {"a": list(buf.shape), "w": list(w1.shape)},
+                  "max_abs_diff": float((direct - upcast).abs().max()), "max_abs": float(upcast.abs().max()),
+                  "out_dtype_ms": time_ms(lambda: torch.bmm(buf, w1, out_dtype=torch.float32), flush=flush, reps=10),
+                  "upcast_ms": time_ms(lambda: layers._expert_matmul_upcast(buf, w1), flush=flush, reps=10)}
+        check(routes["max_abs_diff"] <= 1e-4 * routes["max_abs"], f"the expert product's routes differ: {routes}")
+    del buf, direct, upcast
+
+    # K7 at the MLA prefill's shape, on the layer's own q, k, v
+    attn = {k: v[0] for k, v in params["blocks"]["b0"]["attn"].items()}
+    with torch.inference_mode():
+        h = layers.rmsnorm(params["embed"][x[:, :P]], params["blocks"]["b0"]["norm1"][0], cfg.norm_eps)
+        pos = torch.arange(P, dtype=torch.int32, device="cuda").expand(B, P)
+        q, k, v = (t.contiguous() for t in layers.mla_qkv(attn, h, cfg, pos)[:3])
+        vp = F.pad(v, (0, q.shape[-1] - v.shape[-1]))
+        got = fa.attention(q, k, vp, causal=True)[..., :v.shape[-1]]
+        want = fa.attention_plain(q, k, v, causal=True)
+        tol = fa.bf16_tolerance(q, k, v, got, want, K7_ATOL, causal=True)
+        err_over_tol = float(((got.float() - want.float()).abs() / tol).max())
+        check(bool(torch.isfinite(got).all()) and err_over_tol <= 1, f"K7 at the MLA shape: {err_over_tol} of tol")
+        del tol
+        library = sdpa_call(torch, q, k, v, 0)
+        bound, bound_by = mla_k7_bound(B, P, cfg.num_heads, q.shape[-1], v.shape[-1])
+        k7 = {"shape": {"b": B, "s": P, "h": cfg.num_heads, "dqk": q.shape[-1], "dv": v.shape[-1],
+                        "padded_dv": vp.shape[-1]},
+              "max_abs_err": float((got.float() - want.float()).abs().max()), "max_err_over_tol": err_over_tol,
+              "rms_err_rel": rms_rel(got, want),
+              "ms": time_ms(lambda: fa.attention(q, k, vp, causal=True), flush=flush, reps=10),
+              "plain_ms": time_ms(lambda: fa.attention_plain(q, k, v, causal=True), flush=flush, reps=3, warmup=1),
+              "bound_ms": bound, "bound_by": bound_by,
+              "library_ms": time_ms(library, flush=flush, reps=10),
+              "library_max_abs_err": float((library().transpose(1, 2).float() - want.float()).abs().max())}
+        k7["bound_share"] = k7["bound_ms"] / k7["ms"]
+    del flush, params, q, k, v, vp, got, want, h
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_deepseekv3_l1", "arch": cfg.name, "layers": 1, "params": n_params,
+          "param_bytes": param_bytes, "dtype": "bfloat16", "batch": B, "prompt_len": P, "gen": G,
+          **serve_report(out, warm, launches), "launches_per_prefill": {"flash_attention": 1},
+          "init_peak_memory_bytes": init_peak, "peak_memory_bytes": peak,
+          "moe": {"capacity": layers.moe_capacity(B * P, cfg), "assignments": B * P * cfg.moe.top_k,
+                  "dropped": dropped, "vs_dense_reference": {"tokens": MOE_REF_TOKENS, "max_abs_err": moe_err,
+                                                             "max_abs_y": moe_scale,
+                                                             "tolerance": f"{MOE_REF_RTOL} x max |y|"}},
+          "kernel_vs_layer_code": {"max_abs_err": plain_err, "max_abs_logit": scale,
+                                   "tolerance": f"{K_BF16} x max |logit|"},
+          "decode_vs_prefill": {"position": P, "max_abs_err": dec_err, "max_abs_logit": dec_scale},
+          "k7_mla": k7, "expert_matmul_routes": routes, "profile_prefill": prof_prefill, "profile_decode_step": prof_decode})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2183,6 +2843,10 @@ def main() -> int:
 
     resolve_device("cuda")  # TF32 off: the plain versions' f32 products stay f32
     mods = (ha, qz, mk, fa, rg)
+    if sys.argv[1:] == ["--xlstm-train-memory"]:
+        _build.build_all(("hier_aggregate",))
+        xlstm_train_memory(torch, mods)
+        return 0
     t0 = time.perf_counter()
     libs = _build.build_all()
     ptxas = [ln.strip() for p in libs.values() for ln in Path(str(p) + ".log").read_text().splitlines()
@@ -2379,11 +3043,17 @@ def main() -> int:
     count(phase_train_lm10m(torch, mods, "train_lm10m_int8_ef", LM_INT8_EF))
     count(phase_train_lm100m(torch, mods))
     count(phase_train_lm100m_robust(torch, mods))
+    count(phase_train_xlstm350m(torch, mods))
 
     # LM serving: K7 in every attention layer and K8 in every RG-LRU layer of
     # the prefill
     count(phase_serve_lm100m(torch, mods))
     count(phase_serve_recurrentgemma9b(torch, mods))
+
+    # MLA, MoE and xLSTM: xlstm-350m uncut (no kernel on its path), and
+    # deepseek-v3's MLA + MoE layer at full width (K7 in its prefill)
+    count(phase_serve_xlstm350m(torch, mods))
+    count(phase_serve_deepseekv3_l1(torch, mods, fa))
 
     check(all(total[name] > 0 for name in KERNELS), f"a kernel was never launched on its path: {total}")
     emit({"phase": "profiler", "short_traces_taken_again": TRACES_TAKEN_AGAIN[0]})

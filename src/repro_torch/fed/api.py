@@ -113,7 +113,7 @@ class ModelSpec:
     """Architecture + optimizer. ``arch="mlp"`` is the benchmark classifier
     (``dim -> hidden -> num_classes``)."""
 
-    arch: str = "mlp"  # mlp | lm-10m | lm-100m
+    arch: str = "mlp"  # mlp | lm-10m | lm-100m | xlstm-350m
     hidden: int = 48
     optimizer: str = "sgd"  # sgd | adam
     lr: float = 0.15
@@ -638,15 +638,26 @@ def _apply_override(obj, parts, text: str, full_path: str):
 
 
 _LM_PRESETS = ("lm-10m", "lm-100m")
+# the registry LM that the LM scenarios also train, at its published widths:
+# xlstm-350m, whose federated run holds K1 at the xLSTM leaves. The JAX
+# package's scenarios take the two presets alone (ROADMAP "Reference
+# behaviours"); the MLA and MoE archs fit no federated run on one card.
+_REGISTRY_LMS = ("xlstm-350m",)
+_LM_ARCHS = _LM_PRESETS + _REGISTRY_LMS
 
 
 def _lm_config(spec: ExperimentSpec):
     """lm-100m (``configs.paper.LM_100M``) or its 4-layer, 256-wide cut
     lm-10m, with the vocabulary of ``data.vocab``, as JAX's ``_lm_config``
-    (``repro/fed/api.py:736-746``)."""
+    (``repro/fed/api.py:736-746``); a registry LM (``_REGISTRY_LMS``) at its
+    published widths and depth, with the vocabulary of ``data.vocab``."""
     from repro_torch.configs.paper import LM_100M
 
-    if spec.model.arch == "lm-10m":
+    if spec.model.arch in _REGISTRY_LMS:
+        from repro_torch.configs.registry import get_config
+
+        cfg = get_config(spec.model.arch)
+    elif spec.model.arch == "lm-10m":
         cfg = dataclasses.replace(
             LM_100M, name="lm-10m", num_layers=4, d_model=256, num_heads=8, num_kv_heads=4, d_ff=768,
         )
@@ -665,7 +676,7 @@ def _model_bundle(spec: ExperimentSpec, device: torch.device) -> Dict[str, Any]:
 
         bundle = mlp_bundle(spec.data.dim, spec.model.hidden, spec.data.num_classes, device)
         return {**bundle, "like": lambda: dict(bundle["module"].named_parameters())}
-    if arch in _LM_PRESETS:
+    if arch in _LM_ARCHS:
         from repro_torch.models import transformer
 
         cfg = _lm_config(spec)
@@ -675,7 +686,8 @@ def _model_bundle(spec: ExperimentSpec, device: torch.device) -> Dict[str, Any]:
                 return transformer.init_params(torch.Generator(device=device).manual_seed(int(seed)), cfg)
 
         return {"init": init, "apply": None, "loss": transformer.make_loss_fn(cfg), "like": lambda: init(0)}
-    raise ValueError(f"model.arch must be one of ('mlp',) + {_LM_PRESETS}, got {arch!r}")
+    raise ValueError(f"model.arch must be one of ('mlp',) + {_LM_PRESETS}, got {arch!r}"
+                     f" (or one of {_REGISTRY_LMS})")
 
 
 def _build_optimizer(model: ModelSpec, total_steps: int):
@@ -720,10 +732,10 @@ def _build_data(spec: ExperimentSpec, topo, bundle, device: torch.device):
             f"model.arch={spec.model.arch!r} is a language model and needs "
             f"data.dataset=tokens (got {d.dataset!r})"
         )
-    if d.dataset == "tokens" and spec.model.arch not in _LM_PRESETS:
+    if d.dataset == "tokens" and spec.model.arch not in _LM_ARCHS:
         raise ValueError(
             f"data.dataset=tokens needs a language model, got "
-            f"model.arch={spec.model.arch!r}; choose one of {_LM_PRESETS}"
+            f"model.arch={spec.model.arch!r}; choose one of {_LM_PRESETS} (or of {_REGISTRY_LMS})"
         )
     rng = np.random.default_rng(d.seed)
     pspec = parse_fanouts(d.partition_topology) if d.partition_topology else as_hierarchy(topo)

@@ -9,8 +9,12 @@ costs:
 * **State updated in place** — where the JAX engine donates the
   ``FedState`` to its jitted superround (``repro/fed/engine.py:146``), the
   port updates the stacked parameters in place (``optim.apply_updates``);
-  the caller's state is consumed. A compressed transport's anchor and
-  error-feedback residual ride along in the ``FedState``: each sync
+  the caller's state is consumed. A sync and the optimizer give fresh
+  tensors, so each interval's stacked leaves are copied back into those
+  of the state the caller passed (``_write_back``): a caller that keeps its
+  ``state`` while ``run`` runs (``state = runner.run(state)``) holds the
+  live state, not a second one beside it. A compressed transport's anchor
+  and error-feedback residual ride along in the ``FedState``: each sync
   replaces them with fresh tensors, never views of the parameters that the
   next local step updates in place.
 * **Async metrics** — per-round loss / grad-norm / step stay device tensors
@@ -57,6 +61,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core import aggregation
 from repro_torch.core.hierarchy import as_hierarchy
@@ -70,6 +75,32 @@ from repro_torch.core.hierfavg import (
 from repro_torch.data.pipeline import CohortPrefetcher, SuperBatchPrefetcher
 from repro_torch.fed.client_store import sticky_rows
 from repro_torch.tree import leaves
+
+
+def _write_back(into: FedState, new: FedState) -> FedState:
+    """``new``'s stacked leaves copied into ``into``'s, and ``into``'s tree
+    back. A leaf that is no stacked tensor in both (a scalar such as the
+    step count, the generator), or whose shape, dtype or device changed, is
+    ``new``'s. Where storage is shared (two leaves of ``into``, or a leaf
+    of ``new`` and one of ``into``) a copy could overwrite a value still
+    to be read: then nothing is copied and ``new`` comes back."""
+    old, spec = tree_flatten(into)
+    fresh, fresh_spec = tree_flatten(new)
+    if fresh_spec != spec:
+        return new
+    storage = lambda t: t.untyped_storage().data_ptr()
+    held = [storage(x) for x in old if isinstance(x, torch.Tensor)]
+    if len(set(held)) < len(held) or any(
+            isinstance(y, torch.Tensor) and y is not x and storage(y) in held for x, y in zip(old, fresh)):
+        return new
+    out = []
+    for x, y in zip(old, fresh):
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) and x.dim() > 0 and (
+                x.shape == y.shape and x.dtype == y.dtype and x.device == y.device):
+            out.append(x.copy_(y) if x is not y else x)
+        else:
+            out.append(y)
+    return tree_unflatten(out, spec)
 
 
 class SuperRoundEngine:
@@ -168,12 +199,14 @@ class SuperRoundEngine:
             device=r.device,
             num_blocks=num_intervals,
         )
+        held = state  # the caller's: each interval's result goes back into its tensors
         try:
             for q in range(num_intervals):
                 round_base = start_round + q * self.k2
                 block = prefetcher.get()
                 mask_stack, alive, last_mask = static_masks if no_failures else self._masks_for_interval()
                 state, metrics = self._dispatch_interval(state, block, mask_stack, round_base)
+                state = _write_back(held, state)
                 self._pending.append((round_base, alive, metrics))
                 end_round = round_base + self.k2
                 do_eval = r.eval_fn is not None and r.cfg.eval_every and end_round % r.cfg.eval_every == 0

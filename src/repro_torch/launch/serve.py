@@ -6,8 +6,10 @@ KV ring caches and RG-LRU states; the counterpart of ``repro.launch.serve``.
 
 Runs on ``cuda`` unless ``--device`` names another device; without a GPU
 and without ``--device`` it raises. On the card every attention layer of
-the prefill runs K7 and every RG-LRU layer K8 (``models.transformer``); the
-decode steps run the layer code. Everything runs under
+the prefill runs K7 (MLA with v zero-padded to its q/k head dim) and every
+RG-LRU layer K8 (``models.transformer``); the decode steps, the MoE and the
+mLSTM / sLSTM cells run the layer code. With mLSTM blocks a prompt longer
+than ``mlstm_chunk`` must be a multiple of it. Everything runs under
 ``torch.inference_mode()``.
 """
 from __future__ import annotations

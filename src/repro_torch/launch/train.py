@@ -19,8 +19,10 @@ overrides=["model.arch=lm-100m"])``, vocabulary ``data.vocab``).
 ``--ckpt-dir`` checkpoints every 4 rounds (keeping 2) and ``--resume``
 restarts from its latest checkpoint; ``--inject-failures`` adds
 ``FailureSimulator(n, p_fail=0.1, seed=1)`` and ``--stragglers``
-``StragglerModel(n, seed=2)``, as the JAX launcher does. Configs with
-unported blocks (MoE, MLA, xLSTM) raise item 13.
+``StragglerModel(n, seed=2)``, as the JAX launcher does. Every arch of
+the registry trains, among them xlstm-350m (mLSTM and sLSTM),
+deepseek-v3-671b (MLA and MoE) and arctic-480b (MoE with a dense
+residual); their loss adds the MoE aux loss to the cross-entropy.
 """
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
 """Transformer layers for the LM stack, the counterpart of ``repro.models.layers``.
 
 RMSNorm, RoPE, GQA/MQA attention (full-causal and sliding-window, the
-full-sequence path and the cached single-token decode) and the SwiGLU MLP,
-over plain dictionaries of tensors with the JAX package's names, shapes and
-layouts. MLA and MoE are not ported yet: ``transformer`` refuses configs
-that need them, naming ROADMAP item 13.
+full-sequence path and the cached single-token decode), DeepSeek-V3's
+multi-head latent attention (MLA: the full-sequence path, its latent cache
+and the absorbed-matrix decode), the SwiGLU MLP and the sort-based
+fixed-capacity MoE, over plain dictionaries of tensors with the JAX
+package's names, shapes and layouts.
 
 Full-sequence attention (``_full_attention``) has two routes:
 
@@ -23,6 +24,21 @@ Full-sequence attention (``_full_attention``) has two routes:
   tensors; JAX's loss never calls a Pallas kernel either), explicit
   positions, and the decode step (one query against a ring cache with a
   slot mask) take it.
+
+MLA's full-sequence attention takes the same two routes. Its v head dim
+(``v_head_dim``) is narrower than its q/k head dim (nope + rope), and K7
+wants k and v of one shape, so the K7 route pads v with zero columns to
+the q/k head dim and slices the output back: zero columns of V give zero
+columns of the output, so it is the same function.
+
+The MoE is JAX's single-device dispatch (one token group, exchange mode
+``"none"``): a stable argsort of the (token, k) assignments by expert
+gives each its rank, assignments of rank C or more are dropped, and the
+experts run as batched products over fixed (E, C, d) buffers. Every step
+is out of place and has a ``torch.func`` batching rule (no ``bincount``,
+no in-place ``index_put_``), so the engine's ``grad(vmap(loss))`` batches
+it without a per-client loop. The expert products stay plain
+``torch.bmm``: JAX computes them with einsum outside any Pallas kernel.
 
 Parameters are created by ``init_*`` from a ``torch.Generator``; the numbers
 differ from the JAX init's (the tests carry the JAX init across with
@@ -215,16 +231,19 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+def _transformed(*inputs: torch.Tensor) -> bool:
+    """Whether a ``torch.func`` transform wraps any of ``inputs``. Inside
+    ``grad(vmap(loss))`` every input reports ``requires_grad=False`` but is
+    wrapped; torch has no public test for an active transform, and a
+    tensor the transform does not wrap is a constant to it."""
+    return any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in inputs)
+
+
 def _use_kernels(default_positions: bool, *inputs: torch.Tensor) -> bool:
     """K7 / K8 route: the default positions, inputs on the card, nothing for
     autograd to record (the kernels have no backward) and no input wrapped
-    by a ``torch.func`` transform. Inside ``grad(vmap(loss))`` every input
-    reports ``requires_grad=False`` but is wrapped; torch has no public
-    test for an active transform, and a tensor the transform does not wrap
-    is a constant to it, which the kernels may take."""
-    if not default_positions or not _on_card(inputs[0]):
-        return False
-    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in inputs):
+    by a ``torch.func`` transform (``_transformed``)."""
+    if not default_positions or not _on_card(inputs[0]) or _transformed(*inputs):
         return False
     return not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs))
 
@@ -317,3 +336,234 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, stack: Sequence[int] 
 def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ params["w1"]) * (x @ params["w3"])
     return h @ params["w2"]
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ArchConfig, stack: Sequence[int] = ()) -> Params:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    dt = cfg.dtype()
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": _init_dense(gen, (d, m.q_lora_rank), dt, stack=stack),
+        "q_norm": init_rmsnorm(m.q_lora_rank, dt, gen.device, stack),
+        "wq_b": _init_dense(gen, (m.q_lora_rank, H * qk_head), dt, stack=stack),
+        "wkv_a": _init_dense(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim), dt, stack=stack),
+        "kv_norm": init_rmsnorm(m.kv_lora_rank, dt, gen.device, stack),
+        "wkv_b": _init_dense(gen, (m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim)), dt, stack=stack),
+        "wo": _init_dense(gen, (H * m.v_head_dim, d), dt, stack=stack),
+    }
+
+
+def _mla_query(params: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """(q_nope (B,S,H,dn), roped q_rope (B,S,H,dr))."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    dn = m.qk_nope_head_dim
+    q = rmsnorm(x @ params["wq_a"], params["q_norm"], cfg.norm_eps) @ params["wq_b"]
+    q = q.reshape(B, S, cfg.num_heads, dn + m.qk_rope_head_dim)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def mla_latent(params: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """What the decode cache keeps per token: the normed latent c_kv
+    (B,S,kv_lora_rank) and the roped shared key k_rope (B,S,dr)."""
+    L = cfg.mla.kv_lora_rank
+    kv = x @ params["wkv_a"]
+    c_kv = rmsnorm(kv[..., :L], params["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., None, L:], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_qkv(params: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """The full-sequence MLA's attention inputs: q and k (B,S,H,dn+dr), v
+    (B,S,H,dv), and the latent (c_kv, k_rope) they were built from."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, dn, dr = cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
+    q_nope, q_rope = _mla_query(params, x, cfg, positions)
+    c_kv, k_rope = mla_latent(params, x, cfg, positions)
+    kvu = (c_kv @ params["wkv_b"]).reshape(B, S, H, dn + m.v_head_dim)
+    k = torch.cat([kvu[..., :dn], k_rope[:, :, None].expand(B, S, H, dr)], dim=-1)
+    return torch.cat([q_nope, q_rope], dim=-1), k, kvu[..., dn:], c_kv, k_rope
+
+
+def mla_attention(q, k, v, cfg: ArchConfig, positions, *, default_positions: bool = False) -> torch.Tensor:
+    """Causal attention with v narrower than q and k: K7 on v zero-padded to
+    the q/k head dim (the output sliced back) where ``_use_kernels`` says
+    so, else the layer code (``_full_attention``)."""
+    if _use_kernels(default_positions, q, k, v):
+        pad = q.shape[-1] - v.shape[-1]
+        return _fa.attention(q, k, F.pad(v, (0, pad)), causal=True)[..., :v.shape[-1]]
+    return _full_attention(q, k, v, cfg, positions)
+
+
+def mla_with_latent(params: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
+                    default_positions: bool = False):
+    """Full-sequence MLA (training / prefill): (y (B,S,d), c_kv, k_rope),
+    the latent being what the prefill writes to its cache."""
+    B, S, _ = x.shape
+    q, k, v, c_kv, k_rope = mla_qkv(params, x, cfg, positions)
+    out = mla_attention(q, k, v, cfg, positions, default_positions=default_positions)
+    return out.reshape(B, S, -1) @ params["wo"], c_kv, k_rope
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device=None, stack: Sequence[int] = ()) -> Params:
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((*stack, batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((*stack, batch, max_len, m.qk_rope_head_dim), dtype=dtype, device=device),
+        "pos": torch.full((*stack, batch, max_len), -1, dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode(params: Params, x: torch.Tensor, cache: Params, cfg: ArchConfig,
+               position: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """Absorbed-matrix MLA decode in f32 over the latent cache: q_nope goes
+    through W_uk^T into the latent space, so the scores and the context
+    read only (kv_lora_rank + rope) numbers per cached token. x: (B,1,d);
+    position: (B,) absolute position of the new token (its cache slot)."""
+    m = cfg.mla
+    B = x.shape[0]
+    H, dn, dr, dv, L = cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
+    q_nope, q_rope = _mla_query(params, x, cfg, position[:, None])
+    c_new, kr_new = mla_latent(params, x, cfg, position[:, None])
+    hit = torch.arange(cache["c_kv"].shape[1], device=x.device)[None, :] == position[:, None]  # (B, max_len)
+    c_kv = torch.where(hit[..., None], c_new.to(cache["c_kv"].dtype), cache["c_kv"])
+    k_rope = torch.where(hit[..., None], kr_new.to(cache["k_rope"].dtype), cache["k_rope"])
+    pos_buf = torch.where(hit, position[:, None].to(torch.int32), cache["pos"])
+
+    wkv_b = params["wkv_b"].reshape(L, H, dn + dv)
+    w_uk, w_uv = wkv_b[..., :dn].float(), wkv_b[..., dn:].float()
+    c32 = c_kv.float()
+    q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope.float(), w_uk)
+    scores = torch.einsum("bqhl,bsl->bhqs", q_lat, c32)
+    scores = scores + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), k_rope.float())
+    scores = scores * (dn + dr) ** -0.5
+    valid = (pos_buf >= 0) & (pos_buf <= position[:, None])
+    scores = torch.where(valid[:, None, None, :], scores, torch.full((), _NEG, device=x.device))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhqs,bsl->bqhl", probs, c32)  # the latent context
+    out = torch.einsum("bqhl,lhv->bqhv", ctx, w_uv).to(x.dtype)
+    y = out.reshape(B, 1, H * dv) @ params["wo"]
+    return y, {"c_kv": c_kv, "k_rope": k_rope, "pos": pos_buf}
+
+
+# ---------------------------------------------------------------------------
+# MoE: sort-based fixed-capacity dispatch
+# ---------------------------------------------------------------------------
+
+_UPCAST_ELEMENTS = 1 << 26  # f32 elements of expert weights upcast at a time (256 MiB)
+
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig, stack: Sequence[int] = ()) -> Params:
+    m = cfg.moe
+    d, E, f = cfg.d_model, m.num_experts, m.d_ff_expert
+    dt = cfg.dtype()
+    params = {
+        "router": _init_dense(gen, (d, E), torch.float32, scale=d ** -0.5, stack=stack),
+        "w1": _init_dense(gen, (E, d, f), dt, stack=stack),
+        "w3": _init_dense(gen, (E, d, f), dt, stack=stack),
+        "w2": _init_dense(gen, (E, f, d), dt, stack=stack),
+    }
+    if m.num_shared_experts:
+        params["shared"] = init_mlp(gen, d, m.num_shared_experts * f, dt, stack)
+    if m.dense_residual:
+        params["dense"] = init_mlp(gen, d, cfg.d_ff, dt, stack)
+    return params
+
+
+def moe_capacity(num_tokens: int, cfg: ArchConfig) -> int:
+    """Slots per expert: tokens x top_k x capacity_factor / experts, plus
+    one, rounded up to a multiple of 8 (at least 8)."""
+    m = cfg.moe
+    cap = int(num_tokens * m.top_k * m.capacity_factor / m.num_experts) + 1
+    return max(8, -(-cap // 8) * 8)
+
+
+def _expert_matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E,C,d) @ (E,d,f) -> (E,C,f) in f32 with nothing rounded before the
+    result (JAX's ``preferred_element_type=float32``). bf16 on the card
+    takes ``bmm``'s f32 output; elsewhere (a CPU tensor, or a tensor that
+    a ``torch.func`` transform wraps) blocks of experts are upcast, so the
+    whole expert weight is never held in f32."""
+    if a.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.bmm(a, w)
+    if _on_card(a) and not _transformed(a, w):
+        return torch.bmm(a, w, out_dtype=torch.float32)
+    return _expert_matmul_upcast(a, w)
+
+
+def _expert_matmul_upcast(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``_expert_matmul_f32`` with blocks of experts upcast to f32."""
+    step = max(1, _UPCAST_ELEMENTS // max(1, w[0].numel()))
+    return torch.cat([torch.bmm(a[i:i + step].float(), w[i:i + step].float()) for i in range(0, w.shape[0], step)])
+
+
+def moe_route(router: torch.Tensor, x: torch.Tensor, top_k: int):
+    """(probs (T,E) f32, gates (T,K) renormalised, ids (T,K)): softmax of
+    the f32 router logits and its top k (``torch.topk``; ties, which random
+    f32 inputs do not produce, may order otherwise than ``lax.top_k``)."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    gates, ids = torch.topk(probs, top_k, dim=-1)
+    return probs, gates / torch.sum(gates, dim=-1, keepdim=True), ids
+
+
+def moe_ranks(flat_e: torch.Tensor, num_experts: int):
+    """(counts (E,), starts (E,), ranks (T*K,), order): how many assignments
+    each expert got, where its run begins in the sorted order, each
+    assignment's rank among its expert's in token order (a stable argsort,
+    then the offset from its expert's start), and the sort order itself."""
+    n = flat_e.shape[0]
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.sum(flat_e[:, None] == torch.arange(num_experts, device=flat_e.device), dim=0)
+    starts = torch.cumsum(counts, dim=0) - counts
+    ranks_sorted = torch.arange(n, device=flat_e.device) - starts[flat_e[order]]
+    ranks = torch.zeros_like(ranks_sorted).scatter(0, order, ranks_sorted)
+    return counts, starts, ranks, order
+
+
+def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (T, d) tokens. Returns (y (T,d), the Switch load-balance aux loss).
+
+    Each token's top-k assignments go to fixed (E, C, d) buffers at the
+    slot of their rank; ranks C and beyond are dropped (they add nothing to
+    y). Slot (e, c) is filled by gathering the token of the c-th assignment
+    in expert e's sorted run, so the buffer is built and read out of place.
+    The expert SwiGLU computes h and g in f32 and rounds after
+    ``silu(h) * g``; the gated combine and the shared / dense branches add
+    in f32."""
+    m = cfg.moe
+    T, d = x.shape
+    E, K = m.num_experts, m.top_k
+    C = moe_capacity(T, cfg)
+    dev = x.device
+
+    probs, gates, ids = moe_route(params["router"], x, K)
+    flat_e = ids.reshape(-1)
+    counts, starts, ranks, order = moe_ranks(flat_e, E)
+    slot_c = torch.arange(C, device=dev)
+    src = torch.clamp(starts[:, None] + slot_c[None, :], max=T * K - 1)  # (E, C) positions in sorted order
+    filled = slot_c[None, :] < counts[:, None]
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    buf = torch.where(filled[..., None], x[order[src] // K], zero)  # (E, C, d)
+
+    h = _expert_matmul_f32(buf, params["w1"])
+    g = _expert_matmul_f32(buf, params["w3"])
+    out_buf = torch.bmm((F.silu(h) * g).to(x.dtype), params["w2"]).to(x.dtype)
+
+    kept = ranks < C
+    slot = flat_e * C + torch.clamp(ranks, max=C - 1)
+    gathered = torch.where(kept[:, None], out_buf.reshape(E * C, d)[slot], zero)
+    y = torch.sum(gathered.reshape(T, K, d).float() * gates[..., None], dim=1)
+    if "shared" in params:
+        y = y + mlp_apply(params["shared"], x).float()
+    if "dense" in params:
+        y = y + mlp_apply(params["dense"], x).float()
+
+    frac_tokens = counts.float() / (T * K) * K
+    aux = m.router_aux_weight * E * torch.sum(frac_tokens * torch.mean(probs, dim=0))
+    return y.to(x.dtype), aux

@@ -1,18 +1,27 @@
-"""The RG-LRU block (Griffin / RecurrentGemma temporal mixing), the
-counterpart of the RG-LRU part of ``repro.models.recurrent``.
+"""The recurrent blocks, the counterpart of ``repro.models.recurrent``: the
+RG-LRU (Griffin / RecurrentGemma temporal mixing) and xLSTM's mLSTM
+(matrix memory, stabilised chunkwise form) and sLSTM (scalar memory with
+hidden-dependent gates).
 
     init_rglru(gen, cfg)                      -> params
     rglru_sequence(params, x, cfg)            -> (y, h_S, u)  (full sequence)
     rglru_init_state(cfg, batch, dtype)       -> state        (O(1) decode state)
     rglru_step(params, x_t, state, cfg)       -> (y_t, state)
 
+and the same four for ``mlstm`` and ``slstm``, whose ``*_sequence`` return
+(y, the decode state after the last position).
+
 The recurrence h_t = a_t * h_{t-1} + b_t (h_0 = 0) over the sequence has two
 routes, as attention has in ``layers`` (``layers._use_kernels``): K8
 (``kernels.rglru_scan``) on CUDA tensors that neither autograd nor a
 ``torch.func`` transform would record, and otherwise ``_associative_scan``,
-a log-step scan that mirrors JAX's ``jax.lax.associative_scan``. mLSTM and sLSTM are not
-ported yet: ``transformer`` refuses configs that need them, naming ROADMAP
-item 13.
+a log-step scan that mirrors JAX's ``jax.lax.associative_scan``.
+
+The mLSTM and sLSTM run plain PyTorch on every device, in f32 as JAX's
+``jnp`` code does (JAX has no Pallas kernel for them): the mLSTM as a
+Python loop over chunks of ``cfg.mlstm_chunk`` (JAX: ``lax.scan``), the
+sLSTM as a Python loop over time steps (no parallel form exists: its
+gates read h_{t-1}).
 """
 from __future__ import annotations
 
@@ -118,3 +127,237 @@ def rglru_step(params: Params, x_t: torch.Tensor, state: Params, cfg: ArchConfig
     h = a * state["h"] + b
     y = ((h * gate).to(x_t.dtype) @ params["w_out"])[:, None]
     return y, {"h": h, "conv": window[:, 1:]}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory cell), stabilised chunkwise form
+# ---------------------------------------------------------------------------
+
+_M0 = -1e30  # the stabiliser's start: exp(m0 + ...) underflows to 0
+
+
+def init_mlstm(gen: torch.Generator, cfg: ArchConfig, stack: Sequence[int] = ()) -> Params:
+    d = cfg.d_model
+    up = 2 * d
+    dt = cfg.dtype()
+    return {
+        "w_up": _init_dense(gen, (d, up), dt, stack=stack),
+        "w_gate": _init_dense(gen, (d, up), dt, stack=stack),
+        "wq": _init_dense(gen, (up, up), dt, stack=stack),
+        "wk": _init_dense(gen, (up, up), dt, stack=stack),
+        "wv": _init_dense(gen, (up, up), dt, stack=stack),
+        "a_i": _init_dense(gen, (up,), torch.float32, scale=1.0, stack=stack),
+        "a_f": _init_dense(gen, (up,), torch.float32, scale=1.0, stack=stack),
+        "w_down": _init_dense(gen, (up, d), dt, stack=stack),
+    }
+
+
+def _mlstm_qkv_gates(params: Params, x: torch.Tensor, cfg: ArchConfig):
+    """x: (B,S,d) -> q, k, v (B,S,H,dh); i, f gate logits (B,S,H) and the
+    output gate (B,S,up), f32."""
+    H = max(cfg.num_heads, 1)
+    u = x @ params["w_up"]
+    B, S, up = u.shape
+    dh = up // H
+    heads = lambda t: t.reshape(B, S, H, dh)
+    q = heads(u @ params["wq"]) * dh ** -0.5
+    k = heads(u @ params["wk"])
+    v = heads(u @ params["wv"])
+    uf = u.float()
+    i_logit = (uf * params["a_i"]).reshape(B, S, H, dh).mean(-1)
+    f_logit = (uf * params["a_f"]).reshape(B, S, H, dh).mean(-1) + 1.0  # bias toward remembering
+    gate = F.silu((x @ params["w_gate"]).float())
+    return q, k, v, i_logit, f_logit, gate
+
+
+def _mlstm_chunk(q, k, v, i_log, f_log, carry):
+    """One chunk of the stabilised chunkwise mLSTM. q, k, v: (B,H,W,dh);
+    i_log, f_log: (B,H,W); carry (C (B,H,dh,dh), n (B,H,dh), m (B,H)).
+    Returns (h (B,H,W,dh), the carry at the chunk's end)."""
+    C, n, m = carry
+    logf_cum = torch.cumsum(F.logsigmoid(f_log), dim=-1)  # F_t
+    # running max: m_t = F_t + max(m_carry, cummax_j(i_j - F_j))
+    s = i_log - logf_cum
+    run = torch.maximum(torch.cummax(s, dim=-1).values, m[..., None])
+    m_t = logf_cum + run
+    # the carry's contribution, decayed by F_t
+    w_carry = torch.exp(m[..., None] + logf_cum - m_t)  # (B,H,W)
+    num_inter = torch.einsum("bhwk,bhkv->bhwv", q, C) * w_carry[..., None]
+    den_inter = torch.einsum("bhwk,bhk->bhw", q, n) * w_carry
+    # the intra-chunk quadratic term: D[t,j] = exp(F_t - F_j + i_j - m_t), j <= t
+    expo = logf_cum[..., :, None] - logf_cum[..., None, :] + i_log[..., None, :] - m_t[..., :, None]
+    W = q.shape[-2]
+    mask = torch.tril(torch.ones((W, W), dtype=torch.bool, device=q.device))
+    D = torch.where(mask, torch.exp(expo), torch.zeros((), device=q.device))
+    scores = torch.einsum("bhtk,bhjk->bhtj", q, k) * D
+    num = num_inter + torch.einsum("bhtj,bhjv->bhtv", scores, v)
+    den = den_inter + torch.sum(scores, dim=-1)
+    h = num / torch.maximum(torch.abs(den), torch.exp(-m_t))[..., None]
+    # the carry at the chunk's end
+    F_W = logf_cum[..., -1]
+    m_new = F_W + run[..., -1]
+    decay_old = torch.exp(m + F_W - m_new)
+    w_new = torch.exp(F_W[..., None] - logf_cum + i_log - m_new[..., None])  # (B,H,W)
+    kw = k * w_new[..., None]  # one product over w: a three-operand einsum may build (B,H,W,dh,dh)
+    C_new = C * decay_old[..., None, None] + torch.einsum("bhwk,bhwv->bhkv", kw, v)
+    n_new = n * decay_old[..., None] + torch.sum(kw, dim=-2)
+    return h, (C_new, n_new, m_new)
+
+
+def mlstm_check_prefill(cfg: ArchConfig, seq_len: int) -> None:
+    """The mLSTM prefill takes whole chunks: a prompt longer than
+    ``mlstm_chunk`` must be a multiple of it. JAX's prefill replays the
+    carry without padding (``n_chunks = S // W`` and a reshape), so it fails
+    on every other prompt; the port refuses the same ones."""
+    W = cfg.mlstm_chunk
+    if seq_len > W and seq_len % W:
+        raise ValueError(f"mLSTM prefill: a prompt longer than mlstm_chunk={W} must be a multiple of it "
+                         f"(got {seq_len}); the cell's state is built from whole chunks")
+
+
+def mlstm_sequence(params: Params, x: torch.Tensor, cfg: ArchConfig):
+    """The full-sequence mLSTM block over chunks of min(mlstm_chunk, S):
+    (y (B,S,d), the carry after the last chunk as a decode state). A
+    sequence that is no multiple of the chunk is end-padded with input
+    gates at -1e30 (padding never reaches a real position); the carry then
+    includes the padded steps, so the prefill refuses such prompts
+    (``mlstm_check_prefill``)."""
+    H = max(cfg.num_heads, 1)
+    B, S0, _ = x.shape
+    q, k, v, i_log, f_log, gate = _mlstm_qkv_gates(params, x, cfg)
+    dh = q.shape[-1]
+    W = min(cfg.mlstm_chunk, S0)
+    pad = (-S0) % W
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        i_log = F.pad(i_log, (0, 0, 0, pad), value=_M0)
+        f_log = F.pad(f_log, (0, 0, 0, pad))
+    n_chunks = (S0 + pad) // W
+
+    def to_chunks(t):
+        # (B,S,H,*) -> (n_chunks, B, H, W, *)
+        if t.dim() == 4:
+            return t.reshape(B, n_chunks, W, H, -1).permute(1, 0, 3, 2, 4)
+        return t.reshape(B, n_chunks, W, H).permute(1, 0, 3, 2)
+
+    qc, kc, vc = (to_chunks(t.float()) for t in (q, k, v))
+    ic, fc = to_chunks(i_log), to_chunks(f_log)
+    carry = (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=x.device),
+             torch.zeros((B, H, dh), dtype=torch.float32, device=x.device),
+             torch.full((B, H), _M0, dtype=torch.float32, device=x.device))
+    hs = []
+    for c in range(n_chunks):
+        h, carry = _mlstm_chunk(qc[c], kc[c], vc[c], ic[c], fc[c], carry)
+        hs.append(h)
+    # (n_chunks, B, H, W, dh) -> (B, S, up)
+    h = torch.stack(hs).permute(1, 0, 3, 2, 4).reshape(B, S0 + pad, H * dh)[:, :S0]
+    y = (h * gate).to(x.dtype) @ params["w_down"]
+    return y, {"C": carry[0], "n": carry[1], "m": carry[2]}
+
+
+def mlstm_init_state(cfg: ArchConfig, batch: int, dtype, device=None, stack: Sequence[int] = ()) -> Params:
+    H = max(cfg.num_heads, 1)
+    dh = 2 * cfg.d_model // H
+    return {
+        "C": torch.zeros((*stack, batch, H, dh, dh), dtype=torch.float32, device=device),
+        "n": torch.zeros((*stack, batch, H, dh), dtype=torch.float32, device=device),
+        "m": torch.full((*stack, batch, H), _M0, dtype=torch.float32, device=device),
+    }
+
+
+def mlstm_step(params: Params, x_t: torch.Tensor, state: Params, cfg: ArchConfig):
+    """The recurrent single-token step. x_t: (B,1,d) -> (y_t, state)."""
+    q, k, v, i_log, f_log, gate = _mlstm_qkv_gates(params, x_t, cfg)
+    q, k, v = (t[:, 0].float() for t in (q, k, v))  # (B,H,dh)
+    i_log, f_log, gate = i_log[:, 0], f_log[:, 0], gate[:, 0]
+    logf = F.logsigmoid(f_log)
+    m_new = torch.maximum(logf + state["m"], i_log)
+    f_p = torch.exp(logf + state["m"] - m_new)
+    i_p = torch.exp(i_log - m_new)
+    C = state["C"] * f_p[..., None, None] + i_p[..., None, None] * k[..., :, None] * v[..., None, :]
+    n = state["n"] * f_p[..., None] + i_p[..., None] * k
+    num = torch.einsum("bhk,bhkv->bhv", q, C)
+    den = torch.einsum("bhk,bhk->bh", q, n)
+    h = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
+    B = x_t.shape[0]
+    y = ((h.reshape(B, -1) * gate).to(x_t.dtype) @ params["w_down"])[:, None]
+    return y, {"C": C, "n": n, "m": m_new}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (xLSTM scalar-memory cell with hidden-dependent gates)
+# ---------------------------------------------------------------------------
+
+def init_slstm(gen: torch.Generator, cfg: ArchConfig, stack: Sequence[int] = ()) -> Params:
+    d = cfg.d_model
+    H = max(cfg.num_heads, 1)
+    dh = d // H
+    dt = cfg.dtype()
+    bias = torch.cat([torch.zeros(d), torch.ones(d), torch.zeros(2 * d)])  # i, f (+1), z, o
+    return {
+        "w_i": _init_dense(gen, (d, d), dt, stack=stack),
+        "w_f": _init_dense(gen, (d, d), dt, stack=stack),
+        "w_z": _init_dense(gen, (d, d), dt, stack=stack),
+        "w_o": _init_dense(gen, (d, d), dt, stack=stack),
+        "r_i": _init_dense(gen, (H, dh, dh), torch.float32, stack=stack),
+        "r_f": _init_dense(gen, (H, dh, dh), torch.float32, stack=stack),
+        "r_z": _init_dense(gen, (H, dh, dh), torch.float32, stack=stack),
+        "r_o": _init_dense(gen, (H, dh, dh), torch.float32, stack=stack),
+        "b": bias.to(gen.device).expand(*stack, 4 * d).clone(),
+        "w_out": _init_dense(gen, (d, d), dt, stack=stack),
+    }
+
+
+def slstm_init_state(cfg: ArchConfig, batch: int, dtype, device=None, stack: Sequence[int] = ()) -> Params:
+    H = max(cfg.num_heads, 1)
+    dh = cfg.d_model // H
+    z = lambda: torch.zeros((*stack, batch, H, dh), dtype=torch.float32, device=device)
+    return {"h": z(), "c": z(), "n": z() + 1e-6, "m": z()}
+
+
+def _slstm_cell(params: Params, pre: torch.Tensor, state: Params, H: int, dh: int):
+    """pre: (B, 4d) input projections [i, f, z, o]; state: dict of (B,H,dh)."""
+    B = pre.shape[0]
+    h_prev = state["h"]
+    rec = lambda r: torch.einsum("bhk,hkj->bhj", h_prev, r)
+    pre = pre.reshape(B, 4, H, dh)
+    i_t = pre[:, 0] + rec(params["r_i"])
+    f_t = pre[:, 1] + rec(params["r_f"])
+    z_t = torch.tanh(pre[:, 2] + rec(params["r_z"]))
+    o_t = torch.sigmoid(pre[:, 3] + rec(params["r_o"]))
+    m_new = torch.maximum(f_t + state["m"], i_t)
+    i_p = torch.exp(i_t - m_new)
+    f_p = torch.exp(f_t + state["m"] - m_new)
+    c = f_p * state["c"] + i_p * z_t
+    n = f_p * state["n"] + i_p
+    h = o_t * c / torch.clamp_min(n, 1e-6)
+    return h, {"h": h, "c": c, "n": n, "m": m_new}
+
+
+def _slstm_pre(params: Params, x: torch.Tensor) -> torch.Tensor:
+    w = torch.cat([params["w_i"], params["w_f"], params["w_z"], params["w_o"]], dim=1)
+    return (x @ w).float() + params["b"]
+
+
+def slstm_sequence(params: Params, x: torch.Tensor, cfg: ArchConfig):
+    """The full-sequence sLSTM block, one step at a time: (y (B,S,d), the
+    state after the last position)."""
+    B, S, d = x.shape
+    H = max(cfg.num_heads, 1)
+    dh = d // H
+    pre_all = _slstm_pre(params, x)  # (B,S,4d)
+    state = slstm_init_state(cfg, B, x.dtype, x.device)
+    hs = []
+    for t in range(S):
+        h, state = _slstm_cell(params, pre_all[:, t], state, H, dh)
+        hs.append(h)
+    h = torch.stack(hs, dim=1).reshape(B, S, d)
+    return h.to(x.dtype) @ params["w_out"], state
+
+
+def slstm_step(params: Params, x_t: torch.Tensor, state: Params, cfg: ArchConfig):
+    """x_t: (B,1,d) -> (y_t, state)."""
+    B, _, d = x_t.shape
+    H = max(cfg.num_heads, 1)
+    h, state = _slstm_cell(params, _slstm_pre(params, x_t[:, 0]), state, H, d // H)
+    return (h.reshape(B, d).to(x_t.dtype) @ params["w_out"])[:, None], state

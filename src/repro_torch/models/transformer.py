@@ -1,24 +1,32 @@
 """Decoder stack: pattern-cycled blocks in stacked superblocks, the full
 forward, the LM loss, and serving (prefill + single-token decode with
-caches); the counterpart of ``repro.models.transformer`` for the block kinds
-``attn``, ``local_attn`` and ``rglru``.
+caches); the counterpart of ``repro.models.transformer`` for every block
+kind: ``attn`` and ``local_attn`` (GQA, or MLA when ``cfg.mla`` is set;
+followed by the MoE when ``cfg.moe`` is set, else the MLP), ``rglru``,
+``mlstm`` and ``slstm``.
 
 The stack is ``num_superblocks`` repetitions of ``cfg.block_pattern`` plus
 an unscanned tail (recurrentgemma's 38 = 12 x (rglru, rglru, local_attn) + 2).
 The JAX layout is kept: the ``"blocks"`` leaves carry a leading superblock
 axis (JAX builds it with ``jax.vmap``), ``tail{t}`` hold the tail, and
 ``blocks_unrolled`` is a list when ``cfg.scan_layers`` is off. A Python loop
-over the superblock index replaces ``lax.scan``; ``remat`` has no effect in
-this forward-only slice. JAX's ``forward`` also returns a MoE auxiliary
-loss; MoE is not ported, so the port's returns the logits alone.
+over the superblock index replaces ``lax.scan``; ``cfg.remat`` has no
+effect here (the engine's ``precision.remat`` recomputes a client's whole
+loss). JAX's ``forward`` returns (logits, MoE aux loss): the port's
+``forward_with_aux`` does, and ``forward`` returns the logits alone; the
+LM loss is cross-entropy plus the aux, as JAX's.
 
 ``forward`` (without explicit ``positions``) and ``prefill`` build the
 positions ``arange(S)`` themselves and say so to the layers
 (``default_positions``), so on the card, where autograd records nothing,
-every attention layer runs K7 and every RG-LRU layer K8. The prefill reuses
-each RG-LRU block's own scan for the cache's ``h`` (JAX scans a second time;
-the values are the same function), so a prefill launches K7 once per
-attention layer and K8 once per RG-LRU layer.
+every attention layer runs K7 (MLA with v zero-padded to the q/k head dim)
+and every RG-LRU layer K8. The prefill takes each block's decode state
+from the block's own full-sequence pass: the RG-LRU's scan, MLA's latent,
+the mLSTM's last chunk carry and the sLSTM's last state (JAX replays the
+recurrent cells a second time; the values are the same function), so a
+prefill launches K7 once per attention layer and K8 once per RG-LRU layer.
+The mLSTM prefill takes whole chunks only, as JAX's replay does
+(``recurrent.mlstm_check_prefill``).
 """
 from __future__ import annotations
 
@@ -27,24 +35,16 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.errors import unported
 from repro_torch.models import layers, recurrent
 
 PyTree = Any
 ATTN_KINDS = ("attn", "local_attn")
-_UNPORTED_KINDS = {"mlstm": "mLSTM blocks", "slstm": "sLSTM blocks"}
+BLOCK_KINDS = ATTN_KINDS + ("rglru", "mlstm", "slstm")
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.mla is not None:
-        raise unported("MLA attention (cfg.mla)", 13)
-    if cfg.moe is not None:
-        raise unported("MoE layers (cfg.moe)", 13)
-    for kind in cfg.block_pattern:
-        if kind in _UNPORTED_KINDS:
-            raise unported(_UNPORTED_KINDS[kind], 13)
-        if kind not in ATTN_KINDS + ("rglru",):
-            raise ValueError(kind)
+def _check_kind(kind: str) -> None:
+    if kind not in BLOCK_KINDS:
+        raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -52,70 +52,100 @@ def _check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, stack=()) -> Dict[str, PyTree]:
-    _check_supported(cfg)
+    _check_kind(kind)
     d, dt = cfg.d_model, cfg.dtype()
     p: Dict[str, PyTree] = {"norm1": layers.init_rmsnorm(d, dt, gen.device, stack)}
     if kind in ATTN_KINDS:
-        p["attn"] = layers.init_attention(gen, cfg, stack)
+        p["attn"] = layers.init_mla(gen, cfg, stack) if cfg.mla else layers.init_attention(gen, cfg, stack)
+        if cfg.moe is not None:
+            p["norm2"] = layers.init_rmsnorm(d, dt, gen.device, stack)
+            p["moe"] = layers.init_moe(gen, cfg, stack)
+            return p
     elif kind == "rglru":
         p["rnn"] = recurrent.init_rglru(gen, cfg, stack)
-    else:
-        raise ValueError(kind)
+    else:  # the xLSTM cells carry their own up / down projections: no MLP
+        p["cell"] = (recurrent.init_mlstm if kind == "mlstm" else recurrent.init_slstm)(gen, cfg, stack)
+        return p
     if cfg.d_ff > 0:
         p["norm2"] = layers.init_rmsnorm(d, dt, gen.device, stack)
         p["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, dt, stack)
     return p
 
 
-def _mlp_residual(params, x, cfg: ArchConfig):
+def _ffn_residual(params, x, cfg: ArchConfig):
+    """x + MoE or MLP of rmsnorm(x) where the block has one; returns (x,
+    the MoE aux loss or None)."""
+    if "moe" in params:
+        h = layers.rmsnorm(x, params["norm2"], cfg.norm_eps)
+        B, S, d = h.shape
+        y, aux = layers.moe_apply(params["moe"], h.reshape(B * S, d), cfg)
+        return x + y.reshape(B, S, d), aux
     if "mlp" in params:
         x = x + layers.mlp_apply(params["mlp"], layers.rmsnorm(x, params["norm2"], cfg.norm_eps))
-    return x
+    return x, None
 
 
 def _block_run(params, x, cfg: ArchConfig, kind: str, positions, default_positions: bool):
-    """The full-sequence block; returns (x, what the block's decode cache is
-    built from: (k, v) for attention, (h_S, u) for RG-LRU)."""
-    _check_supported(cfg)
+    """The full-sequence block; returns (x, MoE aux loss or None, what the
+    block's decode cache is built from: (k, v) for attention, (c_kv,
+    k_rope) for MLA, (h_S, u) for RG-LRU, the state for mLSTM / sLSTM)."""
+    _check_kind(kind)
     h = layers.rmsnorm(x, params["norm1"], cfg.norm_eps)
     if kind in ATTN_KINDS:
-        window = cfg.window if kind == "local_attn" else 0
-        y, k, v = layers.attention_with_kv(params["attn"], h, cfg, positions, window=window,
-                                           default_positions=default_positions)
-        return _mlp_residual(params, x + y, cfg), (k, v)
-    if kind == "rglru":
+        if cfg.mla:
+            y, c_kv, k_rope = layers.mla_with_latent(params["attn"], h, cfg, positions,
+                                                     default_positions=default_positions)
+            state = (c_kv, k_rope)
+        else:
+            window = cfg.window if kind == "local_attn" else 0
+            y, k, v = layers.attention_with_kv(params["attn"], h, cfg, positions, window=window,
+                                               default_positions=default_positions)
+            state = (k, v)
+    elif kind == "rglru":
         y, h_last, u = recurrent.rglru_sequence(params["rnn"], h, cfg, default_positions=default_positions)
-        return _mlp_residual(params, x + y, cfg), (h_last, u)
-    raise ValueError(kind)
+        state = (h_last, u)
+    elif kind == "mlstm":
+        y, state = recurrent.mlstm_sequence(params["cell"], h, cfg)
+    else:
+        y, state = recurrent.slstm_sequence(params["cell"], h, cfg)
+    x, aux = _ffn_residual(params, x + y, cfg)
+    return x, aux, state
 
 
-def block_apply(params, x, cfg: ArchConfig, kind: str, positions, *, default_positions: bool = False) -> torch.Tensor:
-    """Full-sequence block: (B,S,d) -> (B,S,d)."""
-    return _block_run(params, x, cfg, kind, positions, default_positions)[0]
+def block_apply(params, x, cfg: ArchConfig, kind: str, positions, *,
+                default_positions: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Full-sequence block: (B,S,d) -> ((B,S,d), MoE aux loss or None)."""
+    return _block_run(params, x, cfg, kind, positions, default_positions)[:2]
 
 
 def block_init_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, dtype, device=None, stack=()) -> PyTree:
-    _check_supported(cfg)
+    _check_kind(kind)
     if kind in ATTN_KINDS:
+        if cfg.mla:
+            return layers.init_mla_cache(cfg, batch, max_len, dtype, device, stack)
         window = cfg.window if kind == "local_attn" else 0
         eff = min(max_len, window) if window else max_len
         return layers.init_kv_cache(cfg, batch, eff if window else max_len, dtype, device, stack)
-    if kind == "rglru":
-        return recurrent.rglru_init_state(cfg, batch, dtype, device, stack)
-    raise ValueError(kind)
+    init = {"rglru": recurrent.rglru_init_state, "mlstm": recurrent.mlstm_init_state,
+            "slstm": recurrent.slstm_init_state}[kind]
+    return init(cfg, batch, dtype, device, stack)
 
 
 def block_decode(params, x, cache, cfg: ArchConfig, kind: str, position) -> Tuple[torch.Tensor, PyTree]:
-    _check_supported(cfg)
+    _check_kind(kind)
     h = layers.rmsnorm(x, params["norm1"], cfg.norm_eps)
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS and cfg.mla:
+        y, cache = layers.mla_decode(params["attn"], h, cache, cfg, position)
+    elif kind in ATTN_KINDS:
         window = cfg.window if kind == "local_attn" else 0
         y, cache = layers.attention_decode(params["attn"], h, cache, cfg, position, window=window)
     elif kind == "rglru":
         y, cache = recurrent.rglru_step(params["rnn"], h, cache, cfg)
+    elif kind == "mlstm":
+        y, cache = recurrent.mlstm_step(params["cell"], h, cache, cfg)
     else:
-        raise ValueError(kind)
-    return _mlp_residual(params, x + y, cfg), cache
+        y, cache = recurrent.slstm_step(params["cell"], h, cache, cfg)
+    return _ffn_residual(params, x + y, cfg)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +163,6 @@ def init_superblock(gen: torch.Generator, cfg: ArchConfig, stack=()) -> Dict[str
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, PyTree]:
     """Random parameters on ``gen``'s device with JAX's tree, names, shapes,
     dtypes and scales (other numbers than JAX's init draws)."""
-    _check_supported(cfg)
     dt = cfg.dtype()
     params: Dict[str, PyTree] = {}
     if cfg.embed_inputs:
@@ -180,11 +209,15 @@ def _layers(params, cfg: ArchConfig):
 
 
 def backbone(params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
-             default_positions: bool = False) -> torch.Tensor:
-    """(B,S,d) -> (B,S,d) hidden states."""
+             default_positions: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B,S,d) -> ((B,S,d) hidden states, the MoE aux losses summed over
+    the layers, f32; 0 without MoE)."""
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, kind, bp in _layers(params, cfg):
-        x = block_apply(bp, x, cfg, kind, positions, default_positions=default_positions)
-    return x
+        x, aux = block_apply(bp, x, cfg, kind, positions, default_positions=default_positions)
+        if aux is not None:
+            total_aux = total_aux + aux
+    return x, total_aux
 
 
 def _embed(params, cfg: ArchConfig, inputs: torch.Tensor) -> torch.Tensor:
@@ -198,16 +231,21 @@ def _default_positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
 
 
-def forward(params, cfg: ArchConfig, inputs: torch.Tensor, positions: Optional[torch.Tensor] = None):
+def forward_with_aux(params, cfg: ArchConfig, inputs: torch.Tensor, positions: Optional[torch.Tensor] = None):
     """inputs: int tokens (B,S) if cfg.embed_inputs else embeddings (B,S,d).
-    Returns the logits (B,S,V)."""
+    Returns (logits (B,S,V), MoE aux loss), as JAX's ``forward``."""
     x = _embed(params, cfg, inputs)
     default = positions is None
     if default:
         positions = _default_positions(x)
-    x = backbone(params, cfg, x, positions, default_positions=default)
+    x, aux = backbone(params, cfg, x, positions, default_positions=default)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"]
+    return x @ params["lm_head"], aux
+
+
+def forward(params, cfg: ArchConfig, inputs: torch.Tensor, positions: Optional[torch.Tensor] = None):
+    """The logits (B,S,V) of ``forward_with_aux``."""
+    return forward_with_aux(params, cfg, inputs, positions)[0]
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None):
@@ -222,12 +260,13 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: Optional[to
 
 
 def make_loss_fn(cfg: ArchConfig):
-    """Per-client loss: loss_fn(params, batch, rng) -> scalar. batch:
-    {"inputs": tokens (b,S) or embeds (b,S,d), "targets": (b,S) int}."""
+    """Per-client loss: cross-entropy + the MoE aux loss, as JAX's;
+    loss_fn(params, batch, rng) -> scalar. batch: {"inputs": tokens (b,S)
+    or embeds (b,S,d), "targets": (b,S) int}."""
 
     def loss_fn(params, batch, rng):
-        logits = forward(params, cfg, batch["inputs"])
-        return cross_entropy(logits, batch["targets"], batch.get("mask"))
+        logits, aux = forward_with_aux(params, cfg, batch["inputs"])
+        return cross_entropy(logits, batch["targets"], batch.get("mask")) + aux
 
     return loss_fn
 
@@ -238,11 +277,18 @@ def make_loss_fn(cfg: ArchConfig):
 
 def _block_prefill(params, x, cfg: ArchConfig, kind: str, positions, max_len: int, *, default_positions: bool):
     """Run the block over the prompt AND build its decode cache."""
-    y, state = _block_run(params, x, cfg, kind, positions, default_positions)
+    y, _, state = _block_run(params, x, cfg, kind, positions, default_positions)
+    if kind in ("mlstm", "slstm"):  # the cell's state after the last position
+        return y, state
     B, S, _ = x.shape
     dtype = cfg.dtype()
     cache = block_init_cache(cfg, kind, B, max_len, dtype, x.device)
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS and cfg.mla:  # the latent, in slots 0..S-1 (no ring)
+        c_kv, k_rope = state
+        cache["c_kv"][:, :S] = c_kv.to(dtype)
+        cache["k_rope"][:, :S] = k_rope.to(dtype)
+        cache["pos"][:, :S] = positions.to(torch.int32)
+    elif kind in ATTN_KINDS:
         k, v = state
         L = cache["k"].shape[1]
         take = min(S, L)
@@ -260,8 +306,11 @@ def _block_prefill(params, x, cfg: ArchConfig, kind: str, positions, max_len: in
 
 def prefill(params, cfg: ArchConfig, inputs: torch.Tensor, max_len: int):
     """Full-prompt forward building every layer's decode cache.
-    Returns (last-position logits (B,V), caches)."""
+    Returns (last-position logits (B,V), caches). With mLSTM blocks a
+    prompt longer than ``cfg.mlstm_chunk`` must be a multiple of it."""
     x = _embed(params, cfg, inputs)
+    if "mlstm" in cfg.block_pattern:
+        recurrent.mlstm_check_prefill(cfg, x.shape[1])
     positions = _default_positions(x)
     caches: Dict[str, PyTree] = {}
     stacked = []

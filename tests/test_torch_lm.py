@@ -100,6 +100,7 @@ def test_registry_ids_and_the_full_width_counts():
     assert treg.ARCH_IDS == jreg.ARCH_IDS
     assert tbase.param_count(treg.get_config("recurrentgemma-9b")) == 9_572_462_592
     assert tbase.param_count(treg.get_config("lm-100m")) == 125_848_320
+    assert tbase.param_count(treg.get_config("xlstm-350m")) == 480_633_856
     with pytest.raises(KeyError, match="lm-100m"):
         treg.get_config("no-such-arch")
 
@@ -115,7 +116,8 @@ def test_arch_dtype_parses_names_like_jnp(name, want):
 # -- init --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "yi-9b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "yi-9b", "recurrentgemma-9b", "xlstm-350m", "deepseek-v3-671b",
+                                  "arctic-480b"])
 def test_init_params_has_the_jax_tree(arch):
     jcfg, tcfg = _configs(arch)
     shapes = jax.eval_shape(lambda: jt.init_params(jax.random.PRNGKey(0), jcfg))
@@ -434,13 +436,3 @@ def test_client_grads_under_torch_func_take_the_layer_code(arch, kernel_calls, m
     with torch.no_grad():
         tt.forward(trees[0][1], tcfg, torch.from_numpy(x[0]))
     assert kernel_calls == {"attention": sum(k in tt.ATTN_KINDS for k in kinds), "rglru_scan": kinds.count("rglru")}
-
-
-@pytest.mark.parametrize("arch,what", [("arctic-480b", "MoE"), ("deepseek-v3-671b", "MLA"),
-                                       ("xlstm-350m", "mLSTM")])
-def test_unported_blocks_name_their_roadmap_item(arch, what):
-    cfg = treg.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match=rf"{what}.*ROADMAP\.md Queue 1 item 13 "):
-        tt.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 13 "):
-        tt.block_init_cache(cfg, cfg.block_pattern[0], 1, 8, torch.float32)

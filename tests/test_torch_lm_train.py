@@ -299,6 +299,42 @@ def test_train_checkpoints_and_resumes_with_failure_models(flags, tmp_path, caps
     assert [h.mask_alive for h in straight.history] == want
 
 
-def test_train_with_unported_blocks_names_item_13():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 13 "):
-        ttrain.main(["--arch", "xlstm-350m", "--smoke", "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "deepseek-v3-671b", "arctic-480b"])
+def test_train_main_tracks_the_jax_launcher(arch, monkeypatch, capsys):
+    """``--arch {xlstm, deepseek-v3, arctic} --smoke --rounds 2``: the JAX
+    launcher and the port's (the JAX init carried across) over the same
+    corpus, SGD with exponential decay: every round's loss (CE + the MoE
+    aux loss) and grad_norm within ``LOSS_RTOL``, the final parameters
+    within ``PARAM_ATOL``."""
+    import sys
+
+    from repro.configs import registry as jreg
+    from repro.launch import train as jtrain
+    from repro.models import transformer as jt
+    from repro_torch import models as tmodels
+
+    runs = {}
+
+    def recording(base, key):
+        class Recording(base):
+            def run(self, *a, **k):
+                runs[key] = (self, super().run(*a, **k))
+                return runs[key][1]
+        return Recording
+
+    jparams = jax.device_get(jt.init_params(jax.random.PRNGKey(0), jreg.get_smoke(arch)))
+    monkeypatch.setattr(jtrain, "FederatedRunner", recording(jtrain.FederatedRunner, "jax"))
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", arch, "--smoke", "--rounds", "2"])
+    jtrain.main()
+    monkeypatch.setattr(ttrain, "FederatedRunner", recording(ttrain.FederatedRunner, "port"))
+    monkeypatch.setattr(ttrain.transformer, "init_params",
+                        lambda gen, c: tmodels.params_from_numpy(jparams, "cpu"))
+    ttrain.main(["--arch", arch, "--smoke", "--rounds", "2", "--device", "cpu"])
+    capsys.readouterr()
+    (jr, js), (tr, ts) = runs["jax"], runs["port"]
+    assert len(tr.history) == len(jr.history) == 2
+    for a, b in zip(jr.history, tr.history):
+        assert (b.round, b.step, b.mask_alive) == (a.round, a.step, a.mask_alive)
+        assert np.isfinite(b.loss) and b.loss == pytest.approx(a.loss, rel=LOSS_RTOL), (a.round, b.loss, a.loss)
+        assert b.grad_norm == pytest.approx(a.grad_norm, rel=LOSS_RTOL), a.round
+    assert_close(to_numpy(ts.params), jax.device_get(js.params), rtol=0.0, atol=PARAM_ATOL, what="final params")

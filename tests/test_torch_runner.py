@@ -21,6 +21,7 @@ from repro_torch.fed import api as tapi
 from repro_torch.fed import runner as trunner
 from repro_torch.fed import scenarios as tscen
 from repro_torch.testing.parity import assert_close, to_numpy
+from repro_torch.tree import leaves as tleaves
 
 
 def _run_both(name, overrides):
@@ -168,6 +169,55 @@ def test_run_consumes_the_state_but_not_the_init_params():
         assert np.array_equal(params[k].numpy(), before[k].numpy())
     assert int(out.step) == 8 and int(state.step) == 0
     assert not np.array_equal(stacked.numpy(), np.zeros_like(stacked.numpy()))  # trained in place
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_the_caller_keeps_one_live_state_across_intervals(optimizer, monkeypatch):
+    """``state = runner.run(state)`` keeps the caller's state alive for the
+    whole run. Each interval's stacked leaves go back into its tensors, so
+    every interval starts with the tensors the first one did and the same
+    bytes live, give or take a batch (no second state beside the
+    caller's), and the run ends in
+    the caller's tensors with the values a run that holds no state gets."""
+    import gc
+
+    from repro_torch.fed import engine
+
+    def live_bytes():
+        gc.collect()
+        storages = {}
+        for o in gc.get_objects():
+            if isinstance(o, torch.Tensor) and not o.is_meta:
+                storages[o.untyped_storage().data_ptr()] = o.untyped_storage().nbytes()
+        return sum(storages.values())
+
+    overrides = ["run.num_rounds=6", "run.eval_every=0", f"model.optimizer={optimizer}"]
+    spec = tscen.get("lm_edge_niid", overrides=overrides)
+    params = spec.init_params(1, "cpu")
+    runner = spec.build(device="cpu")
+    state = runner.init(torch.Generator().manual_seed(0), params)
+    seen = []
+    dispatch = engine.SuperRoundEngine._dispatch_interval
+
+    def spied(self, s, *a, **k):
+        seen.append(([id(x) for x in tleaves(s.params)], live_bytes()))
+        return dispatch(self, s, *a, **k)
+
+    monkeypatch.setattr(engine.SuperRoundEngine, "_dispatch_interval", spied)
+    out = runner.run(state)
+    monkeypatch.setattr(engine.SuperRoundEngine, "_dispatch_interval", dispatch)
+    assert len(seen) == 3
+    assert all(ids == seen[0][0] for ids, _ in seen)
+    # a second state would add every stacked leaf's bytes; the prefetched
+    # batch block and the metrics come and go
+    state_bytes = sum(x.numel() * x.element_size() for x in tleaves((state.params, state.opt_state)) if x.dim())
+    assert max(b for _, b in seen) - seen[0][1] < state_bytes / 4
+    assert all(a is b for a, b in zip(tleaves(out.params), tleaves(state.params)))
+    fresh = spec.build(device="cpu")
+    want = fresh.run(fresh.init(torch.Generator().manual_seed(0), params))
+    for a, b in zip(tleaves(out.params), tleaves(want.params)):
+        assert torch.equal(a, b)
+    assert [h.loss for h in runner.history] == [h.loss for h in fresh.history]
 
 
 @pytest.mark.parametrize("engine", ["per_round", "auto"])
