@@ -187,6 +187,27 @@ Phases, one JSON line each; any failure exits non-zero:
               = 0, remat's final params against the plain run's; the median
               and trimmed mean timed over the whole tree and on its largest
               leaf
+  sharded_mlp307k_w1_nccl
+              mlp307k through ``topology.mesh_axes=clients:1`` over a world
+              of 1 under NCCL (in this process): the client-sharded engine,
+              K1 32 (the cloud's root stage is the all-reduce), 4
+              all-reduces; records and params against the single-device
+              card run at JAX's mesh tolerances; kappa1 local steps and the
+              edge sync bit for bit against the single-device path's
+  sharded_mlp307k_w4, mlp307k_int8_ef_w2, sharded_ragged_w2,
+  sharded_lm100m_w2, sharded_n1m_cohort_w2
+              gloo worlds of ranks sharing the card (``dist.launch.spawn``;
+              the kernels are built before the ranks start): mlp307k over 4
+              ranks (one edge each), mlp307k_int8_ef, ragged_edges (phantom
+              rows), lm-100m at full width (one edge of 4 clients a rank)
+              and n1m_cohort4096 uncut over 2. Per rank: K1/K2/K4/K5 as
+              counted on its own rows, one all-reduce per cloud interval
+              (an eval's cloud model is one more, counted apart), the peak;
+              the records and the final params against the single-device
+              card run (params at JAX's mesh tolerance); mlp307k, lm-100m and n1m
+              once more warm and once profiled with each cloud all-reduce
+              timed (ms, bytes). The kernels phase holds K1/K2 at each
+              rank's shapes against their plain versions
   serve_lm100m
               ``repro_torch.launch.serve.serve`` on lm-100m at full width, f32,
               4 prompts of 1024 tokens, 32 generated: 12 K7 launches per
@@ -469,12 +490,34 @@ def n1m_cohort_edge_stage():
     return stage
 
 
+def rank_stage_ids(name, num_shards, rank, cohort_size=None):
+    """The level-1 segment ids one rank's sub-top stages give K2 in the
+    sharded run of scenario ``name`` (``ClientSharding.local_segments``):
+    the shard placement, or with ``cohort_size`` the cohort's slot
+    placement."""
+    from repro_torch.core.hierarchy import as_hierarchy, plan_cohort_placement, plan_shard_placement
+    from repro_torch.core.hierfavg import _cohort_quotas
+    from repro_torch.fed import scenarios
+
+    spec = as_hierarchy(scenarios.get(name).topology.build())
+    if cohort_size is None:
+        placement = plan_shard_placement(spec, num_shards)
+    else:
+        placement = plan_cohort_placement(spec, _cohort_quotas(spec, cohort_size), num_shards)
+    return placement.local_segments(1)[rank]
+
+
 def kernel_cases():
     """(kernel, label, N, D, the group count, segment ids or a cohort
     ``Stage``) at the main path's shapes. A ``Stage`` is called as the
     cohort engine calls K2: with the ``offsets=`` table that
     ``stage_host_tables`` builds, uploaded."""
     import numpy as np
+
+    # the sharded phases' ranks: n1m's 2048 slots on 500 edges, and
+    # ragged_edges' rank 0 (edges of 16 and 7 clients, 4 phantom rows)
+    n1m_rank = rank_stage_ids("n1m_cohort4096", 2, 0, cohort_size=4096)
+    ragged_rank = rank_stage_ids("ragged_edges", 2, 0)
 
     ragged = np.repeat(np.arange(5), [16, 12, 10, 7, 5])
     # more segments than a grid's y dimension takes: 140,000 clients on
@@ -498,6 +541,14 @@ def kernel_cases():
         ("grouped_mean", "xlstm-350m wq edge (4x25165824, G=2)", 4, 25165824, 2),
         ("grouped_mean", "xlstm-350m wq cloud root (2x25165824, G=1)", 2, 25165824, 1),
         ("grouped_mean", "xlstm-350m r_i edge (4x1572864, G=2)", 4, 1572864, 2),
+        # the sharded phases' ranks (the last case of each kernel stays the
+        # summary's): each rank's edge sync and its cloud sync's edge stage
+        # (before the all-reduce) over its own rows.
+        # lm-100m over 2 ranks (4 clients, one edge a rank); mlp307k over 4
+        # (8 clients, one edge) and over 2 (16 clients, two edges)
+        ("grouped_mean", "lm-100m mlp w1 one rank of 2 (4x18874368, G=1)", 4, 18874368, 1),
+        ("grouped_mean", "mlp307k w1 one rank of 4 (8x262144, G=1)", 8, 262144, 1),
+        ("grouped_mean", "mlp307k w1 one rank of 2 (16x262144, G=2)", 16, 262144, 2),
         # lm_edge_niid's leaves at lm-100m: the final norm, and the stacked
         # MLP weight of 12 layers (8 x 12 x 768 x 2048, the largest leaf)
         ("grouped_mean", "lm-100m final_norm edge (8x768, G=2)", 8, 768, 2),
@@ -508,6 +559,10 @@ def kernel_cases():
          n1m_cohort_edge_stage()),
         ("segment_mean", "one tall segment (4096x768, G=1)", 4096, 768, np.zeros(4096, np.int64)),
         ("segment_mean", "70,000 ragged edges (140000x768)", 140_000, 768, many),
+        ("segment_mean", f"n1m cohort w1 one rank of 2 ({n1m_rank.shape[0]}x768, "
+                         f"{int(n1m_rank.max()) + 1} segments)", n1m_rank.shape[0], 768, n1m_rank),
+        ("segment_mean", f"ragged_edges w1 rank 0 of 2 ({ragged_rank.shape[0]}x768, "
+                         f"{int(ragged_rank.max()) + 1} segments)", ragged_rank.shape[0], 768, ragged_rank),
         ("segment_mean", "ragged 16,12,10,7,5 (50x262144)", 50, 262144, ragged),
     ]
 
@@ -774,17 +829,19 @@ def k3_inputs(torch, rng, n, k1, b, feat, out, mom, dtype):
 TRACES_TAKEN_AGAIN = [0]  # short traces that showed no kernel and were taken again
 
 
-def traced_kernels(torch, fn, needle: str, attempts: int = 5, want: int = 0) -> list:
+def traced_kernels(torch, fn, needle: str, attempts: int = 8, want: int = 0) -> list:
     """The names of the device kernels holding ``needle`` that one call of
     ``fn`` ran, from a profiler trace (one entry per launch): ``fn`` runs
     once while the tracer warms up, unrecorded, then once recorded. The
     tracer can still lose a short window whole, or one of two kernels of a
     call (K1/K2's split), so a trace that shows no such kernel, or fewer
     than ``want``, is taken again, up to ``attempts`` traces of one call
-    each; a kernel that never ran still shows none."""
+    each; a retaken trace spins the card for about a millisecond after the
+    call (``torch.cuda._sleep``, no kernel of ours), so its window is not
+    a few microseconds long. A kernel that never ran still shows none."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _ in range(attempts):
+    for attempt in range(attempts):
         names = []
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -794,6 +851,8 @@ def traced_kernels(torch, fn, needle: str, attempts: int = 5, want: int = 0) -> 
                          if e.device_type == torch.autograd.DeviceType.CUDA and needle in e.name)) as prof:
             for _ in range(2):
                 fn()
+                if attempt:
+                    torch.cuda._sleep(2_000_000)
                 torch.cuda.synchronize()
                 prof.step()
         if names and len(names) >= want:
@@ -1491,6 +1550,7 @@ def phase_train_lm100m(torch, mods):
     losses = [h.loss for h in runner.history]
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"train_lm100m losses {losses}")
     check(all(bool(torch.isfinite(x).all()) for x in leaves(state.params)), "train_lm100m params not finite")
+    REFS["lm100m"] = stash(runner, state)
     del state
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -1727,6 +1787,7 @@ def phase_n1m_cohort4096(torch, mods):
     check(all(v.shape[0] == 4096 for v in state.params.values()), "n1m_cohort4096: a params leaf is not 4096 rows")
     check(all(bool(torch.isfinite(v).all()) for v in state.params.values()), "n1m_cohort4096 params not finite")
     check(runner.history[-1].loss < runner.history[0].loss, "n1m_cohort4096 loss did not fall")
+    REFS["n1m_cohort4096"] = stash(runner, state)
     cpu_runner, cpu_state, *_ = run_scenario(torch, mods, "n1m_cohort4096", ["run.num_rounds=2"], "cpu", params)
     agreement = lm_agreement(runner, cpu_runner, "n1m_cohort4096 cuda vs cpu, first cloud interval")
     # the params after that interval's cloud sync (K2 over the compacted
@@ -2824,6 +2885,301 @@ def phase_serve_deepseekv3_l1(torch, mods, fa):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The client-sharded superround over torch.distributed ranks
+# ---------------------------------------------------------------------------
+# one card: several ranks share it under gloo (PyTorch's gloo takes CUDA
+# tensors for all_reduce and broadcast), a world of 1 runs under NCCL. Each
+# sharded run is held to the single-device card run of the same scenario at
+# JAX's own mesh tolerances (tests/test_sharded.py:500-501): params within
+# SHARDED_ATOL + SHARDED_RTOL |ref|, per-round loss and grad norm within
+# SHARDED_LOSS_ATOL + SHARDED_LOSS_RTOL |ref|; lm-100m's at LM_RTOL
+SHARDED_RTOL, SHARDED_ATOL = 3e-6, 2e-7
+SHARDED_LOSS_RTOL, SHARDED_LOSS_ATOL = 1e-5, 1e-7
+RAGGED = ["run.num_rounds=20", "run.eval_every=10"]
+# single-device card runs the sharded phases are held to (numpy)
+REFS = {}
+
+
+def stash(runner, state=None):
+    """A run's per-round records and (when given) its final params as host
+    numpy: the reference a sharded phase is held to."""
+    out = {"loss": [h.loss for h in runner.history], "grad_norm": [h.grad_norm for h in runner.history],
+           "step": [h.step for h in runner.history], "accuracy": [h.accuracy for h in runner.history],
+           "mask_alive": [h.mask_alive for h in runner.history]}
+    if state is not None:
+        out["params"] = params_numpy(state)
+    return out
+
+
+def params_numpy(state):
+    """The final params' leaves as host numpy f32. A leaf whose rows all
+    equal its first (every client after a cloud sync) keeps that row alone,
+    (1, ...), which compares against the other run's rows by broadcasting:
+    lm-100m's 8 clients are one 305 MB copy, not eight."""
+    from repro_torch.tree import leaves
+
+    out = []
+    for x in leaves(state.params):
+        same = x.dim() > 0 and bool((x == x[:1]).all())
+        out.append((x[:1] if same else x).detach().float().cpu().numpy())
+    return out
+
+
+def sharded_agreement(got, ref, what, loss_rtol=SHARDED_LOSS_RTOL, loss_atol=SHARDED_LOSS_ATOL):
+    """A sharded run's records and final params against a single-device
+    card run's; checked. Returns the largest errors."""
+    import numpy as np
+
+    check(got["step"] == ref["step"] and got["mask_alive"] == ref["mask_alive"], f"{what}: steps or survivors differ")
+    out = {}
+    for key in ("loss", "grad_norm"):
+        a, b = np.asarray(got[key], np.float64), np.asarray(ref[key], np.float64)
+        excess = float(np.max(np.abs(a - b) - (loss_atol + loss_rtol * np.abs(b))))
+        check(excess <= 0, f"{what}: {key} {a.tolist()} vs {b.tolist()}")
+        out[f"{key}_max_abs_err"] = float(np.max(np.abs(a - b)))
+    acc = [abs(x - y) for x, y in zip(got["accuracy"], ref["accuracy"]) if x is not None]
+    out["accuracy_max_gap"] = max(acc, default=0.0)
+    check(out["accuracy_max_gap"] <= 0.01, f"{what}: accuracy gap {out['accuracy_max_gap']}")
+    check("params" in got and "params" in ref, f"{what}: no params to compare")
+    worst, excess = 0.0, -1.0
+    for a, b in zip(got["params"], ref["params"]):
+        diff = np.abs(a.astype(np.float64) - b)
+        worst = max(worst, float(diff.max()))
+        excess = max(excess, float(np.max(diff - (SHARDED_ATOL + SHARDED_RTOL * np.abs(b)))))
+    check(excess <= 0, f"{what}: params {worst} apart")
+    out["params_max_abs_err"] = worst
+    out["tolerance"] = {"params": [SHARDED_RTOL, SHARDED_ATOL], "loss": [loss_rtol, loss_atol]}
+    return out
+
+
+def sharded_scenario(torch, mods, name, overrides, world, profiler=None):
+    """``run_scenario`` with ``topology.mesh_axes=clients:<world>`` on this
+    rank, its collectives counted from 0 with the kernel launches."""
+    from repro_torch.dist import sharding
+
+    sharding.reset_counts()
+    out = run_scenario(torch, mods, name, list(overrides) + [f"topology.mesh_axes=clients:{world}"], "cuda",
+                       profiler=profiler)
+    return out + (dict(sharding.COUNTS),)
+
+
+def timed_all_reduces(torch):
+    """Wrap ``dist.sharding.all_reduce_sum`` to time each call (the device
+    drained before and after it, so the time is the collective's alone);
+    returns (restore, calls [(ms, bytes)])."""
+    from repro_torch.dist import sharding
+
+    orig, calls = sharding.all_reduce_sum, []
+
+    def timed(vec, mesh, counter="all_reduce"):
+        if counter != "all_reduce":  # an eval's: not the cloud interval's one
+            return orig(vec, mesh, counter)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(vec, mesh, counter)
+        torch.cuda.synchronize()
+        calls.append(((time.perf_counter() - t0) * 1e3, vec.numel() * vec.element_size()))
+        return out
+
+    sharding.all_reduce_sum = timed
+    return (lambda: setattr(sharding, "all_reduce_sum", orig)), calls
+
+
+def rank_profile(torch, mods, name, overrides, world):
+    """On this rank: the run once more warm and timed, then once under
+    ``torch.profiler`` with its all-reduces timed. The profiler sees this
+    process's kernels only, so the busy share is the rank's own."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    dist.barrier()
+    runner, _, warm_s, *_ = sharded_scenario(torch, mods, name, overrides, world)
+    gather_s = runner._engine._layout.gather_seconds  # the end's gather of the state
+    del runner
+    dist.barrier()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    restore, calls = timed_all_reduces(torch)
+    try:
+        runner, _, window_s, *_ = sharded_scenario(torch, mods, name, overrides, world, profiler=prof)
+    finally:
+        restore()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in events)
+    intervals = runner.cfg.num_rounds / runner.hier_config.kappa2_effective
+    by_class = {}
+    for e in events:
+        by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name), 0.0) + e.device_time_total
+    return {
+        "warm_wall_ms_per_interval": warm_s * 1e3 / intervals,
+        "warm_state_gathers_ms": gather_s * 1e3,
+        "warm_wall_ms_per_interval_without_gathers": (warm_s - gather_s) * 1e3 / intervals,
+        "profiled_wall_ms_per_interval": window_s * 1e3 / intervals,
+        "device_busy_ms_per_interval": busy_us / 1e3 / intervals,
+        "device_busy_share_of_warm_wall": busy_us / 1e6 / warm_s,
+        "busy_ms_per_interval_by_class": {k: v / 1e3 / intervals for k, v in sorted(by_class.items())},
+        "all_reduce_ms": [c[0] for c in calls], "all_reduce_bytes": sorted({c[1] for c in calls}),
+    }
+
+
+def sharded_job(torch, mods, world, job):
+    """One sharded run on this rank (``job``: phase, scenario, overrides,
+    whether to profile); rank 0 also returns the final params."""
+    from repro_torch.tree import leaves
+
+    torch.cuda.empty_cache()
+    base = reset_peak(torch)
+    runner, state, secs, launches, _params, collectives = sharded_scenario(
+        torch, mods, job["name"], job["overrides"], world)
+    peak = torch.cuda.max_memory_allocated() - base
+    mesh = runner.mesh
+    engine = runner._engine
+    out = {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend, "seconds": secs,
+           "launches": launches, "collectives": collectives, "peak_memory_bytes": peak,
+           "sharded": engine is not None and engine.mesh is not None, "mesh_reason": runner._mesh_reason,
+           "placement": None if engine is None or engine.placement is None else engine.placement.describe(),
+           "capacity": None if engine is None or engine.placement is None else engine.placement.capacity,
+           "params_finite": all(bool(torch.isfinite(x).all()) for x in leaves(state.params)),
+           "state_rows": int(next(leaves(state.params)).shape[0]), **stash(runner)}
+    if mesh.rank == 0:
+        out["params"] = params_numpy(state)
+    del runner, state, engine
+    torch.cuda.empty_cache()
+    if job.get("profile"):
+        out["profile"] = rank_profile(torch, mods, job["name"], job.get("profile_overrides", job["overrides"]), world)
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_rank(rank, world, jobs):
+    """``dist.launch.spawn`` entry: the jobs on this rank of a gloo world
+    whose ranks share the card."""
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.kernels import hier_aggregate as ha
+    from repro_torch.kernels import quantize as qz
+
+    resolve_device("cuda")  # TF32 off
+    return [sharded_job(torch, (ha, qz), world, job) for job in jobs]
+
+
+def edge_interval_bit_equal(torch, runner, params, mesh):
+    """kappa1 local steps and the edge sync of the single-device path
+    against the sharded path's (``_sharded_local_step``,
+    ``build_level_sync(shard=)``) on the same state and batches: the world
+    of 1 must change nothing below the cloud. Returns the largest |diff|."""
+    from repro_torch.core import hierfavg as th
+    from repro_torch.core.hierarchy import as_hierarchy, plan_shard_placement
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.tree import leaves
+
+    spec, hier = as_hierarchy(runner.topology), runner.hier_config
+    batches = to_device(runner.batcher.next_batches(hier.kappa1), runner.device)
+    shard = th.ClientSharding.build("clients", plan_shard_placement(spec, 1), runner.weights, mesh=mesh)
+    out = []
+    for step, sync in ((th.build_local_step(runner.loss_fn, runner.optimizer),
+                        th.build_level_sync(spec, hier, runner.weights, 1)),
+                       (th._sharded_local_step(runner.loss_fn, runner.optimizer, None),
+                        th.build_level_sync(spec, hier, runner.weights, 1, shard=shard))):
+        state = runner.init(torch.Generator(device="cuda").manual_seed(0), params)
+        for j in range(hier.kappa1):
+            state = step(state, {k: v[j] for k, v in batches.items()})[0]
+        out.append(list(leaves(sync(state).params)))
+    return max(float((a - b).abs().max()) for a, b in zip(*out)), all(torch.equal(a, b) for a, b in zip(*out))
+
+
+def phase_sharded_w1_nccl(torch, mods, mlp_params):
+    """mlp307k over a world of 1 under NCCL, in this process: K1 32 (an
+    edge sync and the cloud sync's edge stage per interval, 4 leaves, 4
+    intervals; the single-device run's third launch per leaf, the cloud's
+    root stage, is the all-reduce), 4 all-reduces, records and params
+    against the single-device card run, an edge interval bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.fed import scenarios
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        runner, state, secs, launches, _, collectives = sharded_scenario(
+            torch, mods, "hierfavg_edge_iid", MLP307K, 1)
+        check(runner._engine.mesh is not None and runner.mesh.backend == "nccl", "w1: not the NCCL sharded engine")
+        check_launches(launches, {"grouped_mean": 32}, "sharded_mlp307k_w1_nccl")
+        check(collectives["all_reduce"] == 4, f"sharded_mlp307k_w1_nccl collectives {collectives}")
+        evals = sum(h.accuracy is not None for h in runner.history)
+        check(collectives["eval_all_reduce"] == evals, f"sharded_mlp307k_w1_nccl: {evals} evals, {collectives}")
+        agreement = sharded_agreement(stash(runner, state), REFS["mlp307k"], "sharded_mlp307k_w1_nccl")
+        spec = scenarios.get("hierfavg_edge_iid", overrides=MLP307K)
+        single = spec.build(device="cuda")
+        err, equal = edge_interval_bit_equal(torch, single, mlp_params, runner.mesh)
+        check(equal, f"sharded_mlp307k_w1_nccl: the edge interval differs from the single-device one by {err}")
+        emit({"phase": "sharded_mlp307k_w1_nccl", **path_report(runner, secs, launches, {
+            "collectives": collectives, "backend": "nccl", "world": 1, "vs_single_device_card": agreement,
+            "edge_interval_bit_equal": equal, "edge_interval_max_abs_diff": err})})
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def phase_sharded_worlds(torch):
+    """The gloo worlds on the one card: mlp307k over 4 ranks (one edge
+    each); mlp307k_int8_ef, ragged_edges, lm-100m and n1m_cohort4096 over 2.
+    Launches and all-reduces per rank (every rank its own K1/K2/K4/K5 on its
+    rows): mlp307k K1 32 = 4 intervals x (edge sync + the cloud's edge
+    stage) x 4 leaves; int8_ef also K4 = K5 = 8 syncs x 4 leaves; ragged
+    K2 80 = 2 intervals x 10 sub-top stages x 4 leaves and no K1 (the root
+    is the all-reduce); lm-100m K1 96 = 4 intervals x 2 stages x 12 leaves;
+    n1m K2 32 = 4 intervals x 2 stages x 4 leaves (4 or 5 slots an edge:
+    ragged). One all-reduce per cloud interval everywhere."""
+    from repro_torch.dist import launch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    w4 = launch.spawn(sharded_rank, 4, "gloo", ([
+        {"phase": "sharded_mlp307k_w4", "name": "hierfavg_edge_iid", "overrides": MLP307K,
+         "profile": True}],))
+    w4_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    w2 = launch.spawn(sharded_rank, 2, "gloo", ([
+        {"phase": "mlp307k_int8_ef_w2", "name": "int8_ef_both", "overrides": MLP307K},
+        {"phase": "sharded_ragged_w2", "name": "ragged_edges", "overrides": RAGGED},
+        {"phase": "sharded_lm100m_w2", "name": "lm_edge_niid", "overrides": LM100M + LM_TRAIN, "profile": True,
+         "profile_overrides": LM100M + ["run.num_rounds=2"]},
+        {"phase": "sharded_n1m_cohort_w2", "name": "n1m_cohort4096", "overrides": (), "profile": True}],))
+    w2_s = time.perf_counter() - t1
+    wants = {
+        "sharded_mlp307k_w4": ({"grouped_mean": 32}, 4, "mlp307k", SHARDED_LOSS_RTOL),
+        "mlp307k_int8_ef_w2": ({"grouped_mean": 32, "quantize": 32, "dequantize": 32}, 4, "mlp307k_int8_ef",
+                               SHARDED_LOSS_RTOL),
+        "sharded_ragged_w2": ({"segment_mean": 80}, 2, "ragged", SHARDED_LOSS_RTOL),
+        "sharded_lm100m_w2": ({"grouped_mean": 96}, 4, "lm100m", LM_RTOL),
+        "sharded_n1m_cohort_w2": ({"segment_mean": 32}, 4, "n1m_cohort4096", SHARDED_LOSS_RTOL),
+    }
+    jobs = [("sharded_mlp307k_w4", 0, w4, w4_s)] + [
+        (name, i, w2, w2_s) for i, name in enumerate(["mlp307k_int8_ef_w2", "sharded_ragged_w2", "sharded_lm100m_w2",
+                                                      "sharded_n1m_cohort_w2"])]
+    for phase, i, world, world_s in jobs:
+        ranks = [r[i] for r in world]
+        want, intervals, ref, rtol = wants[phase]
+        for r in ranks:
+            check(r["sharded"], f"{phase} rank {r['rank']}: no sharded engine ({r['mesh_reason']})")
+            check_launches(r["launches"], want, f"{phase} rank {r['rank']}")
+            check(r["collectives"]["all_reduce"] == intervals, f"{phase} rank {r['rank']}: {r['collectives']}")
+            evals = sum(a is not None for a in r["accuracy"])
+            check(r["collectives"]["eval_all_reduce"] == evals, f"{phase} rank {r['rank']}: {evals} evals, "
+                                                                 f"{r['collectives']}")
+            check(r["params_finite"], f"{phase} rank {r['rank']}: params not finite")
+            check(r["loss"] == ranks[0]["loss"], f"{phase}: the ranks' records differ")
+        agreement = sharded_agreement(ranks[0], REFS[ref], phase, loss_rtol=rtol,
+                                      loss_atol=0.0 if rtol == LM_RTOL else SHARDED_LOSS_ATOL)
+        emit({"phase": phase, "world": len(ranks), "backend": ranks[0]["backend"], "device": ranks[0]["device"],
+              "world_seconds_with_spawn": world_s, "placement": ranks[0]["placement"],
+              "vs_single_device_card": agreement, "losses": ranks[0]["loss"],
+              "ranks": [{k: r[k] for k in ("rank", "seconds", "launches", "collectives", "peak_memory_bytes",
+                                           "state_rows", "capacity")} | ({"profile": r["profile"]} if "profile" in r
+                                                                         else {}) for r in ranks]})
+
+
 def main() -> int:
     import torch
 
@@ -2876,8 +3232,8 @@ def main() -> int:
         "profile": device_profile(torch, mods, "quickstart", (), params)})})
 
     # ragged edges: level 1 goes through K2
-    runner, _, secs, launches, _ = run_scenario(
-        torch, mods, "ragged_edges", ["run.num_rounds=20", "run.eval_every=10"], "cuda")
+    runner, state, secs, launches, _ = run_scenario(torch, mods, "ragged_edges", RAGGED, "cuda")
+    REFS["ragged"] = stash(runner, state)
     check(launches["segment_mean"] == 2 * 40 and launches["grouped_mean"] == 2 * 4, f"ragged launches {launches}")
     check(runner.history[-1].loss < runner.history[0].loss, "ragged_edges loss did not fall")
     emit({"phase": "ragged", **path_report(runner, secs, launches)})
@@ -2892,6 +3248,7 @@ def main() -> int:
     check(runner.history[-1].loss < runner.history[0].loss, "mlp307k loss did not fall")
     check(runner.history[-1].accuracy >= 0.9, f"mlp307k accuracy {runner.history[-1].accuracy}")
     uncompressed_accuracy = runner.history[-1].accuracy
+    REFS["mlp307k"] = stash(runner, state)
     mlp_runner, mlp_params, mlp_peak = runner, params, torch.cuda.max_memory_allocated() - base
     count(launches)
     mlp_profile = device_profile(torch, mods, "hierfavg_edge_iid", MLP307K, params)
@@ -2925,6 +3282,7 @@ def main() -> int:
     check(runner.history[-1].loss < runner.history[0].loss, "mlp307k_int8_ef loss did not fall")
     acc = runner.history[-1].accuracy
     check(abs(acc - uncompressed_accuracy) <= 0.02, f"mlp307k_int8_ef accuracy {acc} vs {uncompressed_accuracy}")
+    REFS["mlp307k_int8_ef"] = stash(runner, state)
     peak = torch.cuda.max_memory_allocated() - base
     agreement = cpu_agreement(torch, mods, runner, "int8_ef_both", MLP307K, params)
     count(launches)
@@ -3038,11 +3396,18 @@ def main() -> int:
 
     # federated LM training: K1 per leaf per level mean, K4/K5 per leaf per
     # compressed sync, K7/K8 never (the layer code runs under torch.func)
+    sharded_params = mlp_params  # the init, on the host
     del runner, state, mk_runner, mlp_runner, mlp_params, params
     count(phase_train_lm10m(torch, mods, "train_lm10m", LM_TRAIN))
     count(phase_train_lm10m(torch, mods, "train_lm10m_int8_ef", LM_INT8_EF))
     count(phase_train_lm100m(torch, mods))
     count(phase_train_lm100m_robust(torch, mods))
+
+    # the client-sharded superround over torch.distributed ranks on this
+    # card: a world of 1 under NCCL in this process, then gloo worlds of 4
+    # and 2 ranks sharing it, each held to the single-device card run
+    count(phase_sharded_w1_nccl(torch, mods, sharded_params))
+    phase_sharded_worlds(torch)
     count(phase_train_xlstm350m(torch, mods))
 
     # LM serving: K7 in every attention layer and K8 in every RG-LRU layer of

@@ -23,6 +23,11 @@ their plain PyTorch versions. That is a lowering of the same operator, not
 a new feature; the tests hold both against the JAX operator.
 ``cloud_model`` (the eval reduction) stays plain PyTorch, as in JAX.
 
+``psum_weighted_mean`` is the cloud mean of the client-sharded superround
+(``repro/core/aggregation.py:245-298``): each rank's partial weighted sums,
+plain PyTorch as JAX's per-shard ``jnp`` sums, packed into one vector and
+summed over the client mesh by one ``dist.all_reduce``.
+
 The robust statistics (``segment_trimmed_mean``,
 ``segment_coordinate_median``) and the per-level ``AggregatorSpec``
 registry port ``repro/core/aggregation.py:333-572``. JAX computes them with
@@ -32,6 +37,7 @@ gathers here, on either device.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,7 +45,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.hier_aggregate import segment_table
-from repro_torch.tree import Tree, tree_map
+from repro_torch.tree import Tree, leaves, tree_map, unflatten
 
 
 def _masked_weights(weights: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -264,6 +270,82 @@ def delta_weighted_mean(
     deltas = tree_map(lambda x, a: x - a.to(x.dtype), tree, anchor)
     mean_delta = weighted_mean(deltas, weights, mask)
     return tree_map(lambda a, d: (a.to(torch.float32) + d.to(torch.float32)).to(a.dtype), anchor, mean_delta)
+
+
+def _psum_means(flat, w: torch.Tensor, mesh, anchors, counter: str):
+    """The global weighted means of the rank's (C, ...) leaves ``flat``,
+    each (*param) f32, and the () bool "the global denominator is
+    positive", from ONE packed ``dist.all_reduce`` of the f32 partial sums
+    (in ``leaves`` order, JAX's) and the weight total. ``anchors``: the
+    means of ``x - anchor`` (the anchor is common to every row)."""
+    from repro_torch.dist.sharding import all_reduce_sum
+
+    partials = []
+    for i, x in enumerate(flat):
+        xf = x.to(torch.float32)
+        if anchors is not None:
+            xf = xf - anchors[i].to(torch.float32)
+        partials.append(torch.sum(xf * _bcast(w, xf), dim=0).reshape(-1))
+    total = all_reduce_sum(torch.cat(partials + [torch.sum(w).reshape(1)]), mesh, counter=counter)
+    denom = total[-1]
+    alive = denom > 0
+    safe = torch.where(alive, denom, torch.ones_like(denom))
+    means, offset = [], 0
+    for x in flat:
+        size = math.prod(x.shape[1:])
+        means.append((total[offset:offset + size] / safe).reshape(x.shape[1:]))
+        offset += size
+    return means, alive
+
+
+def psum_weighted_mean(
+    tree: Tree,
+    weights: torch.Tensor,
+    mesh,  # dist.sharding.ClientMesh
+    mask: Optional[torch.Tensor] = None,
+    *,
+    anchor: Optional[Tree] = None,
+) -> Tuple[Tree, torch.Tensor]:
+    """Global weighted mean over a client axis sharded over ``mesh`` with
+    exactly ONE collective: the port of JAX's ``psum_weighted_mean``.
+
+    Every leaf is this rank's (C, ...) rows and ``weights`` / ``mask`` the
+    matching (C,) slices. Each leaf's partial weighted sum is taken in f32
+    (in ``leaves`` order, JAX's), the partials and the masked weight total
+    are packed into one vector and summed over the ranks by one
+    ``dist.all_reduce`` (``dist.sharding.all_reduce_sum``, counted), and the
+    unpacked means are broadcast back to every local row. With ``anchor``
+    the mean is taken in delta form, anchor + mean(tree - anchor). No
+    survivor anywhere keeps the current rows. Returns ``(tree', alive)``,
+    ``alive`` the () bool "the global denominator is positive", which the
+    transport's keep-dead logic reuses without a second collective."""
+    flat = list(leaves(tree))
+    anchors = list(leaves(anchor)) if anchor is not None else None
+    means, alive = _psum_means(flat, _masked_weights(weights, mask), mesh, anchors, "all_reduce")
+    out = []
+    for i, (x, mean) in enumerate(zip(flat, means)):
+        full = mean.expand(x.shape)
+        if anchors is not None:
+            full = anchors[i].to(torch.float32) + full
+        out.append(torch.where(alive, full, x.to(torch.float32)).to(x.dtype))
+    return unflatten(tree, out), alive
+
+
+def psum_cloud_model(
+    tree: Tree,
+    weights: torch.Tensor,
+    mesh,  # dist.sharding.ClientMesh
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[Tree, torch.Tensor]:
+    """``cloud_model`` over a client axis sharded over ``mesh``: the
+    (*param) weighted means, in each leaf's dtype, from the same one packed
+    all-reduce as ``psum_weighted_mean`` (counted apart, as
+    ``eval_all_reduce``), without the broadcast back. Returns ``(means,
+    alive)``; where no client anywhere survived the means are not
+    defined and the caller scores its fallback."""
+    flat = list(leaves(tree))
+    means, alive = _psum_means(flat, _masked_weights(weights, mask), mesh, None, "eval_all_reduce")
+    return unflatten(tree, [m.to(x.dtype) for x, m in zip(flat, means)]), alive
 
 
 # ---------------------------------------------------------------------------

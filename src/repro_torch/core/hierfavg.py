@@ -37,8 +37,18 @@ each sync's staged mean runs over the cohort members' original node ids
 (``aggregation.cohort_stages``). The semi-synchronous deadline engine runs
 ``build_deadline_super_round``: the superround with its top-level sync
 gated by a per-client arrival weight, K1/K2 for every stage as in the
-synchronous sync. The client-sharded lowerings are not ported yet
-(ROADMAP.md Queue 1 item 12).
+synchronous sync.
+
+The client-sharded lowerings (``build_sharded_super_round``,
+``build_sharded_cohort_super_round``) run one process per shard of a
+``dist.sharding.ClientMesh``: each rank holds the rows of the clients
+``core.hierarchy.ShardPlacement`` puts on it, every sync below the top is
+rank-local (K1/K2 over the rank's own segments) and each cloud sync is one
+``dist.all_reduce`` (``aggregation.psum_weighted_mean``). The rank is known
+on the host, so its weights and segments are plain host rows where JAX
+selects them with ``lax.axis_index``. Every rank's ``FedState.rng`` is the
+same seeded generator and the loss gets it as on one device; the vmapped
+losses cannot draw from it, so no rank's stream moves.
 """
 from __future__ import annotations
 
@@ -52,7 +62,14 @@ from torch.func import grad, vmap
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core import aggregation
-from repro_torch.core.hierarchy import HierarchySpec, as_hierarchy
+from repro_torch.core.hierarchy import (
+    HierarchySpec,
+    ShardPlacement,
+    as_hierarchy,
+    cohort_hierarchy,
+    plan_cohort_placement,
+    plan_shard_placement,
+)
 from repro_torch.optim import GradientTransformation, apply_updates
 from repro_torch.tree import Tree, first_leaf, leaves, tree_map, unflatten
 
@@ -464,7 +481,8 @@ def _sync_state(state: FedState, config: HierFAVGConfig, codec, is_top: bool, we
     return state._replace(params=params, opt_state=opt_state, anchor=anchor, residual=residual)
 
 
-def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.Tensor, level: int):
+def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.Tensor, level: int, *,
+                     shard: Optional["ClientSharding"] = None):
     """Aggregation at one hierarchy level (Algorithm 1 l.25-31 generalized)
     with an optional (N,) survival mask: the single-device branch of
     ``repro/core/hierfavg.py:611-667``. Level 1 is edge aggregation, level
@@ -482,17 +500,23 @@ def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.
     included. A client whose whole group died keeps its exact params and
     anchor, and a masked client keeps its error-feedback residual; the
     ``received`` / ``sent`` masks are computed on the device.
+
+    With ``shard`` (a ``ClientSharding``) the sync runs on this rank's rows
+    of a client-sharded state (``_build_sharded_level_sync``): sub-top
+    levels reduce rank-locally, the top level with one all-reduce.
     """
     spec = as_hierarchy(topology)
     if not 1 <= level <= spec.depth:
         raise ValueError(f"level {level} outside 1..{spec.depth}")
     is_top = level == spec.depth
-    if is_top and config.delta_cloud and config.sync_opt_state:
-        raise ValueError("delta_cloud + sync_opt_state do not compose (the optimizer state has no anchor)")
     codec = _level_codec(config, level)
     robust = config.aggregators.aggregator(level) if config.aggregators_active else None
     if robust is not None and robust.is_default:
         robust = None
+    if shard is not None:
+        return _build_sharded_level_sync(spec, config, level, codec, robust, shard)
+    if is_top and config.delta_cloud and config.sync_opt_state:
+        raise ValueError("delta_cloud + sync_opt_state do not compose (the optimizer state has no anchor)")
     stages = aggregation.level_stages(spec, level)  # uniform vs ragged, decided once
     seg = torch.as_tensor(spec.segments(level), dtype=torch.long, device=weights.device)
     num_segs = spec.num_nodes(level)
@@ -1002,4 +1026,484 @@ def build_cohort_super_round(
         metrics = {"loss": torch.stack(losses), "grad_norm": torch.stack(gnorms), "step": torch.stack(steps)}
         return state, metrics
 
+    return super_round
+
+
+# ---------------------------------------------------------------------------
+# Client-sharded lowering (one process per shard of a ClientMesh)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ClientSharding:
+    """How this rank sees the tree of a client-sharded state
+    (``repro/core/hierfavg.py:444-494``): a ``core.hierarchy.ShardPlacement``,
+    the global weights permuted and padded into a (num_shards, capacity)
+    table, and the ``mesh`` (a ``dist.sharding.ClientMesh``) whose rank
+    picks the row. JAX selects the row inside ``shard_map`` with
+    ``lax.axis_index``; here the rank is known on the host, so
+    ``local_weights`` is this rank's row on its device and
+    ``local_segments`` its host ids. ``static_segments`` is the concrete
+    layout when every rank has the same one (uniform packing), so a
+    uniform layout reaches K1 and a robust aggregator may run."""
+
+    axis: str
+    placement: ShardPlacement
+    weights_table: Any  # np (num_shards, capacity) f32 permuted + padded weights
+    mesh: Any = None  # dist.sharding.ClientMesh (None: rank 0 on the weights' device)
+    _cache: Dict[Any, Any] = dataclasses.field(default_factory=dict, repr=False)
+
+    @classmethod
+    def build(cls, axis: str, placement: ShardPlacement, weights, mesh=None) -> "ClientSharding":
+        w = weights.cpu().numpy() if isinstance(weights, torch.Tensor) else np.asarray(weights)
+        table = placement.pad_weights(w).reshape(placement.num_shards, placement.capacity)
+        return cls(axis=axis, placement=placement, weights_table=table, mesh=mesh)
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("cpu") if self.mesh is None else self.mesh.device
+
+    def local_weights(self) -> torch.Tensor:
+        """(capacity,) f32: this rank's weights, phantoms at 0."""
+        if "w" not in self._cache:
+            self._cache["w"] = torch.as_tensor(self.weights_table[self.rank], dtype=torch.float32, device=self.device)
+        return self._cache["w"]
+
+    def _table(self, level: int) -> np.ndarray:
+        key = ("seg", level)
+        if key not in self._cache:
+            self._cache[key] = self.placement.local_segments(level)
+        return self._cache[key]
+
+    def static_segments(self, level: int) -> Optional[np.ndarray]:
+        """Concrete (capacity,) local ids when identical across ranks."""
+        tab = self._table(level)
+        return tab[0] if bool((tab == tab[0]).all()) else None
+
+    def local_segments(self, level: int) -> np.ndarray:
+        """(capacity,) this rank's local segment ids at ``level``."""
+        return self._table(level)[self.rank]
+
+    def local_num_segments(self, level: int) -> int:
+        key = ("nseg", level)
+        if key not in self._cache:
+            self._cache[key] = self.placement.local_num_segments(level)
+        return self._cache[key]
+
+    def client_ids_table(self) -> np.ndarray:
+        """(num_shards, capacity) original client ids (phantoms read 0)."""
+        return self.placement.gather_index().reshape(self.placement.num_shards, self.placement.capacity)
+
+
+def sharding_incompatibility(
+    config: HierFAVGConfig,
+    topology: Topology,
+    num_shards: int,
+    placement: Optional[ShardPlacement] = None,
+) -> Optional[str]:
+    """Why this schedule cannot run client-sharded over ``num_shards``
+    ranks, or None when it can, in the JAX package's words
+    (``repro/core/hierfavg.py:497-543``). The runner uses it for engine
+    eligibility; ``build_sharded_super_round`` raises on a reason. Pass
+    ``placement`` to validate the layout that will run."""
+    spec = as_hierarchy(topology)
+    if config.delta_cloud and config.sync_opt_state:
+        return "delta_cloud + sync_opt_state do not compose (the opt tree has no anchor)"
+    if placement is None:
+        try:
+            placement = plan_shard_placement(spec, num_shards)
+        except ValueError as e:
+            return str(e)
+    elif placement.num_shards != num_shards or placement.spec != spec:
+        return (
+            f"placement was planned for {placement.num_shards} shard(s) over "
+            f"{placement.spec.describe()}, not {num_shards} shard(s) over "
+            f"{spec.describe()}"
+        )
+    if config.aggregators_active:
+        if config.aggregators.depth != spec.depth:
+            return (
+                f"aggregators cover {config.aggregators.depth} level(s) but "
+                f"the tree has depth {spec.depth}"
+            )
+        if not config.aggregators.aggregator(spec.depth).is_default:
+            return (
+                "a non-default top-level aggregator needs global order "
+                "statistics across shards; only weighted_mean lowers to the "
+                "cloud psum"
+            )
+        for lvl in range(1, spec.depth):
+            if not config.aggregators.aggregator(lvl).is_default:
+                tab = placement.local_segments(lvl)
+                if not bool((tab == tab[0]).all()):
+                    return (
+                        f"the robust aggregator at level {lvl} needs an "
+                        f"identical per-shard segment layout (this packing "
+                        f"is ragged across shards)"
+                    )
+    return None
+
+
+def map_stacked_fed_state(state: FedState, stacked_fn, other_fn, stacked_dim: int) -> FedState:
+    """A ``FedState`` with ``stacked_fn`` applied to every params /
+    opt_state / anchor / residual leaf that carries the leading
+    ``stacked_dim`` client axis and ``other_fn`` to everything else
+    (``step`` and ``rng`` are always "other"). The one place that knows which
+    fields carry client rows: the slice helpers and the engine's permute,
+    pad, slice and gather all go through it."""
+
+    def leaf(x):
+        if isinstance(x, torch.Tensor) and x.dim() >= 1 and x.shape[0] == stacked_dim:
+            return stacked_fn(x)
+        return other_fn(x)
+
+    sub = lambda t: tree_map(leaf, t)
+    return FedState(
+        step=other_fn(state.step),
+        params=sub(state.params),
+        opt_state=sub(state.opt_state),
+        rng=other_fn(state.rng),
+        anchor=None if state.anchor is None else sub(state.anchor),
+        residual=None if state.residual is None else sub(state.residual),
+    )
+
+
+def fed_state_partition_specs(state: FedState, axis: str, stacked_dim: int) -> FedState:
+    """The partition of a (padded) stacked ``FedState``: ``axis`` for leaves
+    whose leading ``stacked_dim`` client axis is split over the ranks, ""
+    for replicated ones (step, rng, scalar optimizer leaves), the
+    counterpart of JAX's ``P(axis)`` / ``P()``. ``dist.sharding.
+    fed_state_shardings`` turns them into this rank's slices."""
+    return map_stacked_fed_state(state, lambda _: axis, lambda _: "", stacked_dim)
+
+
+def _sharded_opt_leaves(opt_state) -> Tuple[list, list]:
+    """(the optimizer's leaves, the indices of the stacked ones)."""
+    flat = list(leaves(opt_state))
+    return flat, [i for i, x in enumerate(flat) if isinstance(x, torch.Tensor) and x.dim() >= 1]
+
+
+def _build_sharded_level_sync(spec: HierarchySpec, config: HierFAVGConfig, level: int, codec, robust,
+                              shard: ClientSharding):
+    """The ``shard`` lowering of ``build_level_sync``
+    (``repro/core/hierfavg.py:672-797``): sub-top levels reduce entirely on
+    this rank (the placement keeps their groups whole on one rank) through
+    the staged segment means, K1 on equal blocks and K2 on ragged ones; the
+    top level stages up to depth - 1 on the rank, then packs params (and,
+    with ``sync_opt_state``, the stacked optimizer leaves) into one
+    ``psum_weighted_mean``, one all-reduce. The codec's round trip (K4/K5 on
+    each rank), the error-feedback residual, robust sub-top aggregators and
+    the keep-dead rules are per client or per group and stay on the rank.
+    Sub-top syncs add members in the single-device order; only the cloud
+    sum reassociates."""
+    depth = spec.depth
+    is_top = level == depth
+    if robust is not None:
+        if is_top:
+            raise ValueError(
+                "a non-default top-level aggregator cannot run client-sharded "
+                "(global order statistics); see sharding_incompatibility"
+            )
+        if shard.static_segments(level) is None:
+            raise ValueError(
+                f"robust aggregator at level {level} needs an identical "
+                f"per-shard segment layout; see sharding_incompatibility"
+            )
+    if is_top and config.delta_cloud and config.sync_opt_state:
+        raise ValueError("delta_cloud + sync_opt_state cannot run client-sharded")
+    # the rank's stages, built once: its segments are static per placement
+    stages = tuple(aggregation._stage(shard.local_segments(l), shard.local_num_segments(l))
+                   for l in range(1, (depth - 1 if is_top else level) + 1))
+    dev = shard.device
+    ids = None if is_top else torch.as_tensor(shard.local_segments(level), dtype=torch.long, device=dev)
+    nseg = None if is_top else shard.local_num_segments(level)
+
+    def level_sync(state: FedState, mask: Optional[torch.Tensor] = None) -> FedState:
+        w_local = shard.local_weights()
+        uploaded = state.params
+        residual = state.residual
+        if codec is not None:
+            delta = tree_map(lambda x, a: x.to(torch.float32) - a.to(torch.float32), state.params, state.anchor)
+            delta_hat, residual = codec.roundtrip(delta, residual)
+            uploaded = tree_map(lambda a, d, x: (a.to(torch.float32) + d).to(x.dtype),
+                                state.anchor, delta_hat, state.params)
+        agg = None
+        synced_opt = None
+        alive_top = None
+        if is_top and config.delta_cloud and state.anchor is not None:
+            params, alive_top = aggregation.psum_weighted_mean(uploaded, w_local, shard.mesh, mask,
+                                                               anchor=state.anchor)
+            anchor = _copy(params)
+        elif is_top:
+            # params (+ the synced optimizer leaves) in one packed all-reduce
+            bundle: Dict[str, Any] = {"p": uploaded}
+            if config.sync_opt_state:
+                opt_flat, sync_ix = _sharded_opt_leaves(state.opt_state)
+                bundle["o"] = [opt_flat[i] for i in sync_ix]
+            staged = aggregation.staged_mean(bundle, w_local, stages, mask)
+            out, alive_top = aggregation.psum_weighted_mean(staged, w_local, shard.mesh, mask)
+            params = out["p"]
+            if config.sync_opt_state:
+                for i, new in zip(sync_ix, out["o"]):
+                    opt_flat[i] = new
+                synced_opt = unflatten(state.opt_state, opt_flat)
+            anchor = _copy(params) if config.transport_active else state.anchor
+        else:
+            if robust is not None:
+                static = shard.static_segments(level)
+                agg = lambda t: robust.segment_call(t, static, nseg, mask)
+            else:
+                agg = lambda t: aggregation.staged_mean(t, w_local, stages, mask)
+            params = agg(uploaded)
+            anchor = _copy(params) if config.transport_active else state.anchor
+        if codec is not None:
+            # the single-device keep-dead rules; at the top the whole tree is
+            # one group, whose "had a survivor" the packed all-reduce gave
+            w_eff = w_local.to(torch.float32)
+            if mask is not None:
+                w_eff = w_eff * mask.to(torch.float32)
+            if is_top:
+                received = alive_top
+            else:
+                den = torch.zeros(nseg, dtype=torch.float32, device=w_eff.device).index_add_(0, ids, w_eff)
+                received = (den > 0)[ids]
+            sent = w_eff > 0
+
+            def keep(flags, new, old):
+                f = flags.reshape((-1,) + (1,) * (new.dim() - 1)) if flags.dim() else flags
+                return torch.where(f, new, old.to(new.dtype))
+
+            params = tree_map(lambda v, old: keep(received, v, old), params, state.params)
+            anchor = tree_map(lambda v, old: keep(received, v, old), anchor, state.anchor)
+            if residual is not None and state.residual is not None:
+                residual = tree_map(lambda v, old: keep(sent, v, old), residual, state.residual)
+        if synced_opt is not None:
+            opt_state = synced_opt
+        else:
+            opt_state = _maybe_sync_opt_state(state.opt_state, agg, config.sync_opt_state and agg is not None)
+        return state._replace(params=params, opt_state=opt_state, anchor=anchor, residual=residual)
+
+    return level_sync
+
+
+def _sharded_local_step(loss_fn: LossFn, optimizer: GradientTransformation, precision: Optional[PrecisionSpec]):
+    """``build_local_step`` with per-client metrics: ``local_step(state,
+    batch) -> (state, losses (C,) f32, squared grad norms (C,) f32)``. The
+    update is ``build_local_step``'s op for op."""
+    grad_fn = _client_grads(loss_fn, precision)
+
+    def local_step(state: FedState, batch):
+        grads, losses = grad_fn(state.params, batch, state.rng)
+        updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+        apply_updates(state.params, updates)
+        gsq = sum(torch.sum(torch.square(g.to(torch.float32)).reshape(g.shape[0], -1), dim=1) for g in leaves(grads))
+        return state._replace(step=state.step + 1, opt_state=opt_state), losses.to(torch.float32), gsq
+
+    return local_step
+
+
+def _sharded_rounds(local_step, level_syncs, schedule, k1: int):
+    """The cloud interval of the sharded lowerings: per round kappa1 local
+    steps and its sync; per-client metrics ``{"loss", "gsq"}`` (kappa2,
+    kappa1, C) and ``"step"`` (kappa2,), on the device."""
+
+    def rounds(state: FedState, batches, masks):
+        losses, gsqs, steps = [], [], []
+        for r, deepest in enumerate(schedule):
+            batch_r = _step_slice(batches, r)
+            ls, gs = [], []
+            for j in range(k1):
+                state, loss, gsq = local_step(state, _step_slice(batch_r, j))
+                ls.append(loss)
+                gs.append(gsq)
+            state = level_syncs[deepest - 1](state, None if masks is None else masks[r])
+            losses.append(torch.stack(ls))
+            gsqs.append(torch.stack(gs))
+            steps.append(state.step)
+        return state, {"loss": torch.stack(losses), "gsq": torch.stack(gsqs), "step": torch.stack(steps)}
+
+    return rounds
+
+
+def build_sharded_super_round(
+    loss_fn: LossFn,
+    optimizer: GradientTransformation,
+    topology: Topology,
+    config: HierFAVGConfig,
+    weights,
+    *,
+    mesh,
+    axis: str = "clients",
+    placement: Optional[ShardPlacement] = None,
+):
+    """``build_super_round`` with the stacked client axis sharded over the
+    ranks of ``mesh`` (a ``dist.sharding.ClientMesh``;
+    ``repro/core/hierfavg.py:1619-1771``): the hardware mirrors the
+    client-edge-cloud tree.
+
+        super_round(state, batches, masks=None) -> (state, metrics)
+
+    Called on every rank with that rank's rows: the state's stacked leaves
+    hold its ``placement.capacity`` positions of the placement order
+    (``placement.gather_index()``, phantoms padded), batch leaves are
+    (kappa2, kappa1, capacity, b, ...) and ``masks`` an optional
+    (kappa2, capacity) stack (``fed.engine`` owns the conversion). Every
+    sub-top sync is rank-local and each cloud boundary is one all-reduce.
+    Local steps and sub-top syncs match the single-device superround bit
+    for bit; only the cloud sum reassociates. Metrics stay per client, so
+    no collective is spent on them: ``{"loss": (kappa2, kappa1, capacity),
+    "gsq": (kappa2, kappa1, capacity), "step": (kappa2,)}``, reduced on the
+    host at flush (phantom columns dropped)."""
+    spec = as_hierarchy(topology)
+    depth = _check_levels(spec, config)
+    num_shards = int(mesh.shape[axis])
+    if placement is None:
+        try:
+            placement = plan_shard_placement(spec, num_shards)
+        except ValueError as e:
+            raise ValueError(f"schedule cannot run client-sharded: {e}") from None
+    reason = sharding_incompatibility(config, spec, num_shards, placement=placement)
+    if reason is not None:
+        raise ValueError(f"schedule cannot run client-sharded: {reason}")
+    shard = ClientSharding.build(axis, placement, weights, mesh=mesh)
+    local_step = _sharded_local_step(loss_fn, optimizer, config.precision)
+    level_syncs = [build_level_sync(spec, config, weights, lvl, shard=shard) for lvl in range(1, depth + 1)]
+    rounds = _sharded_rounds(local_step, level_syncs, super_round_schedule(config), config.kappa1)
+
+    def super_round(state: FedState, batches, masks: Optional[torch.Tensor] = None):
+        return rounds(state, batches, masks)
+
+    super_round.shard = shard
+    return super_round
+
+
+# ---------------------------------------------------------------------------
+# Sharded cohort lowering (population scale x device scale)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _CohortSharding(ClientSharding):
+    """``ClientSharding`` over a sampled cohort's *slot* axis
+    (``repro/core/hierfavg.py:1773-1794``). The slot layout, and so every
+    local segment table, is static; the weights are the sampled cohort's
+    columns, bound per interval (``bind_local_weights``) before any sync."""
+
+    def bind_local_weights(self, w_local: torch.Tensor) -> None:
+        self._cache["w"] = w_local
+
+    def local_weights(self) -> torch.Tensor:
+        w = self._cache.get("w")
+        if w is None:
+            raise RuntimeError(
+                "cohort shard weights are bound per interval; call bind_local_weights first"
+            )
+        return w
+
+
+def _cohort_quotas(spec: HierarchySpec, cohort_size: int) -> np.ndarray:
+    """Per-level-1-node stratified slot quotas: the pure function of
+    (topology, cohort_size) that placement-stable packing rests on."""
+    if spec.depth == 1:
+        return np.asarray([int(cohort_size)], np.int64)
+    from repro_torch.fed.participation import stratified_quotas
+
+    return stratified_quotas(spec.group_sizes(1), int(cohort_size))
+
+
+def sharded_cohort_incompatibility(
+    config: HierFAVGConfig,
+    topology: Topology,
+    cohort_size: int,
+    num_shards: int,
+    placement: Optional[ShardPlacement] = None,
+) -> Optional[str]:
+    """Why this schedule cannot run cohort-sampled AND client-sharded over
+    ``num_shards`` ranks, or None, in the JAX package's words
+    (``repro/core/hierfavg.py:1808-1854``): the one predicate
+    ``build_sharded_cohort_super_round`` (raises) and the runner (reports)
+    consult. Only the stratified sampler's per-edge quotas fix the
+    slot -> rank layout."""
+    spec = as_hierarchy(topology)
+    reason = cohort_incompatibility(config, spec, cohort_size)
+    if reason is not None:
+        return reason
+    part = config.participation
+    if part is not None and getattr(part, "sampler", None) != "stratified" and spec.depth >= 2:
+        return (
+            f"sharded cohorts need the stratified sampler (placement-stable "
+            f"per-edge quotas fix the slot->shard layout); got "
+            f"{getattr(part, 'sampler', None)!r}"
+        )
+    if config.delta_cloud and config.sync_opt_state:
+        return "delta_cloud + sync_opt_state do not compose (the opt tree has no anchor)"
+    try:
+        quotas = _cohort_quotas(spec, cohort_size)
+    except ValueError as e:
+        return str(e)
+    if placement is None:
+        try:
+            plan_cohort_placement(spec, quotas, num_shards)
+        except ValueError as e:
+            return str(e)
+    else:
+        slot_spec = cohort_hierarchy(spec, quotas)
+        if placement.num_shards != num_shards or placement.spec != slot_spec:
+            return (
+                f"placement was planned for {placement.num_shards} shard(s) over "
+                f"{placement.spec.describe()}, not {num_shards} shard(s) over "
+                f"the {slot_spec.describe()} cohort slot tree"
+            )
+    return None
+
+
+def build_sharded_cohort_super_round(
+    loss_fn: LossFn,
+    optimizer: GradientTransformation,
+    topology: Topology,
+    config: HierFAVGConfig,
+    *,
+    cohort_size: int,
+    mesh,
+    axis: str = "clients",
+    placement: Optional[ShardPlacement] = None,
+):
+    """``build_cohort_super_round`` with the cohort's slot axis sharded over
+    the ranks of ``mesh`` (``repro/core/hierfavg.py:1857-2013``).
+
+        super_round(state, batches, weights, masks=None) -> (state, metrics)
+
+    Under stratified sampling the per-edge quotas are a pure function of
+    (topology, cohort_size), so the slot tree (slot j always reports to the
+    same edge) and its placement are planned once and reused for every
+    cohort: the rank-local segment tables are static (K1 on equal blocks,
+    K2 on ragged ones), and only ``weights``, this rank's (capacity,) slice
+    of the sampled cohort's weights in slot placement order (phantoms 0),
+    changes per interval. The state, the blocks and ``masks`` are this
+    rank's rows, as in ``build_sharded_super_round``; each cloud boundary
+    is one all-reduce and the metrics are per slot."""
+    spec = as_hierarchy(topology)
+    depth = _check_levels(spec, config)
+    num_shards = int(mesh.shape[axis])
+    reason = sharded_cohort_incompatibility(config, spec, cohort_size, num_shards, placement=placement)
+    if reason is not None:
+        raise ValueError(f"schedule cannot run sharded-cohort: {reason}")
+    if placement is None:
+        placement = plan_cohort_placement(spec, _cohort_quotas(spec, cohort_size), num_shards)
+    shard = _CohortSharding(axis=axis, placement=placement, weights_table=None, mesh=mesh)
+    local_step = _sharded_local_step(loss_fn, optimizer, config.precision)
+    # robust is always None: cohort_incompatibility rejects robust aggregators
+    level_syncs = [_build_sharded_level_sync(placement.spec, config, lvl, _level_codec(config, lvl), None, shard)
+                   for lvl in range(1, depth + 1)]
+    rounds = _sharded_rounds(local_step, level_syncs, super_round_schedule(config), config.kappa1)
+
+    def super_round(state: FedState, batches, weights: torch.Tensor, masks: Optional[torch.Tensor] = None):
+        shard.bind_local_weights(weights.to(torch.float32))
+        return rounds(state, batches, masks)
+
+    super_round.shard = shard
     return super_round

@@ -246,6 +246,11 @@ class SuperBatchPrefetcher:
     ``get()`` the batcher's ``state_dict`` as of the end of the block just
     returned is on ``snapshot``; checkpoints store that, never
     ``batcher.state_dict()`` itself.
+
+    ``transform`` is an optional host (numpy) hook on each (rounds, steps,
+    N, b, ...) leaf before it is pinned: a rank of a client mesh keeps its
+    own clients' columns in placement order (``fed.engine``), so only they
+    are copied to its device.
     """
 
     _OK = "ok"
@@ -259,8 +264,10 @@ class SuperBatchPrefetcher:
         steps_per_round: int,
         device: torch.device,
         num_blocks: Optional[int] = None,
+        transform: Optional[Callable[[np.ndarray], np.ndarray]] = None,
     ):
         self.batcher = batcher
+        self.transform = transform
         self.rounds_per_block = int(rounds_per_block)
         self.steps_per_round = int(steps_per_round)
         self.device = torch.device(device)
@@ -277,7 +284,8 @@ class SuperBatchPrefetcher:
         """(count, ...) batches -> the (rounds, steps, ...) block, pinned
         for a CUDA device."""
         lead = (self.rounds_per_block, self.steps_per_round)
-        return {k: _pinned(torch.from_numpy(v.reshape(lead + v.shape[1:])), self.device) for k, v in flat.items()}
+        keep = self.transform or (lambda a: a)
+        return {k: _pinned(torch.from_numpy(keep(v.reshape(lead + v.shape[1:]))), self.device) for k, v in flat.items()}
 
     def _produce(self):
         """Worker side: (host item, the snapshot a checkpoint at its end
@@ -348,8 +356,14 @@ class CohortPrefetcher(SuperBatchPrefetcher):
     ``{"segments": (depth-1, C) host ids, "weights": (C,), "stages": ...}``
     on the device, and the block. Restart safety: ``snapshot`` is then
     ``{"batcher": ..., "sampler": ...}`` as of that block's end (both run
-    ahead of the computation). The placement branch (a sharded cohort)
-    comes with ROADMAP.md Queue 1 item 12.
+    ahead of the computation).
+
+    With a ``layout`` (a rank's view of a sharded cohort's slot placement,
+    ``fed.engine._MeshLayout``), the worker keeps the rank's slot columns of
+    the block in slot placement order (phantom slots repeat slot 0's batch)
+    and the cohort carries only ``"weights"``, the rank's weights (phantoms
+    0): placement-stable packing makes every segment table static, so none
+    is built or uploaded.
     """
 
     def __init__(
@@ -363,27 +377,35 @@ class CohortPrefetcher(SuperBatchPrefetcher):
         steps_per_round: int,
         device: torch.device,
         num_blocks: Optional[int] = None,
+        layout=None,
     ):
         # fields first: the base __init__ starts the worker
         self.sampler = sampler
         self._segments = np.ascontiguousarray(np.asarray(segments, np.int32))
         self._weights = np.asarray(weights, np.float32)
+        self._layout = layout
         super().__init__(batcher, rounds_per_block=rounds_per_block, steps_per_round=steps_per_round,
-                         device=device, num_blocks=num_blocks)
+                         device=device, num_blocks=num_blocks, transform=None if layout is None else layout.block)
 
     def _produce(self):
         ids = np.asarray(self.sampler.sample(), np.int64)
         block = self._host_block(
             self.batcher.next_batches_for(ids, self.rounds_per_block * self.steps_per_round))
+        snapshot = {"batcher": self.batcher.state_dict(), "sampler": self.sampler.state_dict()}
+        if self._layout is not None:
+            w = self._layout.weights(self._weights[ids])
+            return (ids, None, _pinned(torch.from_numpy(w), self.device), None, None, block), snapshot
         segments = self._segments[:, ids]
         stages = aggregation.cohort_stages(segments, ids.shape[0])
         pin = lambda a: _pinned(torch.from_numpy(a), self.device)
         tables = [tuple(None if a is None else pin(a) for a in aggregation.stage_host_tables(st)) for st in stages]
         host = (ids, segments, pin(np.ascontiguousarray(self._weights[ids])), stages, tables, block)
-        return host, {"batcher": self.batcher.state_dict(), "sampler": self.sampler.state_dict()}
+        return host, snapshot
 
     def _upload(self, host):
         ids, segments, weights, stages, tables, block = host
+        if stages is None:  # a sharded cohort's rank: its weights only
+            return ids, {"weights": weights.to(self.device, non_blocking=True)}, super()._upload(block)
         cohort = {
             "segments": segments,
             "weights": weights.to(self.device, non_blocking=True),

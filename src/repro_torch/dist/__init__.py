@@ -1,1 +1,3 @@
-"""Analytic traffic model of the aggregation schedule."""
+"""The analytic traffic model of the aggregation schedule (``collectives``),
+the client mesh over torch.distributed ranks (``sharding``) and its
+launcher (``launch``)."""

@@ -20,6 +20,13 @@ from repro_torch.fed.participation import (
     build_sampler,
 )
 from repro_torch.fed.runner import FederatedRunner, RoundRecord, RunnerConfig
+from repro_torch.fed.topology import (
+    MeshFedPlan,
+    edge_replica_groups,
+    plan_for_hierarchy,
+    plan_for_mesh,
+    replica_groups,
+)
 
 __all__ = [
     "ClientStateStore",
@@ -29,6 +36,7 @@ __all__ = [
     "FailureSimulator",
     "FederatedRunner",
     "MaskComposition",
+    "MeshFedPlan",
     "ParticipationSpec",
     "RoundRecord",
     "RoundRobinSampler",
@@ -41,4 +49,8 @@ __all__ = [
     "build_sampler",
     "combine_masks",
     "compose_masks",
+    "edge_replica_groups",
+    "plan_for_hierarchy",
+    "plan_for_mesh",
+    "replica_groups",
 ]

@@ -22,9 +22,10 @@ takes the same dotted-path overrides
 
 ``build(device=...)`` assembles the ``FederatedRunner``;
 ``run_experiment(device=...)`` builds, initializes and trains. Both run on
-``cuda`` unless given ``device``, and raise without a GPU. A spec that
-needs a feature the port does not have yet (a device mesh) raises
-``NotImplementedError`` naming the ROADMAP.md item that brings it.
+``cuda`` unless given ``device``, and raise without a GPU.
+``topology.mesh_axes=clients:K`` runs client-sharded over K ranks of an
+initialised ``torch.distributed`` process group (one process per rank;
+``dist.launch.spawn``), and raises without one.
 """
 from __future__ import annotations
 
@@ -37,7 +38,6 @@ import torch
 
 from repro_torch.core.hierfavg import PrecisionSpec
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.errors import unported
 from repro_torch.fed.participation import ParticipationSpec
 from repro_torch.sim.distributions import NetworkSpec
 
@@ -53,8 +53,14 @@ _MISSING = dataclasses.MISSING
 class TopologySpec:
     """The aggregation tree. ``fanouts`` (``core.hierarchy.parse_fanouts``
     grammar, e.g. ``"16,12,10,7,5/5"``) wins when set; otherwise the uniform
-    two-level ``num_edges`` x ``clients_per_edge``. ``mesh_axes`` (client
-    sharding over devices) comes with the multi-device slice."""
+    two-level ``num_edges`` x ``clients_per_edge``.
+
+    ``mesh_axes`` maps the tree onto hardware: ``""`` (default) runs on one
+    device; ``"clients"`` shards the stacked client axis over every rank of
+    the initialised process group, ``"clients:4"`` over the first 4. The
+    superround engine then runs client-sharded, one process per rank: edge
+    syncs rank-local, one all-reduce per cloud interval (on the CPU, start
+    gloo ranks with ``dist.launch.spawn``)."""
 
     fanouts: str = ""
     num_edges: int = 5
@@ -68,6 +74,23 @@ class TopologySpec:
         if self.fanouts:
             return parse_fanouts(self.fanouts)
         return FedTopology(num_edges=self.num_edges, clients_per_edge=self.clients_per_edge)
+
+    def build_mesh(self, device: DeviceLike = None):
+        """The ``dist.sharding.ClientMesh`` ``mesh_axes`` names (None when
+        unset), its ranks' devices from ``device``."""
+        if not self.mesh_axes:
+            return None
+        from repro_torch.dist.sharding import client_mesh
+
+        name, _, size = self.mesh_axes.partition(":")
+        try:
+            num = int(size) if size.strip() else 0
+        except ValueError:
+            raise ValueError(
+                f"topology.mesh_axes={self.mesh_axes!r} must look like "
+                f"'clients' or 'clients:4' (axis name + optional device count)"
+            ) from None
+        return client_mesh(num, axis=name.strip() or "clients", device=device)
 
     @property
     def depth(self) -> int:
@@ -403,11 +426,6 @@ class ExperimentSpec:
             precision=self.precision if self.precision.is_active else None,
         )
 
-    def _check_ported(self) -> None:
-        """Raise for run-level features this slice does not port."""
-        if self.topology.mesh_axes:
-            raise unported(f"topology.mesh_axes={self.topology.mesh_axes!r}", 12)
-
     def model_bundle(self, device: DeviceLike = None) -> Dict[str, Any]:
         """{"module", "init", "apply", "loss"} for this spec's model."""
         return _model_bundle(self, resolve_device(device))
@@ -430,8 +448,8 @@ class ExperimentSpec:
         from repro_torch.core.hierarchy import as_hierarchy
         from repro_torch.fed.runner import FederatedRunner, RunnerConfig
 
-        device = resolve_device(device)
-        self._check_ported()
+        mesh = self.topology.build_mesh(device)
+        device = resolve_device(device if mesh is None else mesh.device)
         topo = self.topology.build()
         tree = as_hierarchy(topo)
         hier = self.hier_config(_depth=tree.depth)
@@ -484,6 +502,7 @@ class ExperimentSpec:
             deadline=deadline,
             checkpointer=checkpointer,
             device=device,
+            mesh=mesh,
         )
         runner.spec = self  # provenance: the runner knows its declarative form
         return runner
@@ -493,8 +512,8 @@ class ExperimentSpec:
         ``params`` (unstacked) replaces the spec's own init, e.g. a JAX init
         carried across with ``params_from_numpy``. ``resume=True`` restores
         the latest checkpoint of ``run.checkpoint_dir`` when one exists."""
-        device = resolve_device(device)
         runner = self.build(device=device)
+        device = runner.device  # a mesh rank's own device
         if params is None:
             params = self.init_params(self.run.seed + 1, device)
         rng = torch.Generator(device=device).manual_seed(self.run.seed)
@@ -513,6 +532,8 @@ class ExperimentSpec:
     def describe(self) -> str:
         topo = self.topology.fanouts or f"{self.topology.num_edges}x{self.topology.clients_per_edge}"
         extras = []
+        if self.topology.mesh_axes:
+            extras.append(f"mesh={self.topology.mesh_axes}")
         if self.transport.levels != "identity":
             extras.append(f"transport={self.transport.levels}")
         if self.aggregators.levels != "weighted_mean":

@@ -27,7 +27,6 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 import torch
 
-from repro_torch.errors import unported
 from repro_torch.tree import leaves, tree_map, unflatten
 
 Tree = Any
@@ -131,11 +130,29 @@ class ClientStateStore:
             arr[idx] = host.astype(arr.dtype, copy=False)
         self._touched[idx] = True
 
-    def gather_placed(self, ids, placement):
-        raise unported("the sharded cohort swap (gather_placed)", 12)
+    # -- the sharded cohort swap ---------------------------------------------
 
-    def scatter_placed(self, ids, placement, rows):
-        raise unported("the sharded cohort swap (scatter_placed)", 12)
+    def gather_placed(self, ids: Sequence[int], placement, rows: slice = slice(None)) -> Tree:
+        """Rows for a sampled cohort in *slot placement order*: gathered by
+        original client id and permuted / padded by
+        ``placement.gather_index()``, so leaves lead with
+        ``placement.padded_clients`` positions (``rows``: only those
+        positions, a rank's). Phantom slots read slot 0's client; their
+        weight is zero and ``scatter_placed`` drops them."""
+        idx = np.asarray(ids, np.int64)[placement.gather_index()[rows]]
+        return unflatten(self._template, [a[idx] for a in self._arrays])
+
+    def scatter_placed(self, ids: Sequence[int], placement, rows: Tree, positions: slice = slice(None)) -> None:
+        """Inverse of :func:`gather_placed`: the padded rows (or a rank's
+        ``positions`` of them) back by original client id, phantoms
+        dropped. A rank writes only the clients placed on it: stratified
+        quotas fix slots to edges and edges to ranks, so a client's rows
+        always live on one rank's store."""
+        gather = placement.gather_index()[positions]
+        real = placement.valid()[positions]
+        sel = np.flatnonzero(real)
+        idx = np.asarray(ids, np.int64)[gather[sel]]
+        self.scatter(idx, tree_map(lambda x: _to_host(x)[sel], rows))
 
     # -- checkpointing -------------------------------------------------------
 

@@ -53,6 +53,24 @@ sampled clients live on the device, their sticky optimizer and residual
 rows swap in and out of the host ``ClientStateStore`` around each cloud
 interval, and a ``CohortPrefetcher`` draws the cohorts and uploads their
 blocks and aggregation tables ahead of time.
+
+**Mesh execution** (``repro/fed/engine.py:80-190``, ``:525-670``). With a
+runner mesh (``dist.sharding.ClientMesh``) both engines run one process per
+rank: ``SuperRoundEngine`` builds ``build_sharded_super_round`` over the
+edge-aligned ``ShardPlacement`` and ``CohortEngine``
+``build_sharded_cohort_super_round`` over the cohort's slot placement.
+Each rank keeps only its rows of the placement-ordered state (``_shard``),
+uploads only its columns of each block and mask stack (the host pipeline
+builds the whole block on every rank, deterministic from the seed, and
+keeps the rank's part) and makes one all-reduce per cloud interval. The
+per-client metrics are gathered and reduced on the host at flush. At an
+eval the cloud model is scored from one packed all-reduce of the ranks'
+partial sums (``aggregation.psum_cloud_model``, counted apart from the
+cloud interval's one as ``eval_all_reduce``), at a checkpoint
+and at the end of ``run_intervals`` the rows of every rank are gathered
+back into the caller's canonical (N, ...) tensors on every rank
+(``_unshard``), and only rank 0 writes the checkpoint while the others
+wait at a barrier.
 """
 from __future__ import annotations
 
@@ -63,18 +81,24 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from repro_torch.checkpoint.reshard import to_mesh
 from repro_torch.core import aggregation
-from repro_torch.core.hierarchy import as_hierarchy
+from repro_torch.core.hierarchy import as_hierarchy, plan_cohort_placement, plan_shard_placement
 from repro_torch.core.hierfavg import (
     FedState,
+    _cohort_quotas,
     build_cohort_super_round,
     build_deadline_super_round,
     build_megakernel_super_round,
+    build_sharded_cohort_super_round,
+    build_sharded_super_round,
     build_super_round,
+    map_stacked_fed_state,
 )
 from repro_torch.data.pipeline import CohortPrefetcher, SuperBatchPrefetcher
-from repro_torch.fed.client_store import sticky_rows
-from repro_torch.tree import leaves
+from repro_torch.dist import sharding as dist_sharding
+from repro_torch.fed.client_store import _to_host, sticky_rows
+from repro_torch.tree import leaves, tree_map, unflatten
 
 
 def _write_back(into: FedState, new: FedState) -> FedState:
@@ -103,10 +127,106 @@ def _write_back(into: FedState, new: FedState) -> FedState:
     return tree_unflatten(out, spec)
 
 
+class _MeshLayout:
+    """One rank's view of a placement-ordered client axis: which canonical
+    rows (``gather``) and real positions (``valid``) it holds, and the
+    conversions between the caller's canonical state and the rank's rows,
+    all through ``dist.sharding``'s ``RowSharding`` helpers over ``gather``."""
+
+    def __init__(self, mesh, placement, num_rows: int):
+        self.mesh = mesh
+        self.placement = placement
+        self.num_rows = num_rows  # canonical rows: N, or the cohort's C
+        self.capacity = placement.capacity
+        rows = mesh.rows(placement.capacity)
+        self.gather = placement.gather_index()[rows]  # (capacity,) canonical rows, phantoms read 0
+        self.valid = placement.valid()  # (padded,) over every rank's positions
+        self.local_valid = self.valid[rows]
+        self.positions = torch.as_tensor(placement.positions(), dtype=torch.long)
+        self._block = dist_sharding.batch_block_sharding(mesh, index=self.gather)
+        self._masks = dist_sharding.mask_stack_sharding(mesh, index=self.gather)
+        self._rows = dist_sharding.RowSharding(mesh, 0, self.gather)
+        self.gather_seconds = 0.0  # host time of the state gathers (``canonical``)
+
+    def shard(self, state: FedState) -> FedState:
+        """Canonical (num_rows, ...) state -> this rank's rows on its device."""
+        return to_mesh(state, dist_sharding.fed_state_shardings(
+            self.mesh, self.mesh.axis, state, self.num_rows, index=self.gather))
+
+    def canonical(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of one stacked leaf, gathered, in canonical order."""
+        t0 = time.perf_counter()
+        full = dist_sharding.gather_rows(x, self.mesh)
+        out = full.index_select(0, self.positions.to(full.device))
+        self.gather_seconds += time.perf_counter() - t0
+        return out
+
+    def unshard(self, state: FedState, into: Optional[FedState] = None) -> FedState:
+        """This rank's rows -> the canonical state on every rank, gathered
+        leaf by leaf and copied into ``into``'s tensors where their shapes
+        match (the caller's state: the engine's write-back)."""
+        held: list = []
+        if into is not None:
+            map_stacked_fed_state(into, held.append, lambda x: x, self.num_rows)
+        local: list = []
+        map_stacked_fed_state(state, local.append, lambda x: x, self.capacity)
+        pairs = iter(held if len(held) == len(local) else [None] * len(local))
+
+        def stacked(x):
+            y = self.canonical(x)
+            h = next(pairs)
+            if isinstance(h, torch.Tensor) and h.shape == y.shape and h.dtype == y.dtype and h.device == y.device:
+                return h.copy_(y)
+            return y
+
+        return map_stacked_fed_state(state, stacked, lambda x: x, self.capacity)
+
+    def masks(self, stack: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+        """(kappa2, num_rows) host masks -> this rank's (kappa2, capacity)
+        columns on its device, phantoms 0."""
+        if stack is None:
+            return None
+        cols = self._masks.take(stack) * self.local_valid[None, :].astype(stack.dtype)
+        return torch.as_tensor(cols, dtype=torch.float32).to(self.mesh.device)
+
+    def block(self, x: np.ndarray) -> np.ndarray:
+        """A host (kappa2, kappa1, num_rows, ...) block -> this rank's columns."""
+        return self._block.take(x)
+
+    def weights(self, w: np.ndarray) -> np.ndarray:
+        """Canonical (num_rows,) host weights -> this rank's, phantoms 0."""
+        return self._rows.take(w) * self.local_valid.astype(w.dtype)
+
+    def cloud_model(self, params, weights: torch.Tensor, mask: Optional[torch.Tensor]):
+        """``aggregation.cloud_model`` of the canonical params from this
+        rank's rows: one packed all-reduce of the partial sums
+        (``psum_cloud_model``, counted as an eval collective), not a gather
+        of the stacked params. ``weights`` and ``mask`` are the
+        canonical (num_rows,) ones. No survivor anywhere scores canonical
+        row 0, as ``cloud_model`` does (its rows are gathered then)."""
+        w = self._rows(weights) * torch.as_tensor(self.local_valid, dtype=weights.dtype, device=self.mesh.device)
+        local_mask = None if mask is None else self._rows(mask)
+        means, alive = aggregation.psum_cloud_model(params, w, self.mesh, local_mask)
+        if not bool(alive):
+            return tree_map(lambda x: self.canonical(x)[0], params)
+        return means
+
+    def reduce_metrics(self, metrics: dict) -> Tuple[np.ndarray, np.ndarray, List[int]]:
+        """Per-client device metrics of one interval, gathered from every rank
+        in one collective and reduced over the real clients: (loss (kappa2,),
+        grad_norm (kappa2,), step)."""
+        both = torch.stack([metrics["loss"], metrics["gsq"]]).movedim(-1, 0).contiguous()  # (cap, 2, k2, k1)
+        vals = dist_sharding.gather_rows(both, self.mesh).cpu().numpy()[self.valid]  # (N_real, 2, k2, k1)
+        loss = vals[:, 0].mean(axis=(0, 2))
+        gnorm = np.sqrt(vals[:, 1].sum(axis=0)).mean(axis=1)
+        return loss, gnorm, metrics["step"].tolist()
+
+
 class SuperRoundEngine:
     """Drives a ``FederatedRunner`` one cloud interval per call. Built (and
     cached) by the runner; appends the same per-round history the per-round
-    path would."""
+    path would. With a runner mesh it runs this rank's rows of the
+    client-sharded superround (module docstring)."""
 
     def __init__(self, runner):
         self.runner = runner
@@ -115,14 +235,30 @@ class SuperRoundEngine:
         self.k2 = hier.kappa2_effective
         self.uses_megakernel = False
         self.megakernel_reason: Optional[str] = None
+        self.mesh = getattr(runner, "mesh", None)
+        self.placement = None
+        self._layout: Optional[_MeshLayout] = None
         build = build_super_round
         if runner.cfg.engine == "megakernel":
             self.megakernel_reason = runner._check_megakernel()
             if self.megakernel_reason is None:
                 build, self.uses_megakernel = build_megakernel_super_round, True
-        self._super = build(runner.loss_fn, runner.optimizer, runner.topology, hier, runner.weights)
+        if self.mesh is not None:
+            axis = dist_sharding.client_axis_of(self.mesh)
+            num_shards = int(self.mesh.shape[axis])
+            # the runner plans (and caches) the placement for eligibility;
+            # replan only for an engine built directly
+            self.placement = getattr(runner, "_placement", None)
+            if self.placement is None or self.placement.num_shards != num_shards:
+                self.placement = plan_shard_placement(as_hierarchy(runner.topology), num_shards)
+            self._super = build_sharded_super_round(
+                runner.loss_fn, runner.optimizer, runner.topology, hier, runner.weights,
+                mesh=self.mesh, axis=axis, placement=self.placement)
+            self._layout = _MeshLayout(self.mesh, self.placement, runner.topology.num_clients)
+        else:
+            self._super = build(runner.loss_fn, runner.optimizer, runner.topology, hier, runner.weights)
         # [(round_base, alive counts (k2,), device metrics {"loss",
-        # "grad_norm","step"} each (k2,))]
+        # "grad_norm","step"} each (k2,), or the mesh path's per-client ones)]
         self._pending: List[Tuple[int, List[int], dict]] = []
 
     def _masks_for_interval(self) -> Tuple[Optional[np.ndarray], List[int], Optional[np.ndarray]]:
@@ -143,7 +279,11 @@ class SuperRoundEngine:
         outstanding cloud interval, through the runner's shared helper."""
         r = self.runner
         for round_base, alive, metrics in self._pending:
-            vals = {k: v.tolist() for k, v in metrics.items()}
+            if self._layout is not None:
+                loss, gnorm, step = self._layout.reduce_metrics(metrics)
+                vals = {"loss": loss.tolist(), "grad_norm": gnorm.tolist(), "step": step}
+            else:
+                vals = {k: v.tolist() for k, v in metrics.items()}
             for j in range(self.k2):
                 r._record_round(
                     round_base + j, int(vals["step"][j]), float(vals["loss"][j]),
@@ -156,6 +296,8 @@ class SuperRoundEngine:
     def _dispatch_interval(self, state: FedState, block, mask_stack: Optional[np.ndarray], round_base: int):
         """Run one cloud interval: upload the (kappa2, N) mask stack and
         call the superround."""
+        if self._layout is not None:
+            return self._super(state, block, self._layout.masks(mask_stack))
         masks = None if mask_stack is None else torch.as_tensor(mask_stack).to(self.runner.device)
         return self._super(state, block, masks)
 
@@ -192,21 +334,26 @@ class SuperRoundEngine:
             and getattr(r._mask_for_round, "__func__", None) is FederatedRunner._mask_for_round
         )
         static_masks = (None, [r.topology.num_clients] * self.k2, None)
+        layout = self._layout
         prefetcher = SuperBatchPrefetcher(
             r.batcher,
             rounds_per_block=self.k2,
             steps_per_round=self.k1,
             device=r.device,
             num_blocks=num_intervals,
+            transform=None if layout is None else layout.block,
         )
         held = state  # the caller's: each interval's result goes back into its tensors
+        if layout is not None:
+            state = layout.shard(state)
         try:
             for q in range(num_intervals):
                 round_base = start_round + q * self.k2
                 block = prefetcher.get()
                 mask_stack, alive, last_mask = static_masks if no_failures else self._masks_for_interval()
                 state, metrics = self._dispatch_interval(state, block, mask_stack, round_base)
-                state = _write_back(held, state)
+                if layout is None:
+                    state = _write_back(held, state)
                 self._pending.append((round_base, alive, metrics))
                 end_round = round_base + self.k2
                 do_eval = r.eval_fn is not None and r.cfg.eval_every and end_round % r.cfg.eval_every == 0
@@ -217,16 +364,23 @@ class SuperRoundEngine:
                 acc = None
                 if do_eval:
                     mask_eval = r._mask_to_device(self._eval_mask(last_mask))
-                    acc = float(r.eval_fn(r.eval_model(state.params, mask_eval)))
+                    if layout is None:
+                        cloud = r.eval_model(state.params, mask_eval)
+                    else:
+                        cloud = layout.cloud_model(state.params, r.weights, mask_eval)
+                    acc = float(r.eval_fn(cloud))
                     r.history[-1].accuracy = acc
                 if do_ckpt:
-                    r.checkpointer.save(r.history[-1].step, state, self._checkpoint_meta(end_round, prefetcher.snapshot))
+                    saved = state if layout is None else layout.unshard(state, held)
+                    r._save_checkpoint(r.history[-1].step, saved, self._checkpoint_meta(end_round, prefetcher.snapshot))
                 if acc is not None and r.cfg.target_accuracy and acc >= r.cfg.target_accuracy:
                     stopped = True
                     break
             self._flush(wire_per_step)
         finally:
             prefetcher.stop()
+        if layout is not None:
+            state = layout.unshard(state, held)
         return state, stopped
 
 
@@ -257,6 +411,11 @@ class DeadlineEngine(SuperRoundEngine):
     """
 
     def __init__(self, runner):
+        if getattr(runner, "mesh", None) is not None:
+            raise ValueError(
+                "the deadline engine is single-device (the gated cloud sync "
+                "selects per-edge over the whole client axis); drop the mesh"
+            )
         if runner.cfg.engine == "megakernel":
             raise ValueError("the deadline engine and the megakernel lowering do not compose")
         super().__init__(runner)
@@ -331,9 +490,8 @@ class DeadlineEngine(SuperRoundEngine):
 
 
 class CohortEngine:
-    """The superround engine for sampled participation, single device
-    (``repro/fed/engine.py:481-795`` without its mesh branch, which comes
-    with ROADMAP.md Queue 1 item 12).
+    """The superround engine for sampled participation
+    (``repro/fed/engine.py:481-795``).
 
     Per cloud interval: take the prefetched ``(ids, cohort, block)`` (see
     ``CohortPrefetcher``), copy the cohort's sticky rows (stacked optimizer
@@ -355,6 +513,14 @@ class CohortEngine:
     Checkpoints hold ``{"fed": state, "store": store.state()}`` with the
     prefetcher's batcher and sampler snapshots in the metadata, so a resumed
     run replays the same cohorts and batches.
+
+    With a runner mesh the stratified cohort's slot placement is planned
+    once (the runner's ``_plan_cohort_placement``) and every interval runs
+    ``build_sharded_cohort_super_round`` on this rank's slots. The rank's
+    store touches only the rows of the clients of its own edges
+    (``gather_placed`` / ``scatter_placed`` over its positions); at a
+    checkpoint rank 0 collects the other ranks' touched rows, so the file
+    holds JAX's logical (N, ...) store.
     """
 
     def __init__(self, runner):
@@ -365,8 +531,32 @@ class CohortEngine:
         self.cohort_size = int(hier.participation.cohort_size)
         self.spec = as_hierarchy(runner.topology)
         self._weights_np = runner.weights.cpu().numpy()
-        self._super = build_cohort_super_round(
-            runner.loss_fn, runner.optimizer, runner.topology, hier, cohort_size=self.cohort_size)
+        self.mesh = getattr(runner, "mesh", None)
+        self.placement = None
+        self._layout: Optional[_MeshLayout] = None
+        if self.mesh is not None:
+            axis = dist_sharding.client_axis_of(self.mesh)
+            num_shards = int(self.mesh.shape[axis])
+            self.placement = getattr(runner, "_cohort_placement", None)
+            if self.placement is None or self.placement.num_shards != num_shards:
+                self.placement = plan_cohort_placement(
+                    self.spec, _cohort_quotas(self.spec, self.cohort_size), num_shards)
+            self._super = build_sharded_cohort_super_round(
+                runner.loss_fn, runner.optimizer, runner.topology, hier, cohort_size=self.cohort_size,
+                mesh=self.mesh, axis=axis, placement=self.placement)
+            self._layout = _MeshLayout(self.mesh, self.placement, self.cohort_size)
+            # the clients whose store rows live on this rank: those of the
+            # edges its slots report to (stratified quotas fix slots to
+            # edges). A depth-1 tree's slots take any client, so there each
+            # rank keeps the whole store, written from every rank's rows.
+            slots = [p for p in self.placement.perm[self.mesh.rows(self.placement.capacity)] if p >= 0]
+            self._global_store = self.spec.depth == 1 and self.mesh.size > 1
+            if self.spec.depth >= 2:
+                edges = np.unique(self.placement.spec.segments(1)[slots])
+                self._own_clients = np.isin(self.spec.segments(1), edges)
+        else:
+            self._super = build_cohort_super_round(
+                runner.loss_fn, runner.optimizer, runner.topology, hier, cohort_size=self.cohort_size)
         self._pending: List[Tuple[int, List[int], dict]] = []
         self._staging: Optional[List[torch.Tensor]] = None
         self.swap_seconds = 0.0
@@ -403,6 +593,11 @@ class CohortEngine:
             ]
         return self._staging
 
+    @property
+    def _state_rows(self) -> int:
+        """The live state's stacked rows: C, or this rank's slot capacity."""
+        return self.cohort_size if self._layout is None else self._layout.capacity
+
     def _load_cohort(self, state: FedState, ids: np.ndarray) -> None:
         """Copy the sampled clients' sticky rows from the store into the
         state's leaves (in place: no leaf is rebound)."""
@@ -410,9 +605,11 @@ class CohortEngine:
         if store.is_empty:
             return
         t0 = time.perf_counter()
-        rows = list(leaves(sticky_rows(state, self.cohort_size)))
+        rows = list(leaves(sticky_rows(state, self._state_rows)))
         bufs = self._buffers(rows)
-        store.gather_into(ids, [b.numpy() for b in bufs])
+        # a rank reads its slots' clients (phantoms read slot 0's): the
+        # gather_placed rows of its positions, into the staging buffers
+        store.gather_into(ids if self._layout is None else ids[self._layout.gather], [b.numpy() for b in bufs])
         for x, b in zip(rows, bufs):
             x.copy_(b.view(x.dtype), non_blocking=True)
         self.swap_seconds += time.perf_counter() - t0
@@ -424,7 +621,7 @@ class CohortEngine:
         store = self.runner.client_store
         if store.is_empty:
             return
-        rows = list(leaves(sticky_rows(state, self.cohort_size)))
+        rows = list(leaves(sticky_rows(state, self._state_rows)))
         cuda = rows[0].device.type == "cuda"
         if cuda:
             torch.cuda.current_stream(rows[0].device).synchronize()
@@ -434,13 +631,42 @@ class CohortEngine:
             b.copy_(x.view(b.dtype), non_blocking=cuda)
         if cuda:
             torch.cuda.current_stream(rows[0].device).synchronize()
-        store.scatter(ids, [b.numpy() for b in bufs])
+        if self._layout is None:
+            store.scatter(ids, [b.numpy() for b in bufs])
+        elif self._global_store:
+            full = [dist_sharding.gather_rows(x, self.mesh) for x in rows]
+            store.scatter_placed(ids, self.placement, [_to_host(x) for x in full])
+        else:
+            store.scatter_placed(ids, self.placement, [b.numpy() for b in bufs],
+                                 positions=self.mesh.rows(self._layout.capacity))
         self.swap_seconds += time.perf_counter() - t0
+
+    def _merged_store(self):
+        """The logical store for a checkpoint: rank 0's, with the touched
+        rows of every other rank's own clients scattered in (they never meet
+        rank 0's slots, so rank 0's own rows stay its own); on the other
+        ranks their own store."""
+        store = self.runner.client_store
+        if self.mesh is None or self.mesh.size == 1 or store.is_empty or self._global_store:
+            return store.state()
+        for src in range(1, self.mesh.size):
+            mine = None
+            if self.mesh.rank == src:
+                touched = np.flatnonzero(store._touched & self._own_clients)
+                mine = (touched, [a[touched] for a in store._arrays])
+            touched, rows = dist_sharding.broadcast_object(mine, src, self.mesh)
+            if self.mesh.rank == 0:
+                store.scatter(touched, unflatten(store._template, rows))
+        return store.state()
 
     def _flush(self, wire_per_step: float) -> None:
         r = self.runner
         for round_base, alive, metrics in self._pending:
-            vals = {k: v.tolist() for k, v in metrics.items()}
+            if self._layout is not None:
+                loss, gnorm, step = self._layout.reduce_metrics(metrics)
+                vals = {"loss": loss.tolist(), "grad_norm": gnorm.tolist(), "step": step}
+            else:
+                vals = {k: v.tolist() for k, v in metrics.items()}
             for j in range(self.k2):
                 r._record_round(
                     round_base + j, int(vals["step"][j]), float(vals["loss"][j]),
@@ -468,6 +694,7 @@ class CohortEngine:
             and getattr(r._mask_for_round, "__func__", None) is FederatedRunner._mask_for_round
         )
         static_masks = (None, [self.cohort_size] * self.k2, None)
+        layout = self._layout
         prefetcher = CohortPrefetcher(
             r.batcher,
             r._cohort_sampler(),
@@ -477,14 +704,21 @@ class CohortEngine:
             steps_per_round=self.k1,
             device=r.device,
             num_blocks=num_intervals,
+            layout=layout,
         )
+        held = state
+        if layout is not None:
+            state = layout.shard(state)
         try:
             for q in range(num_intervals):
                 round_base = start_round + q * self.k2
                 ids, cohort, block = prefetcher.get()
                 mask_stack, alive, last_mask = static_masks if no_failures else self._masks_for_interval(ids)
                 self._load_cohort(state, ids)
-                state, metrics = self._super(state, block, cohort, r._mask_to_device(mask_stack))
+                if layout is None:
+                    state, metrics = self._super(state, block, cohort, r._mask_to_device(mask_stack))
+                else:
+                    state, metrics = self._super(state, block, cohort["weights"], layout.masks(mask_stack))
                 self._writeback(state, ids)
                 self._pending.append((round_base, alive, metrics))
                 end_round = round_base + self.k2
@@ -497,17 +731,24 @@ class CohortEngine:
                 if do_eval:
                     # the cohort-weighted cloud model: at C = N the runner's
                     # full-population eval, bit for bit
-                    cloud = aggregation.cloud_model(state.params, cohort["weights"], r._mask_to_device(last_mask))
+                    if layout is None:
+                        cloud = aggregation.cloud_model(state.params, cohort["weights"], r._mask_to_device(last_mask))
+                    else:
+                        cloud = layout.cloud_model(state.params, torch.as_tensor(self._weights_np[ids], device=r.device),
+                                                   r._mask_to_device(last_mask))
                     acc = float(r.eval_fn(cloud))
                     r.history[-1].accuracy = acc
                 if do_ckpt:
                     meta = {**r._checkpoint_meta(end_round, prefetcher.snapshot["batcher"]),
                             "sampler": prefetcher.snapshot["sampler"]}
-                    r.checkpointer.save(r.history[-1].step, {"fed": state, "store": r.client_store.state()}, meta)
+                    fed = state if layout is None else layout.unshard(state, held)
+                    r._save_checkpoint(r.history[-1].step, {"fed": fed, "store": self._merged_store()}, meta)
                 if acc is not None and r.cfg.target_accuracy and acc >= r.cfg.target_accuracy:
                     stopped = True
                     break
             self._flush(wire_per_step)
         finally:
             prefetcher.stop()
+        if layout is not None:
+            state = layout.unshard(state, held)
         return state, stopped

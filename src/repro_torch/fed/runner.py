@@ -38,13 +38,25 @@ fallback: a schedule or cadence it cannot run raises with the reason
 (``_deadline_reason``), in the JAX package's words. Its records carry the
 event clock in ``wall_clock_s``, and its checkpoints the scheduler's state.
 
+With a client mesh (``mesh=`` or ``RunnerConfig.mesh``, a
+``dist.sharding.ClientMesh``; ``topology.mesh_axes`` in the spec) the run
+is one process per rank. Whole cloud intervals go through the
+client-sharded engine when ``core.hierfavg.sharding_incompatibility``
+clears the schedule and the cadences land on cloud boundaries; whatever
+runs the per-round loop instead (a schedule that cannot be sharded, an
+unaligned start or cadence, ``engine="per_round"``, the rounds after the
+last whole interval) runs it replicated on every rank (the whole state on
+each), and ``_mesh_reason`` names why.
+Only rank 0 writes a checkpoint, in the single-device file layout, while
+the others wait at a barrier; a resume reads the file on every rank.
+
 The runner consumes the ``FedState`` it is given: stacked parameters are
 updated in place (see ``optim.apply_updates``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -58,15 +70,20 @@ from repro_torch.core.hierfavg import (
     Params,
     Topology,
     build_hier_round,
+    _cohort_quotas,
     cohort_incompatibility,
     deadline_incompatibility,
     init_cohort_state,
     init_state,
     megakernel_incompatibility,
+    sharded_cohort_incompatibility,
+    sharding_incompatibility,
 )
+from repro_torch.core.hierarchy import plan_cohort_placement, plan_shard_placement
 from repro_torch.data.pipeline import to_device
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist import collectives
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.fed.client_store import ClientStateStore, sticky_rows
 from repro_torch.fed.failures import FailureSimulator, StragglerModel, compose_masks
 from repro_torch.tree import leaves, tree_map
@@ -89,6 +106,9 @@ class RunnerConfig:
     # a named reason when the schedule is not block-separable); "per_round"
     # forces the one-edge-interval-at-a-time loop.
     engine: str = "auto"
+    # client mesh for client-sharded execution (dist.sharding.ClientMesh,
+    # see dist.sharding.client_mesh); the FederatedRunner's mesh= wins
+    mesh: Any = None
 
     def __post_init__(self):
         if self.engine not in ("auto", "superround", "megakernel", "per_round"):
@@ -131,7 +151,11 @@ class FederatedRunner:
         deadline=None,  # fed.deadline.SemiSyncScheduler (semi-synchronous cloud)
         checkpointer=None,  # checkpoint.CheckpointManager
         device: DeviceLike = None,
+        mesh=None,  # dist.sharding.ClientMesh (one process per rank)
     ):
+        self.mesh = mesh if mesh is not None else runner_config.mesh
+        if self.mesh is not None and device is None:
+            device = self.mesh.device
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -156,6 +180,14 @@ class FederatedRunner:
         self.checkpointer = checkpointer
         self._engine = None  # lazily built (and cached) SuperRoundEngine / DeadlineEngine / CohortEngine
         self._megakernel_reason: Optional[str] = None
+        self._mesh_reason: Optional[str] = None
+        # the edge-aligned placement (and the cohort's slot placement) is a
+        # pure function of (topology, mesh[, cohort size]): planned once and
+        # shared between the eligibility checks and the engine
+        self._placement = None
+        self._placement_error: Optional[str] = None
+        self._cohort_placement = None
+        self._cohort_placement_error: Optional[str] = None
         # sampled participation: the active ParticipationSpec (or None), the
         # host store (built from the first state seen, which fixes the
         # sticky-row template) and the run's one cohort sampler
@@ -316,10 +348,12 @@ class FederatedRunner:
         """None if whole cloud intervals can run through the client-blocked
         lowering, else why the engine falls back to the superround; cached
         on ``_megakernel_reason`` so the fallback is named, not silent.
-        Runner-level seams first (failure masks, an overridden failure
-        detector; a mesh and microbatching come with ROADMAP.md items 12
-        and 4), then the schedule-level predicate, in JAX's words."""
-        if self.failures is not None or self.stragglers is not None:
+        Runner-level seams first (a mesh, failure masks, an overridden
+        failure detector), then the schedule-level predicate, in JAX's
+        words."""
+        if self.mesh is not None:
+            reason = "a device mesh routes to the client-sharded superround"
+        elif self.failures is not None or self.stragglers is not None:
             reason = "failure/straggler masks need the scan-fused survival plumbing"
         elif getattr(self._mask_for_round, "__func__", None) is not FederatedRunner._mask_for_round:
             reason = "an overridden failure detector is a live per-round mask seam"
@@ -330,11 +364,65 @@ class FederatedRunner:
 
     def _superround_eligible(self, start_round: int) -> bool:
         """The engine returns to the host at cloud boundaries only, so the
-        start and the eval and checkpoint cadences must land on them."""
+        start and the eval and checkpoint cadences must land on them. With a
+        mesh, whole cloud intervals run client-sharded unless the cadence or
+        the schedule stands in the way; then the per-round loop runs
+        replicated on every rank and ``_mesh_reason`` says why."""
+        self._mesh_reason = None  # never report a stale reason
         k2 = self.hier_config.kappa2_effective
+        reason = None
         if start_round % k2:
-            return False
-        return not any(every and every % k2 for every in (self.cfg.eval_every, self.cfg.checkpoint_every))
+            reason = f"start_round {start_round} is not a cloud boundary (kappa2_eff={k2})"
+        for name, every in (("eval_every", self.cfg.eval_every), ("checkpoint_every", self.cfg.checkpoint_every)):
+            if reason is None and every and every % k2:
+                reason = f"{name}={every} is finer than a cloud interval (kappa2_eff={k2})"
+        if reason is None and self.mesh is not None:
+            reason = self._plan_mesh_placement()
+        if self.mesh is not None:
+            self._mesh_reason = reason
+        return reason is None
+
+    def _num_shards(self) -> int:
+        return int(self.mesh.shape[dist_sharding.client_axis_of(self.mesh)])
+
+    def _plan_mesh_placement(self) -> Optional[str]:
+        """Plan (once) and validate the edge-aligned placement for the mesh;
+        returns the incompatibility reason, or None with ``_placement`` set
+        for the engine (``repro/fed/runner.py:380-400``)."""
+        num_shards = self._num_shards()
+        if self._placement is None and self._placement_error is None:
+            try:
+                self._placement = plan_shard_placement(as_hierarchy(self.topology), num_shards)
+            except ValueError as e:
+                self._placement_error = str(e)
+        if self._placement_error is not None:
+            return self._placement_error
+        return sharding_incompatibility(self.hier_config, self.topology, num_shards, placement=self._placement)
+
+    def _plan_cohort_placement(self) -> Optional[str]:
+        """Plan (once) and validate the cohort's slot placement for the mesh
+        (``repro/fed/runner.py:430-458``): placement-stable packing, one plan
+        for every interval."""
+        num_shards = self._num_shards()
+        cohort_size = self.participation.cohort_size
+        if self._cohort_placement is None and self._cohort_placement_error is None:
+            spec = as_hierarchy(self.topology)
+            try:
+                self._cohort_placement = plan_cohort_placement(spec, _cohort_quotas(spec, cohort_size), num_shards)
+            except ValueError as e:
+                self._cohort_placement_error = str(e)
+        if self._cohort_placement_error is not None:
+            return self._cohort_placement_error
+        return sharded_cohort_incompatibility(self.hier_config, self.topology, cohort_size, num_shards,
+                                              placement=self._cohort_placement)
+
+    def _save_checkpoint(self, step: int, state, meta: dict) -> None:
+        """Save on one process: rank 0 of a mesh writes (the state is the
+        canonical one on every rank) and the others wait for it."""
+        if self.mesh is None or self.mesh.rank == 0:
+            self.checkpointer.save(step, state, meta)
+        if self.mesh is not None:
+            dist_sharding.barrier(self.mesh)
 
     def _flush_rounds(self, pending: list, wire_per_step: float) -> None:
         """Per-round metrics to records, one host fetch per round."""
@@ -360,19 +448,23 @@ class FederatedRunner:
 
     def _cohort_reason(self, start_round: int) -> Optional[str]:
         """None if the run can go cohort-sampled end to end, else why not,
-        in the JAX runner's words (its mesh reasons come with ROADMAP.md
-        Queue 1 item 12). Every constraint is an error, not a fallback."""
+        in the JAX runner's words. Every constraint is an error, not a
+        fallback; a mesh composes through the sharded cohort lowering when
+        ``sharded_cohort_incompatibility`` clears it."""
         reason = cohort_incompatibility(self.hier_config, self.topology, self.participation.cohort_size)
         if reason is not None:
             return reason
         if self.cfg.engine == "per_round":
             return "engine='per_round' has no cohort lowering"
+        if self.mesh is not None:
+            reason = self._plan_cohort_placement()
+            if reason is not None:
+                return reason
         return self._cadence_reason(start_round)
 
     def _deadline_reason(self, start_round: int) -> Optional[str]:
         """None if the run can go through the deadline engine, else why
-        not, in the JAX runner's words (its mesh reasons come with ROADMAP.md
-        Queue 1 item 12). A scheduler was configured, so running synchronous
+        not, in the JAX runner's words. A scheduler was configured, so running synchronous
         instead would change the experiment: every constraint is an error."""
         if self.participation is not None:
             return "sampled participation runs through the cohort engine"
@@ -383,6 +475,11 @@ class FederatedRunner:
             return "engine='per_round' has no deadline lowering"
         if self.cfg.engine == "megakernel":
             return "the deadline engine and the megakernel lowering do not compose"
+        if self.mesh is not None:
+            return (
+                "the deadline engine is single-device (the gated cloud sync "
+                "selects per-edge over the whole client axis); drop the mesh"
+            )
         return self._cadence_reason(start_round)
 
     def _run_whole_intervals(self, state: FedState, start_round: int, engine_cls, reason: Optional[str],
@@ -410,13 +507,16 @@ class FederatedRunner:
             return self._run_whole_intervals(state, start_round, DeadlineEngine, self._deadline_reason(start_round),
                                              "the deadline engine")
         k2 = self.hier_config.kappa2_effective
+        if mode == "per_round" and self.mesh is not None:
+            self._mesh_reason = "engine='per_round' runs the per-round loop"
         if mode != "per_round":
             full = (self.cfg.num_rounds - start_round) // k2 if self._superround_eligible(start_round) else 0
             if mode in ("superround", "megakernel") and full <= 0:
+                mesh_note = f" (mesh: {self._mesh_reason})" if self._mesh_reason else ""
                 raise ValueError(
                     f"engine={mode!r} needs a cloud-aligned start_round, eval_every/"
-                    f"checkpoint_every multiples of kappa2_effective={k2}, and at least "
-                    "one whole cloud interval of rounds"
+                    f"checkpoint_every multiples of kappa2_effective={k2}, a mesh-shardable "
+                    f"schedule, and at least one whole cloud interval of rounds{mesh_note}"
                 )
             if full > 0:
                 if self._engine is None:
@@ -425,6 +525,9 @@ class FederatedRunner:
                 if stopped:
                     return state
                 start_round += full * k2
+                if self.mesh is not None and start_round < self.cfg.num_rounds:
+                    self._mesh_reason = (f"the {self.cfg.num_rounds - start_round} round(s) after the last whole "
+                                         f"cloud interval run the per-round loop")
         # per-round path: the remainder (partial trailing interval), or
         # everything when the eval cadence is finer than a cloud interval.
         # Metrics stay on the device until an eval or checkpoint point or the
@@ -450,7 +553,7 @@ class FederatedRunner:
                 acc = float(self.eval_fn(self.eval_model(state.params, mask_dev)))
                 self.history[-1].accuracy = acc
             if do_ckpt:
-                self.checkpointer.save(int(state.step), state, self._checkpoint_meta(r + 1, self.batcher.state_dict()))
+                self._save_checkpoint(int(state.step), state, self._checkpoint_meta(r + 1, self.batcher.state_dict()))
             if acc is not None and self.cfg.target_accuracy and acc >= self.cfg.target_accuracy:
                 break
         self._flush_rounds(pending, wire_per_step)

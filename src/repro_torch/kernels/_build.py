@@ -8,12 +8,16 @@ source rebuilds and an unchanged one is reused. They land in
 a source checkout (``src/repro_torch``), in the checkout's
 ``build/repro_torch_kernels/``; else (an installed package) in
 ``repro_torch_kernels/`` of the user's cache directory. ``build_all()`` starts one ``nvcc`` per source,
-all at once; ``load(name)`` builds on first use. Nothing here runs at
-import time.
+all at once; ``load(name)`` builds on first use. A file lock in the build
+directory serialises builds across processes, so ranks that share one
+directory (``dist.launch.spawn``, ``torchrun``) run ``nvcc`` on a source
+once and load what the first built. Nothing here runs at import time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -106,6 +110,24 @@ def build_all(names=SOURCES) -> Dict[str, Path]:
     paths = {name: library_path(name) for name in names}
     for path in paths.values():
         path.parent.mkdir(parents=True, exist_ok=True)
+    if all(path.exists() for path in paths.values()):
+        return paths
+    with _file_lock(build_dir() / ".build.lock"):
+        return _build_missing(paths)
+
+
+@contextlib.contextmanager
+def _file_lock(path: Path):
+    """An exclusive ``flock`` on ``path`` for the block (across processes)."""
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build_missing(paths: Dict[str, Path]) -> Dict[str, Path]:
     jobs: List = []
     for name, path in paths.items():
         if path.exists():

@@ -222,7 +222,11 @@ def backbone(params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, 
 
 def _embed(params, cfg: ArchConfig, inputs: torch.Tensor) -> torch.Tensor:
     if cfg.embed_inputs:
-        return params["embed"][inputs]
+        # not ``params["embed"][inputs]``: its gradient is an accumulating
+        # ``index_put_``, whose adds of a repeated token's rows follow the
+        # threads' timing on the CPU and atomics on the card. The
+        # embedding's own backward adds them in token order.
+        return torch.nn.functional.embedding(inputs, params["embed"])
     return inputs.to(cfg.dtype())
 
 

@@ -123,12 +123,25 @@ def test_nbytes_scales_with_population_and_pages_stay_lazy():
     assert big.nbytes > 90 * small.nbytes
 
 
-def test_placement_swaps_name_item_12():
-    store = tcs.ClientStateStore(N, _template())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 12 "):
-        store.gather_placed(np.arange(C), None)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 12 "):
-        store.scatter_placed(np.arange(C), None, {})
+def test_placement_swaps_name_item_12(rng):
+    """The sharded cohort's swaps (ROADMAP item 12, ported): JAX's rows in
+    slot placement order, a phantom slot dropped on the way back."""
+    from repro.core.hierarchy import parse_fanouts as jparse, plan_cohort_placement as jplan
+    from repro_torch.core.hierarchy import parse_fanouts as tparse, plan_cohort_placement as tplan
+
+    quotas = (3, 1, 1)  # 5 slots over edges of 8, 6 and 6 clients, 2 ranks: 1 phantom
+    jp, tp = jplan(jparse("8,6,6"), quotas, 2), tplan(tparse("8,6,6"), quotas, 2)
+    assert tp.perm == jp.perm and tp.num_phantoms == 1
+    ids = np.array([1, 2, 5, 9, 15])
+    rows = _rows(rng, tp.padded_clients)
+    js, ts = jcs.ClientStateStore(N, _template()), tcs.ClientStateStore(N, _template())
+    js.scatter_placed(ids, jp, rows)
+    ts.scatter_placed(ids, tp, rows)
+    for a, b in zip(js.state()["leaves"], ts.state()["leaves"]):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    np.testing.assert_array_equal(np.asarray(js.state()["touched"]), ts.state()["touched"])
+    for k in ("mu", "nu"):
+        np.testing.assert_array_equal(ts.gather_placed(ids, tp)[k], np.asarray(js.gather_placed(ids, jp)[k]))
 
 
 # -- sticky rows of real cohort states ----------------------------------------------

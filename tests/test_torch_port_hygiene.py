@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX
 package, its entry points default to CUDA and refuse to fall back to the
 CPU, and configurations that need an unported feature say which ROADMAP
-item brings it (item 12 alone is left); features of items once unported
-build."""
+item brings it (item 12's second half alone is left: the hint mesh and
+MoE's expert parallelism); features of items once unported build."""
 import pathlib
 import re
 import subprocess
@@ -95,18 +95,45 @@ def test_resolve_device_turns_tf32_off():
 
 
 @pytest.mark.parametrize(
-    "overrides,item",
+    "call,item",
     [
-        (["participation.cohort_size=8", "topology.mesh_axes=clients"], 12),
-        (["topology.mesh_axes=clients"], 12),
+        (lambda s: s.set_hint_mesh(object()), 12),
+        (lambda s: s.moe_dispatch_exchange(None, "ep_data"), 12),
     ],
 )
-def test_unported_features_name_their_roadmap_item(overrides, item):
+def test_unported_features_name_their_roadmap_item(call, item):
+    from repro_torch.dist import sharding
+
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md Queue 1 item {item} "):
+        call(sharding)
+    assert sharding.moe_ep_mode(256) == "none"  # the single-device MoE dispatch, as JAX off-mesh
+
+
+@pytest.mark.parametrize("overrides", [["participation.cohort_size=8", "topology.mesh_axes=clients"],
+                                       ["topology.mesh_axes=clients"]])
+def test_the_item_12_mesh_refusals_are_gone(overrides):
+    """A mesh now needs a process group (``dist.launch.spawn``) and names how
+    to start one; the sharded cohort swap runs."""
+    import numpy as np
+
+    from repro_torch.core.hierarchy import parse_fanouts, plan_shard_placement
     from repro_torch.fed import scenarios
+    from repro_torch.fed.client_store import ClientStateStore
 
     spec = scenarios.get("quickstart", overrides=overrides)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md Queue 1 item {item} "):
+    with pytest.raises(RuntimeError, match="torch.distributed process group.*spawn"):
         spec.build(device="cpu")
+    store = ClientStateStore(4, {"m": np.zeros(2, np.float32)})
+    placement = plan_shard_placement(parse_fanouts("2,2"), 2)
+    store.scatter_placed(np.arange(4), placement, {"m": np.ones((4, 2), np.float32)})
+    assert store.gather_placed(np.arange(4), placement)["m"].sum() == 8 and store.num_touched == 4
+
+
+@pytest.mark.parametrize("name", ["dist/sharding.py", "dist/launch.py", "fed/topology.py", "checkpoint/reshard.py"])
+def test_the_multi_device_modules_stand_alone(name):
+    path = PORT / name
+    assert path in _port_files()
+    assert not _FORBIDDEN.findall(path.read_text())
 
 
 @pytest.mark.parametrize(
