@@ -70,7 +70,8 @@ Phases, one JSON line each; any failure exits non-zero:
   mlp307k_megakernel
               ``mlp307k`` with ``run.engine=megakernel``: the client-blocked
               path must run (no fallback), K1 launches counted, losses
-              against this call's mlp307k run and the same run on the CPU
+              against this call's mlp307k run and the first cloud interval
+              against the same on the CPU
   mlp307k_megakernel_bf16
               the same with bf16 client state: bf16 leaves, losses and
               accuracy against the f32 megakernel run, lower peak memory
@@ -178,8 +179,9 @@ Phases, one JSON line each; any failure exits non-zero:
               768, GQA 12 on 4, d_ff 2048; the scenario's vocabulary of 512)
               for 8 rounds on cuda: first-call wall, peak memory, every
               round's loss (finite, falling), K1 as counted and K7 = K8 = 0;
-              one round on the CPU from the same init against the first
-              round; then one warm cloud interval timed and profiled
+              one round of one local step on the card and on the CPU from
+              the same init, against each other; then one warm cloud
+              interval timed and profiled
   train_lm100m_robust
               one cloud interval of those settings with a coordinate-median
               edge sync and client failures, with remat off and on: device
@@ -187,6 +189,13 @@ Phases, one JSON line each; any failure exits non-zero:
               = 0, remat's final params against the plain run's; the median
               and trimmed mean timed over the whole tree and on its largest
               leaf
+  train_lm100m_accum2
+              the same scenario through ``FederatedRunner(grad_accum=2)``:
+              each client's 8 sequences as 2 microbatches of 4, K1 as
+              ``train_lm100m``; under SGD the params within 1e-5 and the
+              grad norms within 1e-4 of grad_accum 1 (the loss metric, the
+              last microbatch's, reported); under Adam the gaps reported;
+              peak memory and the warm wall an interval
   sharded_mlp307k_w1_nccl
               mlp307k through ``topology.mesh_axes=clients:1`` over a world
               of 1 under NCCL (in this process): the client-sharded engine,
@@ -208,6 +217,13 @@ Phases, one JSON line each; any failure exits non-zero:
               once more warm and once profiled with each cloud all-reduce
               timed (ms, bytes). The kernels phase holds K1/K2 at each
               rank's shapes against their plain versions
+  train_cell_lm100m_w2
+              ``launch.steps.build_train_cell`` at lm-100m (16 clients on 4
+              edges, a 128 x 64 cut of train_4k: microbatch 4, accum 2) on
+              a ("data",) mesh of 2 gloo ranks, one cloud interval (32
+              calls), against the single-device cell over the same batches
+              at JAX's mesh tolerances; K1 48 a rank (60 on one device), one
+              all-reduce; the wall a call and each rank's peak
   serve_lm100m
               ``repro_torch.launch.serve.serve`` on lm-100m at full width, f32,
               4 prompts of 1024 tokens, 32 generated: 12 K7 launches per
@@ -218,7 +234,7 @@ Phases, one JSON line each; any failure exits non-zero:
               ``lm_edge_niid`` on xlstm-350m at its published widths and
               depth (24 layers, 3:1 mLSTM:sLSTM, bf16; the scenario's
               vocabulary of 512) on 4 clients over 2 edges (8 do not fit
-              in 80 GB) for 8 rounds: K1 once per leaf per level mean (492),
+              in 80 GB) for 2 rounds: K1 once per leaf per level mean (123),
               K7 = K8 = 0, losses finite and falling, params finite, f32
               exactly on the gate, recurrence and bias leaves, the peak;
               one warm cloud interval timed, one local step profiled, K1
@@ -239,7 +255,7 @@ Phases, one JSON line each; any failure exits non-zero:
               torch.profiler
   serve_xlstm350m
               xlstm-350m uncut (480,633,856 parameters, bf16), 2 prompts of
-              2048 tokens, 32 generated: no kernel launch (mLSTM and sLSTM
+              1024 tokens, 32 generated: no kernel launch (mLSTM and sLSTM
               are plain PyTorch, as in JAX); decode against the chunkwise
               forward over P + 1 tokens; card against the CPU in f32 on an
               8-token prompt (the sLSTM is chaotic at this width) and, on a
@@ -258,6 +274,15 @@ Phases, one JSON line each; any failure exits non-zero:
               routes (bmm's f32 output, blocks upcast) timed; K7 at this
               shape against its plain version, timed beside its bound and
               SDPA
+  serve_deepseekv3_l1_ep2
+              the same layer through ``build_prefill_cell`` /
+              ``build_decode_cell`` on 2 gloo ranks with a "data" axis of 2
+              (expert-parallel: 128 experts and one request of 4096 tokens a
+              rank): one dispatch and one combine all-to-all per MoE call,
+              K7 once per prefill a rank; prefill and 15 decode steps
+              against one device with G = 2 token groups (within 2^-7 of the
+              largest logit, the first difference printed); the exchange's
+              ms and bytes, tokens/s and each rank's peak
 
 The quickstart, mlp307k, mlp307k_int8_ef, mlp307k_megakernel,
 n1m_cohort4096, mlp307k_cohort, mlp307k_deadline and train_lm100m phases
@@ -267,7 +292,8 @@ once under
 ``torch.profiler``, and report where the device time of a cloud interval
 goes (by kernel class and top kernels) and the device's idle share.
 
-Then a kernel summary line, the card's name and power limit as nvidia-smi
+Then the script's whole wall (``wall``), a kernel summary line, the
+card's name and power limit as nvidia-smi
 reports them, and last ``{"ok": true, "device": {...}}``. Imports nothing
 of JAX. Exits non-zero without a GPU.
 """
@@ -298,6 +324,10 @@ MEGAKERNEL = ["run.engine=megakernel"]
 LM_TRAIN = ["run.num_rounds=8"]  # 32 local steps: the 20-step warmup, then the cosine
 LM_INT8_EF = LM_TRAIN + ["transport.levels=int8_ef:128/int8_ef:128"]
 LM100M = ["model.arch=lm-100m"]
+# lm-100m's card-vs-CPU check: one round of one local step and its edge
+# sync (4 local steps before: the CPU's lm-100m steps were the script's
+# largest cost)
+LM100M_CPU_ROUND = ["run.num_rounds=1", "schedule.kappas=1,2"]
 # federated LM training, card against the CPU from the same init: per-round
 # loss and grad_norm within LM_RTOL (the CPU tests hold the port to JAX at
 # the same tolerance: tests/test_torch_lm_train.py)
@@ -395,15 +425,19 @@ XLSTM_CHECK_PROMPT = 8
 # clients take more than the card's 80 GB with and without remat
 # (``--xlstm-train-memory`` measures each)
 XLSTM_TRAIN = XLSTM + ["topology.clients_per_edge=2"]
-XLSTM_TRAIN_CUTS = ["4 clients on 2 edges, not 8: 8 run out of memory on 80 GB with and without remat"]
+XLSTM_TRAIN_CUTS = ["4 clients on 2 edges, not 8: 8 run out of memory on 80 GB with and without remat",
+                    "2 rounds (1 cloud interval, 8 local steps), not 8: the script's wall"]
+XLSTM_TRAIN_ROUNDS = ["run.num_rounds=2"]
 # card against the CPU: one cloud interval (2 rounds: an edge sync, then the
 # cloud sync) at one period of the 3:1 pattern (4 layers) in f32 on 4
 # clients over 2 edges, 8-token sequences; SGD held to the params' atol, the
 # scenario's Adam reported beside it
 XLSTM_CUT = dict(num_layers=4, param_dtype="float32", compute_dtype="float32")
-XLSTM_CUT_RUN = ["run.num_rounds=2", "topology.clients_per_edge=2", f"data.seq_len={XLSTM_CHECK_PROMPT + 1}"]
+XLSTM_CUT_RUN = ["run.num_rounds=2", "schedule.kappas=2,2", "topology.clients_per_edge=2",
+                 f"data.seq_len={XLSTM_CHECK_PROMPT + 1}"]  # 2 local steps a round: the script's wall
 XLSTM_CUT_PARAMS_ATOL = 1e-5
 XLSTM_PROFILE_P = 256  # the profiled xlstm-350m prefill: one mLSTM chunk
+XLSTM_SERVE_PROMPT = 1024  # 2 x 1024 served (2048 before): the sLSTM's loop over time is host-bound
 # the mLSTM layers alone against the CPU over the serving prompt's 8 chunks
 XLSTM_MLSTM_CUT = dict(block_pattern=("mlstm",), num_layers=3, param_dtype="float32", compute_dtype="float32")
 XLSTM_MLSTM_PROMPT = 2048
@@ -1049,18 +1083,20 @@ def phase_megakernel_vs_k3(torch, mods, mk):
     return counted
 
 
-def run_scenario(torch, mods, name, overrides, device, params=None, profiler=None, resume=False, spy=None):
+def run_scenario(torch, mods, name, overrides, device, params=None, profiler=None, resume=False, spy=None,
+                 grad_accum=1):
     """Build, init and run a scenario; returns (runner, state, seconds,
     launches, params) with the launch counts of every kernel module in
     ``mods`` reset just before the run and read just after it, so they count
     this run only. ``profiler`` (a ``torch.profiler.profile``) wraps
     ``runner.run`` alone. ``resume`` starts from the latest checkpoint of
     ``run.checkpoint_dir`` (``restore_or_init``). ``spy(runner)`` is called
-    after the init (``spy_cohort_engine``)."""
+    after the init (``spy_cohort_engine``). ``grad_accum`` cuts each
+    client's batch into that many microbatches (``spec.build(grad_accum=)``)."""
     from repro_torch.fed import scenarios
 
     spec = scenarios.get(name, overrides=overrides)
-    runner = spec.build(device=device)
+    runner = spec.build(device=device, grad_accum=grad_accum)
     if params is None:
         params = spec.init_params(spec.run.seed + 1, "cpu")
     rng = torch.Generator(device=device).manual_seed(spec.run.seed)
@@ -1086,7 +1122,8 @@ def history_agreement(runner, ref_runner, what, prefix):
     ``ref_runner``'s, checked. A round whose reference loss is exactly 0
     (the full-width MLP separates its data and the cross-entropy
     underflows) is held to |loss| <= 1e-6 instead."""
-    check(len(runner.history) == len(ref_runner.history) == runner.cfg.num_rounds, f"{what} rounds")
+    n = ref_runner.cfg.num_rounds  # a shorter reference holds the run's first rounds
+    check(len(runner.history) >= n == len(ref_runner.history) and n <= runner.cfg.num_rounds, f"{what} rounds")
     pairs = [(a.loss, b.loss) for a, b in zip(runner.history, ref_runner.history)]
     loss_rel = max((abs(a - b) / abs(b) for a, b in pairs if b != 0), default=0.0)
     zero_loss = max((abs(a) for a, b in pairs if b == 0), default=0.0)
@@ -1099,10 +1136,12 @@ def history_agreement(runner, ref_runner, what, prefix):
             f"{prefix}_loss_max_where_zero": zero_loss, f"{prefix}_accuracy_max_gap": acc_gap}
 
 
-def cpu_agreement(torch, mods, runner, name, overrides, params):
+def cpu_agreement(torch, mods, runner, name, overrides, params, rounds=None):
     """The same run on the CPU (plain versions) from the same init, held to
-    ``history_agreement``."""
-    cpu_runner, *_ = run_scenario(torch, mods, name, overrides, "cpu", params=params)
+    ``history_agreement``; with ``rounds``, its first ``rounds`` rounds
+    only (a CPU run of that length)."""
+    extra = [] if rounds is None else [f"run.num_rounds={rounds}"]
+    cpu_runner, *_ = run_scenario(torch, mods, name, list(overrides) + extra, "cpu", params=params)
     return history_agreement(runner, cpu_runner, f"{name} cuda vs cpu", "cpu")
 
 
@@ -1531,8 +1570,9 @@ def phase_train_lm10m(torch, mods, phase, overrides):
 
 
 def phase_train_lm100m(torch, mods):
-    """``lm_edge_niid`` at lm-100m's full width: 8 rounds on the card, one on
-    the CPU against the first, then one warm cloud interval profiled."""
+    """``lm_edge_niid`` at lm-100m's full width: 8 rounds on the card; one
+    round of one local step on the card and on the CPU, against each other;
+    then one warm cloud interval profiled."""
     import math
 
     from repro_torch.tree import leaves
@@ -1553,11 +1593,16 @@ def phase_train_lm100m(torch, mods):
     REFS["lm100m"] = stash(runner, state)
     del state
     torch.cuda.empty_cache()
+    # card against the CPU over one round of one local step and its edge
+    # sync (LM100M_CPU_ROUND), from the same init
+    card_round, *_ = run_scenario(torch, mods, "lm_edge_niid", LM100M + LM100M_CPU_ROUND, "cuda", params=params)
     t1 = time.perf_counter()
-    cpu_runner, *_ = run_scenario(torch, mods, "lm_edge_niid", LM100M + ["run.num_rounds=1"], "cpu", params=params)
+    cpu_runner, *_ = run_scenario(torch, mods, "lm_edge_niid", LM100M + LM100M_CPU_ROUND, "cpu", params=params)
     cpu_s = time.perf_counter() - t1
-    agreement = lm_agreement(runner, cpu_runner, "train_lm100m round 0 cuda vs cpu", rounds=1)
+    agreement = lm_agreement(card_round, cpu_runner, "train_lm100m round 0 cuda vs cpu", rounds=1)
     profile = device_profile(torch, mods, "lm_edge_niid", LM100M + ["run.num_rounds=2"], params)
+    REFS["lm100m_peak_memory_bytes"] = peak
+    REFS["lm100m_warm_wall_ms_per_interval"] = profile["warm_wall_ms_per_interval"]
     emit({"phase": "train_lm100m", **path_report(runner, secs, launches, {
         "arch": runner.spec.model.arch, "params_per_client": n_params, "clients": runner.topology.num_clients,
         "tokens_per_local_step": runner.topology.num_clients * runner.spec.data.batch_size * runner.spec.data.seq_len,
@@ -2389,7 +2434,7 @@ def phase_serve_xlstm350m(torch, mods):
     from repro_torch.models import transformer
 
     cfg = get_config("xlstm-350m")
-    B, P, G = 2, 2048, 32
+    B, P, G = 2, XLSTM_SERVE_PROMPT, 32
     torch.cuda.empty_cache()
     base = reset_peak(torch)
     with torch.no_grad():
@@ -2532,7 +2577,7 @@ def lm_config_cut(**changes):
 
 def phase_train_xlstm350m(torch, mods):
     """``lm_edge_niid`` on xlstm-350m at its published widths and depth (4
-    clients on 2 edges, kappa (4, 2), Adam with warmup-cosine, 8 rounds):
+    clients on 2 edges, kappa (4, 2), Adam with warmup-cosine, 2 rounds):
     K1 on every leaf at every sync, losses finite and falling, params
     finite, f32 exactly on the gate, recurrence and bias leaves; one warm
     cloud interval timed, one local step profiled, K1 timed on every leaf
@@ -2547,12 +2592,13 @@ def phase_train_xlstm350m(torch, mods):
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     base = reset_peak(torch)
-    runner, state, secs, launches, params = run_scenario(torch, mods, "lm_edge_niid", XLSTM_TRAIN + LM_TRAIN, "cuda")
+    runner, state, secs, launches, params = run_scenario(torch, mods, "lm_edge_niid", XLSTM_TRAIN + XLSTM_TRAIN_ROUNDS,
+                                                          "cuda")
     peak = torch.cuda.max_memory_allocated() - base
     want = lm_launches(runner, state, 0)
     check_launches(launches, want, "train_xlstm350m")
     n_leaves = len(list(leaves(state.params)))
-    check(n_leaves == 41 and want["grouped_mean"] == 12 * n_leaves, f"train_xlstm350m: {n_leaves} leaves, {want}")
+    check(n_leaves == 41 and want["grouped_mean"] == 3 * n_leaves, f"train_xlstm350m: {n_leaves} leaves, {want}")
     n_params = sum(x[0].numel() for x in leaves(state.params))
     f32_leaves = sorted({path[-1].key for path, x in tree_flatten_with_path(state.params)[0]
                          if x.dtype == torch.float32})
@@ -2972,12 +3018,12 @@ def timed_all_reduces(torch):
 
     orig, calls = sharding.all_reduce_sum, []
 
-    def timed(vec, mesh, counter="all_reduce"):
+    def timed(vec, mesh, counter="all_reduce", **kw):
         if counter != "all_reduce":  # an eval's: not the cloud interval's one
-            return orig(vec, mesh, counter)
+            return orig(vec, mesh, counter, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = orig(vec, mesh, counter)
+        out = orig(vec, mesh, counter, **kw)
         torch.cuda.synchronize()
         calls.append(((time.perf_counter() - t0) * 1e3, vec.numel() * vec.element_size()))
         return out
@@ -3180,6 +3226,424 @@ def phase_sharded_worlds(torch):
                                                                          else {}) for r in ranks]})
 
 
+# ---------------------------------------------------------------------------
+# Microbatch accumulation, the launch cells, MoE's expert-parallel exchange
+# ---------------------------------------------------------------------------
+# the train cell's cut of lm-100m's train_4k shape: 128 sequences of 64 over
+# 16 clients (b 8, microbatch 4, accum 2), one cloud interval (kappa 8 x 4)
+TRAIN_CUT = ("train_cut", 64, 128, "train")
+EP_PROMPT, EP_GEN = 4096, 16  # serve_deepseekv3_l1_ep2: 2 requests, one a rank
+
+
+def accum_params_gap(state, ref_params) -> float:
+    """The largest |difference| between a run's final params and a stashed
+    run's (``params_numpy``: one row where every client holds the same)."""
+    import numpy as np
+
+    return max(float(np.max(np.abs(a.astype(np.float64) - b)))
+               for a, b in zip(params_numpy(state), ref_params))
+
+
+def phase_train_lm100m_accum2(torch, mods):
+    """``lm_edge_niid`` at lm-100m's full width through
+    ``FederatedRunner(grad_accum=2)``: each client's 8 sequences as 2
+    microbatches of 4 (lm-100m's ``microbatch``), leaves (2, 8, 4, 64). K1
+    as ``train_lm100m``'s (36 an interval, 144). Held to the same run at
+    grad_accum 1 on the card: under SGD the params within 1e-5 and every
+    round's grad norm (the accumulated gradient is the whole batch's)
+    within LM_RTOL; the losses are reported, not held: an accumulating
+    step's loss metric is its last microbatch's (JAX's scan carry), the
+    reference's the whole batch's. Under the registered Adam the largest
+    param and loss differences are reported beside the grad-norm gap (near
+    zero-gradient coordinates move by about lr on any rounding). Peak
+    memory, and the warm wall an interval (the Adam run, the third in a
+    row), beside ``train_lm100m``'s from this call."""
+    import math
+
+    t0 = time.perf_counter()
+    sgd = LM100M + LM_TRAIN + ["model.optimizer=sgd"]
+    torch.cuda.empty_cache()
+    ref, ref_state, ref_s, *_ = run_scenario(torch, mods, "lm_edge_niid", sgd, "cuda")
+    ref_params = params_numpy(ref_state)
+    del ref_state
+    out, total = {}, {}
+    for opt, overrides, reference in (("sgd", sgd, (ref, ref_params)),
+                                      ("adam", LM100M + LM_TRAIN, (None, REFS["lm100m"]["params"]))):
+        torch.cuda.empty_cache()
+        base = reset_peak(torch)
+        runner, state, secs, launches, _ = run_scenario(torch, mods, "lm_edge_niid", overrides, "cuda", grad_accum=2)
+        peak = torch.cuda.max_memory_allocated() - base
+        check(runner.grad_accum == 2 and runner._engine is not None, f"train_lm100m_accum2 {opt}: not accumulating")
+        check_launches(launches, lm_launches(runner, state, 0), f"train_lm100m_accum2 {opt}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        want_losses = reference[0].history if reference[0] is not None else None
+        losses = [h.loss for h in runner.history]
+        gnorms = [h.grad_norm for h in runner.history]
+        ref_losses = [h.loss for h in want_losses] if want_losses else REFS["lm100m"]["loss"]
+        ref_gnorms = [h.grad_norm for h in want_losses] if want_losses else REFS["lm100m"]["grad_norm"]
+        check(all(math.isfinite(x) for x in losses + gnorms) and len(losses) == len(ref_losses),
+              f"train_lm100m_accum2 {opt}: losses {losses}")
+        gap = accum_params_gap(state, reference[1])
+        row = {"seconds": secs, "intervals": runner.cfg.num_rounds // runner.hier_config.kappa2_effective,
+               "launches": launches, "losses": losses, "losses_grad_accum_1": ref_losses, "grad_norms": gnorms,
+               "loss_max_rel_gap": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+               "grad_norm_max_rel_err": max(abs(a - b) / abs(b) for a, b in zip(gnorms, ref_gnorms)),
+               "params_max_abs_err": gap, "peak_memory_bytes": peak}
+        row["wall_ms_per_interval"] = secs * 1e3 / row["intervals"]
+        if opt == "sgd":
+            check(gap <= 1e-5, f"train_lm100m_accum2 sgd: params {gap} from grad_accum 1")
+            check(row["grad_norm_max_rel_err"] <= LM_RTOL, f"train_lm100m_accum2 sgd: grad norms {row}")
+        out[opt] = row
+        del state, runner
+    torch.cuda.empty_cache()
+    emit({"phase": "train_lm100m_accum2", "arch": "lm-100m", "grad_accum": 2, "microbatch": 4,
+          "batch_leaf": [2, 8, 4, 64], "sgd_grad_accum_1_seconds": ref_s, **out,
+          "train_lm100m_peak_memory_bytes": REFS.get("lm100m_peak_memory_bytes"),
+          "train_lm100m_warm_wall_ms_per_interval": REFS.get("lm100m_warm_wall_ms_per_interval"),
+          "tolerance": {"sgd_params_atol": 1e-5, "sgd_grad_norm_rtol": LM_RTOL},
+          "phase_seconds": time.perf_counter() - t0})
+    return total
+
+
+def cell_batches(cfg, cell, steps: int):
+    """``steps`` global train batches of the cell's stand-in shapes, random
+    tokens from a fixed seed (every process draws the same)."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    shape = tuple(cell.arg_structs[1]["inputs"].shape)
+    return [{k: rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32) for k in ("inputs", "targets")}
+            for _ in range(steps)]
+
+
+def train_cell_run(torch, mods, mesh):
+    """``build_train_cell`` at lm-100m over one cloud interval, on this
+    rank's clients (``mesh``) or on one device (None): per step the clients'
+    losses and squared grad norms on the host, the final params, the K1
+    launches and collectives, the warm wall a call and the peak."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves
+
+    cfg = get_config("lm-100m")
+    torch.cuda.empty_cache()
+    base = reset_peak(torch)
+    cell = steps.build_train_cell(cfg, ShapeSpec(*TRAIN_CUT), mesh, lr=1e-3, device="cuda")
+    calls = cell.meta["kappa1"] * cell.meta["kappa2"]
+    batches = cell_batches(cfg, cell, calls)
+    params = steps.transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    state = steps.init_train_state(cfg, mesh, params, torch.Generator(device="cuda").manual_seed(0))
+    state, _ = steps.shard_args(cell, (state, None), mesh, "cuda")
+    del params
+    torch.cuda.empty_cache()
+    for m in mods:
+        m.reset_launch_counts()
+    sharding.reset_counts()
+    per_step, walls = [], []
+    for b in batches:
+        _, batch = steps.shard_args(cell, (None, {k: torch.from_numpy(v) for k, v in b.items()}), mesh, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = cell.fn(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if "gsq" in m:
+            per_step.append((m["loss"].cpu().numpy(), m["gsq"].cpu().numpy()))
+        else:
+            per_step.append((float(m["loss"]), float(m["grad_norm"])))
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    out = {"meta": {k: v for k, v in cell.meta.items()}, "per_step": per_step, "launches": launches,
+           "collectives": dict(sharding.COUNTS), "wall_ms_first_call": walls[0] * 1e3,
+           "warm_wall_ms_per_call": sum(walls[1:]) * 1e3 / (len(walls) - 1),
+           "state_rows": int(next(leaves(state.params)).shape[0]),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - base}
+    if mesh is None or mesh.rank == 0:
+        out["params"] = params_numpy(state)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_ep_run(torch, mods, mesh, tokens):
+    """deepseek-v3's one layer through ``build_prefill_cell`` /
+    ``build_decode_cell`` on this rank's request (``mesh``: "data" of 2,
+    expert-parallel) or on one device with G = 2 token groups and every
+    expert (``mesh`` None, the reference): the prefill's last logits and
+    EP_GEN - 1 decode steps fed ``tokens`` (B, EP_GEN - 1) (None: greedy,
+    the reference's), each call's all-to-alls and K7 launches, the
+    exchanges' ms and bytes, the first and a warm prefill and decode, the
+    peak."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"), num_layers=1)
+    B, P = 2, EP_PROMPT
+    torch.cuda.empty_cache()
+    base = reset_peak(torch)
+    pre = steps.build_prefill_cell(cfg, ShapeSpec("prefill", P + EP_GEN, B, "prefill"),
+                                   mesh) if mesh is not None else None
+    dec = steps.build_decode_cell(cfg, ShapeSpec("decode", P + EP_GEN, B, "decode"), mesh) if mesh is not None else None
+    ranks = mesh.size if mesh is not None else 1
+    held = None
+    for turn in range(ranks):  # one rank at a time draws the whole layer, then keeps its experts
+        if mesh is None or mesh.rank == turn:
+            with torch.no_grad():
+                params = transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+                if mesh is not None:
+                    params = sharding.expert_rows(params, mesh)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = sum(x.numel() * x.element_size() for x in leaves(params))
+        if mesh is not None:
+            dist.barrier()
+    prompts = torch.from_numpy(serve.make_prompts(cfg, B, P, seed=1))
+    rows = slice(None) if mesh is None else slice(mesh.rank * (B // ranks), (mesh.rank + 1) * (B // ranks))
+    x = prompts[rows].cuda()
+
+    def prefill():
+        if pre is None:
+            with sharding.using_hint_mesh(_Groups2()), torch.inference_mode():
+                return transformer.prefill(params, cfg, x, P + EP_GEN)
+        with torch.inference_mode():
+            return pre.fn(params, x)
+
+    def decode(caches, tok, pos):
+        if dec is None:
+            with sharding.using_hint_mesh(_Groups2()), torch.inference_mode():
+                return transformer.decode_step(params, cfg, caches, tok, pos)
+        with torch.inference_mode():
+            return dec.fn(params, caches, tok, pos)
+
+    exchanges = []
+    orig = sharding.exchange_blocks
+
+    def timed(t, m, axis):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig(t, m, axis)
+        torch.cuda.synchronize()
+        exchanges.append(((time.perf_counter() - t0) * 1e3, t.numel() * t.element_size()))
+        return r
+
+    runs = []
+    for timed_run in (False, True):  # the first call, then a warm one with the exchanges timed
+        if timed_run:
+            sharding.exchange_blocks = timed
+        try:
+            for m in mods:
+                m.reset_launch_counts()
+            sharding.reset_counts()
+            if mesh is not None:
+                dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = prefill()
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+            pre_counts = dict(sharding.COUNTS)
+            k7 = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}["flash_attention"]
+            steps_out, step_counts = [], []
+            if mesh is not None:
+                dist.barrier()
+            t0 = time.perf_counter()
+            step_logits, fed = logits, []
+            for j in range(EP_GEN - 1):
+                sharding.reset_counts()
+                if tokens is None:  # greedy (the reference)
+                    tok = step_logits.argmax(-1).to(torch.int32)
+                else:
+                    tok = torch.from_numpy(tokens[rows, j]).cuda()
+                fed.append(tok.cpu().numpy())
+                pos = torch.full((tok.shape[0],), P + j, dtype=torch.int32, device="cuda")
+                step_logits, caches = decode(caches, tok, pos)
+                steps_out.append(step_logits.float().cpu().numpy())
+                step_counts.append(dict(sharding.COUNTS))
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t0
+        finally:
+            sharding.exchange_blocks = orig
+        runs.append({"prefill_s": pre_s, "decode_s": dec_s, "prefill_collectives": pre_counts, "k7": k7,
+                     "step_collectives": step_counts})
+        last_logits = {"prefill": logits.float().cpu().numpy(), "decode": steps_out}
+        del caches
+    out = {"runs": runs, "logits": last_logits, "param_bytes": held,
+           "exchanges_ms_bytes": exchanges, "peak_memory_bytes": torch.cuda.max_memory_allocated() - base,
+           "ep_mode": None if pre is None else pre.meta["ep_mode"]}
+    out["tokens"] = np.stack(fed, axis=1).astype(np.int32)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Groups2:
+    """The single-device reference's hint mesh: a data axis of 2 (G = 2
+    token groups) with every expert on the device, so the MoE dispatches
+    both groups locally (what the exchange computes)."""
+
+    axis_names = ("data",)
+    shape = {"data": 2}
+
+
+def cell_rank(rank, world, job):
+    """``dist.launch.spawn`` entry of the launch-cell phases: this rank of a
+    gloo ("data",) mesh of ``world`` ranks that share the card."""
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hier_aggregate as ha
+    from repro_torch.launch import mesh as lmesh
+
+    resolve_device("cuda")  # TF32 off
+    mesh = lmesh.make_host_mesh((world,), ("data",), device="cuda")
+    if job["kind"] == "train_cell":
+        return train_cell_run(torch, (ha,), mesh)
+    return serve_ep_run(torch, (fa,), mesh, job["tokens"])
+
+
+def phase_train_cell_lm100m_w2(torch, mods):
+    """``build_train_cell`` at lm-100m under ``fed_rules`` over a ("data",)
+    mesh of 2 gloo ranks sharing the card: ``topology_for`` gives 16
+    clients on 4 edges, 8 (two whole edges) a rank; the cut shape
+    ``TRAIN_CUT`` gives b 8, microbatch 4, accum 2; one cloud interval, 32
+    calls. Held to the single-device cell over the same batches (run here
+    first, then freed) at JAX's mesh tolerances; K1 one per leaf per level
+    mean on each rank (3 edge syncs and the cloud's edge stage x 12
+    leaves: 48; the single-device cell's 60), one all-reduce, at the cloud
+    sync."""
+    import numpy as np
+
+    from repro_torch.dist import launch
+
+    t0 = time.perf_counter()
+    single = train_cell_run(torch, (mods[0],), None)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = launch.spawn(cell_rank, 2, "gloo", ({"kind": "train_cell"},))
+    world_s = time.perf_counter() - t1
+    check(single["meta"]["grad_accum"] == 2 and single["meta"]["num_clients"] == 16, f"train cell {single['meta']}")
+    check(single["launches"]["grouped_mean"] == 60, f"train_cell single device launches {single['launches']}")
+    for r in ranks:
+        check(r["meta"]["sharded"] and r["state_rows"] == 8, f"train_cell_lm100m_w2: rank rows {r['state_rows']}")
+        check(r["launches"]["grouped_mean"] == 48, f"train_cell_lm100m_w2 K1 {r['launches']}")
+        check(r["collectives"]["all_reduce"] == 1 and r["collectives"]["all_to_all"] == 0,
+              f"train_cell_lm100m_w2 collectives {r['collectives']}")
+    loss_err = gnorm_err = 0.0
+    for j, (loss, gnorm) in enumerate(single["per_step"]):
+        losses = np.concatenate([r["per_step"][j][0] for r in ranks]).astype(np.float64)
+        gsq = np.concatenate([r["per_step"][j][1] for r in ranks]).astype(np.float64)
+        got = (losses.mean(), np.sqrt(gsq.sum()))
+        for g, w, name in ((got[0], loss, "loss"), (got[1], gnorm, "grad_norm")):
+            check(abs(g - w) <= SHARDED_LOSS_ATOL + SHARDED_LOSS_RTOL * abs(w),
+                  f"train_cell_lm100m_w2 call {j} {name} {g} vs {w}")
+        loss_err, gnorm_err = max(loss_err, abs(got[0] - loss)), max(gnorm_err, abs(got[1] - gnorm))
+    worst, excess = 0.0, -1.0
+    for a, b in zip(ranks[0]["params"], single["params"]):
+        diff = np.abs(a.astype(np.float64) - b)
+        worst = max(worst, float(diff.max()))
+        excess = max(excess, float(np.max(diff - (SHARDED_ATOL + SHARDED_RTOL * np.abs(b)))))
+    check(excess <= 0, f"train_cell_lm100m_w2: params {worst} from the single-device cell")
+    emit({"phase": "train_cell_lm100m_w2", "arch": "lm-100m", "shape": list(TRAIN_CUT), "mesh": {"data": 2},
+          "meta": single["meta"], "calls": len(single["per_step"]), "world_seconds_with_spawn": world_s,
+          "single_device": {k: single[k] for k in ("launches", "wall_ms_first_call", "warm_wall_ms_per_call",
+                                                   "peak_memory_bytes")},
+          "ranks": [{k: r[k] for k in ("launches", "collectives", "wall_ms_first_call", "warm_wall_ms_per_call",
+                                       "state_rows", "peak_memory_bytes")} for r in ranks],
+          "vs_single_device_cell": {"loss_max_abs_err": loss_err, "grad_norm_max_abs_err": gnorm_err,
+                                    "params_max_abs_err": worst,
+                                    "tolerance": {"params": [SHARDED_RTOL, SHARDED_ATOL],
+                                                  "loss": [SHARDED_LOSS_RTOL, SHARDED_LOSS_ATOL]}},
+          "phase_seconds": time.perf_counter() - t0})
+    return single["launches"]
+
+
+def first_difference(got, want):
+    """(index, got, want) of the first element where two arrays differ, or None."""
+    import numpy as np
+
+    idx = np.argwhere(got != want)
+    if not len(idx):
+        return None
+    i = tuple(int(v) for v in idx[0])
+    return {"index": list(i), "got": float(got[i]), "want": float(want[i])}
+
+
+def phase_serve_deepseekv3_l1_ep2(torch, mods):
+    """deepseek-v3-671b cut to 1 layer at full widths (as
+    ``serve_deepseekv3_l1``) through ``build_prefill_cell`` /
+    ``build_decode_cell`` under ``serve_rules`` on 2 gloo ranks with a
+    "data" axis of 2: ``moe_ep_mode`` "ep_data", 128 of the 256 experts a
+    rank, one request of 4096 tokens a rank, 16 generated. Per MoE call one
+    dispatch and one combine all-to-all (and the router statistics'
+    all-reduce); K7 once per prefill a rank. Prefill logits and every
+    decode step held to a single-device card run of the same 2 requests
+    with G = 2 token groups and every expert (run here first, then freed):
+    bit for bit expected, else within 2^-7 of the largest |logit|. The
+    exchange's ms and bytes, each rank's parameter bytes and peak, the warm
+    prefill and decode tokens/s (the host path: on one card the exchange
+    goes through gloo's host copies)."""
+    import numpy as np
+
+    from repro_torch.dist import launch
+
+    t0 = time.perf_counter()
+    ref = serve_ep_run(torch, mods, None, None)  # greedy; the ranks are fed its tokens
+    tokens = ref["tokens"]
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = launch.spawn(cell_rank, 2, "gloo", ({"kind": "serve_ep", "tokens": tokens},))
+    world_s = time.perf_counter() - t1
+    want = ref["logits"]
+    pairs = [("prefill", np.concatenate([r["logits"]["prefill"] for r in ranks]), want["prefill"])] + [
+        (f"decode_{j}", np.concatenate([r["logits"]["decode"][j] for r in ranks]), want["decode"][j])
+        for j in range(len(want["decode"]))]
+    report, bit_equal = [], True
+    for name, got, w in pairs:
+        err, scale = float(np.max(np.abs(got - w))), float(np.max(np.abs(w)))
+        first = first_difference(got, w)
+        bit_equal = bit_equal and first is None
+        check(np.isfinite(got).all() and err <= MOE_REF_RTOL * scale,
+              f"serve_deepseekv3_l1_ep2 {name}: {err} (scale {scale}), first difference {first}")
+        report.append({"call": name, "max_abs_err": err, "max_abs_logit": scale, "first_difference": first})
+    for r in ranks:
+        check(r["ep_mode"] == "ep_data", f"serve_deepseekv3_l1_ep2 mode {r['ep_mode']}")
+        for run in r["runs"]:
+            c = run["prefill_collectives"]
+            check(c["all_to_all"] == 2 and c["moe_aux_all_reduce"] == 1 and run["k7"] == 1,
+                  f"serve_deepseekv3_l1_ep2 prefill: {c}, K7 {run['k7']}")
+            check(all(s["all_to_all"] == 2 for s in run["step_collectives"]),
+                  f"serve_deepseekv3_l1_ep2 decode collectives {run['step_collectives']}")
+    warm = [r["runs"][1] for r in ranks]
+    pre_s, dec_s = max(w["prefill_s"] for w in warm), max(w["decode_s"] for w in warm)
+    exch = ranks[0]["exchanges_ms_bytes"]
+    emit({"phase": "serve_deepseekv3_l1_ep2", "arch": "deepseek-v3-671b", "layers": 1, "batch": 2,
+          "prompt_len": EP_PROMPT, "gen": EP_GEN, "mesh": {"data": 2}, "world_seconds_with_spawn": world_s,
+          "vs_single_device_g2": {"bit_equal": bit_equal, "calls": report, "tolerance": f"{MOE_REF_RTOL} x max |logit|"},
+          "prefill_exchange": {"dispatch_ms": exch[0][0], "combine_ms": exch[1][0], "bytes_each_way": exch[0][1]},
+          "decode_exchange_ms": [e[0] for e in exch[2:]],
+          "warm_prefill_tokens_per_s": 2 * EP_PROMPT / pre_s, "warm_decode_tokens_per_s": 2 * (EP_GEN - 1) / dec_s,
+          "reference_warm_prefill_tokens_per_s": 2 * EP_PROMPT / ref["runs"][1]["prefill_s"],
+          "reference_warm_decode_tokens_per_s": 2 * (EP_GEN - 1) / ref["runs"][1]["decode_s"],
+          "path": "host: the ranks share one card and exchange through gloo's host copies",
+          "ranks": [{"param_bytes": r["param_bytes"], "peak_memory_bytes": r["peak_memory_bytes"],
+                     "prefill_s": [x["prefill_s"] for x in r["runs"]], "decode_s": [x["decode_s"] for x in r["runs"]]}
+                    for r in ranks],
+          "reference": {"param_bytes": ref["param_bytes"], "peak_memory_bytes": ref["peak_memory_bytes"]},
+          "phase_seconds": time.perf_counter() - t0})
+    return {"flash_attention": sum(r["runs"][0]["k7"] for r in ranks)}
+
+
 def main() -> int:
     import torch
 
@@ -3219,7 +3683,7 @@ def main() -> int:
 
     def count(launches):
         for k in total:
-            total[k] += launches[k]
+            total[k] += launches.get(k, 0)
 
     # quickstart: cuda (kernels), then cpu (plain versions), same init
     runner, _, secs, launches, params = run_scenario(torch, mods, "quickstart", (), "cuda")
@@ -3339,7 +3803,9 @@ def main() -> int:
     check(runner.history[-1].accuracy >= 0.9, f"mlp307k_megakernel accuracy {runner.history[-1].accuracy}")
     mk_runner, mk_peak = runner, torch.cuda.max_memory_allocated() - base
     vs_superround = history_agreement(runner, mlp_runner, "mlp307k_megakernel vs mlp307k", "superround")
-    agreement = cpu_agreement(torch, mods, runner, "hierfavg_edge_iid", mk_overrides, mlp_params)
+    # the CPU runs the client-blocked lowering's plain versions slowly: its
+    # first cloud interval (2 of 8 rounds) is held
+    agreement = cpu_agreement(torch, mods, runner, "hierfavg_edge_iid", mk_overrides, mlp_params, rounds=2)
     count(launches)
     emit({"phase": "mlp307k_megakernel", **path_report(runner, secs, launches, {
         "uses_megakernel": True, "megakernel_reason": None, **vs_superround, **agreement,
@@ -3402,12 +3868,14 @@ def main() -> int:
     count(phase_train_lm10m(torch, mods, "train_lm10m_int8_ef", LM_INT8_EF))
     count(phase_train_lm100m(torch, mods))
     count(phase_train_lm100m_robust(torch, mods))
+    count(phase_train_lm100m_accum2(torch, mods))
 
     # the client-sharded superround over torch.distributed ranks on this
     # card: a world of 1 under NCCL in this process, then gloo worlds of 4
     # and 2 ranks sharing it, each held to the single-device card run
     count(phase_sharded_w1_nccl(torch, mods, sharded_params))
     phase_sharded_worlds(torch)
+    count(phase_train_cell_lm100m_w2(torch, mods))
     count(phase_train_xlstm350m(torch, mods))
 
     # LM serving: K7 in every attention layer and K8 in every RG-LRU layer of
@@ -3419,8 +3887,10 @@ def main() -> int:
     # deepseek-v3's MLA + MoE layer at full width (K7 in its prefill)
     count(phase_serve_xlstm350m(torch, mods))
     count(phase_serve_deepseekv3_l1(torch, mods, fa))
+    count(phase_serve_deepseekv3_l1_ep2(torch, mods))
 
     check(all(total[name] > 0 for name in KERNELS), f"a kernel was never launched on its path: {total}")
+    emit({"phase": "wall", "seconds": time.perf_counter() - T0})
     emit({"phase": "profiler", "short_traces_taken_again": TRACES_TAKEN_AGAIN[0]})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][1], "replaces": KERNELS[name][0],

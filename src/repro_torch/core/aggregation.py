@@ -301,7 +301,7 @@ def _psum_means(flat, w: torch.Tensor, mesh, anchors, counter: str):
 def psum_weighted_mean(
     tree: Tree,
     weights: torch.Tensor,
-    mesh,  # dist.sharding.ClientMesh
+    mesh,  # dist.sharding.RankMesh
     mask: Optional[torch.Tensor] = None,
     *,
     anchor: Optional[Tree] = None,
@@ -334,7 +334,7 @@ def psum_weighted_mean(
 def psum_cloud_model(
     tree: Tree,
     weights: torch.Tensor,
-    mesh,  # dist.sharding.ClientMesh
+    mesh,  # dist.sharding.RankMesh
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[Tree, torch.Tensor]:
     """``cloud_model`` over a client axis sharded over ``mesh``: the

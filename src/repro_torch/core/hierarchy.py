@@ -190,7 +190,7 @@ def as_hierarchy(topology: Union[HierarchySpec, "object"]) -> HierarchySpec:
 class ShardPlacement:
     """Edge-aligned client→shard placement for a ``"clients"`` mesh axis
     (copy-port of ``repro/core/hierarchy.py:191-304``; a shard is a rank of
-    ``dist.sharding.ClientMesh``).
+    ``dist.sharding.RankMesh``).
 
     Permutes the stacked client axis so that every *alignment group* — the
     clients of one child subtree of the root, i.e. one ``segments(depth-1)``

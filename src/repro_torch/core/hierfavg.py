@@ -22,6 +22,13 @@ error-feedback codecs, a per-client residual in ``FedState.residual``.
 Since the port updates ``params`` in place, the anchor is always a copy
 (``clone``), never a view of the parameters.
 
+Every local step may accumulate microbatches (``grad_accum``): batch
+leaves (grad_accum, N, b, ...), the gradients the microbatches' mean, the
+loss metric the last microbatch's, as JAX's scan carry leaves it.
+``build_train_step`` is one local step and the level sync due after it,
+``build_edge_sync`` / ``build_cloud_sync`` the two hops alone (the launch
+cells of ``launch.steps``).
+
 A ``PrecisionSpec`` with a non-f32 ``param_dtype`` stores and steps the
 stacked client state in that dtype (batches are cast on the way into the
 loss); every aggregation still accumulates in f32.
@@ -41,7 +48,7 @@ synchronous sync.
 
 The client-sharded lowerings (``build_sharded_super_round``,
 ``build_sharded_cohort_super_round``) run one process per shard of a
-``dist.sharding.ClientMesh``: each rank holds the rows of the clients
+``dist.sharding.RankMesh``: each rank holds the rows of the clients
 ``core.hierarchy.ShardPlacement`` puts on it, every sync below the top is
 rank-local (K1/K2 over the rank's own segments) and each cloud sync is one
 ``dist.all_reduce`` (``aggregation.psum_weighted_mean``). The rank is known
@@ -227,6 +234,10 @@ class HierFAVGConfig:
     def cloud_interval(self) -> int:
         return self.level_interval(self.num_levels)
 
+    def is_level_step(self, level: int, k: int) -> bool:
+        """Local step ``k`` (the count after the step) ends a level-l interval."""
+        return k % self.level_interval(level) == 0
+
     @property
     def kappa2_effective(self) -> int:
         """Edge intervals per cloud interval (= kappa2 for two levels)."""
@@ -379,10 +390,16 @@ def _apply_precision(loss_fn: LossFn, precision: Optional[PrecisionSpec]) -> Los
     return cast_loss
 
 
-def _client_grads(loss_fn: LossFn, precision: Optional[PrecisionSpec]):
+def _client_grads(loss_fn: LossFn, precision: Optional[PrecisionSpec], grad_accum: int = 1):
     """``(params, batch, rng) -> (grads, per-client losses)`` for a stack of
     clients: one ``torch.func`` grad of the summed per-client loss, vmapped
-    over the leading client axis."""
+    over the leading client axis.
+
+    With ``grad_accum`` > 1 the batch leaves carry a leading microbatch axis,
+    (grad_accum, N, b, ...) (``repro/core/hierfavg.py:354-384``): the
+    gradients are the microbatches' sum divided by ``grad_accum``, added
+    in microbatch order, and the losses are the last microbatch's (JAX's
+    scan carry replaces them)."""
     loss_p = _apply_precision(loss_fn, precision)
 
     def total_loss(params, batch, rng):
@@ -391,18 +408,32 @@ def _client_grads(loss_fn: LossFn, precision: Optional[PrecisionSpec]):
         # running SGD on its own mean loss
         return torch.sum(losses), losses
 
-    return grad(total_loss, has_aux=True)
+    grad_fn = grad(total_loss, has_aux=True)
+    if grad_accum == 1:
+        return grad_fn
+
+    def microbatch_grads(params, batch, rng):
+        acc, losses = grad_fn(params, _step_slice(batch, 0), rng)
+        for i in range(1, grad_accum):
+            g, losses = grad_fn(params, _step_slice(batch, i), rng)
+            acc = tree_map(lambda a, b: a.add_(b), acc, g)
+            del g
+        return tree_map(lambda a: a.div_(grad_accum), acc), losses
+
+    return microbatch_grads
 
 
-def build_local_step(loss_fn: LossFn, optimizer: GradientTransformation, *,
+def build_local_step(loss_fn: LossFn, optimizer: GradientTransformation, *, grad_accum: int = 1,
                      precision: Optional[PrecisionSpec] = None):
     """One local SGD update for all clients (Algorithm 1 l.5).
 
-    batch leaves: (N, b, ...). Returns ``local_step(state, batch) ->
+    batch leaves: (N, b, ...), or (grad_accum, N, b, ...) with microbatch
+    accumulation (``_client_grads``). Returns ``local_step(state, batch) ->
     (state, metrics)``. The stacked parameters are updated in place
     (``optim.apply_updates``); ``precision`` casts the batch to the policy
-    dtype; the loss / grad-norm metrics are f32 device scalars."""
-    grad_fn = _client_grads(loss_fn, precision)
+    dtype; the loss / grad-norm metrics are f32 device scalars (the loss
+    the last microbatch's)."""
+    grad_fn = _client_grads(loss_fn, precision, grad_accum)
 
     def local_step(state: FedState, batch: Dict[str, torch.Tensor]) -> Tuple[FedState, dict]:
         grads, losses = grad_fn(state.params, batch, state.rng)
@@ -531,6 +562,70 @@ def build_level_sync(topology: Topology, config: HierFAVGConfig, weights: torch.
     return level_sync
 
 
+def build_edge_sync(topology: Topology, config: HierFAVGConfig, weights: torch.Tensor, *,
+                    shard: Optional["ClientSharding"] = None):
+    """Edge aggregation (Algorithm 1 l.8, 25-28): the level-1 sync."""
+    return build_level_sync(topology, config, weights, 1, shard=shard)
+
+
+def build_cloud_sync(topology: Topology, config: HierFAVGConfig, weights: torch.Tensor, *,
+                     shard: Optional["ClientSharding"] = None):
+    """Cloud aggregation (Algorithm 1 l.18-21, 29-31): the top-level sync."""
+    return build_level_sync(topology, config, weights, as_hierarchy(topology).depth, shard=shard)
+
+
+def build_train_step(
+    loss_fn: LossFn,
+    optimizer: GradientTransformation,
+    topology: Topology,
+    config: HierFAVGConfig,
+    weights: torch.Tensor,
+    *,
+    grad_accum: int = 1,
+    shard: Optional["ClientSharding"] = None,
+):
+    """One fused HierFAVG step (``repro/core/hierfavg.py:822-859``): a local
+    update, then the deepest level sync due at the new step count.
+
+        train_step(state, batch, mask=None) -> (state, metrics)
+
+    ``mask`` is the (N,) survival vector (None: all alive). The level
+    intervals nest, so the levels due at step k are a prefix 1..m and the
+    level-m sync subsumes the finer ones; m = 0 syncs nothing. JAX picks
+    the branch with ``lax.switch`` on the device step; here the step count
+    is read on the host (one device sync a step).
+
+    With ``shard`` (a ``ClientSharding``) the step runs on this rank's rows
+    of a client-sharded state: the local step is the single-device one, the
+    sub-top syncs are rank-local and the cloud sync is one all-reduce
+    (``build_level_sync(shard=)``). The metrics then stay per client, as the
+    sharded superround's, so no collective is spent on them: ``{"loss":
+    (C,), "gsq": (C,) squared grad norms, "step"}``; unsharded they are the
+    means ``{"loss", "grad_norm", "step"}``."""
+    spec = as_hierarchy(topology)
+    depth = _check_levels(spec, config)
+    if shard is None:
+        local_step = build_local_step(loss_fn, optimizer, grad_accum=grad_accum, precision=config.precision)
+    else:
+        sharded_step = _sharded_local_step(loss_fn, optimizer, config.precision, grad_accum)
+
+        def local_step(state, batch):
+            state, losses, gsq = sharded_step(state, batch)
+            return state, {"loss": losses, "gsq": gsq}
+    level_syncs = [build_level_sync(spec, config, weights, lvl, shard=shard) for lvl in range(1, depth + 1)]
+
+    def train_step(state: FedState, batch, mask: Optional[torch.Tensor] = None):
+        state, metrics = local_step(state, batch)
+        k = int(state.step)
+        deepest = sum(1 for lvl in range(1, depth + 1) if config.is_level_step(lvl, k))
+        if deepest:
+            state = level_syncs[deepest - 1](state, mask)
+        metrics["step"] = state.step
+        return state, metrics
+
+    return train_step
+
+
 def _check_levels(spec: HierarchySpec, config: HierFAVGConfig) -> int:
     if config.num_levels != spec.depth:
         raise ValueError(
@@ -566,6 +661,9 @@ def build_hier_round(
     topology: Topology,
     config: HierFAVGConfig,
     weights: torch.Tensor,
+
+    *,
+    grad_accum: int = 1,
 ):
     """One edge interval: kappa1 local steps, then the deepest due
     aggregation (edge every round, level l every prod(kappa_2..kappa_l)
@@ -573,7 +671,7 @@ def build_hier_round(
     leaves carry a leading (kappa1,) axis."""
     spec = as_hierarchy(topology)
     depth = _check_levels(spec, config)
-    local_step = build_local_step(loss_fn, optimizer, precision=config.precision)
+    local_step = build_local_step(loss_fn, optimizer, grad_accum=grad_accum, precision=config.precision)
     level_syncs = [build_level_sync(spec, config, weights, l) for l in range(1, depth + 1)]
     intervals = _round_intervals(config)
 
@@ -601,6 +699,9 @@ def build_super_round(
     topology: Topology,
     config: HierFAVGConfig,
     weights: torch.Tensor,
+
+    *,
+    grad_accum: int = 1,
 ):
     """One cloud interval: kappa2_effective edge intervals, each kappa1 local
     steps plus its due aggregation from ``super_round_schedule``.
@@ -616,7 +717,7 @@ def build_super_round(
     """
     spec = as_hierarchy(topology)
     depth = _check_levels(spec, config)
-    local_step = build_local_step(loss_fn, optimizer, precision=config.precision)
+    local_step = build_local_step(loss_fn, optimizer, grad_accum=grad_accum, precision=config.precision)
     level_syncs = [build_level_sync(spec, config, weights, l) for l in range(1, depth + 1)]
     schedule = super_round_schedule(config)
 
@@ -670,6 +771,9 @@ def build_deadline_super_round(
     topology: Topology,
     config: HierFAVGConfig,
     weights: torch.Tensor,
+
+    *,
+    grad_accum: int = 1,
 ):
     """One semi-synchronous cloud interval (``repro/core/hierfavg.py:1024-1131``):
     ``build_super_round`` with the top-level sync gated by a per-client
@@ -694,7 +798,7 @@ def build_deadline_super_round(
     reason = deadline_incompatibility(config, spec)
     if reason is not None:
         raise ValueError(f"schedule cannot run the deadline engine: {reason}")
-    local_step = build_local_step(loss_fn, optimizer, precision=config.precision)
+    local_step = build_local_step(loss_fn, optimizer, grad_accum=grad_accum, precision=config.precision)
     level_syncs = [build_level_sync(spec, config, weights, l) for l in range(1, depth)]
     sub_top = aggregation.level_stages(spec, depth - 1) if depth > 1 else ()
     top = aggregation.level_stages(spec, depth)[-1:]
@@ -989,6 +1093,7 @@ def build_cohort_super_round(
     config: HierFAVGConfig,
     *,
     cohort_size: int,
+    grad_accum: int = 1,
 ):
     """``build_super_round`` for a sampled cohort of C clients
     (``repro/core/hierfavg.py:1513-1581``):
@@ -1010,7 +1115,7 @@ def build_cohort_super_round(
     reason = cohort_incompatibility(config, spec, cohort_size)
     if reason is not None:
         raise ValueError(f"schedule cannot run cohort-sampled: {reason}")
-    local_step = build_local_step(loss_fn, optimizer, precision=config.precision)
+    local_step = build_local_step(loss_fn, optimizer, grad_accum=grad_accum, precision=config.precision)
     level_syncs = [_build_cohort_level_sync(spec, config, lvl, cohort_size) for lvl in range(1, depth + 1)]
     schedule = super_round_schedule(config)
 
@@ -1030,7 +1135,7 @@ def build_cohort_super_round(
 
 
 # ---------------------------------------------------------------------------
-# Client-sharded lowering (one process per shard of a ClientMesh)
+# Client-sharded lowering (one process per shard of a RankMesh)
 # ---------------------------------------------------------------------------
 
 
@@ -1039,7 +1144,7 @@ class ClientSharding:
     """How this rank sees the tree of a client-sharded state
     (``repro/core/hierfavg.py:444-494``): a ``core.hierarchy.ShardPlacement``,
     the global weights permuted and padded into a (num_shards, capacity)
-    table, and the ``mesh`` (a ``dist.sharding.ClientMesh``) whose rank
+    table, and the ``mesh`` (a ``dist.sharding.RankMesh``) whose rank
     picks the row. JAX selects the row inside ``shard_map`` with
     ``lax.axis_index``; here the rank is known on the host, so
     ``local_weights`` is this rank's row on its device and
@@ -1050,7 +1155,7 @@ class ClientSharding:
     axis: str
     placement: ShardPlacement
     weights_table: Any  # np (num_shards, capacity) f32 permuted + padded weights
-    mesh: Any = None  # dist.sharding.ClientMesh (None: rank 0 on the weights' device)
+    mesh: Any = None  # dist.sharding.RankMesh (None: rank 0 on the weights' device)
     _cache: Dict[Any, Any] = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
@@ -1290,11 +1395,12 @@ def _build_sharded_level_sync(spec: HierarchySpec, config: HierFAVGConfig, level
     return level_sync
 
 
-def _sharded_local_step(loss_fn: LossFn, optimizer: GradientTransformation, precision: Optional[PrecisionSpec]):
+def _sharded_local_step(loss_fn: LossFn, optimizer: GradientTransformation, precision: Optional[PrecisionSpec],
+                        grad_accum: int = 1):
     """``build_local_step`` with per-client metrics: ``local_step(state,
     batch) -> (state, losses (C,) f32, squared grad norms (C,) f32)``. The
     update is ``build_local_step``'s op for op."""
-    grad_fn = _client_grads(loss_fn, precision)
+    grad_fn = _client_grads(loss_fn, precision, grad_accum)
 
     def local_step(state: FedState, batch):
         grads, losses = grad_fn(state.params, batch, state.rng)
@@ -1339,9 +1445,10 @@ def build_sharded_super_round(
     mesh,
     axis: str = "clients",
     placement: Optional[ShardPlacement] = None,
+    grad_accum: int = 1,
 ):
     """``build_super_round`` with the stacked client axis sharded over the
-    ranks of ``mesh`` (a ``dist.sharding.ClientMesh``;
+    ranks of ``mesh`` (a ``dist.sharding.RankMesh``;
     ``repro/core/hierfavg.py:1619-1771``): the hardware mirrors the
     client-edge-cloud tree.
 
@@ -1350,8 +1457,10 @@ def build_sharded_super_round(
     Called on every rank with that rank's rows: the state's stacked leaves
     hold its ``placement.capacity`` positions of the placement order
     (``placement.gather_index()``, phantoms padded), batch leaves are
-    (kappa2, kappa1, capacity, b, ...) and ``masks`` an optional
-    (kappa2, capacity) stack (``fed.engine`` owns the conversion). Every
+    (kappa2, kappa1, capacity, b, ...) (with ``grad_accum`` > 1 the
+    microbatch axis comes first and the client dim is 3: (kappa2, kappa1,
+    grad_accum, capacity, b, ...)) and ``masks`` an optional (kappa2,
+    capacity) stack (``fed.engine`` owns the conversion). Every
     sub-top sync is rank-local and each cloud boundary is one all-reduce.
     Local steps and sub-top syncs match the single-device superround bit
     for bit; only the cloud sum reassociates. Metrics stay per client, so
@@ -1370,7 +1479,7 @@ def build_sharded_super_round(
     if reason is not None:
         raise ValueError(f"schedule cannot run client-sharded: {reason}")
     shard = ClientSharding.build(axis, placement, weights, mesh=mesh)
-    local_step = _sharded_local_step(loss_fn, optimizer, config.precision)
+    local_step = _sharded_local_step(loss_fn, optimizer, config.precision, grad_accum)
     level_syncs = [build_level_sync(spec, config, weights, lvl, shard=shard) for lvl in range(1, depth + 1)]
     rounds = _sharded_rounds(local_step, level_syncs, super_round_schedule(config), config.kappa1)
 
@@ -1471,6 +1580,7 @@ def build_sharded_cohort_super_round(
     mesh,
     axis: str = "clients",
     placement: Optional[ShardPlacement] = None,
+    grad_accum: int = 1,
 ):
     """``build_cohort_super_round`` with the cohort's slot axis sharded over
     the ranks of ``mesh`` (``repro/core/hierfavg.py:1857-2013``).
@@ -1495,7 +1605,7 @@ def build_sharded_cohort_super_round(
     if placement is None:
         placement = plan_cohort_placement(spec, _cohort_quotas(spec, cohort_size), num_shards)
     shard = _CohortSharding(axis=axis, placement=placement, weights_table=None, mesh=mesh)
-    local_step = _sharded_local_step(loss_fn, optimizer, config.precision)
+    local_step = _sharded_local_step(loss_fn, optimizer, config.precision, grad_accum)
     # robust is always None: cohort_incompatibility rejects robust aggregators
     level_syncs = [_build_sharded_level_sync(placement.spec, config, lvl, _level_codec(config, lvl), None, shard)
                    for lvl in range(1, depth + 1)]

@@ -26,6 +26,24 @@ from repro_torch.core import aggregation
 Batch = Dict[str, np.ndarray]
 
 
+def split_microbatches(batch_fn: Callable[[Batch], Batch], grad_accum: int) -> Callable[[Batch], Batch]:
+    """``batch_fn`` whose (N, b, ...) leaves come back as (grad_accum, N,
+    b // grad_accum, ...): each client's batch cut into ``grad_accum``
+    consecutive microbatches, the layout ``FederatedRunner(grad_accum=)``
+    and the JAX package's accumulating local step take."""
+
+    def split(d: Batch) -> Batch:
+        out = {}
+        for k, v in batch_fn(d).items():
+            n, b = v.shape[:2]
+            if b % grad_accum:
+                raise ValueError(f"batch of {b} does not split into {grad_accum} microbatches")
+            out[k] = np.ascontiguousarray(np.swapaxes(v.reshape((n, grad_accum, b // grad_accum) + v.shape[2:]), 0, 1))
+        return out
+
+    return split
+
+
 @dataclasses.dataclass
 class ClientCursor:
     epoch: int = 0

@@ -1,3 +1,4 @@
 """The analytic traffic model of the aggregation schedule (``collectives``),
-the client mesh over torch.distributed ranks (``sharding``) and its
-launcher (``launch``)."""
+the rank mesh over torch.distributed ranks with its sharding rules, hints
+and MoE's expert-parallel exchange (``sharding``), and the launcher of the
+ranks (``launch``)."""

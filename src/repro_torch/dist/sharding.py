@@ -1,39 +1,58 @@
-"""The client mesh: the client-sharded half of ``repro.dist.sharding``
-(``repro/dist/sharding.py:256-303``) over ``torch.distributed``.
+"""Mesh sharding over ``torch.distributed`` ranks: the port of
+``repro.dist.sharding``.
 
-JAX runs one program over a ``Mesh`` of devices and shards the stacked
-client axis with ``shard_map``. The port runs one process per shard: a
-``ClientMesh`` over K ranks of an initialised process group stands where
-JAX has its 1-D ``Mesh``, each rank holds the rows of the clients placed on
-it (``core.hierarchy.ShardPlacement``), and the one ``lax.psum`` per cloud
-interval becomes one ``dist.all_reduce`` (``all_reduce_sum``). NCCL with one
-rank per GPU is how PyTorch reaches several cards; gloo runs the same code
-on the CPU, and for several ranks that share one card (PyTorch's gloo takes
-CUDA tensors for ``all_reduce`` and ``broadcast`` only, so the row gathers
-below go through host tensors under gloo).
+JAX runs one program over a ``Mesh`` of devices and lets GSPMD and
+``shard_map`` place the pieces. The port runs one process per rank: a
+``RankMesh`` lays named axes (``("clients",)``, ``("data", "model")``,
+``("pod", "data", "model")``) over the ranks of an initialised process
+group, row-major, with a sub-group for each axis, and every tensor a rank
+holds already is its shard. NCCL with one rank per GPU is how PyTorch
+reaches several cards; gloo runs the same code on the CPU, and for several
+ranks that share one card (PyTorch's gloo takes CUDA tensors for
+``all_reduce`` and ``broadcast`` only, so the gathers and all-to-alls below
+go through host tensors under gloo).
 
-The slice helpers (``batch_block_sharding``, ``mask_stack_sharding``,
-``fed_state_shardings``) stand where JAX has ``NamedSharding``s: each is a
-``RowSharding`` that takes this rank's rows of a placement-ordered
-(kappa2, kappa1, padded_N, ...) block, (kappa2, padded_N) mask stack or
-(padded_N, ...) state leaf and puts them on the rank's device; given the
-rank's ``index``, of the canonical (N-row) ones, which is how the engines
-shard what the host pipeline and the caller hand them.
+Three jobs, as in JAX:
 
-Every collective the sharded path makes goes through one of the counted
-wrappers here (``COUNTS``), so tests and ``chip_smoke.py`` can hold the
-path to one all-reduce per cloud interval. The model-parallel half of the
-JAX module (the hint mesh, ``ShardingRules``, MoE's expert-parallel
-exchange) is not ported yet: ``set_hint_mesh`` and
-``moe_dispatch_exchange`` refuse by name (ROADMAP.md Queue 1 item 12,
-second half), and ``moe_ep_mode`` is "none", as JAX's is without a hint
-mesh, so the MoE dispatch stays on one device.
+* **The client-sharded superround** (``repro/dist/sharding.py:256-303``): a
+  1-D mesh (``client_mesh``) shards the stacked client axis, each rank
+  holds the rows of the clients placed on it
+  (``core.hierarchy.ShardPlacement``), and the one ``lax.psum`` per cloud
+  interval becomes one ``dist.all_reduce`` (``all_reduce_sum``). The slice
+  helpers (``batch_block_sharding``, ``mask_stack_sharding``,
+  ``fed_state_shardings``) stand where JAX has ``NamedSharding``s: each is
+  a ``RowSharding`` that takes this rank's rows of a placement-ordered
+  (kappa2, kappa1, padded_N, ...) block, (kappa2, padded_N) mask stack or
+  (padded_N, ...) state leaf and puts them on the rank's device; given the
+  rank's ``index``, of the canonical (N-row) ones.
+* **Hints** (``set_hint_mesh`` / ``hint`` / ``hint_data_groups``, ``:44-81``):
+  the mesh the model code consults. ``hint`` is the identity: JAX's
+  ``with_sharding_constraint`` asks GSPMD to place a global array, and a
+  rank's tensor already is its shard. MoE's expert-parallel exchange
+  (``moe_ep_mode`` / ``moe_dispatch_exchange`` / ``moe_combine_exchange``,
+  ``:84-164``) is one ``dist.all_to_all_single`` each way over the "data"
+  sub-group, where JAX has ``lax.all_to_all`` under ``shard_map``.
+* **Rules** (``ShardingRules`` via ``fed_rules`` / ``serve_rules``,
+  ``:177-248``, ``:304-328``): JAX's ``PartitionSpec`` members for
+  parameter, batch, request and cache trees, and each spec's slice of a
+  tensor for this rank. A "model" axis larger than 1 is refused by name
+  (``set_hint_mesh``, ``launch.steps``): tensor parallelism needs
+  collectives inside the layers, which GSPMD inserts for JAX and nothing
+  inserts here (ROADMAP.md Queue 1 item 16). The rules still give JAX's
+  "model" members.
+
+Every collective goes through one of the counted wrappers here
+(``COUNTS``), so tests and ``chip_smoke.py`` can hold each path to its
+collectives: one all-reduce per cloud interval, one all-to-all each way
+per MoE call.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,8 +69,11 @@ LAUNCH_RECIPE = (
 
 # collectives made through the counted wrappers below, since the last reset:
 # "all_reduce" the cloud syncs' (one per cloud interval), "eval_all_reduce"
-# the evals' cloud model (``aggregation.psum_cloud_model``)
-COUNTS: Dict[str, int] = {"all_reduce": 0, "eval_all_reduce": 0, "gather": 0, "broadcast": 0}
+# the evals' cloud model (``aggregation.psum_cloud_model``), "all_to_all"
+# MoE's expert-parallel exchanges (one dispatch and one combine per MoE
+# call), "moe_aux_all_reduce" the MoE aux loss's router statistics
+COUNTS: Dict[str, int] = {"all_reduce": 0, "eval_all_reduce": 0, "gather": 0, "broadcast": 0, "all_to_all": 0,
+                          "moe_aux_all_reduce": 0}
 
 
 def reset_counts() -> None:
@@ -60,47 +82,205 @@ def reset_counts() -> None:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class ClientMesh:
-    """K ranks along one client axis: this process's ``rank`` of ``size``,
-    its process ``group`` (None: the default group), the ``device`` its
-    client rows live on and the group's ``backend``."""
+class RankMesh:
+    """Named axes of the given sizes over ``size`` ranks of an initialised
+    process group, row-major: this process's ``rank`` in the mesh, the
+    mesh's process ``group`` (None: the default group), one sub-group per
+    axis of size > 1 (``axis_group``), the ``device`` this rank's tensors
+    live on and the group's ``backend``. A 1-D mesh is the client mesh of
+    the sharded superround (``client_mesh``)."""
 
-    axis: str
-    size: int
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
     rank: int
     group: Any
     device: torch.device
     backend: str
-
-    @property
-    def axis_names(self):
-        return (self.axis,)
+    axis_groups: Dict[str, Any] = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {self.axis: self.size}
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        """The mesh's rank count."""
+        return math.prod(self.sizes)
+
+    @property
+    def axis(self) -> str:
+        """The first axis: a client mesh's one axis."""
+        return self.axis_names[0]
+
+    def axis_index(self, name: str) -> int:
+        """This rank's coordinate along ``name`` (JAX's ``lax.axis_index``)."""
+        i = self.axis_names.index(name)
+        return (self.rank // math.prod(self.sizes[i + 1:])) % self.sizes[i]
+
+    def axis_group(self, name: str):
+        """The process group of the ranks that differ from this one along
+        ``name`` only."""
+        if self.shape[name] == self.size:
+            return self.group
+        return self.axis_groups[name]
 
     def rows(self, capacity: int) -> slice:
         """This rank's positions of a placement-ordered client axis."""
         return slice(self.rank * capacity, (self.rank + 1) * capacity)
 
 
+def ClientMesh(axis: str, size: int, rank: int, group, device: torch.device, backend: str) -> RankMesh:
+    """The client-sharded superround's mesh: a ``RankMesh`` with the one
+    axis ``axis`` of ``size`` ranks (``client_mesh`` builds it from the
+    process group)."""
+    return RankMesh(axis_names=(axis,), sizes=(int(size),), rank=rank, group=group, device=device, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# Hints and MoE's expert-parallel exchange
+# ---------------------------------------------------------------------------
+
+_HINT_MESH = None
+
+
+def refuse_model_axis(mesh) -> None:
+    """Raise, naming ROADMAP.md item 16, when ``mesh`` has a "model" axis
+    larger than 1: nothing here inserts the in-layer collectives that tensor
+    parallelism needs, and replicating instead would be silent."""
+    if "model" in tuple(mesh.axis_names) and int(mesh.shape["model"]) > 1:
+        raise unported('tensor-parallel sharding over the "model" axis', 16)
+
+
 def set_hint_mesh(mesh) -> None:
-    """Install the mesh that model sharding hints constrain to: not ported
-    (None, the off-mesh default, is accepted)."""
+    """Install (or clear, with None) the mesh the model code consults: its
+    "data" axis sets MoE's token groups and expert-parallel exchange."""
+    global _HINT_MESH
     if mesh is not None:
-        raise unported("model-parallel sharding hints (set_hint_mesh)", 12)
+        refuse_model_axis(mesh)
+    _HINT_MESH = mesh
+
+
+def hint_mesh():
+    return _HINT_MESH
+
+
+@contextlib.contextmanager
+def using_hint_mesh(mesh):
+    """``set_hint_mesh(mesh)`` for the body of a ``with``, then the mesh that
+    was installed before (JAX's dry run installs its mesh around tracing)."""
+    before = _HINT_MESH
+    set_hint_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        set_hint_mesh(before)
+
+
+def hint(x, *members):
+    """The identity. JAX constrains a global array to ``P(*members)`` under
+    the hint mesh; on a rank of a ``RankMesh`` the tensor already is this
+    rank's shard, and there is nothing to place."""
+    del members
+    return x
+
+
+def hint_data_groups() -> int:
+    """MoE token groups = data-axis size of the hint mesh (1 off-mesh)."""
+    mesh = _HINT_MESH
+    if mesh is None or "data" not in mesh.axis_names:
+        return 1
+    return int(mesh.shape["data"])
+
+
+def ep_mode_for(mesh, num_experts: int) -> str:
+    """``moe_ep_mode`` on ``mesh`` (JAX's table): "ep_data" on a data axis
+    of size > 1 that divides the expert count, else "none"."""
+    if mesh is None or "data" not in mesh.axis_names:
+        return "none"
+    ndev = int(mesh.shape["data"])
+    if ndev <= 1 or num_experts % ndev:
+        return "none"
+    return "ep_data"
 
 
 def moe_ep_mode(num_experts: int) -> str:
-    """MoE's expert-parallel exchange mode: "none" (the dispatch stays on one
-    device), what JAX returns without a hint mesh."""
-    return "none"
+    """Expert-parallel exchange mode of the MoE block under the hint mesh.
+
+    "none" keeps the per-group dispatch on the rank (the only mode
+    off-mesh). "ep_data" exchanges the group-major dispatch buffers with
+    one all-to-all each way over the data axis; a rank then holds only its
+    E/P experts' rows (``expert_rows``) and the tokens of its group."""
+    return ep_mode_for(_HINT_MESH, num_experts)
 
 
-def moe_dispatch_exchange(buf_g, mode: str):
-    """MoE's expert-parallel all-to-all: not ported."""
-    raise unported(f"MoE's expert-parallel exchange (moe_dispatch_exchange, mode {mode!r})", 12)
+def _ep_mesh(name: str, mode: str):
+    if mode != "ep_data":
+        raise ValueError(f"unknown ep mode: {mode}")
+    if _HINT_MESH is None:
+        raise RuntimeError(f"{name} needs a hint mesh")
+    return _HINT_MESH
+
+
+def moe_dispatch_exchange(buf_g: torch.Tensor, mode: str) -> torch.Tensor:
+    """(G/P, E, C, d) this rank's group-major dispatch buffers -> (E/P,
+    G*C, d) expert-major for its E/P experts: expert block p goes to rank p
+    of the data axis, and what arrives is concatenated over the groups in
+    rank order (``lax.all_to_all(split_axis=1, concat_axis=0, tiled=True)``).
+    One ``all_to_all_single``, counted."""
+    mesh = _ep_mesh("moe_dispatch_exchange", mode)
+    p = int(mesh.shape["data"])
+    gl, e, c, d = buf_g.shape
+    send = buf_g.reshape(gl, p, e // p, c, d).transpose(0, 1)  # (P, G/P, E/P, C, d): block p for rank p
+    recv = exchange_blocks(send, mesh, "data")  # recv[q]: rank q's groups for this rank's experts
+    return recv.reshape(p * gl, e // p, c, d).transpose(0, 1).reshape(e // p, p * gl * c, d)
+
+
+def moe_combine_exchange(out_buf: torch.Tensor, flat_e_g, ranks_g, gates, mode: str, capacity: int):
+    """The inverse of ``moe_dispatch_exchange`` and the weighted combine:
+    (E/P, G*C, d) expert outputs -> (G/P, Tg, d) f32 for this rank's
+    groups. Slots past the capacity read 0 (JAX's gather with
+    ``mode="fill"``). One ``all_to_all_single``, counted."""
+    from repro_torch.models.layers import moe_combine
+
+    mesh = _ep_mesh("moe_combine_exchange", mode)
+    p = int(mesh.shape["data"])
+    el, gc, d = out_buf.shape
+    g = gc // capacity
+    back = out_buf.reshape(el, g, capacity, d).transpose(0, 1)  # (G, E/P, C, d): groups of rank q in block q
+    recv = exchange_blocks(back.reshape(p, g // p, el, capacity, d), mesh, "data")
+    out_g = recv.transpose(0, 1).reshape(g // p, p * el, capacity, d)  # (G/P, E, C, d)
+    return torch.stack([moe_combine(out_g[i], flat_e_g[i], ranks_g[i], gates[i]) for i in range(g // p)])
+
+
+def expert_rows(params, mesh, axis: str = "data"):
+    """``params`` with every MoE block's expert weights (``w1``, ``w3``,
+    ``w2`` under a ``"moe"`` key; the expert dim is third from last, after
+    any stacked superblock dims) cut to this rank's E/P experts along
+    ``axis``: the rows the expert-parallel exchange delivers tokens to.
+    Numpy leaves are sliced, tensors sliced and copied (the full leaf is
+    not kept alive). Other leaves pass through."""
+    p, r = int(mesh.shape[axis]), mesh.axis_index(axis)
+
+    def cut(x):
+        e = x.shape[-3]
+        if e % p:
+            raise ValueError(f"{e} experts do not divide the {axis!r} axis of {p}")
+        part = x[..., r * (e // p):(r + 1) * (e // p), :, :]
+        return part.clone() if isinstance(part, torch.Tensor) else part
+
+    def walk(t, in_moe=False):
+        if isinstance(t, dict):
+            return {k: (cut(v) if in_moe and k in ("w1", "w3", "w2") else walk(v, k == "moe")) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return t
+
+    return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# The mesh and its counted collectives
+# ---------------------------------------------------------------------------
 
 
 def client_axis_of(mesh) -> str:
@@ -125,8 +305,58 @@ def _rank_device(device: DeviceLike, rank: int) -> torch.device:
     return dev
 
 
-def client_mesh(num_devices: int = 0, axis: str = "clients", *, device: DeviceLike = None) -> ClientMesh:
-    """A ``ClientMesh`` over the first ``num_devices`` ranks of the
+def _check_backend(backend: str, dev: torch.device, k: int) -> None:
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError(f"the NCCL backend needs CUDA devices, got {dev}; use backend='gloo' on the CPU")
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", k))
+        if local > torch.cuda.device_count():
+            raise ValueError(
+                f"NCCL refuses two ranks on one GPU: {local} ranks on this node share "
+                f"{torch.cuda.device_count()} device(s); use backend='gloo' for ranks that share a card"
+            )
+
+
+def _world() -> int:
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(f"a rank mesh needs an initialised torch.distributed process group; {LAUNCH_RECIPE}")
+    return dist.get_world_size()
+
+
+def rank_mesh(shape: Sequence[int], axes: Sequence[str], *, device: DeviceLike = None) -> RankMesh:
+    """A ``RankMesh`` of ``shape`` named ``axes`` over every rank of the
+    initialised process group, row-major; the world must have exactly
+    prod(shape) ranks (``launch.mesh`` words the error as JAX does). Every
+    rank makes every axis sub-group, in one order, as
+    ``dist.new_group`` needs."""
+    sizes = tuple(int(n) for n in shape)
+    axes = tuple(axes)
+    if len(sizes) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh shape {sizes} and axes {axes} do not match")
+    n = math.prod(sizes)
+    world = _world()
+    if n != world:
+        raise ValueError(f"a {sizes} mesh needs {n} ranks, the process group has {world}; {LAUNCH_RECIPE}")
+    rank = dist.get_rank()
+    groups = {}
+    grid = np.arange(n).reshape(sizes)
+    for i, name in enumerate(axes):
+        if sizes[i] in (1, n):
+            continue  # a one-rank axis needs no group; a whole-mesh axis uses the mesh's
+        lines = np.moveaxis(grid, i, -1).reshape(-1, sizes[i])
+        for line in lines:  # every rank makes every group, in this order
+            g = dist.new_group([int(x) for x in line])
+            if rank in line:
+                groups[name] = g
+    backend = str(dist.get_backend())
+    dev = _rank_device(device, rank)
+    _check_backend(backend, dev, n)
+    return RankMesh(axis_names=axes, sizes=sizes, rank=rank, group=None, device=dev, backend=backend,
+                    axis_groups=groups)
+
+
+def client_mesh(num_devices: int = 0, axis: str = "clients", *, device: DeviceLike = None) -> RankMesh:
+    """A 1-D ``RankMesh`` over the first ``num_devices`` ranks of the
     initialised process group (0 or None: every rank). Needs the group: it
     raises when there is none, and when K exceeds the world; it never runs
     single-device instead. Each rank's device is ``cuda:(local_rank %
@@ -148,16 +378,8 @@ def client_mesh(num_devices: int = 0, axis: str = "clients", *, device: DeviceLi
         raise ValueError(f"rank {rank} is outside the {k}-rank client mesh (world of {world})")
     backend = str(dist.get_backend(group))
     dev = _rank_device(device, rank)
-    if backend == "nccl":
-        if dev.type != "cuda":
-            raise ValueError(f"the NCCL backend needs CUDA devices, got {dev}; use backend='gloo' on the CPU")
-        local = int(os.environ.get("LOCAL_WORLD_SIZE", k))
-        if local > torch.cuda.device_count():
-            raise ValueError(
-                f"NCCL refuses two ranks on one GPU: {local} ranks on this node share "
-                f"{torch.cuda.device_count()} device(s); use backend='gloo' for ranks that share a card"
-            )
-    return ClientMesh(axis=axis, size=k, rank=rank, group=group, device=dev, backend=backend)
+    _check_backend(backend, dev, k)
+    return ClientMesh(axis, k, rank, group, dev, backend)
 
 
 # ---------------------------------------------------------------------------
@@ -165,19 +387,40 @@ def client_mesh(num_devices: int = 0, axis: str = "clients", *, device: DeviceLi
 # ---------------------------------------------------------------------------
 
 
-def all_reduce_sum(vec: torch.Tensor, mesh: ClientMesh, counter: str = "all_reduce") -> torch.Tensor:
-    """Sum ``vec`` over the mesh's ranks in place (one ``dist.all_reduce``,
-    counted under ``counter``) and return it: the port's ``lax.psum``."""
+def all_reduce_sum(vec: torch.Tensor, mesh: RankMesh, counter: str = "all_reduce", axis: Optional[str] = None
+                   ) -> torch.Tensor:
+    """Sum ``vec`` over the mesh's ranks (or over ``axis``'s sub-group) in
+    place (one ``dist.all_reduce``, counted under ``counter``) and return
+    it: the port's ``lax.psum``."""
     COUNTS[counter] += 1
-    dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=mesh.group)
+    group = mesh.group if axis is None else mesh.axis_group(axis)
+    dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=group)
     return vec
+
+
+def exchange_blocks(x: torch.Tensor, mesh: RankMesh, axis: str) -> torch.Tensor:
+    """(P, ...) -> (P, ...) over ``axis``'s P ranks: block p goes to rank
+    p, and block q of the result came from rank q. One
+    ``dist.all_to_all_single``, counted as ``"all_to_all"``; under gloo the
+    bytes travel through host tensors, and the result comes back to ``x``'s
+    device. A failed exchange raises."""
+    COUNTS["all_to_all"] += 1
+    group = mesh.axis_group(axis)
+    if mesh.backend == "nccl":
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+        return out
+    host = x.contiguous().cpu()
+    out = torch.empty_like(host)
+    dist.all_to_all_single(out, host, group=group)
+    return out.to(x.device)
 
 
 def _bytes(x: torch.Tensor) -> torch.Tensor:
     return x.detach().contiguous().reshape(-1).view(torch.uint8)
 
 
-def gather_rows(x: torch.Tensor, mesh: ClientMesh) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
     """Every rank's (c, ...) rows concatenated in rank order, (K*c, ...), on
     ``x``'s device. Under gloo the bytes travel through host tensors."""
     COUNTS["gather"] += 1
@@ -199,7 +442,7 @@ def gather_rows(x: torch.Tensor, mesh: ClientMesh) -> torch.Tensor:
     return out
 
 
-def broadcast_object(obj: Any, src: int, mesh: ClientMesh) -> Any:
+def broadcast_object(obj: Any, src: int, mesh: RankMesh) -> Any:
     """``obj`` from rank ``src`` (pickled), on every rank."""
     COUNTS["broadcast"] += 1
     box = [obj if mesh.rank == src else None]
@@ -208,7 +451,7 @@ def broadcast_object(obj: Any, src: int, mesh: ClientMesh) -> Any:
     return box[0]
 
 
-def barrier(mesh: ClientMesh) -> None:
+def barrier(mesh: RankMesh) -> None:
     if mesh.size > 1:
         dist.barrier(group=mesh.group)
 
@@ -225,7 +468,7 @@ class RowSharding:
     one answer to "which rows are this rank's".
 
     Without ``index`` the axis is placement-ordered (padded_N positions) and
-    the rank takes its block of ``capacity`` positions (``ClientMesh.rows``).
+    the rank takes its block of ``capacity`` positions (``RankMesh.rows``).
     With ``index`` (this rank's canonical rows in placement order:
     ``ShardPlacement.gather_index()`` at its positions, phantoms reading row
     0) the axis is canonical (N rows) and the rank takes those rows, the
@@ -233,7 +476,7 @@ class RowSharding:
     (numpy or torch); a call also moves the part to the mesh's device.
     Applied to a non-tensor (the generator) a call passes it through."""
 
-    mesh: ClientMesh
+    mesh: RankMesh
     dim: Optional[int]
     index: Optional[np.ndarray] = None
 
@@ -256,18 +499,18 @@ class RowSharding:
         return self.take(x).to(self.mesh.device)
 
 
-def batch_block_sharding(mesh: ClientMesh, axis: str = "clients", *, index=None) -> RowSharding:
+def batch_block_sharding(mesh: RankMesh, axis: str = "clients", *, index=None) -> RowSharding:
     """Superround batch blocks (kappa2, kappa1, N, b, ...): this rank's
     clients of dim 2."""
     return RowSharding(mesh, 2, index)
 
 
-def mask_stack_sharding(mesh: ClientMesh, axis: str = "clients", *, index=None) -> RowSharding:
+def mask_stack_sharding(mesh: RankMesh, axis: str = "clients", *, index=None) -> RowSharding:
     """Survival mask stacks (kappa2, N): this rank's columns."""
     return RowSharding(mesh, 1, index)
 
 
-def fed_state_shardings(mesh: ClientMesh, axis: str, state, stacked_dim: int, *, index=None):
+def fed_state_shardings(mesh: RankMesh, axis: str, state, stacked_dim: int, *, index=None):
     """A ``FedState`` of ``RowSharding``s for a stacked state whose leaves
     carry the leading ``stacked_dim`` client axis: those take this rank's
     rows, everything else (step, rng, scalar optimizer leaves) is
@@ -278,10 +521,205 @@ def fed_state_shardings(mesh: ClientMesh, axis: str, state, stacked_dim: int, *,
     return type(specs)(*(_spec_tree(mesh, f, index) for f in specs))
 
 
-def _spec_tree(mesh: ClientMesh, tree, index):
+def _spec_tree(mesh: RankMesh, tree, index):
     """Specs (the axis name: rows; "": replicated; None: an absent field)
     to ``RowSharding``s."""
     from repro_torch.tree import tree_map
 
     return tree_map(lambda s: None if s is None else RowSharding(mesh, 0 if s else None, index if s else None),
                     tree)
+
+
+# ---------------------------------------------------------------------------
+# Tree sharding rules
+# ---------------------------------------------------------------------------
+
+
+class PartitionSpec:
+    """One member per dim, as JAX's ``PartitionSpec``: an axis name, a tuple
+    of axis names (the dim splits over their product, the first major), or
+    None (replicated). Compares equal to the tuple of its members. A leaf,
+    not a sequence, for ``tree.tree_map``. ``shard(x, mesh)`` is this
+    rank's slice of ``x`` (a view)."""
+
+    __slots__ = ("members",)
+
+    def __init__(self, *members):
+        self.members = tuple(members)
+
+    def __iter__(self):
+        return iter(self.members)
+
+    def __len__(self) -> int:
+        return len(self.members)
+
+    def __getitem__(self, i):
+        return self.members[i]
+
+    def __eq__(self, other) -> bool:
+        return tuple(self) == tuple(other) if isinstance(other, (tuple, PartitionSpec)) else NotImplemented
+
+    def __hash__(self) -> int:
+        return hash(self.members)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{self.members!r}"
+
+    def shard(self, x, mesh):
+        """This rank's block of each sharded dim of ``x`` (numpy or torch)."""
+        index = []
+        for dim, member in enumerate(self.members):
+            if member is None:
+                index.append(slice(None))
+                continue
+            names = member if isinstance(member, tuple) else (member,)
+            count, block = 1, 0
+            for name in names:
+                count *= int(mesh.shape[name])
+                block = block * int(mesh.shape[name]) + mesh.axis_index(name)
+            if x.shape[dim] % count:
+                raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split {count} ways over {names}")
+            size = x.shape[dim] // count
+            index.append(slice(block * size, (block + 1) * size))
+        return x[tuple(index)]
+
+
+P = PartitionSpec
+
+
+def _last_dim_member(mesh, shape, axis: str):
+    if len(shape) < 2 or axis not in mesh.axis_names:
+        return None
+    return axis if shape[-1] % mesh.shape[axis] == 0 else None
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """``PartitionSpec`` factory for one (config, mesh) pair
+    (``repro/dist/sharding.py:177-248``).
+
+    client_axes: mesh axes the leading stacked client dim is sharded over
+    (empty for serving: params then carry no client axis). The rules give
+    JAX's members on any mesh (a ``RankMesh`` or anything with
+    ``axis_names`` and a ``shape`` dict); they degrade to replication
+    where an axis is absent or a non-client dim does not divide, and raise
+    for a client count that does not divide the client axes."""
+
+    mesh: Any
+    client_axes: Tuple[str, ...] = ()
+    model_axis: str = "model"
+    data_axis: str = "data"
+
+    def _client_member(self, dim_size: int):
+        axes = tuple(a for a in self.client_axes if a in self.mesh.axis_names)
+        if not axes:
+            return None
+        total = 1
+        for a in axes:
+            total *= self.mesh.shape[a]
+        if dim_size % total:
+            # an indivisible client count is a topology mistake, not a hint:
+            # replicating would hide an N-fold memory and compute blow-up
+            raise ValueError(
+                f"stacked client axis of size {dim_size} is not divisible by the "
+                f"mesh's client axes {axes} ({total} ways); choose a client count "
+                f"that divides the mesh (or drop the client axes from the "
+                f"sharding rules) instead of silently replicating the state"
+            )
+        return axes if len(axes) > 1 else axes[0]
+
+    def batch_spec(self, shape, *, has_accum: bool = False) -> PartitionSpec:
+        """Training batch (accum?, N, micro/b, ...): client dim over the
+        federated axes, everything else replicated."""
+        members = [None] * len(shape)
+        client_dim = 1 if has_accum else 0
+        members[client_dim] = self._client_member(shape[client_dim])
+        return P(*members)
+
+    def request_spec(self, shape) -> PartitionSpec:
+        """Serving request (B, ...): batch dim over "data" when it divides."""
+        members = [None] * len(shape)
+        if shape and self.data_axis in self.mesh.axis_names and shape[0] % self.mesh.shape[self.data_axis] == 0:
+            members[0] = self.data_axis
+        return P(*members)
+
+    def _param_spec(self, shape) -> PartitionSpec:
+        members = [None] * len(shape)
+        if self.client_axes and shape:
+            members[0] = self._client_member(shape[0])
+        tp = _last_dim_member(self.mesh, shape, self.model_axis)
+        if tp is not None and (not members or members[-1] is None) and len(shape) >= 2:
+            members[-1] = tp
+        return P(*members)
+
+    def params_shardings(self, params, *, scanned: bool = True):
+        """A spec per parameter leaf (stacked client dim first, the last dim
+        over "model" where it divides)."""
+        from repro_torch.tree import tree_map
+
+        del scanned  # specs are rank-generic; a scanned stack only adds a replicated dim
+        return tree_map(lambda leaf: self._param_spec(tuple(leaf.shape)), params)
+
+    def caches_shardings(self, caches, *, scanned: bool = True):
+        """A spec per decode-cache leaf: the leading dim over "data" where it
+        divides."""
+        from repro_torch.tree import tree_map
+
+        del scanned
+
+        def spec(leaf):
+            members = [None] * len(leaf.shape)
+            if leaf.shape and self.data_axis in self.mesh.axis_names and (
+                    leaf.shape[0] % self.mesh.shape[self.data_axis] == 0):
+                members[0] = self.data_axis
+            return P(*members)
+
+        return tree_map(spec, caches)
+
+
+def shard_tree(tree, specs, mesh, device: DeviceLike = None):
+    """This rank's part of every leaf of ``tree`` by the matching spec of
+    ``specs`` (None: the leaf whole), moved to ``device`` (default: the
+    mesh's). A part is a copy, so the whole leaf is not kept alive behind
+    it. Non-tensor leaves pass through."""
+    from repro_torch.tree import tree_map
+
+    dev = mesh.device if device is None else torch.device(device)
+
+    def one(x, spec):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        if not isinstance(x, torch.Tensor):
+            return x
+        if spec is None:
+            return x.to(dev)
+        part = spec.shard(x, mesh).to(dev)
+        return part.clone() if part.untyped_storage().data_ptr() == x.untyped_storage().data_ptr() else part
+
+    return tree_map(one, tree, specs)
+
+
+def fed_rules(cfg, mesh) -> ShardingRules:
+    """Federated training: stacked client axis over ("pod", "data")."""
+    del cfg
+    axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return ShardingRules(mesh=mesh, client_axes=axes)
+
+
+def serve_rules(cfg, mesh) -> ShardingRules:
+    """Serving: no client axis; requests over "data" ("model" members as
+    JAX's, refused at run time when larger than 1)."""
+    del cfg
+    return ShardingRules(mesh=mesh, client_axes=())
+
+
+def topology_for(cfg, mesh):
+    """The federated tree this config trains on this mesh: the uniform
+    two-level ``FedTopology``, or the ``FedPlan``'s ragged
+    ``HierarchySpec`` when set."""
+    num_pods = mesh.shape["pod"] if "pod" in mesh.axis_names else 1
+    if cfg.fed.fanouts is not None:
+        return cfg.fed.hierarchy(num_pods)
+    from repro_torch.core.hierfavg import FedTopology
+
+    return FedTopology(num_edges=num_pods * cfg.fed.edges_per_pod, clients_per_edge=cfg.fed.clients_per_edge)

@@ -76,7 +76,7 @@ class TopologySpec:
         return FedTopology(num_edges=self.num_edges, clients_per_edge=self.clients_per_edge)
 
     def build_mesh(self, device: DeviceLike = None):
-        """The ``dist.sharding.ClientMesh`` ``mesh_axes`` names (None when
+        """The ``dist.sharding.RankMesh`` ``mesh_axes`` names (None when
         unset), its ranks' devices from ``device``."""
         if not self.mesh_axes:
             return None
@@ -443,8 +443,11 @@ class ExperimentSpec:
         device = resolve_device(device)
         return params_from_numpy(np_params, device, like=self.model_bundle(device)["like"]())
 
-    def build(self, *, device: DeviceLike = None):
-        """Assemble the ``FederatedRunner`` on ``device`` (default ``cuda``)."""
+    def build(self, *, device: DeviceLike = None, grad_accum: int = 1):
+        """Assemble the ``FederatedRunner`` on ``device`` (default ``cuda``).
+        ``grad_accum`` > 1 cuts each client's batch into that many
+        microbatches (``data.pipeline.split_microbatches``) and accumulates
+        their gradients in every local step (``FederatedRunner(grad_accum=)``)."""
         from repro_torch.core.hierarchy import as_hierarchy
         from repro_torch.fed.runner import FederatedRunner, RunnerConfig
 
@@ -455,6 +458,10 @@ class ExperimentSpec:
         hier = self.hier_config(_depth=tree.depth)
         bundle = _model_bundle(self, device)
         batcher, eval_fn = _build_data(self, topo, bundle, device)
+        if grad_accum > 1:
+            from repro_torch.data.pipeline import split_microbatches
+
+            batcher.batch_fn = split_microbatches(batcher.batch_fn, grad_accum)
         failures, stragglers = self.failures.build(tree.num_clients)
         costs = self.cost.build()
         deadline_spec = self.deadline
@@ -503,6 +510,7 @@ class ExperimentSpec:
             checkpointer=checkpointer,
             device=device,
             mesh=mesh,
+            grad_accum=grad_accum,
         )
         runner.spec = self  # provenance: the runner knows its declarative form
         return runner

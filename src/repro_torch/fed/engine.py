@@ -55,7 +55,7 @@ interval, and a ``CohortPrefetcher`` draws the cohorts and uploads their
 blocks and aggregation tables ahead of time.
 
 **Mesh execution** (``repro/fed/engine.py:80-190``, ``:525-670``). With a
-runner mesh (``dist.sharding.ClientMesh``) both engines run one process per
+runner mesh (``dist.sharding.RankMesh``) both engines run one process per
 rank: ``SuperRoundEngine`` builds ``build_sharded_super_round`` over the
 edge-aligned ``ShardPlacement`` and ``CohortEngine``
 ``build_sharded_cohort_super_round`` over the cohort's slot placement.
@@ -253,10 +253,11 @@ class SuperRoundEngine:
                 self.placement = plan_shard_placement(as_hierarchy(runner.topology), num_shards)
             self._super = build_sharded_super_round(
                 runner.loss_fn, runner.optimizer, runner.topology, hier, runner.weights,
-                mesh=self.mesh, axis=axis, placement=self.placement)
+                mesh=self.mesh, axis=axis, placement=self.placement, grad_accum=runner.grad_accum)
             self._layout = _MeshLayout(self.mesh, self.placement, runner.topology.num_clients)
         else:
-            self._super = build(runner.loss_fn, runner.optimizer, runner.topology, hier, runner.weights)
+            self._super = build(runner.loss_fn, runner.optimizer, runner.topology, hier, runner.weights,
+                                grad_accum=runner.grad_accum)
         # [(round_base, alive counts (k2,), device metrics {"loss",
         # "grad_norm","step"} each (k2,), or the mesh path's per-client ones)]
         self._pending: List[Tuple[int, List[int], dict]] = []
@@ -435,7 +436,8 @@ class DeadlineEngine(SuperRoundEngine):
                 f"tree has {num_units} cloud-facing unit(s)"
             )
         self._gated = build_deadline_super_round(
-            runner.loss_fn, runner.optimizer, runner.topology, runner.hier_config, runner.weights)
+            runner.loss_fn, runner.optimizer, runner.topology, runner.hier_config, runner.weights,
+            grad_accum=runner.grad_accum)
         self._wall: dict = {}  # round index -> event-clock seconds at its close
         self._last_plan = None
         self.gated_intervals = 0  # intervals dispatched through the gated superround
@@ -543,7 +545,7 @@ class CohortEngine:
                     self.spec, _cohort_quotas(self.spec, self.cohort_size), num_shards)
             self._super = build_sharded_cohort_super_round(
                 runner.loss_fn, runner.optimizer, runner.topology, hier, cohort_size=self.cohort_size,
-                mesh=self.mesh, axis=axis, placement=self.placement)
+                mesh=self.mesh, axis=axis, placement=self.placement, grad_accum=runner.grad_accum)
             self._layout = _MeshLayout(self.mesh, self.placement, self.cohort_size)
             # the clients whose store rows live on this rank: those of the
             # edges its slots report to (stratified quotas fix slots to
@@ -556,7 +558,8 @@ class CohortEngine:
                 self._own_clients = np.isin(self.spec.segments(1), edges)
         else:
             self._super = build_cohort_super_round(
-                runner.loss_fn, runner.optimizer, runner.topology, hier, cohort_size=self.cohort_size)
+                runner.loss_fn, runner.optimizer, runner.topology, hier, cohort_size=self.cohort_size,
+                grad_accum=runner.grad_accum)
         self._pending: List[Tuple[int, List[int], dict]] = []
         self._staging: Optional[List[torch.Tensor]] = None
         self.swap_seconds = 0.0

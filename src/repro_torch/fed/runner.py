@@ -39,7 +39,7 @@ fallback: a schedule or cadence it cannot run raises with the reason
 event clock in ``wall_clock_s``, and its checkpoints the scheduler's state.
 
 With a client mesh (``mesh=`` or ``RunnerConfig.mesh``, a
-``dist.sharding.ClientMesh``; ``topology.mesh_axes`` in the spec) the run
+``dist.sharding.RankMesh``; ``topology.mesh_axes`` in the spec) the run
 is one process per rank. Whole cloud intervals go through the
 client-sharded engine when ``core.hierfavg.sharding_incompatibility``
 clears the schedule and the cadences land on cloud boundaries; whatever
@@ -49,6 +49,12 @@ last whole interval) runs it replicated on every rank (the whole state on
 each), and ``_mesh_reason`` names why.
 Only rank 0 writes a checkpoint, in the single-device file layout, while
 the others wait at a barrier; a resume reads the file on every rank.
+
+``grad_accum`` > 1 accumulates that many microbatches in every local step
+of every engine (batch leaves (grad_accum, N, b, ...), as the batcher's
+``batch_fn`` gives them, ``data.pipeline.split_microbatches``). The
+megakernel then keeps the superround and a mesh the per-round loop, each
+with JAX's reason.
 
 The runner consumes the ``FedState`` it is given: stacked parameters are
 updated in place (see ``optim.apply_updates``).
@@ -106,7 +112,7 @@ class RunnerConfig:
     # a named reason when the schedule is not block-separable); "per_round"
     # forces the one-edge-interval-at-a-time loop.
     engine: str = "auto"
-    # client mesh for client-sharded execution (dist.sharding.ClientMesh,
+    # client mesh for client-sharded execution (dist.sharding.RankMesh,
     # see dist.sharding.client_mesh); the FederatedRunner's mesh= wins
     mesh: Any = None
 
@@ -151,7 +157,8 @@ class FederatedRunner:
         deadline=None,  # fed.deadline.SemiSyncScheduler (semi-synchronous cloud)
         checkpointer=None,  # checkpoint.CheckpointManager
         device: DeviceLike = None,
-        mesh=None,  # dist.sharding.ClientMesh (one process per rank)
+        mesh=None,  # dist.sharding.RankMesh (one process per rank)
+        grad_accum: int = 1,
     ):
         self.mesh = mesh if mesh is not None else runner_config.mesh
         if self.mesh is not None and device is None:
@@ -178,6 +185,9 @@ class FederatedRunner:
         # the deadline engine reweights dead units instead of waiting
         self._last_mask_parts = None
         self.checkpointer = checkpointer
+        # microbatches per local step: batch leaves (accum, N, b, ...), as
+        # the batcher's batch_fn gives them
+        self.grad_accum = int(grad_accum)
         self._engine = None  # lazily built (and cached) SuperRoundEngine / DeadlineEngine / CohortEngine
         self._megakernel_reason: Optional[str] = None
         self._mesh_reason: Optional[str] = None
@@ -196,7 +206,7 @@ class FederatedRunner:
         self._sampler = None
         # the per-round lowering never runs under sampled participation
         self._round = None if self.participation is not None else build_hier_round(
-            loss_fn, optimizer, topology, hier_config, self.weights)
+            loss_fn, optimizer, topology, hier_config, self.weights, grad_accum=self.grad_accum)
         self.history: List[RoundRecord] = []
 
     def init(self, rng: torch.Generator, params: Params) -> FedState:
@@ -353,12 +363,14 @@ class FederatedRunner:
         words."""
         if self.mesh is not None:
             reason = "a device mesh routes to the client-sharded superround"
+        elif self.grad_accum > 1:
+            reason = "microbatch accumulation keeps the scan-fused path"
         elif self.failures is not None or self.stragglers is not None:
             reason = "failure/straggler masks need the scan-fused survival plumbing"
         elif getattr(self._mask_for_round, "__func__", None) is not FederatedRunner._mask_for_round:
             reason = "an overridden failure detector is a live per-round mask seam"
         else:
-            reason = megakernel_incompatibility(self.hier_config, self.topology)
+            reason = megakernel_incompatibility(self.hier_config, self.topology, grad_accum=self.grad_accum)
         self._megakernel_reason = reason
         return reason
 
@@ -377,7 +389,10 @@ class FederatedRunner:
             if reason is None and every and every % k2:
                 reason = f"{name}={every} is finer than a cloud interval (kappa2_eff={k2})"
         if reason is None and self.mesh is not None:
-            reason = self._plan_mesh_placement()
+            # the host blocks' microbatch axis shifts the client dim the
+            # engine's rank slices take
+            reason = "grad_accum > 1 has no sharded block layout yet" if self.grad_accum > 1 else (
+                self._plan_mesh_placement())
         if self.mesh is not None:
             self._mesh_reason = reason
         return reason is None
@@ -457,6 +472,8 @@ class FederatedRunner:
         if self.cfg.engine == "per_round":
             return "engine='per_round' has no cohort lowering"
         if self.mesh is not None:
+            if self.grad_accum > 1:
+                return "grad_accum > 1 has no sharded block layout yet"
             reason = self._plan_cohort_placement()
             if reason is not None:
                 return reason

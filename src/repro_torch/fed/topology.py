@@ -4,7 +4,7 @@ Copy-port of ``repro.fed.topology`` (126 lines, numpy): ``MeshFedPlan``,
 ``plan_for_mesh``, ``plan_for_hierarchy``, ``replica_groups``,
 ``edge_replica_groups``, ``pod_of_edge`` and ``client_weights``. The plans
 take any mesh with ``axis_names`` and ``shape``, the port's
-``dist.sharding.ClientMesh`` (one ``"clients"`` axis of K ranks) among
+``dist.sharding.RankMesh`` (one ``"clients"`` axis of K ranks) among
 them. The federated axes are ``("pod", "data")`` where the mesh has them:
 clients shard over them, edges are contiguous groups of clients and pods
 contiguous groups of edges. A client mesh has neither, so its plans have

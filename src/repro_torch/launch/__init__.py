@@ -1,2 +1,5 @@
-"""Launchers: ``serve`` (prefill a request batch, decode with caches) and
-``train`` (federated training of a registry arch)."""
+"""Launchers: ``serve`` (prefill a request batch, decode with caches),
+``train`` (federated training of a registry arch), and the cells a rank of
+a mesh runs: ``mesh`` (production and host meshes over the ranks),
+``specs`` (meta stand-ins of every input with their specs) and ``steps``
+(the train, prefill, decode and aggregation cells)."""

@@ -526,44 +526,111 @@ def moe_ranks(flat_e: torch.Tensor, num_experts: int):
     return counts, starts, ranks, order
 
 
+def _moe_dispatch(xg: torch.Tensor, ids: torch.Tensor, num_experts: int, capacity: int):
+    """One token group's fixed-capacity dispatch: (buf (E, C, d), flat expert
+    ids (Tg*K,), each assignment's rank among its expert's, counts (E,)).
+    Slot (e, c) gathers the token of the c-th assignment in expert e's
+    sorted run (out of place); ranks C and beyond are dropped."""
+    tg, k = ids.shape
+    flat_e = ids.reshape(-1)
+    counts, starts, ranks, order = moe_ranks(flat_e, num_experts)
+    slot_c = torch.arange(capacity, device=xg.device)
+    src = torch.clamp(starts[:, None] + slot_c[None, :], max=tg * k - 1)  # (E, C) positions in sorted order
+    filled = slot_c[None, :] < counts[:, None]
+    zero = torch.zeros((), dtype=xg.dtype, device=xg.device)
+    return torch.where(filled[..., None], xg[order[src] // k], zero), flat_e, ranks, counts
+
+
+def moe_combine(out_ec: torch.Tensor, flat_e: torch.Tensor, ranks: torch.Tensor, gates: torch.Tensor):
+    """One group's gated combine: each assignment reads its slot of the
+    (E, C, d) expert outputs (0 past the capacity, JAX's ``mode="fill"``)
+    and the top-k are summed in f32 with their gates -> (Tg, d) f32."""
+    e, c, d = out_ec.shape
+    tg, k = gates.shape
+    kept = ranks < c
+    slot = flat_e * c + torch.clamp(ranks, max=c - 1)
+    zero = torch.zeros((), dtype=out_ec.dtype, device=out_ec.device)
+    gathered = torch.where(kept[:, None], out_ec.reshape(e * c, d)[slot], zero)
+    return torch.sum(gathered.reshape(tg, k, d).float() * gates[..., None], dim=1)
+
+
 def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, d) tokens. Returns (y (T,d), the Switch load-balance aux loss).
 
-    Each token's top-k assignments go to fixed (E, C, d) buffers at the
-    slot of their rank; ranks C and beyond are dropped (they add nothing to
-    y). Slot (e, c) is filled by gathering the token of the c-th assignment
-    in expert e's sorted run, so the buffer is built and read out of place.
-    The expert SwiGLU computes h and g in f32 and rounds after
-    ``silu(h) * g``; the gated combine and the shared / dense branches add
-    in f32."""
+    The tokens split into G groups (the hint mesh's data-axis size,
+    ``dist.sharding.hint_data_groups``; 1 off-mesh, and 1 when G does not
+    divide T), each with its own capacity ``moe_capacity(T // G)``, as
+    JAX's. Each group's top-k assignments go to fixed (E, C, d) buffers at
+    the slot of their rank (``_moe_dispatch``); the expert SwiGLU runs
+    over the (E, G*C, d) expert-major buffer, computes h and g in f32 and
+    rounds after ``silu(h) * g``; each group's gated combine and the shared
+    / dense branches add in f32.
+
+    Under an "ep_data" hint mesh (``moe_ep_mode``) with this rank holding
+    E/P experts' rows (``dist.sharding.expert_rows``), ``x`` is this rank's
+    tokens, one group: the buffers go to the experts' ranks and back by one
+    all-to-all each way (``moe_dispatch_exchange`` /
+    ``moe_combine_exchange``), and the aux loss takes the router statistics
+    of every group from one all-reduce over the data axis. A rank that
+    holds all E experts dispatches its G groups locally (what JAX's
+    exchange computes, to 0.0). The exchange is a collective outside
+    autograd: serving runs it, training (whole client models a rank) does
+    not."""
+    from repro_torch.dist import sharding
+
     m = cfg.moe
     T, d = x.shape
     E, K = m.num_experts, m.top_k
-    C = moe_capacity(T, cfg)
-    dev = x.device
+    e_local = params["w1"].shape[-3]
+    mode = sharding.moe_ep_mode(E)
+    groups = sharding.hint_data_groups()
+    ep = mode == "ep_data" and e_local != E
+    if ep:
+        if e_local * groups != E:
+            raise ValueError(f"this rank holds {e_local} of {E} experts; the expert-parallel exchange over a "
+                             f"data axis of {groups} needs {E // groups}")
+        G, G_local, Tg = groups, 1, T
+    else:
+        if e_local != E:
+            raise ValueError(f"the MoE holds {e_local} of {E} experts but no expert-parallel hint mesh is installed")
+        G = groups if T % groups == 0 else 1
+        G_local, Tg = G, T // G
+    C = moe_capacity(Tg, cfg)
 
     probs, gates, ids = moe_route(params["router"], x, K)
-    flat_e = ids.reshape(-1)
-    counts, starts, ranks, order = moe_ranks(flat_e, E)
-    slot_c = torch.arange(C, device=dev)
-    src = torch.clamp(starts[:, None] + slot_c[None, :], max=T * K - 1)  # (E, C) positions in sorted order
-    filled = slot_c[None, :] < counts[:, None]
-    zero = torch.zeros((), dtype=x.dtype, device=dev)
-    buf = torch.where(filled[..., None], x[order[src] // K], zero)  # (E, C, d)
+    parts = [_moe_dispatch(x[g * Tg:(g + 1) * Tg], ids[g * Tg:(g + 1) * Tg], E, C) for g in range(G_local)]
+    buf_g = torch.stack([p[0] for p in parts])  # (G_local, E, C, d)
+    if ep:
+        buf = sharding.moe_dispatch_exchange(buf_g, mode)  # (E/P, G*C, d)
+    else:
+        buf = buf_g.transpose(0, 1).reshape(E, G * C, d)
 
     h = _expert_matmul_f32(buf, params["w1"])
     g = _expert_matmul_f32(buf, params["w3"])
     out_buf = torch.bmm((F.silu(h) * g).to(x.dtype), params["w2"]).to(x.dtype)
 
-    kept = ranks < C
-    slot = flat_e * C + torch.clamp(ranks, max=C - 1)
-    gathered = torch.where(kept[:, None], out_buf.reshape(E * C, d)[slot], zero)
-    y = torch.sum(gathered.reshape(T, K, d).float() * gates[..., None], dim=1)
+    gates_g = gates.reshape(G_local, Tg, K)
+    if ep:
+        yg = sharding.moe_combine_exchange(out_buf, [p[1] for p in parts], [p[2] for p in parts], gates_g, mode, C)
+    else:
+        out_g = out_buf.reshape(E, G, C, d).transpose(0, 1)  # (G, E, C, d)
+        yg = torch.stack([moe_combine(out_g[i], parts[i][1], parts[i][2], gates_g[i]) for i in range(G)])
+    y = yg.reshape(T, d)
     if "shared" in params:
         y = y + mlp_apply(params["shared"], x).float()
     if "dense" in params:
         y = y + mlp_apply(params["dense"], x).float()
 
-    frac_tokens = counts.float() / (T * K) * K
-    aux = m.router_aux_weight * E * torch.sum(frac_tokens * torch.mean(probs, dim=0))
+    counts = parts[0][3] if G_local == 1 else sum(p[3] for p in parts)
+    if ep:
+        # every group's router statistics: counts and summed probs, one all-reduce
+        stats = sharding.all_reduce_sum(torch.cat([counts.float(), torch.sum(probs, dim=0)]),
+                                        sharding.hint_mesh(), "moe_aux_all_reduce", axis="data")
+        t_all = T * groups
+        frac_tokens = stats[:E] / (t_all * K) * K
+        mean_probs = stats[E:] / t_all
+    else:
+        frac_tokens = counts.float() / (T * K) * K
+        mean_probs = torch.mean(probs, dim=0)
+    aux = m.router_aux_weight * E * torch.sum(frac_tokens * mean_probs)
     return y.to(x.dtype), aux

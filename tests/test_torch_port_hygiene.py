@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX
 package, its entry points default to CUDA and refuse to fall back to the
 CPU, and configurations that need an unported feature say which ROADMAP
-item brings it (item 12's second half alone is left: the hint mesh and
-MoE's expert parallelism); features of items once unported build."""
+item brings it (item 16: tensor parallelism over a "model" axis larger
+than 1); features of items once unported build, and the hint mesh follows
+JAX's table."""
 import pathlib
 import re
 import subprocess
@@ -17,7 +18,15 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILIN
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # the modules of the port, the chip script, and the modules the tests'
+    # spawned ranks import (they run without JAX)
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_sharded_runs.py",
+                                         ROOT / "tests" / "torch_mp_ranks.py"]
+
+
+def test_the_launch_modules_are_checked():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    assert {"launch/mesh.py", "launch/specs.py", "launch/steps.py", "dist/sharding.py"} <= names
 
 
 def test_importing_every_port_module_leaves_jax_out():
@@ -94,19 +103,38 @@ def test_resolve_device_turns_tf32_off():
         torch.backends.cudnn.allow_tf32 = True  # torch's own default
 
 
-@pytest.mark.parametrize(
-    "call,item",
-    [
-        (lambda s: s.set_hint_mesh(object()), 12),
-        (lambda s: s.moe_dispatch_exchange(None, "ep_data"), 12),
-    ],
-)
-def test_unported_features_name_their_roadmap_item(call, item):
+class _Mesh:
+    def __init__(self, **shape):
+        self.axis_names = tuple(shape)
+        self.shape = dict(shape)
+
+
+def _model_axis_refused(sharding):
+    with pytest.raises(NotImplementedError, match=r'"model" axis .*ROADMAP\.md Queue 1 item 16 '):
+        sharding.set_hint_mesh(_Mesh(data=2, model=2))
+    assert sharding.hint_mesh() is None
+    sharding.set_hint_mesh(_Mesh(data=2, model=1))  # a "model" axis of 1 is no tensor parallelism
+    sharding.set_hint_mesh(None)
+
+
+def _ep_mode_follows_jax(sharding):
+    # JAX's table (repro/dist/sharding.py:84-98): "ep_data" on a data axis of
+    # size > 1 that divides the expert count, "none" otherwise and off-mesh
+    assert sharding.moe_ep_mode(256) == "none"
+    for shape, experts, want in ((dict(data=2, model=1), 256, "ep_data"), (dict(data=3), 256, "none"),
+                                 (dict(data=1), 256, "none"), (dict(pod=2, model=1), 256, "none"),
+                                 (dict(data=4), 8, "ep_data")):
+        with sharding.using_hint_mesh(_Mesh(**shape)):
+            assert sharding.moe_ep_mode(experts) == want, shape
+    with pytest.raises(ValueError, match="unknown ep mode: none"):
+        sharding.moe_dispatch_exchange(None, "none")
+
+
+@pytest.mark.parametrize("case", [_model_axis_refused, _ep_mode_follows_jax], ids=["model_axis", "ep_mode"])
+def test_unported_features_name_their_roadmap_item(case):
     from repro_torch.dist import sharding
 
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md Queue 1 item {item} "):
-        call(sharding)
-    assert sharding.moe_ep_mode(256) == "none"  # the single-device MoE dispatch, as JAX off-mesh
+    case(sharding)
 
 
 @pytest.mark.parametrize("overrides", [["participation.cohort_size=8", "topology.mesh_axes=clients"],

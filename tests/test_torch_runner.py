@@ -178,11 +178,24 @@ def test_the_caller_keeps_one_live_state_across_intervals(optimizer, monkeypatch
     every interval starts with the tensors the first one did and the same
     bytes live, give or take a batch (no second state beside the
     caller's), and the run ends in
-    the caller's tensors with the values a run that holds no state gets."""
+    the caller's tensors with the values a run that holds no state gets.
+
+    It runs on 2 intra-op threads: with torch's default (one a core) the
+    lm-10m steps slow down tenfold when other test workers load every core
+    (434 s against 55 s beside five busy processes on 8 cores)."""
     import gc
 
     from repro_torch.fed import engine
 
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        _one_live_state(optimizer, monkeypatch, engine, gc)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _one_live_state(optimizer, monkeypatch, engine, gc):
     def live_bytes():
         gc.collect()
         storages = {}
