@@ -13,7 +13,9 @@ Phases, one JSON line each; any failure exits non-zero:
               root over 4096 rows, all four leaves, and its compacted edge
               stage with the prefetched segment table; one 4096-row
               segment; 70,000 groups, more than a grid's y dimension
-              takes), f32 and bf16, with masked clients and a dead group;
+              takes; each rank's shapes; the paper CNNs' largest leaf at
+              their edge sync and the CIFAR CNN's at its cloud root), f32
+              and bf16, with masked clients and a dead group;
               per case the schedule (one pass, or split into row chunks),
               the device kernels one call runs (profiler, against the
               schedule), a relaunch and an input one element off 16-byte
@@ -144,6 +146,39 @@ Phases, one JSON line each; any failure exits non-zero:
               profile and peak memory beside mlp307k's and beside the
               synchronous engine's under the same straggler masks (warm
               walls in turns, A B B A)
+  paper_cifar10
+              the paper's CIFAR-10 CNN (5,537,578 parameters a client) at
+              its setting (``configs/paper.py``): 50 clients on 5 edges,
+              batch 20, SGD at lr 0.1 decayed 0.992 an epoch, kappa (5, 10),
+              on a synthetic stand-in of 50,000 32x32x3 images partitioned
+              edge-NIID, through ``build_super_round``: two cloud intervals
+              (the first call, then warm), K1 198 an interval (18 leaves x
+              (9 edge syncs + the cloud sync's 2 stages)), losses finite and
+              falling, the peak, the cloud model's loss and accuracy on
+              10,000 held-out images at w0 and after each interval
+              (printed), a third interval profiled (convolutions,
+              products, K1, the rest); one cloud interval of 4 clients on 2
+              edges, kappa (2, 2), on the card against the CPU from one init
+              (losses 1e-4, params 1e-4 |p| + 1e-5)
+  divergence_cifar10
+              Definition 1's delta and Delta over the 50 clients' full
+              batches at w0 and after each interval of paper_cifar10, beta
+              at w0 (on a fixed sample of 10,000 images), G_c, G_nc,
+              Theorem 1 and both guidelines at the paper's kappa pairs; the
+              divergences at the cut on the card against the CPU (1e-4)
+  paper_mnist
+              the MNIST CNN (21,840 parameters) at its setting, 50 clients
+              on 5 edges, kappa (15, 4), one cloud interval: K1 40 (8 leaves
+              x (3 + 2)); the held-out loss and accuracy; the same cut
+              against the CPU
+  roofline_calibration
+              the card's f32 product and streaming-add peaks
+              (``analysis.roofline.measure_host_peaks`` at n 8192) beside the
+              data sheet's; K3 (``calibrate_megakernel(path="kernel")``) and
+              its plain version at the JAX package's default shape and at
+              K3's full-width case, every fraction in (0, 1.05]; lm-100m's
+              model FLOPs a local step and the share of the measured peak
+              that train_lm100m's warm interval reached (printed)
   attention_kernel
               K7 flash attention against its plain version on the card: the
               JAX package's test cases, kernel_bench's shape, the lm-100m
@@ -244,7 +279,7 @@ Phases, one JSON line each; any failure exits non-zero:
               at this run's leaves is also among the kernels phase's cases.
               ``python3 chip_smoke.py --xlstm-train-memory`` runs only the
               build and this run's memory: 4 clients over one and four
-              intervals, with remat, and 8 without and with it
+              intervals, with remat, and 8 without and with it.
   serve_recurrentgemma9b
               the same on recurrentgemma-9b at full width (9.57B parameters,
               bf16), 2 prompts of 4096 tokens (the 2048-slot rings wrap), 16
@@ -290,7 +325,10 @@ then run their
 scenario twice more, warm: once timed,
 once under
 ``torch.profiler``, and report where the device time of a cloud interval
-goes (by kernel class and top kernels) and the device's idle share.
+goes (by kernel class and top kernels) and the device's idle share. The
+profiler traces the device alone (host ops only where a phase reads host
+ranges), and its records are read raw (``device_events``); busy time is
+the union of their spans (``busy_us``).
 
 Then the script's whole wall (``wall``), a kernel summary line, the
 card's name and power limit as nvidia-smi
@@ -575,6 +613,13 @@ def kernel_cases():
         ("grouped_mean", "xlstm-350m wq edge (4x25165824, G=2)", 4, 25165824, 2),
         ("grouped_mean", "xlstm-350m wq cloud root (2x25165824, G=1)", 2, 25165824, 1),
         ("grouped_mean", "xlstm-350m r_i edge (4x1572864, G=2)", 4, 1572864, 2),
+        # paper_cifar10's and paper_mnist's syncs (50 clients on 5 edges,
+        # f32): the largest leaf, f1w (2048 x 2048 and 320 x 50), at the
+        # edge sync (also the cloud sync's edge stage) and the CIFAR CNN's
+        # at the cloud sync's root stage
+        ("grouped_mean", "paper_cifar10 f1w edge (50x4194304, G=5)", 50, 4194304, 5),
+        ("grouped_mean", "paper_cifar10 f1w cloud root (5x4194304, G=1)", 5, 4194304, 1),
+        ("grouped_mean", "paper_mnist f1w edge (50x16000, G=5)", 50, 16000, 5),
         # the sharded phases' ranks (the last case of each kernel stays the
         # summary's): each rank's edge sync and its cloud sync's edge stage
         # (before the all-reduce) over its own rows.
@@ -1168,6 +1213,10 @@ def path_report(runner, seconds, launches, extra=None):
 
 
 def kernel_class(name: str) -> str:
+    low = name.lower()
+    if any(t in low for t in ("convolution", "convolve", "conv2d", "conv_depthwise", "fprop", "dgrad", "wgrad",
+                              "winograd", "fft2d", "flip_filter", "cudnn", "nchwtonhwc", "nhwctonchw")):
+        return "convolutions"  # cuDNN's kernels and its layout transposes (the paper's CNNs)
     if "group_mean_kernel" in name or "group_mean_finish_kernel" in name:  # K1 and K2 share both
         return "aggregation (K1/K2)"
     if "quantize_kernel" in name:  # K4 quantize_kernel, K5 dequantize_kernel and dequantize_kernel_vec16
@@ -1180,28 +1229,60 @@ def kernel_class(name: str) -> str:
         return "flash attention (K7)"
     if "rglru_chunked_kernel" in name:
         return "RG-LRU scan (K8)"
-    low = name.lower()
     if "gemm" in low or "gemv" in low or "cutlass" in low or "matmul" in low or "nvjet" in low:
         return "matrix products"
     return "other"
 
 
+def device_events(torch, prof):
+    """(name, start us, end us) of every device-side record of a finished
+    ``torch.profiler`` run (kernels, copies, memsets; annotation ranges
+    left out), read from kineto's raw records: tracing host ops too and
+    building the profiler's ``FunctionEvent`` list made the trace reading
+    most of a profiled call's cost at tens of thousands of records."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events() if e.device_type() == cuda and not e.is_user_annotation()]
+
+
+def busy_us(events) -> float:
+    """The device's busy time: the union of the records' spans. cuDNN runs
+    a grouped convolution's kernels on several streams at once (a CIFAR-10
+    interval's kernels sum to about 3x their union), so the sum overstates
+    it."""
+    total, start, end = 0.0, None, None
+    for _, s, e in sorted(events, key=lambda ev: ev[1]):
+        if end is None or s > end:
+            total += 0.0 if end is None else end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    return total + (0.0 if end is None else end - start)
+
+
+def by_kernel(events):
+    """Device us summed by kernel class and by kernel name."""
+    by_class, by_name = {}, {}
+    for name, s, e in events:
+        by_class[kernel_class(name)] = by_class.get(kernel_class(name), 0.0) + e - s
+        by_name[name] = by_name.get(name, 0.0) + e - s
+    return by_class, by_name
+
+
 def device_profile(torch, mods, name, overrides, params):
     """Where the device time of a warm ``runner.run`` goes, per cloud
     interval: the run once more timed, then once under ``torch.profiler``
-    (device-side events: kernels, copies, memsets)."""
+    tracing the device alone (kernels, copies, memsets; busy time the union
+    of their spans, ``busy_us``)."""
     from torch.profiler import ProfilerActivity, profile
 
     runner, _, warm_s, *_ = run_scenario(torch, mods, name, overrides, "cuda", params)
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
     _, _, window_s, *_ = run_scenario(torch, mods, name, overrides, "cuda", params, profiler=prof)
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_class, by_name = {}, {}
-    for e in events:
-        by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name), 0.0) + e.device_time_total
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-    busy_us = sum(by_class.values())
-    check(busy_us > 0, f"{name}: the profiler saw no device time")
+    events = device_events(torch, prof)
+    by_class, by_name = by_kernel(events)
+    busy = busy_us(events)
+    check(busy > 0, f"{name}: the profiler saw no device time")
     intervals = runner.cfg.num_rounds / runner.hier_config.kappa2_effective
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     swap = {} if runner.participation is None else {
@@ -1213,9 +1294,9 @@ def device_profile(torch, mods, name, overrides, params):
         "warm_client_steps_per_s": resident_clients(runner) * runner.cfg.num_rounds
         * runner.hier_config.kappa1 / warm_s,
         "profiled_wall_ms_per_interval": window_s * 1e3 / intervals,
-        "device_busy_ms_per_interval": busy_us / 1e3 / intervals,
-        "device_busy_share_of_warm_wall": busy_us / 1e6 / warm_s,
-        "device_idle_share_profiled": 1.0 - busy_us / 1e6 / window_s,
+        "device_busy_ms_per_interval": busy / 1e3 / intervals,
+        "device_busy_share_of_warm_wall": busy / 1e6 / warm_s,
+        "device_idle_share_profiled": 1.0 - busy / 1e6 / window_s,
         "device_ops_per_interval": len(events) / intervals,
         "busy_ms_per_interval_by_class": {k: v / 1e3 / intervals for k, v in sorted(by_class.items())},
         "top_kernels_ms_per_interval": [[n[:90], v / 1e3 / intervals] for n, v in top],
@@ -2217,27 +2298,26 @@ def phase_train_lm100m_robust(torch, mods):
 
 def profile_call(torch, fn, ranges=()):
     """One call under torch.profiler: wall ms (host clock to a synchronise),
-    device-busy ms by kernel class, busy share of the wall, top kernels;
-    for each ``record_function`` name in ``ranges``, its host ms and the
+    device-busy ms (the union of the device records' spans), ms by kernel
+    class, busy share of the wall, top kernels. The device alone is traced
+    unless ``ranges`` names ``record_function`` ranges: then host ops are
+    traced too (which slows the call: an xlstm-350m local step took 5.06 s
+    so against 2.36 s on an H100), and for each range its host ms and the
     device ms of the kernels launched inside it, summed over its ranges."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else []))
     with prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_class, by_name = {}, {}
-    # a record_function range also shows on the device's timeline: not busy time
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in ranges]
-    for e in events:
-        by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name), 0.0) + e.device_time_total
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-    busy_us = sum(by_class.values())
-    check(busy_us > 0, "the profiler saw no device time")
-    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e6 / wall,
+    events = device_events(torch, prof)
+    by_class, by_name = by_kernel(events)
+    busy = busy_us(events)
+    check(busy > 0, "the profiler saw no device time")
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3, "device_busy_share": busy / 1e6 / wall,
            "device_ops": len(events), "busy_ms_by_class": {k: v / 1e3 for k, v in sorted(by_class.items())},
            "top_kernels_ms": [[n[:90], v / 1e3] for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]]}
     if ranges:
@@ -3044,25 +3124,23 @@ def rank_profile(torch, mods, name, overrides, world):
     gather_s = runner._engine._layout.gather_seconds  # the end's gather of the state
     del runner
     dist.barrier()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
     restore, calls = timed_all_reduces(torch)
     try:
         runner, _, window_s, *_ = sharded_scenario(torch, mods, name, overrides, world, profiler=prof)
     finally:
         restore()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in events)
+    events = device_events(torch, prof)
+    busy = busy_us(events)
     intervals = runner.cfg.num_rounds / runner.hier_config.kappa2_effective
-    by_class = {}
-    for e in events:
-        by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name), 0.0) + e.device_time_total
+    by_class, _ = by_kernel(events)
     return {
         "warm_wall_ms_per_interval": warm_s * 1e3 / intervals,
         "warm_state_gathers_ms": gather_s * 1e3,
         "warm_wall_ms_per_interval_without_gathers": (warm_s - gather_s) * 1e3 / intervals,
         "profiled_wall_ms_per_interval": window_s * 1e3 / intervals,
-        "device_busy_ms_per_interval": busy_us / 1e3 / intervals,
-        "device_busy_share_of_warm_wall": busy_us / 1e6 / warm_s,
+        "device_busy_ms_per_interval": busy / 1e3 / intervals,
+        "device_busy_share_of_warm_wall": busy / 1e6 / warm_s,
         "busy_ms_per_interval_by_class": {k: v / 1e3 / intervals for k, v in sorted(by_class.items())},
         "all_reduce_ms": [c[0] for c in calls], "all_reduce_bytes": sorted({c[1] for c in calls}),
     }
@@ -3644,6 +3722,425 @@ def phase_serve_deepseekv3_l1_ep2(torch, mods):
     return {"flash_attention": sum(r["runs"][0]["k7"] for r in ranks)}
 
 
+# ---------------------------------------------------------------------------
+# The paper's CNNs (Section IV-A), their divergences, Theorem 1, the roofline
+# ---------------------------------------------------------------------------
+# (image shape, training images, init, apply) of each dataset's stand-in
+PAPER_DATA = {"cifar10": ((32, 32, 3), 50_000, "init_cifar_cnn", "cifar_cnn_apply"),
+              "mnist": ((28, 28, 1), 60_000, "init_mnist_cnn", "mnist_cnn_apply")}
+# the stand-in's scale: pixels of about 0.14 (centers and noise 0.1).
+# At clustered_gaussians' default (3.0, 1.0) the CIFAR CNN's first SGD
+# steps at lr 0.1 overflow to inf and nan, as at centres 1.0 and 0.3
+PAPER_DATA_SCALE = dict(class_sep=0.1, noise=0.1)
+PAPER_KAPPAS = {"cifar10": (5, 10), "mnist": (15, 4)}  # configs/paper.py CIFAR_KAPPAS[3], MNIST_KAPPAS[2]
+PAPER_INTERVALS = {"cifar10": 2, "mnist": 1}
+# the card against the CPU: 4 clients on 2 edges, kappa (2, 2), one cloud
+# interval, 200 images a client (the CPU takes the divergences' full
+# batches too); losses within PAPER_LOSS_RTOL, params within tests/
+# test_torch_cnn.py's tolerance, the divergences within DIVERGENCE_RTOL
+PAPER_CUT = dict(num_edges=2, clients_per_edge=2, kappas=(2, 2), per_client=200)
+PAPER_LOSS_RTOL = 1e-4
+PAPER_PARAMS_TOL = dict(rtol=1e-4, atol=1e-5)
+DIVERGENCE_RTOL = 1e-4
+PAPER_HELD_OUT = 10_000  # more images of the same clusters, never trained on: the cloud model's loss
+BETA_SAMPLE, BETA_CHUNK = 10_000, 1_000  # the beta estimate's gradients: a fixed sample of the images, in chunks
+# Theorem 1's constants that no run measures (Lipschitz rho, the bound's
+# epsilon and varphi): fixed and printed beside the bound
+THEOREM1_CONSTANTS = dict(rho=1.0, epsilon=1.0, varphi=0.5)
+PEAK_N = 8192  # measure_host_peaks' product side on the card: a 1.1 TFLOP product, a 2.1 GB array added
+
+
+def paper_problem(torch, dataset, device, *, num_edges=5, clients_per_edge=10, kappas=None, per_client=None,
+                  held_out=0, seed=0):
+    """The paper's setting (``configs/paper.py``: batch 20, SGD without
+    momentum, the dataset's lr decayed per epoch) on a synthetic stand-in of
+    the dataset's images (``clustered_gaussians``, the same draws on every
+    device), partitioned edge-NIID, with the CNN's init from ``seed`` (on
+    the host) and the superround; ``held_out`` more images of the same
+    clusters stay out of training. The images stay on ``device``; a block
+    of batches is a gather there (``paper_blocks``)."""
+    import types
+
+    import numpy as np
+
+    from repro_torch import optim
+    from repro_torch.configs import paper
+    from repro_torch.core import hierfavg as th
+    from repro_torch.data import partition, synthetic
+    from repro_torch.models import cnn
+
+    pc = {"cifar10": paper.CIFAR10, "mnist": paper.MNIST}[dataset]
+    shape, total, init, apply = PAPER_DATA[dataset]
+    kappas = kappas or PAPER_KAPPAS[dataset]
+    n = num_edges * clients_per_edge
+    per_client = per_client or total // pc.num_clients
+    data = synthetic.clustered_gaussians(np.random.default_rng(seed), num_samples=per_client * n + held_out,
+                                         dim=shape, **PAPER_DATA_SCALE)
+    train = per_client * n
+    parts = partition.partition("edge_niid", data.y[:train], num_edges, clients_per_edge,
+                                np.random.default_rng(seed + 1))
+    sizes = np.array([len(p) for p in parts], np.float32)
+    topo = th.FedTopology(num_edges=num_edges, clients_per_edge=clients_per_edge)
+    cfg = th.HierFAVGConfig(kappa1=kappas[0], kappa2=kappas[1])
+    opt = optim.sgd(optim.exponential_decay(pc.lr, pc.lr_decay, per_client // pc.batch_size))  # decay per epoch
+    loss_fn = cnn.make_cnn_loss_fn(getattr(cnn, apply))
+    weights = torch.from_numpy(sizes).to(device)
+    return types.SimpleNamespace(
+        dataset=dataset, pc=pc, device=device, parts=parts, sizes=sizes, topo=topo, cfg=cfg, opt=opt,
+        loss_fn=loss_fn, apply=getattr(cnn, apply), weights=weights,
+        params=getattr(cnn, init)(torch.Generator().manual_seed(seed + 2)),
+        x=torch.from_numpy(data.x[:train]).to(device), y=torch.from_numpy(data.y[:train]).to(device),
+        x_held=torch.from_numpy(data.x[train:]).to(device), y_held=torch.from_numpy(data.y[train:]).to(device),
+        super_round=th.build_super_round(loss_fn, opt, topo, cfg, weights))
+
+
+def paper_blocks(torch, prob, seed=0):
+    """Each cloud interval's batches, (kappa2, kappa1, N, 20, ...): the
+    ``FederatedBatcher``'s per-client epoch shuffles over sample indices,
+    the images gathered on the device."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import FederatedBatcher
+
+    batcher = FederatedBatcher({"idx": np.arange(prob.y.shape[0])}, prob.parts, prob.pc.batch_size, seed=seed)
+    k1, k2 = prob.cfg.kappa1, prob.cfg.kappa2
+    while True:
+        idx = torch.from_numpy(batcher.next_batches(k1 * k2)["idx"]).to(prob.device)
+        idx = idx.reshape(k2, k1, *idx.shape[1:])
+        yield {"inputs": prob.x[idx], "targets": prob.y[idx]}
+
+
+def paper_state(torch, prob):
+    from repro_torch.core import hierfavg as th
+
+    return th.init_state(torch.Generator(device=prob.device).manual_seed(0),
+                         {k: v.to(prob.device) for k, v in prob.params.items()}, prob.opt, prob.topo, prob.cfg)
+
+
+def synced_model(state):
+    """Client 0's rows: after a cloud sync every client holds the cloud model."""
+    return {k: v[0].clone() for k, v in state.params.items()}
+
+
+def paper_held_out(torch, prob, params):
+    """The cloud model's mean loss and accuracy on the held-out images, in
+    chunks of 1000."""
+    from repro_torch.models import cnn
+
+    loss, hits, count = 0.0, 0, prob.y_held.shape[0]
+    with torch.no_grad():
+        for i in range(0, count, 1000):
+            logits, y = prob.apply(params, prob.x_held[i:i + 1000]), prob.y_held[i:i + 1000]
+            loss += float(cnn.classification_loss(logits, y)) * y.shape[0]
+            hits += int((torch.argmax(logits, -1) == y).sum())
+    return {"loss": loss / count, "accuracy": hits / count}
+
+
+def paper_cut_vs_cpu(torch, mods, dataset):
+    """One cloud interval of ``PAPER_CUT`` on the card and on the CPU from
+    the same init and batches: K1 once per leaf per level mean on the card,
+    the kernels' plain versions on the CPU; losses and grad norms within
+    PAPER_LOSS_RTOL, params within PAPER_PARAMS_TOL. Returns the report and
+    both runs (problem, start and end cloud models) for the divergence
+    check."""
+    from repro_torch.tree import leaves
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        prob = paper_problem(torch, dataset, device, **PAPER_CUT)
+        state = paper_state(torch, prob)
+        block = next(paper_blocks(torch, prob))
+        for m in mods:
+            m.reset_launch_counts()
+        state, metrics = prob.super_round(state, block)
+        launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+        runs[device] = (prob, state, {k: v.tolist() for k, v in metrics.items()}, launches)
+    (card, cstate, cm, launches), (_, pstate, pm, cpu_launches) = runs["cuda"], runs["cpu"]
+    n_leaves = len(list(leaves(cstate.params)))
+    check_launches(launches, {"grouped_mean": 3 * n_leaves}, f"paper_{dataset} cut")  # an edge sync + 2 cloud stages
+    check(not any(cpu_launches.values()), f"paper_{dataset} cut on the CPU launched {cpu_launches}")
+    # a client of one class can drive its loss to exactly 0 (the cross
+    # entropy underflows); where the CPU's is 0 the card's is held to 1e-6
+    rel = {k: max((abs(a - b) / abs(b) for a, b in zip(cm[k], pm[k]) if b != 0), default=0.0)
+           for k in ("loss", "grad_norm")}
+    at_zero = max((abs(a) for k in ("loss", "grad_norm") for a, b in zip(cm[k], pm[k]) if b == 0), default=0.0)
+    check(max(rel.values()) <= PAPER_LOSS_RTOL and at_zero <= 1e-6,
+          f"paper_{dataset} cut: card vs CPU {rel}, {at_zero} where the CPU's is 0")
+    excess, worst = -1.0, 0.0
+    for a, b in zip(leaves(cstate.params), leaves(pstate.params)):
+        diff = (a.cpu() - b).abs()
+        worst = max(worst, float(diff.max()))
+        excess = max(excess, float((diff - PAPER_PARAMS_TOL["atol"] - PAPER_PARAMS_TOL["rtol"] * b.abs()).max()))
+    check(excess <= 0, f"paper_{dataset} cut: params {worst} apart")
+    report = {"clients": card.topo.num_clients, "edges": card.topo.num_edges,
+              "kappas": [card.cfg.kappa1, card.cfg.kappa2], "images_per_client": PAPER_CUT["per_client"],
+              "losses": cm["loss"], "loss_rel_err": rel["loss"], "grad_norm_rel_err": rel["grad_norm"],
+              "max_where_cpu_zero": at_zero,
+              "params_max_abs_err": worst, "launches": launches,
+              "tolerance": {"loss_rtol": PAPER_LOSS_RTOL, "params": PAPER_PARAMS_TOL}}
+    return report, (card, runs["cpu"][0], synced_model(cstate))
+
+
+def conv_calls_per_local_step(torch, prob, state, block):
+    """The host's convolution calls in one local step of every client
+    (``hierfavg._client_grads``, grad of the vmapped loss), from a trace of
+    host ops: under ``vmap`` each layer's convolution over the N clients'
+    weights must be one grouped call, forward and backward, not a loop over
+    the clients. Checked: ``aten::_convolution`` (the dispatch to cuDNN or
+    a depthwise kernel) once per layer, ``aten::convolution_backward`` at
+    most three times per layer (vmap's rule takes the input's, the
+    weight's and the bias's gradients apart); a loop would multiply both by
+    the clients."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import hierfavg
+
+    grads = hierfavg._client_grads(prob.loss_fn, None)
+    step = {k: v[0, 0] for k, v in block.items()}
+    grads(state.params, step, None)  # warm
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        grads(state.params, step, None)
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    counts = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cpu and e.name() in ("aten::_convolution", "aten::cudnn_convolution",
+                                                   "aten::convolution_backward"):
+            counts[e.name()] = counts.get(e.name(), 0) + 1
+    layers = sum(1 for v in prob.params.values() if v.dim() == 4)
+    check(counts.get("aten::_convolution") == layers and 0 < counts.get("aten::convolution_backward", 0) <= 3 * layers,
+          f"paper_{prob.dataset}: {counts} host convolution calls in a local step of {prob.topo.num_clients} "
+          f"clients over {layers} convolution layers")
+    return {**counts, "conv_layers": layers, "clients": prob.topo.num_clients,
+            "device_records": len(device_events(torch, prof))}
+
+
+def paper_train(torch, mods, dataset):
+    """The paper's CNN at full width over 50 clients on 5 edges: its cloud
+    intervals (the first call, then warm), K1 counted per interval, the
+    peak, the loss, one more interval under the profiler. Returns the
+    report and (problem, cloud models at the start and after each
+    interval)."""
+    import math
+
+    from repro_torch.models import cnn
+    from repro_torch.tree import leaves
+
+    torch.cuda.empty_cache()
+    base = reset_peak(torch)
+    t0 = time.perf_counter()
+    prob = paper_problem(torch, dataset, "cuda", held_out=PAPER_HELD_OUT)
+    state = paper_state(torch, prob)
+    setup_s = time.perf_counter() - t0
+    blocks = paper_blocks(torch, prob)
+    n, n_leaves = prob.topo.num_clients, len(list(leaves(state.params)))
+    k1, k2 = prob.cfg.kappa1, prob.cfg.kappa2
+    # K1 once per leaf per level mean: kappa2 - 1 edge syncs and the cloud
+    # sync's two stages an interval
+    want = {"grouped_mean": n_leaves * (k2 - 1 + 2)}
+    probes, walls, losses, grad_norms = [synced_model(state)], [], [], []
+    for _ in range(PAPER_INTERVALS[dataset]):
+        torch.cuda.synchronize()
+        for m in mods:
+            m.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = prob.super_round(state, next(blocks))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check_launches({k: v for m in mods for k, v in m.LAUNCHES.items()}, want, f"paper_{dataset} interval")
+        losses += metrics["loss"].tolist()
+        grad_norms += metrics["grad_norm"].tolist()
+        probes.append(synced_model(state))
+    peak = torch.cuda.max_memory_allocated() - base
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"paper_{dataset} losses {losses}")
+    check(all(bool(torch.isfinite(x).all()) for x in leaves(state.params)), f"paper_{dataset} params not finite")
+    for k, v in state.params.items():
+        check(tuple(v.shape) == (n,) + tuple(prob.params[k].shape), f"paper_{dataset} {k} shape {tuple(v.shape)}")
+    block = next(blocks)
+    convs = conv_calls_per_local_step(torch, prob, state, block)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    profile = profile_call(torch, lambda: prob.super_round(state, block))
+    profile["seconds_with_the_trace_read"] = time.perf_counter() - t0
+    del state, block
+    warm = walls[-1] if len(walls) > 1 else None
+    # printed, not held: at this depth the cloud model does not learn (PERF.md)
+    held = [{"probe": "w0" if i == 0 else f"after cloud interval {i}", **paper_held_out(torch, prob, p)}
+            for i, p in enumerate(probes)]
+    check(all(math.isfinite(h["loss"]) for h in held), f"paper_{dataset} held-out losses {held}")
+    report = {
+        "dataset": dataset, "clients": n, "edges": prob.topo.num_edges, "kappas": [k1, k2], "setup_s": setup_s,
+        "batch": prob.pc.batch_size, "lr": prob.pc.lr, "lr_decay_per_epoch": prob.pc.lr_decay,
+        "images": int(prob.y.shape[0]), "params_per_client": cnn.count_params(prob.params),
+        "state_param_bytes": sum(x.numel() * x.element_size() for x in leaves(prob.params)) * n,
+        "leaves": n_leaves, "k1_launches_per_interval": want["grouped_mean"],
+        "first_call_wall_s_per_interval": walls[0], "warm_wall_s_per_interval": warm,
+        "client_steps_per_s_warm": None if warm is None else n * k1 * k2 / warm,
+        "client_steps_per_s_first_call": n * k1 * k2 / walls[0],
+        "peak_memory_bytes": peak, "losses_per_edge_interval": losses, "grad_norms": grad_norms,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "held_out_images": PAPER_HELD_OUT, "held_out": held,
+        "host_conv_calls_per_local_step": convs, "profiled_interval": profile,
+    }
+    return report, (prob, probes)
+
+
+def phase_paper(torch, mods, dataset):
+    """``paper_train`` then ``paper_cut_vs_cpu``; one line."""
+    t0 = time.perf_counter()
+    report, runs = paper_train(torch, mods, dataset)
+    launches = {"grouped_mean": report["k1_launches_per_interval"] * PAPER_INTERVALS[dataset]}
+    t1 = time.perf_counter()
+    cut, cut_runs = paper_cut_vs_cpu(torch, mods, dataset)
+    cut["seconds"] = time.perf_counter() - t1
+    emit({"phase": f"paper_{dataset}", **report, "launches": launches, "cut_vs_cpu": cut,
+          "phase_seconds": time.perf_counter() - t0})
+    return launches, runs, cut_runs
+
+
+def phase_divergence_cifar10(torch, runs, cut_runs):
+    """Definition 1's divergences of the CIFAR-10 CNN over all 50 clients
+    (each client's full 1000 images, one gradient a client) at w0 and after
+    each cloud interval of ``paper_cifar10``; beta at w0 from the gradients
+    of the mean loss over a fixed sample of BETA_SAMPLE images; Theorem 1,
+    the deviation bound G_c and the two guidelines at the paper's kappa
+    pairs with the measured delta, Delta and beta; the divergences at the
+    cut on the card and on the CPU, within DIVERGENCE_RTOL."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.configs import paper
+    from repro_torch.core import convergence as cv
+    from repro_torch.core import divergence
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    prob, probes = runs
+
+    def client_grads(p):
+        grad = torch.func.grad(p.loss_fn)
+        idx = [torch.from_numpy(ix).to(p.device) for ix in p.parts]
+        return lambda w, i: grad(w, {"inputs": p.x[idx[i]], "targets": p.y[idx[i]]}, None)
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    div = divergence.measure_divergence(client_grads(prob), probes, prob.sizes, prob.topo.num_edges)
+    torch.cuda.synchronize()
+    div_s = time.perf_counter() - t1
+    check(np.isfinite(div["delta_client_edge"]).all() and np.isfinite(div["Delta_edge_cloud"]).all()
+          and div["delta"] > 0 and div["Delta"] > 0, f"divergence_cifar10: {div}")
+
+    sample = torch.from_numpy(np.random.default_rng(3).choice(prob.y.shape[0], BETA_SAMPLE, replace=False)).cuda()
+    grad = torch.func.grad(prob.loss_fn)
+
+    def mean_loss_grad(w):  # equal chunks: the mean of the chunks' mean-loss gradients
+        acc = None
+        for c in range(0, BETA_SAMPLE, BETA_CHUNK):
+            ix = sample[c:c + BETA_CHUNK]
+            g = grad(w, {"inputs": prob.x[ix], "targets": prob.y[ix]}, None)
+            acc = g if acc is None else tree_map(torch.add, acc, g)
+        return tree_map(lambda a: a / (BETA_SAMPLE // BETA_CHUNK), acc)
+
+    t1 = time.perf_counter()
+    beta = divergence.estimate_beta_smoothness(mean_loss_grad, probes[0], torch.Generator(device="cuda").manual_seed(0))
+    beta_s = time.perf_counter() - t1
+    check(np.isfinite(beta) and beta > 0, f"divergence_cifar10: beta {beta}")
+
+    eta, delta, Delta = prob.pc.lr, div["delta"], div["Delta"]
+    steps = prob.cfg.kappa1 * prob.cfg.kappa2 * (len(probes) - 1)
+    bounds = [{"kappas": [k1, k2], "G_c_max": cv.G_c_max(k1, k2, delta, Delta, eta, beta),
+               "G_nc": cv.G_nc(k1, k2, delta, Delta, eta, beta),
+               "theorem1_bound": cv.theorem1_bound(steps, k1, k2, delta, Delta, eta, beta, **THEOREM1_CONSTANTS)}
+              for k1, k2 in paper.CIFAR_KAPPAS]
+    product = prob.cfg.kappa1 * prob.cfg.kappa2
+    guide1 = [list(r) for r in cv.guideline_smaller_kappa1(product, delta, Delta, eta, beta)]
+    guide2 = [list(r) for r in cv.guideline_edge_iid_kappa2_free(prob.cfg.kappa1, delta, eta, beta, (1, 2, 5, 10))]
+    values = [b[k] for b in bounds for k in ("G_c_max", "G_nc", "theorem1_bound")] + [r[-1] for r in guide1 + guide2]
+    check(not any(math.isnan(v) for v in values), f"divergence_cifar10: NaN among {bounds}, {guide1}, {guide2}")
+
+    # the same function on the CPU at the cut: w0 and the card's end model
+    card, cpu, end = cut_runs
+    cut = {}
+    for name, p in (("cuda", card), ("cpu", cpu)):
+        points = [{k: v.to(p.device) for k, v in w.items()} for w in (card.params, end)]
+        cut[name] = divergence.measure_divergence(client_grads(p), points, p.sizes, p.topo.num_edges)
+    rel = {k: float(np.max(np.abs(cut["cuda"][k] - cut["cpu"][k]) / np.maximum(np.abs(cut["cpu"][k]), 1e-30)))
+           for k in ("delta_client_edge", "Delta_edge_cloud")}
+    check(max(rel.values()) <= DIVERGENCE_RTOL, f"divergence_cifar10 cut: card vs CPU {rel}")
+    del probes
+    emit({"phase": "divergence_cifar10", "clients": prob.topo.num_clients, "edges": prob.topo.num_edges,
+          "probes": ["w0"] + [f"after cloud interval {i + 1}" for i in range(PAPER_INTERVALS["cifar10"])],
+          "delta": delta, "Delta": Delta, "delta_client_edge": div["delta_client_edge"].tolist(),
+          "Delta_edge_cloud": div["Delta_edge_cloud"].tolist(), "divergence_seconds": div_s,
+          "beta": beta, "beta_seconds": beta_s,
+          "beta_gradients": f"mean loss over a fixed sample of {BETA_SAMPLE} of the {prob.y.shape[0]} images "
+                            f"(chunks of {BETA_CHUNK}), 8 probes of radius 1e-2",
+          "eta": eta, "theorem1_steps": steps, "theorem1_constants": THEOREM1_CONSTANTS, "bounds": bounds,
+          "guideline_smaller_kappa1": guide1, "guideline_edge_iid_kappa2_free": guide2,
+          "cut_vs_cpu": {"delta": [cut["cuda"]["delta"], cut["cpu"]["delta"]],
+                         "Delta": [cut["cuda"]["Delta"], cut["cpu"]["Delta"]], "max_rel_err": rel,
+                         "tolerance": {"rtol": DIVERGENCE_RTOL}},
+          "phase_seconds": time.perf_counter() - t0})
+
+
+def phase_roofline_calibration(torch, mods):
+    """The card's peaks measured (``analysis.roofline.measure_host_peaks``
+    at PEAK_N) beside the data sheet's; K3 (``path="kernel"``) and its
+    plain version (``path="ref"``) calibrated against them at the JAX
+    package's default shape and at K3's full-width case with momentum,
+    every fraction in (0, 1.05]; lm-100m's model FLOPs for a train step of
+    ``lm_edge_niid`` and the share of the measured f32 peak that
+    ``train_lm100m``'s warm interval reached (printed, not held)."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs.base import ShapeSpec, param_count
+    from repro_torch.fed import api, scenarios
+
+    t0 = time.perf_counter()
+    peaks = roofline.measure_host_peaks(device="cuda", n=PEAK_N, reps=5)
+    sheet = {"flops_f32": roofline.PEAK_FLOPS, "bw": roofline.HBM_BW}
+    check(0 < peaks["flops"] <= 1.05 * sheet["flops_f32"] and 0 < peaks["bw"] <= 1.05 * sheet["bw"],
+          f"roofline_calibration: peaks {peaks} beyond the data sheet's {sheet}")
+    shapes = {"jax_default": {}, "k3_full_width": dict(num_edges=K3_FULL["e"],
+                                                      clients_per_edge=K3_FULL["n"] // K3_FULL["e"],
+                                                      kappa1=K3_FULL["k1"], batch=K3_FULL["b"],
+                                                      feat=K3_FULL["feat"], out=K3_FULL["out"], momentum=0.9)}
+    reps = 5
+    for m in mods:
+        m.reset_launch_counts()
+    rows = []
+    for label, kw in shapes.items():
+        for path in ("kernel", "ref"):
+            res = roofline.calibrate_megakernel(path=path, peaks=peaks, device="cuda", reps=reps, **kw)
+            d = res.to_dict()
+            check(0 < d["flops_fraction"] <= 1.05 and 0 < d["bw_fraction"] <= 1.05,
+                  f"roofline_calibration {label} {path}: fractions {d}")
+            rows.append({"shape": label, "path": path, **d})
+    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    check_launches(launches, {"edge_interval": len(shapes) * (1 + reps)}, "roofline_calibration")
+    spec = scenarios.get("lm_edge_niid", overrides=LM100M)
+    cfg = api._lm_config(spec)  # lm-100m at the scenario's vocabulary of 512, as train_lm100m trains it
+    check(param_count(cfg) == 76_303_104, f"roofline_calibration: lm-100m at {param_count(cfg)} parameters")
+    n = spec.topology.num_edges * spec.topology.clients_per_edge
+    step = ShapeSpec("lm_edge_niid_step", spec.data.seq_len, n * spec.data.batch_size, "train")
+    flops_step = roofline.model_flops(cfg, step)
+    wall_ms = REFS.get("lm100m_warm_wall_ms_per_interval")
+    steps_per_interval = spec.schedule.kappas[0] * spec.schedule.kappas[1]
+    share = None if wall_ms is None else flops_step * steps_per_interval / (wall_ms / 1e3) / peaks["flops"]
+    emit({"phase": "roofline_calibration", "measured_peaks": peaks, "matmul_n": PEAK_N,
+          "add_bytes": 2 * 8 * PEAK_N ** 2 * 4, "data_sheet": sheet,
+          "measured_share_of_data_sheet": {"flops": peaks["flops"] / sheet["flops_f32"], "bw": peaks["bw"] / sheet["bw"]},
+          "calibrations": rows, "launches": launches,
+          "lm100m": {"params": param_count(cfg), "vocab": cfg.vocab_size,
+                     "model_flops_per_local_step": flops_step, "tokens_per_local_step": step.global_batch * step.seq_len,
+                     "local_steps_per_interval": steps_per_interval, "warm_wall_ms_per_interval": wall_ms,
+                     "share_of_measured_f32_peak": share, "held": False},
+          "phase_seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3860,6 +4357,14 @@ def main() -> int:
     count(phase_mlp307k_cohort(torch, mods, mlp_params))
     count(phase_cohort_identity(torch, mods))
 
+    # the paper's CNNs at its setting (50 clients on 5 edges, batch 20,
+    # SGD): K1 on every sync; the CIFAR-10 CNN's divergences and Theorem 1
+    launches, cifar_runs, cifar_cut = phase_paper(torch, mods, "cifar10")
+    count(launches)
+    phase_divergence_cifar10(torch, cifar_runs, cifar_cut)
+    del cifar_runs, cifar_cut
+    count(phase_paper(torch, mods, "mnist")[0])
+
     # federated LM training: K1 per leaf per level mean, K4/K5 per leaf per
     # compressed sync, K7/K8 never (the layer code runs under torch.func)
     sharded_params = mlp_params  # the init, on the host
@@ -3869,6 +4374,7 @@ def main() -> int:
     count(phase_train_lm100m(torch, mods))
     count(phase_train_lm100m_robust(torch, mods))
     count(phase_train_lm100m_accum2(torch, mods))
+    count(phase_roofline_calibration(torch, mods))
 
     # the client-sharded superround over torch.distributed ranks on this
     # card: a world of 1 under NCCL in this process, then gloo worlds of 4

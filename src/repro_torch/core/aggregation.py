@@ -254,6 +254,22 @@ def staged_mean(
     return out
 
 
+def hierarchical_mean(
+    tree: Tree,
+    weights: torch.Tensor,
+    num_groups: int,
+    mask: Optional[torch.Tensor] = None,
+) -> Tree:
+    """Cloud aggregation as edge-then-cloud composition
+    (``repro/core/aggregation.py:300-315``): the per-edge means, then the
+    weighted mean of those over every client, which weighs each edge mean by
+    |D^l|. Equal to ``weighted_mean``; both stages are ``grouped_weighted_mean``
+    (the second over one group), so on CUDA each leaf takes K1 twice, as the
+    two-level cloud sync's stages do."""
+    edge = grouped_weighted_mean(tree, weights, num_groups, mask)
+    return grouped_weighted_mean(edge, weights, 1, mask)
+
+
 def group_weights(weights: torch.Tensor, num_groups: int, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """|D^l| per edge: sum of member dataset sizes (masked)."""
     return _masked_weights(weights, mask).reshape(num_groups, -1).sum(dim=1)

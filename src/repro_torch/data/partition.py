@@ -1,8 +1,9 @@
 """Client data partitioning (Section IV-A's non-IID protocols).
 
-Copy-port of ``repro.data.partition``'s ``partition_hierarchy`` and
-``partition`` (numpy): same protocols, same generator draws in the same
-order, so seeded partitions are byte-identical to the JAX package's.
+Copy-port of ``repro.data.partition``'s ``partition_hierarchy``,
+``partition`` and ``partition_stats`` (numpy): same protocols, same
+generator draws in the same order, so seeded partitions are byte-identical
+to the JAX package's.
 
 * ``iid``          — uniform random split.
 * ``simple_niid``  — each client holds samples of ``classes_per_client``
@@ -106,3 +107,13 @@ def partition(
     from repro_torch.core.hierarchy import HierarchySpec
 
     return partition_hierarchy(kind, labels, HierarchySpec.uniform(num_edges, clients_per_edge), rng, **kw)
+
+
+def partition_stats(parts: List[np.ndarray], labels: np.ndarray) -> np.ndarray:
+    """(num_clients, num_classes) label histogram — used by tests and the
+    divergence probes to verify the protocol produced the intended skew."""
+    num_classes = int(labels.max()) + 1
+    out = np.zeros((len(parts), num_classes), np.int64)
+    for i, idx in enumerate(parts):
+        out[i] = np.bincount(labels[idx], minlength=num_classes)
+    return out

@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -430,3 +430,18 @@ class CohortPrefetcher(SuperBatchPrefetcher):
             "stages": aggregation.stages_to_device(stages, tables, self.device, non_blocking=True),
         }
         return ids, cohort, super()._upload(block)
+
+
+def global_batch_iterator(arrays: Dict[str, np.ndarray], batch_size: int, *, seed: int = 0) -> Iterator[Batch]:
+    """Simple epoch-shuffled global iterator (non-federated paths): the
+    same batches as ``repro.data.pipeline.global_batch_iterator`` for the
+    same seed (one ``default_rng((seed, epoch))`` permutation an epoch, the
+    tail that does not fill a batch dropped)."""
+    n = next(iter(arrays.values())).shape[0]
+    epoch = 0
+    while True:
+        order = np.random.default_rng((seed, epoch)).permutation(n)
+        for s in range(0, n - batch_size + 1, batch_size):
+            take = order[s:s + batch_size]
+            yield {k: v[take] for k, v in arrays.items()}
+        epoch += 1

@@ -57,6 +57,11 @@ def get(name: str, overrides: Sequence[str] = ()) -> ExperimentSpec:
     return spec.with_overrides(overrides) if overrides else spec
 
 
+def describe_all() -> List[Tuple[str, str]]:
+    """(name, description) rows for the scenario table."""
+    return [(n, _REGISTRY[n][1]) for n in names()]
+
+
 # The benchmark stand-in problem: 50 clients / 5 edges on the synthetic
 # 10-class dataset; lr exponential 0.995/50.
 _BENCH_MODEL = ModelSpec(lr=0.15, lr_schedule="exponential")
@@ -182,7 +187,7 @@ def _trimmed_int8() -> ExperimentSpec:
     )
 
 
-@register("ragged_edges", "ragged 16/12/10/7/5-client edges, kappas=(6,10)")
+@register("ragged_edges", "ragged 16/12/10/7/5-client edges, kappas=(6,10) (docs/hierarchy.md)")
 def _ragged_edges() -> ExperimentSpec:
     return ExperimentSpec(
         name="ragged_edges",

@@ -1,5 +1,6 @@
-"""Models on the main path, and ``params_from_numpy``, which carries a JAX
-init across into the port's tree of tensors.
+"""The models (the classifiers of ``cnn``; the LM stack of ``transformer``
+over ``layers`` and ``recurrent``), and ``params_from_numpy``, which
+carries a JAX init across into the port's tree of tensors.
 
 The JAX package's parameters are nested dicts (and, for the LM's
 ``blocks_unrolled``, lists) of arrays; the port keeps the same tree. A bf16
@@ -14,12 +15,20 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import cnn, layers, recurrent, transformer
 from repro_torch.models.cnn import (
     MLP,
+    CifarCNN,
+    MnistCNN,
     accuracy,
+    cifar_cnn_apply,
     classification_loss,
+    count_params,
+    init_cifar_cnn,
+    init_mnist_cnn,
     make_cnn_loss_fn,
     mlp_bundle,
+    mnist_cnn_apply,
 )
 
 Tree = Any
@@ -65,10 +74,21 @@ def params_from_numpy(np_params: Tree, device=None, *, like: Optional[Tree] = No
 
 
 __all__ = [
+    "cnn",
+    "layers",
+    "recurrent",
+    "transformer",
     "MLP",
+    "CifarCNN",
+    "MnistCNN",
     "accuracy",
+    "cifar_cnn_apply",
     "classification_loss",
+    "count_params",
+    "init_cifar_cnn",
+    "init_mnist_cnn",
     "make_cnn_loss_fn",
     "mlp_bundle",
+    "mnist_cnn_apply",
     "params_from_numpy",
 ]

@@ -1,8 +1,10 @@
 """Optax-style gradient transformations over trees of stacked tensors.
 
-Port of ``repro.optim.transforms`` (``sgd``, ``momentum``, ``adam``,
-``chain``, ``trace``, ``scale_by_learning_rate``, ``apply_updates``),
-written functionally:
+Port of ``repro.optim.transforms`` (``sgd``, ``momentum``, ``adam`` with
+optional decoupled-in-chain weight decay, ``chain``, ``identity``,
+``scale``, ``trace``, ``clip_by_global_norm``, ``add_decayed_weights``,
+``scale_by_adam``, ``scale_by_learning_rate``, ``apply_updates``), written
+functionally:
 
     opt = sgd(lr)
     state = opt.init(params)
@@ -21,7 +23,7 @@ from typing import Callable, NamedTuple, Union
 import torch
 
 from repro_torch.optim.schedule import constant
-from repro_torch.tree import Tree, first_leaf, tree_map
+from repro_torch.tree import Tree, first_leaf, leaves, tree_map
 
 Params = Tree
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -31,6 +33,10 @@ ScalarOrSchedule = Union[float, Schedule]
 class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable  # (grads, state, params=None) -> (updates, state)
+
+
+class EmptyState(NamedTuple):
+    pass
 
 
 class ScaleByScheduleState(NamedTuple):
@@ -75,6 +81,17 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+def identity() -> GradientTransformation:
+    return GradientTransformation(lambda params: EmptyState(), lambda grads, state, params=None: (grads, state))
+
+
+def scale(factor: float) -> GradientTransformation:
+    def update(grads, state, params=None):
+        return tree_map(lambda g: g * factor, grads), state
+
+    return GradientTransformation(lambda params: EmptyState(), update)
+
+
 def scale_by_learning_rate(lr: ScalarOrSchedule, *, flip_sign: bool = True) -> GradientTransformation:
     schedule = lr if callable(lr) else constant(lr)
     sign = -1.0 if flip_sign else 1.0
@@ -107,6 +124,28 @@ def trace(decay: float, *, nesterov: bool = False) -> GradientTransformation:
         return updates, TraceState(trace=new_trace)
 
     return GradientTransformation(init, update)
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """Scale every gradient by min(1, max_norm / (||g|| + 1e-12)), with one
+    norm over the whole tree (every client's rows together, as JAX's over
+    its stacked leaves)."""
+
+    def update(grads, state, params=None):
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves(grads)))
+        factor = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
+        return tree_map(lambda g: g * factor.to(g.dtype), grads), state
+
+    return GradientTransformation(lambda params: EmptyState(), update)
+
+
+def add_decayed_weights(weight_decay: float) -> GradientTransformation:
+    def update(grads, state, params=None):
+        if params is None:
+            raise ValueError("add_decayed_weights requires params")
+        return tree_map(lambda g, p: g + weight_decay * p.to(g.dtype), grads, params), state
+
+    return GradientTransformation(lambda params: EmptyState(), update)
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
@@ -142,5 +181,13 @@ def momentum(lr: ScalarOrSchedule, decay: float = 0.9, *, nesterov: bool = False
     return chain(trace(decay, nesterov=nesterov), scale_by_learning_rate(lr))
 
 
-def adam(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
-    return chain(scale_by_adam(b1, b2, eps), scale_by_learning_rate(lr))
+def adam(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0) -> GradientTransformation:
+    """Adam; a nonzero ``weight_decay`` adds ``weight_decay * params`` to
+    the Adam direction before the learning rate, as JAX chains it (so the
+    state is a 3-tuple then, a 2-tuple without)."""
+    parts = [scale_by_adam(b1, b2, eps)]
+    if weight_decay:
+        parts.append(add_decayed_weights(weight_decay))
+    parts.append(scale_by_learning_rate(lr))
+    return chain(*parts)

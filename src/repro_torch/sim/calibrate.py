@@ -28,8 +28,7 @@ Calibration sources:
   links are free (the all-reduce *is* the transfer).
 * ``from_roofline`` — convenience: roofline terms -> ``ClusterCosts``
   (duck-typed: any objects with ``bound_s`` / ``collective_s``, such as
-  the JAX package's ``analysis.roofline.RooflineTerms``)
-  -> ``from_cluster``.
+  the port's ``analysis.roofline.RooflineTerms``) -> ``from_cluster``.
 * ``straggler_network`` — satellite: prices the DES's client compute from
   ``fed.failures.StragglerModel``'s *own* distribution (same slowness
   array, same RNG stream), so the deadline-mask path and the replay can
@@ -167,8 +166,9 @@ def from_cluster(costs: ClusterCosts, depth: int = 2, *, bits_per_param=None) ->
 
 def from_roofline(step, edge, cloud, depth: int = 2, *, bits_per_param=None) -> SimCosts:
     """Roofline terms for (local step, edge agg, cloud agg) -> SimCosts:
-    any objects with ``bound_s`` (the step) and ``collective_s`` (the
-    aggregations; None for a level with none)."""
+    ``analysis.roofline.RooflineTerms``, or any objects with ``bound_s``
+    (the step) and ``collective_s`` (the aggregations; None for a level
+    with none)."""
     cluster = ClusterCosts(
         t_step=step.bound_s,
         t_edge_agg=edge.collective_s if edge is not None else 0.0,

@@ -29,6 +29,12 @@ def test_the_launch_modules_are_checked():
     assert {"launch/mesh.py", "launch/specs.py", "launch/steps.py", "dist/sharding.py"} <= names
 
 
+def test_the_analysis_and_library_modules_are_checked():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    assert {"analysis/__init__.py", "analysis/roofline.py", "core/convergence.py", "core/divergence.py",
+            "core/reference.py", "kernels/ref.py", "models/cnn.py", "testing/property.py"} <= names
+
+
 def test_importing_every_port_module_leaves_jax_out():
     code = (
         "import importlib, pkgutil, sys\n"
