@@ -146,6 +146,22 @@ Phases, one JSON line each; any failure exits non-zero:
               profile and peak memory beside mlp307k's and beside the
               synchronous engine's under the same straggler masks (warm
               walls in turns, A B B A)
+  paper_figures/<script>
+              the paper's figure and table scripts (``repro_torch.experiments``)
+              at their own sizes: table1_cost_model (rows against the cost
+              model), fig4_convergence (8 schedules of 50 clients on 5
+              edges, 240 local steps each; guideline 1), table2_latency_energy
+              with ``--sim`` (IIa, IIc's int8 cloud hop, IIb; T falls with
+              kappa2, E U-shaped), fig2_topologies (``fig2_claims``),
+              aggregation_scaling, compression_tradeoff, round_time_sim and
+              wallclock_curves with their gates asserted; one line each with
+              the rows printed, the wall, client steps a second, the
+              launches against ``stand_in_launches`` (K1 once a leaf per
+              level mean, K4 = K5 once a leaf per compressed sync; checked)
+  paper_figures/fig4_cut
+              one Fig. 4 schedule (edge-NIID, kappa (6, 10)) cut to one cloud
+              interval, on the card and on the CPU from one init: losses
+              rtol 1e-4, accuracies 0.01
   paper_cifar10
               the paper's CIFAR-10 CNN (5,537,578 parameters a client) at
               its setting (``configs/paper.py``): 50 clients on 5 edges,
@@ -231,6 +247,16 @@ Phases, one JSON line each; any failure exits non-zero:
               grad norms within 1e-4 of grad_accum 1 (the loss metric, the
               last microbatch's, reported); under Adam the gaps reported;
               peak memory and the warm wall an interval
+  examples/quickstart, examples/compare_topologies, examples/serve_lm,
+  examples/train_hier_lm
+              the four examples (``repro_torch.examples``) on the card:
+              quickstart (K1 144); compare_topologies' default sweep (the
+              baselines and four trees, 100 rounds each; K2 on the ragged
+              levels, all counted); serve_lm (the lm-serve cut, 4 x 32
+              prompts, 24 tokens: K7 once a layer, 4 a prefill; the prefill
+              against the CPU's; K7 at its shape against its plain version);
+              train_hier_lm --preset 100m --rounds 8 (lm-100m at full width,
+              K1 144, the checkpoint at round 8 written and removed)
   sharded_mlp307k_w1_nccl
               mlp307k through ``topology.mesh_axes=clients:1`` over a world
               of 1 under NCCL (in this process): the client-sharded engine,
@@ -248,9 +274,11 @@ Phases, one JSON line each; any failure exits non-zero:
               counted on its own rows, one all-reduce per cloud interval
               (an eval's cloud model is one more, counted apart), the peak;
               the records and the final params against the single-device
-              card run (params at JAX's mesh tolerance); mlp307k, lm-100m and n1m
-              once more warm and once profiled with each cloud all-reduce
-              timed (ms, bytes). The kernels phase holds K1/K2 at each
+              card run (params at JAX's mesh tolerance); mlp307k and n1m
+              once more, warm and profiled, with each cloud all-reduce
+              timed (ms, bytes; lm-100m's re-runs were cut for the
+              script's wall: each held a 10.7 s state gather). The
+              kernels phase holds K1/K2 at each
               rank's shapes against their plain versions
   train_cell_lm100m_w2
               ``launch.steps.build_train_cell`` at lm-100m (16 clients on 4
@@ -3113,16 +3141,12 @@ def timed_all_reduces(torch):
 
 
 def rank_profile(torch, mods, name, overrides, world):
-    """On this rank: the run once more warm and timed, then once under
-    ``torch.profiler`` with its all-reduces timed. The profiler sees this
-    process's kernels only, so the busy share is the rank's own."""
+    """On this rank: the run once more (warm), under ``torch.profiler`` with
+    its all-reduces timed. The profiler sees this process's kernels only,
+    so the busy share is the rank's own."""
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
-    dist.barrier()
-    runner, _, warm_s, *_ = sharded_scenario(torch, mods, name, overrides, world)
-    gather_s = runner._engine._layout.gather_seconds  # the end's gather of the state
-    del runner
     dist.barrier()
     prof = profile(activities=[ProfilerActivity.CUDA])
     restore, calls = timed_all_reduces(torch)
@@ -3130,17 +3154,17 @@ def rank_profile(torch, mods, name, overrides, world):
         runner, _, window_s, *_ = sharded_scenario(torch, mods, name, overrides, world, profiler=prof)
     finally:
         restore()
+    gather_s = runner._engine._layout.gather_seconds  # the end's gather of the state
     events = device_events(torch, prof)
     busy = busy_us(events)
     intervals = runner.cfg.num_rounds / runner.hier_config.kappa2_effective
     by_class, _ = by_kernel(events)
     return {
-        "warm_wall_ms_per_interval": warm_s * 1e3 / intervals,
-        "warm_state_gathers_ms": gather_s * 1e3,
-        "warm_wall_ms_per_interval_without_gathers": (warm_s - gather_s) * 1e3 / intervals,
         "profiled_wall_ms_per_interval": window_s * 1e3 / intervals,
+        "profiled_state_gathers_ms": gather_s * 1e3,
+        "profiled_wall_ms_per_interval_without_gathers": (window_s - gather_s) * 1e3 / intervals,
         "device_busy_ms_per_interval": busy / 1e3 / intervals,
-        "device_busy_share_of_warm_wall": busy / 1e6 / warm_s,
+        "device_busy_share_of_profiled_wall": busy / 1e6 / window_s,
         "busy_ms_per_interval_by_class": {k: v / 1e3 / intervals for k, v in sorted(by_class.items())},
         "all_reduce_ms": [c[0] for c in calls], "all_reduce_bytes": sorted({c[1] for c in calls}),
     }
@@ -3170,7 +3194,7 @@ def sharded_job(torch, mods, world, job):
     del runner, state, engine
     torch.cuda.empty_cache()
     if job.get("profile"):
-        out["profile"] = rank_profile(torch, mods, job["name"], job.get("profile_overrides", job["overrides"]), world)
+        out["profile"] = rank_profile(torch, mods, job["name"], job["overrides"], world)
         torch.cuda.empty_cache()
     return out
 
@@ -3267,8 +3291,7 @@ def phase_sharded_worlds(torch):
     w2 = launch.spawn(sharded_rank, 2, "gloo", ([
         {"phase": "mlp307k_int8_ef_w2", "name": "int8_ef_both", "overrides": MLP307K},
         {"phase": "sharded_ragged_w2", "name": "ragged_edges", "overrides": RAGGED},
-        {"phase": "sharded_lm100m_w2", "name": "lm_edge_niid", "overrides": LM100M + LM_TRAIN, "profile": True,
-         "profile_overrides": LM100M + ["run.num_rounds=2"]},
+        {"phase": "sharded_lm100m_w2", "name": "lm_edge_niid", "overrides": LM100M + LM_TRAIN},
         {"phase": "sharded_n1m_cohort_w2", "name": "n1m_cohort4096", "overrides": (), "profile": True}],))
     w2_s = time.perf_counter() - t1
     wants = {
@@ -4141,6 +4164,289 @@ def phase_roofline_calibration(torch, mods):
     return launches
 
 
+# the paper's figure and table scripts (``repro_torch.experiments``) at
+# their own sizes, and the examples (``repro_torch.examples``)
+PAPER_SCRIPTS = ("table1_cost_model", "fig4_convergence", "table2_latency_energy", "fig2_topologies",
+                 "aggregation_scaling", "compression_tradeoff", "round_time_sim", "wallclock_curves")
+# one Fig. 4 schedule, cut to one cloud interval, on the card and on the CPU
+FIG4_CUT = dict(partitions=("edge_niid",), schedules=((6, 10),), rounds=10)
+# train_hier_lm at lm-100m's full width (8 clients on 2 edges, Adam)
+HIER_LM_ARGS = ["--preset", "100m", "--rounds", "8"]
+TABLE2_ROW = r"^table2([abc])_(?:(\w+?)_)?k1=(\d+)_k2=(\d+),steps=(\d+),T=([\d.]+)s,E=([\d.]+)J$"
+
+
+def sync_level(kappas, r: int) -> int:
+    """The level of the sync that ends round ``r`` (0-based): 1, the edge,
+    unless r + 1 is a multiple of kappa2 (then 2, and so on up the tree)."""
+    level, every = 1, 1
+    for k in kappas[1:]:
+        every *= k
+        if (r + 1) % every:
+            break
+        level += 1
+    return level
+
+
+def stand_in_launches(runner) -> dict:
+    """What a classifier run must launch: at the end of each round the sync
+    that is due, whose level L runs the stages of levels 1..L
+    (``aggregation.level_stages``), each K1 once a leaf where its groups
+    are equal blocks and K2 once a leaf where they are ragged; K4 and K5
+    once a leaf at a sync whose level's codec compresses; nothing else."""
+    from repro_torch.core.aggregation import level_stages
+    from repro_torch.core.hierarchy import as_hierarchy
+    from repro_torch.tree import leaves
+
+    hier = runner.hier_config
+    kappas = hier.kappas or (hier.kappa1, hier.kappa2)
+    tree = as_hierarchy(runner.topology)
+    n_leaves = len(list(leaves(runner.spec.init_params(0, "cpu"))))
+    want = dict.fromkeys(("grouped_mean", "segment_mean", "quantize", "dequantize"), 0)
+    for r in range(len(runner.history)):
+        level = sync_level(kappas, r)
+        for st in level_stages(tree, level):
+            want["grouped_mean" if st.uniform else "segment_mean"] += n_leaves
+        if hier.transport is not None and not hier.transport.codec(level).is_identity:
+            want["quantize"] += n_leaves
+            want["dequantize"] += n_leaves
+    return {k: v for k, v in want.items() if v}
+
+
+def scripted(torch, mods, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after, its printed rows captured and the runs it made recorded
+    (``experiments.common.recorded_runs``): (its result, the rows, seconds
+    to a synchronise, launches, the runners)."""
+    import io
+
+    from repro_torch.experiments import common
+
+    torch.cuda.synchronize()
+    for m in mods:
+        m.reset_launch_counts()
+    text = io.StringIO()
+    with common.recorded_runs() as runs, contextlib.redirect_stdout(text):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return result, text.getvalue().splitlines(), seconds, {k: v for m in mods for k, v in m.LAUNCHES.items()}, runs
+
+
+def runs_report(name, runs, seconds, launches, rows, extra=None):
+    """A script's line: its wall, its runs' client steps a second (host
+    time: the stand-in's steps are far too small to keep the card busy),
+    the launches against ``stand_in_launches`` (checked), its rows."""
+    import math
+
+    want = {}
+    for r in runs:
+        for k, v in stand_in_launches(r).items():
+            want[k] = want.get(k, 0) + v
+        check(all(math.isfinite(h.loss) for h in r.history), f"{name}: a loss is not finite")
+    check_launches(launches, want, name)
+    steps = sum(resident_clients(r) * len(r.history) * r.hier_config.kappa1 for r in runs)
+    out = {"phase": name, "seconds": seconds, "runs": len(runs), "client_steps": steps,
+           "client_steps_per_s": steps / seconds if steps else None, "launches": launches, "launches_want": want}
+    out.update(extra or {})
+    out["rows"] = rows
+    emit(out)
+    return launches
+
+
+def table2_claims(rows):
+    """Table II's claims on the printed rows: within each sweep (IIa per
+    partition, IIc, IIb) ordered by kappa2, T_alpha falls and E_alpha is
+    U-shaped (its smallest value inside the sweep); the kappa pairs that
+    reached alpha."""
+    import re
+
+    sweeps = {}
+    for line in rows:
+        m = re.match(TABLE2_ROW, line)
+        if m:
+            sec, part, k1, k2, steps, t, e = m.groups()
+            sweeps.setdefault(f"II{sec}" + (f"_{part}" if part else ""), []).append(
+                (int(k2), int(k1), int(steps), float(t), float(e)))
+    out = {}
+    for name, pts in sweeps.items():
+        pts.sort()
+        ts, es = [p[3] for p in pts], [p[4] for p in pts]
+        low = es.index(min(es))
+        out[name] = {"reached": [[p[1], p[0]] for p in pts], "T": ts, "E": es,
+                     "T_falls_with_kappa2": all(b <= a for a, b in zip(ts, ts[1:])),
+                     "E_u_shaped": 0 < low < len(es) - 1}
+    return out
+
+
+def phase_paper_figures(torch, mods):
+    """The eight scripts at their own sizes on the card, one line each
+    (``paper_figures/<name>``): rows, wall, launches as counted, the
+    paper's claims; round_time_sim's and wallclock_curves' gates; one Fig. 4
+    schedule cut to one cloud interval, card against the CPU."""
+    import importlib
+
+    from repro_torch.experiments import common
+
+    mod = {n: importlib.import_module(f"repro_torch.experiments.{n}") for n in PAPER_SCRIPTS}
+    total = {}
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    from repro_torch.core import cost_model
+
+    result, rows, secs, launches, runs = scripted(torch, mods, lambda: mod["table1_cost_model"].main(device="cuda"))
+    check(result == [(n, w.t_comp, w.t_comm_edge, w.e_comp, w.e_comm_edge) for n, w in (
+        (n, cost_model.paper_workload(n)) for n in ("mnist", "cifar10"))], f"table1 rows {result}")
+    count(runs_report("paper_figures/table1_cost_model", runs, secs, launches, rows))
+
+    out, rows, secs, launches, runs = scripted(torch, mods, lambda: mod["fig4_convergence"].main(device="cuda"))
+    check(len(runs) == 8 and all(r.history[-1].step == 240 for r in runs), "fig4: 8 runs of 240 local steps")
+    guideline = {d: out[(d, 6, 10)][1][-1] >= out[(d, 60, 1)][1][-1] - 0.02 for d in ("edge_iid", "edge_niid")}
+    count(runs_report("paper_figures/fig4_convergence", runs, secs, launches, rows, {
+        "final_accuracy": {f"{d}_k1={a}_k2={b}": acc[-1] for (d, a, b), (_, acc) in out.items()},
+        "guideline1_holds": guideline}))
+
+    # the cut against the CPU, from one init
+    init = lambda spec: spec.init_params(spec.run.seed + 1, "cpu")  # noqa: E731
+    _, _, card_secs, launches, (card,) = scripted(
+        torch, mods, lambda: mod["fig4_convergence"].main(device="cuda", init=init, **FIG4_CUT))
+    check_launches(launches, stand_in_launches(card), "paper_figures/fig4_cut")
+    with common.recorded_runs() as cpu_runs, contextlib.redirect_stdout(None):
+        mod["fig4_convergence"].main(device="cpu", init=init, **FIG4_CUT)
+    agreement = history_agreement(card, cpu_runs[0], "fig4 cut cuda vs cpu", "cpu")
+    count(launches)
+    emit({"phase": "paper_figures/fig4_cut", "schedule": FIG4_CUT, "seconds": card_secs, "launches": launches,
+          **agreement, "losses": [h.loss for h in card.history],
+          "accuracy": [h.accuracy for h in card.history]})
+
+    rows_out, rows, secs, launches, runs = scripted(
+        torch, mods, lambda: mod["table2_latency_energy"].main(sim=True, device="cuda"))
+    check(len(runs) == 15, f"table2: {len(runs)} runs, want 8 + 3 + 4")
+    check(sum(ln.startswith("table2sim_") for ln in rows) == sum(r[0] in ("edge_iid", "edge_niid") for r in rows_out),
+          "table2: one --sim row per IIa point reached")
+    count(runs_report("paper_figures/table2_latency_energy", runs, secs, launches, rows,
+                      {"claims": table2_claims(rows)}))
+
+    fig2, rows, secs, launches, runs = scripted(torch, mods, lambda: mod["fig2_topologies"].main(device="cuda"))
+    claims = {"hier_acc_ge_edge": fig2["hier"][0] >= fig2["edge_only"][0] - 0.01,
+              "hier_T_le_cloud": fig2["hier"][1] <= fig2["cloud"][1]}
+    count(runs_report("paper_figures/fig2_topologies", runs, secs, launches, rows, {
+        "best_accuracy": {k: v[0] for k, v in fig2.items()}, "T_alpha_s": {k: v[1] for k, v in fig2.items()},
+        "fig2_claims": claims}))
+
+    agg, rows, secs, launches, runs = scripted(torch, mods, lambda: mod["aggregation_scaling"].main([], device="cuda"))
+    check(len(agg["rows"]) == 30 and abs(agg["cloud_traffic_reduction"] - 64) < 1e-9, "aggregation_scaling rows")
+    count(runs_report("paper_figures/aggregation_scaling", runs, secs, launches, rows))
+
+    _, rows, secs, launches, runs = scripted(torch, mods, lambda: mod["compression_tradeoff"].main(device="cuda"))
+    check(len(runs) == 9 and launches["quantize"] > 0, "compression_tradeoff: 9 runs, K4 on the int8 ones")
+    count(runs_report("paper_figures/compression_tradeoff", runs, secs, launches, rows))
+
+    sim, rows, secs, launches, runs = scripted(torch, mods, lambda: mod["round_time_sim"].main(device="cuda"))
+    gates = mod["round_time_sim"].check_gates(sim)
+    check(not gates, f"round_time_sim gates: {gates}")
+    count(runs_report("paper_figures/round_time_sim", runs, secs, launches, rows, {"gates": "passed"}))
+
+    section, rows, secs, launches, runs = scripted(
+        torch, mods, lambda: mod["wallclock_curves"].main([], device="cuda"))
+    gates = mod["wallclock_curves"].check_gates(section)
+    check(not gates, f"wallclock_curves gates: {gates}")
+    check(all(type(r._engine).__name__ == "DeadlineEngine" for r in runs), "wallclock_curves: the deadline engine")
+    count(runs_report("paper_figures/wallclock_curves", runs, secs, launches, rows, {
+        "gates": "passed", "gated_intervals": [r._engine.gated_intervals for r in runs],
+        "time_to_target_s": {k: v["time_to_target_s"] for k, v in section["variants"].items()}}))
+    return total
+
+
+def phase_examples(torch, mods, fa):
+    """The four examples on the card: quickstart, compare_topologies'
+    default sweep (K2 on the ragged trees), serve_lm (K7 once a layer a
+    prefill; K7 at its shape against the plain version; the prefill
+    against the CPU's) and train_hier_lm at lm-100m's full width."""
+    import math
+    import shutil
+
+    import numpy as np
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.examples import compare_topologies, quickstart, serve_lm, train_hier_lm
+    from repro_torch.models import transformer
+
+    total = {}
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    runner, rows, secs, launches, runs = scripted(torch, mods, lambda: quickstart.main(["--device", "cuda"]))
+    check(runs == [runner] and launches["grouped_mean"] == 144, f"examples/quickstart K1 {launches}")
+    count(runs_report("examples/quickstart", runs, secs, launches, rows,
+                      {"final_accuracy": runner.history[-1].accuracy}))
+
+    found, rows, secs, launches, runs = scripted(torch, mods, lambda: compare_topologies.main(["--device", "cuda"]))
+    check(len(runs) == 6 and launches["segment_mean"] > 0, f"examples/compare_topologies K2 {launches}")
+    count(runs_report("examples/compare_topologies", runs, secs, launches, rows, {
+        "best_accuracy": {k: max(h.accuracy for h in r.history if h.accuracy is not None) for k, r in found.items()},
+        "segment_mean_by_tree": {k: stand_in_launches(r).get("segment_mean", 0) for k, r in found.items()}}))
+
+    out, rows, secs, launches, _ = scripted(torch, mods, lambda: serve_lm.main(["--device", "cuda"]))
+    cfg = serve_lm.serve_config()
+    check_launches(launches, {"flash_attention": cfg.num_layers}, "examples/serve_lm")
+    B, P = out["prompts"].shape
+    check(tuple(out["tokens"].shape) == (B, 24) and bool(torch.isfinite(out["prefill_logits"]).all()),
+          "examples/serve_lm: tokens or logits")
+    with torch.inference_mode():
+        params = transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    with contextlib.redirect_stdout(None):
+        cpu = serve_lm.main(["--device", "cpu"], params=cpu_params)
+    err, scale = max_err(out["prefill_logits"], cpu["prefill_logits"])
+    check(err <= K_F32 * scale, f"examples/serve_lm: card vs CPU logits err {err} (scale {scale})")
+    check(torch.equal(out["tokens"][:, 0].cpu(), cpu["tokens"][:, 0]), "examples/serve_lm: first greedy token")
+    # K7 at the prefill's shape against its plain version
+    rng = np.random.default_rng(7)
+    hd = cfg.resolved_head_dim
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, P, n, hd)).astype(np.float32)).cuda()
+               for n in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    got, again = fa.attention(q, k, v, causal=True), fa.attention(q, k, v, causal=True)
+    k7_err = float((got - fa.attention_plain(q, k, v, causal=True)).abs().max())
+    check(bit_equal(got, again) and k7_err <= K7_ATOL, f"examples/serve_lm: K7 at {tuple(q.shape)} err {k7_err}")
+    count(launches)
+    emit({"phase": "examples/serve_lm", "seconds": secs, "launches": launches,
+          "launches_per_prefill": {"flash_attention": cfg.num_layers}, "prefill_s": out["prefill_s"],
+          "decode_s": out["decode_s"], "decode_tokens_per_s": B * 23 / out["decode_s"],
+          "card_vs_cpu": {"max_abs_err": err, "max_abs_logit": scale, "tolerance": f"{K_F32} x max |logit|"},
+          "k7_at_prefill_shape": {"q": list(q.shape), "k": list(k.shape), "max_abs_err": k7_err, "atol": K7_ATOL,
+                                  "bit_equal_relaunch": True},
+          "sample_ids": out["tokens"][:2, :12].tolist(), "rows": rows})
+    del params, cpu_params, q, k, v, got, again
+
+    ckpt = CKPT_DIR / "hier_lm"
+    base = reset_peak(torch)
+    try:
+        (runner, state), rows, secs, launches, runs = scripted(
+            torch, mods, lambda: train_hier_lm.main(HIER_LM_ARGS + ["--ckpt-dir", str(ckpt), "--device", "cuda"]))
+        peak = torch.cuda.max_memory_allocated() - base
+        check(runner.spec.model.arch == "lm-100m" and runs == [runner], "examples/train_hier_lm: lm-100m")
+        check_launches(launches, lm_launches(runner, state, 0), "examples/train_hier_lm")
+        losses = [h.loss for h in runner.history]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"train_hier_lm losses {losses}")
+        saved = sorted(p.name for p in ckpt.iterdir())
+        check(bool(saved), "examples/train_hier_lm: no checkpoint written")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    count(launches)
+    steps = resident_clients(runner) * len(runner.history) * runner.hier_config.kappa1
+    emit({"phase": "examples/train_hier_lm", "args": HIER_LM_ARGS, "seconds": secs, "client_steps": steps,
+          "client_steps_per_s": steps / secs, "launches": launches, "losses": losses, "checkpoints": saved,
+          "peak_memory_bytes": peak, "rows": rows})
+    del runner, state
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4357,6 +4663,10 @@ def main() -> int:
     count(phase_mlp307k_cohort(torch, mods, mlp_params))
     count(phase_cohort_identity(torch, mods))
 
+    # the paper's figure and table scripts at their own sizes: K1 on every
+    # sync, K4 and K5 on every compressed one
+    count(phase_paper_figures(torch, mods))
+
     # the paper's CNNs at its setting (50 clients on 5 edges, batch 20,
     # SGD): K1 on every sync; the CIFAR-10 CNN's divergences and Theorem 1
     launches, cifar_runs, cifar_cut = phase_paper(torch, mods, "cifar10")
@@ -4374,6 +4684,9 @@ def main() -> int:
     count(phase_train_lm100m(torch, mods))
     count(phase_train_lm100m_robust(torch, mods))
     count(phase_train_lm100m_accum2(torch, mods))
+    # the examples: K1 (quickstart, train_hier_lm at lm-100m), K2 (the
+    # ragged trees of compare_topologies), K7 (serve_lm's prefill)
+    count(phase_examples(torch, mods, fa))
     count(phase_roofline_calibration(torch, mods))
 
     # the client-sharded superround over torch.distributed ranks on this

@@ -106,6 +106,15 @@ class HierarchySpec:
             return self.num_clients
         return int(max(self.parents[tier - 1])) + 1
 
+    def fanouts(self) -> Tuple[Tuple[int, ...], ...]:
+        """Inverse of ``from_fanouts``: child counts per node, bottom-up."""
+        return tuple(tuple(int(c) for c in np.bincount(np.asarray(lvl, np.int64))) for lvl in self.parents)
+
+    def fanouts_text(self) -> str:
+        """The ``parse_fanouts`` grammar for this tree: ``parse_fanouts(
+        spec.fanouts_text()) == spec``."""
+        return "/".join(",".join(str(c) for c in lvl) for lvl in self.fanouts())
+
     def segments(self, level: int) -> np.ndarray:
         """(N,) int32 vector: each client's tier-``level`` ancestor id.
         Sorted by construction."""

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX
-package, its entry points default to CUDA and refuse to fall back to the
-CPU, and configurations that need an unported feature say which ROADMAP
+package nor the JAX reproduction scripts (``benchmarks``), its entry
+points (the figure and table scripts and the examples among them) default
+to CUDA and refuse to fall back to the CPU, and configurations that need an unported feature say which ROADMAP
 item brings it (item 16: tensor parallelism over a "model" axis larger
 than 1); features of items once unported build, and the hint mesh follows
 JAX's table."""
@@ -14,7 +15,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro|benchmarks)(\.|\s|$)", re.MULTILINE)
 
 
 def _port_files():
@@ -35,14 +36,54 @@ def test_the_analysis_and_library_modules_are_checked():
             "core/reference.py", "kernels/ref.py", "models/cnn.py", "testing/property.py"} <= names
 
 
+def test_the_script_and_example_modules_are_checked():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    scripts = {"common", "table1_cost_model", "fig4_convergence", "table2_latency_energy", "fig2_topologies",
+               "compression_tradeoff", "aggregation_scaling", "round_time_sim", "wallclock_curves", "__main__"}
+    assert {f"experiments/{n}.py" for n in scripts} <= names
+    assert {f"examples/{n}.py" for n in ("quickstart", "compare_topologies", "serve_lm", "train_hier_lm")} <= names
+
+
+def _entry_points():
+    from repro_torch.examples import compare_topologies, quickstart, serve_lm, train_hier_lm
+    from repro_torch.experiments import (aggregation_scaling, compression_tradeoff, fig2_topologies,
+                                         fig4_convergence, round_time_sim, table1_cost_model,
+                                         table2_latency_energy, wallclock_curves)
+
+    return {
+        **{m.__name__: (lambda m=m: m.cli([])) for m in (
+            table1_cost_model, fig4_convergence, table2_latency_energy, fig2_topologies, compression_tradeoff,
+            round_time_sim)},
+        **{m.__name__: (lambda m=m: m.main([])) for m in (
+            aggregation_scaling, wallclock_curves, quickstart, compare_topologies, serve_lm, train_hier_lm)},
+        "fig4_convergence.main": lambda: fig4_convergence.main(),
+        "round_time_sim.main": lambda: round_time_sim.main(),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_every_script_and_example_raises_without_a_gpu_and_a_device(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
+
+
+def test_the_scripts_runner_names_the_script_that_raised(monkeypatch, capsys):
+    from repro_torch.experiments import __main__ as runner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="scripts failed: \\['table1_cost_model'\\]"):
+        runner.main(["--only", "table1_cost_model"])
+    assert "no CUDA device" in capsys.readouterr().out
+
+
 def test_importing_every_port_module_leaves_jax_out():
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
-        "or k == 'repro' or k.startswith('repro.'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro', 'benchmarks'))\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]), bad)\n"
         "assert not bad, bad\n"
         "from repro_torch.kernels import _build\n"
