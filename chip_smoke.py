@@ -283,10 +283,26 @@ Phases, one JSON line each; any failure exits non-zero:
   train_cell_lm100m_w2
               ``launch.steps.build_train_cell`` at lm-100m (16 clients on 4
               edges, a 128 x 64 cut of train_4k: microbatch 4, accum 2) on
-              a ("data",) mesh of 2 gloo ranks, one cloud interval (32
-              calls), against the single-device cell over the same batches
-              at JAX's mesh tolerances; K1 48 a rank (60 on one device), one
-              all-reduce; the wall a call and each rank's peak
+              a ("data",) mesh of 2 gloo ranks, one cloud interval (kappa
+              cut to (2, 2): 4 calls), against the single-device cell over
+              the same batches at JAX's mesh tolerances; K1 24 a rank (36 on
+              one device), one all-reduce; the wall a call and each rank's
+              peak
+  tp_lm100m_m2
+              tensor parallelism in the same world of 2 gloo ranks, on a
+              ("data", "model") mesh of (1, 2): each rank holds half of
+              every split leaf of lm-100m. The train cell (as above) against
+              the single-device cell: losses and grad norms at rtol 1e-5,
+              params at JAX's mesh tolerances, K1 36 a rank, 100
+              tensor-parallel sums, 2 maxes, 2 gathers and one grad-norm sum
+              a call, the last call's collectives timed (ms, bytes); the
+              prefill and decode cells on 4 x 1024 prompts, f32: K7 12 a
+              prefill a rank (6 query heads over 2 KV heads), the last
+              logits and 8 greedy decode steps against one device (the same
+              tokens, logits within 1e-4 of the largest), 24 sums and 2
+              gathers a call, tokens/s, each rank's parameter bytes and
+              peak. The kernels and attention_kernel phases hold K1 at a
+              rank's largest slices and K7 at a rank's heads
   serve_lm100m
               ``repro_torch.launch.serve.serve`` on lm-100m at full width, f32,
               4 prompts of 1024 tokens, 32 generated: 12 K7 launches per
@@ -300,8 +316,8 @@ Phases, one JSON line each; any failure exits non-zero:
               in 80 GB) for 2 rounds: K1 once per leaf per level mean (123),
               K7 = K8 = 0, losses finite and falling, params finite, f32
               exactly on the gate, recurrence and bias leaves, the peak;
-              one warm cloud interval timed, one local step profiled, K1
-              timed per leaf; one cloud interval at 4 layers in f32 on 4
+              one local step of its final state profiled, K1 timed per
+              leaf; one cloud interval at 4 layers in f32 on 4
               clients (8-token sequences) against the CPU, with Adam and
               with SGD (losses, and SGD's params after the cloud sync). K1
               at this run's leaves is also among the kernels phase's cases.
@@ -656,6 +672,12 @@ def kernel_cases():
         ("grouped_mean", "lm-100m mlp w1 one rank of 2 (4x18874368, G=1)", 4, 18874368, 1),
         ("grouped_mean", "mlp307k w1 one rank of 4 (8x262144, G=1)", 8, 262144, 1),
         ("grouped_mean", "mlp307k w1 one rank of 2 (16x262144, G=2)", 16, 262144, 2),
+        # tp_lm100m_m2's train cell (16 clients on 4 edges), one of 2 model
+        # ranks: the stacked MLP weight's half (16 x 12 x 768 x 1024) and
+        # the LM head's (16 x 768 x 16384, the largest slice) at the edge
+        # stage
+        ("grouped_mean", "lm-100m w1 TP slice, one of 2 model ranks (16x9437184, G=4)", 16, 9437184, 4),
+        ("grouped_mean", "lm-100m lm_head TP slice, one of 2 model ranks (16x12582912, G=4)", 16, 12582912, 4),
         # lm_edge_niid's leaves at lm-100m: the final norm, and the stacked
         # MLP weight of 12 layers (8 x 12 x 768 x 2048, the largest leaf)
         ("grouped_mean", "lm-100m final_norm edge (8x768, G=2)", 8, 768, 2),
@@ -933,39 +955,74 @@ def k3_inputs(torch, rng, n, k1, b, feat, out, mom, dtype):
     return params, x, y, w, mu
 
 
-TRACES_TAKEN_AGAIN = [0]  # short traces that showed no kernel and were taken again
+# traces taken again (a window that lost its edges, or a kernel); the most
+# leading spins one kept trace lost
+TRACE_STATS = {"taken_again": 0, "leading_spins_lost_max": 0}
+SPIN_CYCLES = 2_000_000  # torch.cuda._sleep's clock cycles: about 1 ms on an H100
 
 
-def traced_kernels(torch, fn, needle: str, attempts: int = 8, want: int = 0) -> list:
-    """The names of the device kernels holding ``needle`` that one call of
-    ``fn`` ran, from a profiler trace (one entry per launch): ``fn`` runs
-    once while the tracer warms up, unrecorded, then once recorded. The
-    tracer can still lose a short window whole, or one of two kernels of a
-    call (K1/K2's split), so a trace that shows no such kernel, or fewer
-    than ``want``, is taken again, up to ``attempts`` traces of one call
-    each; a retaken trace spins the card for about a millisecond after the
-    call (``torch.cuda._sleep``, no kernel of ours), so its window is not
-    a few microseconds long. A kernel that never ran still shows none."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+def bracketed_trace(torch, fn, activities, attempts: int = 12):
+    """``fn`` once under ``torch.profiler``, the card idle on either side of
+    the call, between leading spin kernels (``torch.cuda._sleep``, about
+    1 ms each, no kernel of ours) and one trailing spin. On an H100 the
+    tracer drops the records that start in the first part of a window, a
+    few percent of the time and at times for dozens of windows in a row
+    (it once dropped K1's record from 16 windows of one call), so a trace
+    counts only if a leading spin survived before the call's first record
+    and the trailing one after its last: then nothing of the call was lost.
+    A trace that lost every leading spin is taken again with twice as many
+    (4 at first, up to 256). Returns (profiler, the call's device records,
+    seconds of the call to a synchronise, ``fn``'s result); raises if no
+    trace was whole."""
+    from torch.profiler import profile
 
+    lead = 4
     for attempt in range(attempts):
-        names = []
+        time.sleep(0.05 * attempt)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: names.extend(
-                         e.name for e in p.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA and needle in e.name)) as prof:
-            for _ in range(2):
-                fn()
-                if attempt:
-                    torch.cuda._sleep(2_000_000)
-                torch.cuda.synchronize()
-                prof.step()
-        if names and len(names) >= want:
+        prof = profile(activities=activities)
+        with prof:
+            for _ in range(lead):
+                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        events = sorted(device_events(torch, prof), key=lambda ev: ev[1])
+        spins = [i for i, ev in enumerate(events) if "spin_kernel" in ev[0]]
+        call = [i for i, ev in enumerate(events) if "spin_kernel" not in ev[0]]
+        # with no record of the call, one leading spin and the trailing one
+        first, last = (call[0], call[-1]) if call else (spins[-1] if spins else 0, spins[0] if spins else 0)
+        leading = sum(i < first for i in spins)
+        if leading and spins[-1] > last:
+            TRACE_STATS["leading_spins_lost_max"] = max(TRACE_STATS["leading_spins_lost_max"], lead - leading)
+            return prof, [events[i] for i in call], seconds, out
+        TRACE_STATS["taken_again"] += 1
+        if not leading:
+            lead = min(2 * lead, 256)
+    raise AssertionError(f"{attempts} profiler traces in a row lost the edges of the call's window")
+
+
+def traced_kernels(torch, fn, needle: str, attempts: int = 4, want: int = 0) -> list:
+    """The names of the device kernels holding ``needle`` that one call of
+    ``fn`` ran, from a whole trace (``bracketed_trace``), one entry per
+    launch. A whole trace with fewer than ``want`` such kernels is taken
+    again, up to ``attempts`` whole traces, and the most seen is returned:
+    a kernel that never ran still shows none."""
+    from torch.profiler import ProfilerActivity
+
+    best = []
+    for _ in range(attempts):
+        _, events, _, _ = bracketed_trace(torch, fn, [ProfilerActivity.CUDA])
+        names = [name for name, _, _ in events if needle in name]
+        best = names if len(names) > len(best) else best
+        if best and len(best) >= want:
             break
-        TRACES_TAKEN_AGAIN[0] += 1
-    return names
+        TRACE_STATS["taken_again"] += 1
+    return best
 
 
 def off_by_one(torch, t):
@@ -1339,6 +1396,7 @@ def attention_cases():
     return cases + [
         ("kernel_bench (4 x 1024 x 64)", 4, 1024, 1, 1, 64, 0, "bfloat16"),
         ("lm-100m prefill", 4, 1024, 12, 4, 64, 0, "float32"),
+        ("lm-100m prefill, one of 2 model ranks", 4, 1024, 6, 2, 64, 0, "float32"),
         ("recurrentgemma-9b prefill", 2, 4096, 16, 1, 256, 2048, "bfloat16"),
         ("yi-9b prefill", 1, 4096, 32, 4, 128, 0, "bfloat16"),
     ]
@@ -2331,17 +2389,13 @@ def profile_call(torch, fn, ranges=()):
     unless ``ranges`` names ``record_function`` ranges: then host ops are
     traced too (which slows the call: an xlstm-350m local step took 5.06 s
     so against 2.36 s on an H100), and for each range its host ms and the
-    device ms of the kernels launched inside it, summed over its ranges."""
-    from torch.profiler import ProfilerActivity, profile
+    device ms of the kernels launched inside it, summed over its ranges.
+    A trace that lost records is taken again (``bracketed_trace``), so
+    ``fn`` must give the same result when called twice."""
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else []))
-    with prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = device_events(torch, prof)
+    prof, events, wall, _ = bracketed_trace(
+        torch, fn, [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else []))
     by_class, by_name = by_kernel(events)
     busy = busy_us(events)
     check(busy > 0, "the profiler saw no device time")
@@ -2687,10 +2741,12 @@ def phase_train_xlstm350m(torch, mods):
     """``lm_edge_niid`` on xlstm-350m at its published widths and depth (4
     clients on 2 edges, kappa (4, 2), Adam with warmup-cosine, 2 rounds):
     K1 on every leaf at every sync, losses finite and falling, params
-    finite, f32 exactly on the gate, recurrence and bias leaves; one warm
-    cloud interval timed, one local step profiled, K1 timed on every leaf
-    at the interval's syncs; then one cloud interval at 4 layers in f32,
-    card against the CPU (``xlstm_cut_vs_cpu``)."""
+    finite, f32 exactly on the gate, recurrence and bias leaves; one local
+    step of the run's final state profiled, K1 timed on every leaf at the
+    interval's syncs (the warm re-run of the interval was cut for the
+    script's wall: the first call's wall is reported); then one cloud
+    interval at 4 layers in f32, card against the CPU
+    (``xlstm_cut_vs_cpu``)."""
     import math
 
     from torch.utils._pytree import tree_flatten_with_path
@@ -2718,10 +2774,9 @@ def phase_train_xlstm350m(torch, mods):
     losses = [h.loss for h in runner.history]
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"train_xlstm350m losses {losses}")
     check(all(bool(torch.isfinite(x).all()) for x in leaves(state.params)), "train_xlstm350m params not finite")
-    del state
-    torch.cuda.empty_cache()
-    profile = xlstm_interval_profile(torch, mods, params)
     del params
+    profile = xlstm_interval_profile(torch, runner, state, launches)
+    del state
     torch.cuda.empty_cache()
     cut_vs_cpu = xlstm_cut_vs_cpu(torch, mods)
     emit({"phase": "train_xlstm350m", **path_report(runner, secs, launches, {
@@ -2773,19 +2828,17 @@ def xlstm_cut_vs_cpu(torch, mods):
     return out
 
 
-def xlstm_interval_profile(torch, mods, params):
-    """One warm cloud interval of the xlstm-350m run timed; one of its
-    local steps (the clients' grad(vmap(loss))) under the profiler, since a
-    whole interval's 380,000 device ops take the profiler minutes to read;
-    K1 timed (CUDA events) on every leaf at the interval's three stages (the
-    edge sync, and the cloud sync's edge and root stages), and on the
-    largest leaf beside its bound and its plain version."""
+def xlstm_interval_profile(torch, runner, state, launches):
+    """On the xlstm-350m run's final state: one local step (the clients'
+    grad(vmap(loss))) under the profiler, since a whole interval's 380,000
+    device ops take the profiler minutes to read; K1 timed (CUDA events) on
+    every leaf at the interval's three stages (the edge sync, and the cloud
+    sync's edge and root stages), and on the largest leaf beside its bound
+    and its plain version."""
     from repro_torch.core import hierfavg
     from repro_torch.kernels import hier_aggregate as ha
     from repro_torch.tree import leaves
 
-    runner, state, warm_s, launches, _ = run_scenario(torch, mods, "lm_edge_niid",
-                                                      XLSTM_TRAIN + ["run.num_rounds=2"], "cuda", params)
     intervals = runner.cfg.num_rounds / runner.hier_config.kappa2_effective
     batch = {k: torch.from_numpy(v).cuda() for k, v in runner.batcher.next_batch().items()}
     grad_fn = hierfavg._client_grads(runner.loss_fn, runner.hier_config.precision)
@@ -2804,10 +2857,9 @@ def xlstm_interval_profile(torch, mods, params):
             largest = {"rows": list(rows.shape), "dtype": str(rows.dtype).replace("torch.", ""), "groups": edges,
                        "ms": edge_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                        "plain_ms": time_ms(lambda: ha.grouped_mean_plain(rows, w, edges), flush=flush, reps=5)}
-    del state, flush
+    del flush
     steps = runner.hier_config.kappa1 * runner.hier_config.kappa2_effective
-    return {"cloud_intervals": intervals, "warm_wall_ms_per_interval": warm_s * 1e3 / intervals,
-            "local_steps_per_interval": steps, "local_step": step,
+    return {"cloud_intervals": intervals, "local_steps_per_interval": steps, "local_step": step,
             "local_step_busy_share": step["device_busy_share"],
             "k1_ms_per_interval": k1_ms, "k1_launches_per_interval": launches["grouped_mean"] / intervals,
             "k1_largest_leaf": largest}
@@ -3330,9 +3382,14 @@ def phase_sharded_worlds(torch):
 # ---------------------------------------------------------------------------
 # Microbatch accumulation, the launch cells, MoE's expert-parallel exchange
 # ---------------------------------------------------------------------------
-# the train cell's cut of lm-100m's train_4k shape: 128 sequences of 64 over
-# 16 clients (b 8, microbatch 4, accum 2), one cloud interval (kappa 8 x 4)
+# the train cells' cut of lm-100m's train_4k shape: 128 sequences of 64 over
+# 16 clients (b 8, microbatch 4, accum 2), one cloud interval at kappa (2, 2)
 TRAIN_CUT = ("train_cut", 64, 128, "train")
+TRAIN_CELL_KAPPAS = (2, 2)
+TRAIN_CELL_CUTS = ["lm-100m's kappa (8, 4) cut to (2, 2): one cloud interval of 4 calls, not 32, for the script's "
+                   "wall; the edge sync at call 2 and the cloud sync at call 4 run as at (8, 4)"]
+# tp_lm100m_m2's serving cells: serve_lm100m's shape, f32
+TP_BATCH, TP_PROMPT, TP_GEN = 4, 1024, 8
 EP_PROMPT, EP_GEN = 4096, 16  # serve_deepseekv3_l1_ep2: 2 requests, one a rank
 
 
@@ -3417,18 +3474,69 @@ def cell_batches(cfg, cell, steps: int):
             for _ in range(steps)]
 
 
-def train_cell_run(torch, mods, mesh):
-    """``build_train_cell`` at lm-100m over one cloud interval, on this
-    rank's clients (``mesh``) or on one device (None): per step the clients'
-    losses and squared grad norms on the host, the final params, the K1
-    launches and collectives, the warm wall a call and the peak."""
-    from repro_torch.configs.base import ShapeSpec
+def train_cell_config():
+    """lm-100m with the train cells' kappa cut (``TRAIN_CELL_KAPPAS``)."""
+    import dataclasses
+
     from repro_torch.configs.registry import get_config
+
+    cfg = get_config("lm-100m")
+    k1, k2 = TRAIN_CELL_KAPPAS
+    return dataclasses.replace(cfg, fed=dataclasses.replace(cfg.fed, kappa1=k1, kappa2=k2))
+
+
+def timed_tp_collectives(torch):
+    """Wrap the tensor-parallel all-reduces and gathers
+    (``dist.sharding._model_all_reduce`` / ``_model_all_gather``) to time
+    each call, the device drained before and after it; returns (restore,
+    calls [(kind, ms, bytes)])."""
+    from repro_torch.dist import sharding
+
+    calls, origs = [], {n: getattr(sharding, n) for n in ("_model_all_reduce", "_model_all_gather")}
+
+    def wrap(name, fn):
+        def timed(x, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x, *a, **k)
+            torch.cuda.synchronize()
+            calls.append((name, (time.perf_counter() - t0) * 1e3, x.numel() * x.element_size()))
+            return out
+        return timed
+
+    for n, fn in origs.items():
+        setattr(sharding, n, wrap(n, fn))
+    return (lambda: [setattr(sharding, n, fn) for n, fn in origs.items()]), calls
+
+
+def tp_collectives_report(calls):
+    """The timed collectives of one call by kind: count, summed ms, the
+    median ms and the distinct byte sizes."""
+    out = {}
+    for kind in sorted({c[0] for c in calls}):
+        ms = [c[1] for c in calls if c[0] == kind]
+        out[kind.strip("_")] = {"calls": len(ms), "ms_total": sum(ms), "ms_median": statistics.median(ms),
+                                "bytes": sorted({c[2] for c in calls if c[0] == kind}),
+                                "bytes_total": sum(c[2] for c in calls if c[0] == kind)}
+    return out
+
+
+def train_cell_run(torch, mods, mesh):
+    """``build_train_cell`` at lm-100m over one cloud interval (kappa cut to
+    ``TRAIN_CELL_KAPPAS``), on this rank's clients or tensor-parallel
+    slices (``mesh``) or on one device (None): per step the clients' losses
+    and squared grad norms (or the global loss and grad norm) on the host,
+    the final params (row-compressed, ``params_numpy``) with each leaf's
+    model-split dim, the K1 launches and collectives a call, the warm wall
+    a call and the peak. Over a model axis the last call's collectives are
+    timed (and left out of the warm wall)."""
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.dist import sharding
     from repro_torch.launch import steps
     from repro_torch.tree import leaves
 
-    cfg = get_config("lm-100m")
+    cfg = train_cell_config()
+    tp = mesh is not None and sharding.model_size(mesh) > 1
     torch.cuda.empty_cache()
     base = reset_peak(torch)
     cell = steps.build_train_cell(cfg, ShapeSpec(*TRAIN_CUT), mesh, lr=1e-3, device="cuda")
@@ -3442,27 +3550,123 @@ def train_cell_run(torch, mods, mesh):
     for m in mods:
         m.reset_launch_counts()
     sharding.reset_counts()
-    per_step, walls = [], []
-    for b in batches:
+    per_step, walls, counts, timed = [], [], [], []
+    for j, b in enumerate(batches):
         _, batch = steps.shard_args(cell, (None, {k: torch.from_numpy(v) for k, v in b.items()}), mesh, "cuda")
+        restore = None
+        if tp and j == len(batches) - 1:
+            restore, timed = timed_tp_collectives(torch)
+        before = dict(sharding.COUNTS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = cell.fn(state, batch)
-        torch.cuda.synchronize()
+        try:
+            state, m = cell.fn(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            if restore is not None:
+                restore()
         walls.append(time.perf_counter() - t0)
+        counts.append({k: v - before[k] for k, v in sharding.COUNTS.items()})
         if "gsq" in m:
             per_step.append((m["loss"].cpu().numpy(), m["gsq"].cpu().numpy()))
         else:
             per_step.append((float(m["loss"]), float(m["grad_norm"])))
+    warm = walls[1:-1] if tp else walls[1:]
     launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
     out = {"meta": {k: v for k, v in cell.meta.items()}, "per_step": per_step, "launches": launches,
-           "collectives": dict(sharding.COUNTS), "wall_ms_first_call": walls[0] * 1e3,
-           "warm_wall_ms_per_call": sum(walls[1:]) * 1e3 / (len(walls) - 1),
+           "collectives": dict(sharding.COUNTS), "collectives_per_call": counts, "wall_ms_first_call": walls[0] * 1e3,
+           "warm_wall_ms_per_call": sum(warm) * 1e3 / len(warm),
            "state_rows": int(next(leaves(state.params)).shape[0]),
            "peak_memory_bytes": torch.cuda.max_memory_allocated() - base}
-    if mesh is None or mesh.rank == 0:
+    if tp:
+        out["timed_call_collectives"] = tp_collectives_report(timed)
+        out["timed_call_wall_ms"] = walls[-1] * 1e3
+    if mesh is None or mesh.rank == 0 or tp:
         out["params"] = params_numpy(state)
+        out["model_dims"] = [next((i for i, x in enumerate(spec) if x == "model"), None)
+                             for spec in leaves(cell.arg_specs[0].params)]
     del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve_run(torch, mods, mesh):
+    """lm-100m (f32) through ``build_prefill_cell`` / ``build_decode_cell``
+    on this rank's tensor-parallel slices (``mesh``: ("data", "model") of
+    (1, 2)) or on one device (None): ``TP_BATCH`` x ``TP_PROMPT`` prompts,
+    the prefill's last logits and ``TP_GEN`` greedy decode steps; each
+    call's collectives and K7 launches, the first and a warm prefill and
+    decode, the collectives of a third run timed, the bytes of params held
+    and the peak."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = get_config("lm-100m")
+    B, P, G = TP_BATCH, TP_PROMPT, TP_GEN
+    torch.cuda.empty_cache()
+    base = reset_peak(torch)
+    pre = steps.build_prefill_cell(cfg, ShapeSpec("prefill", P + G, B, "prefill"), mesh)
+    dec = steps.build_decode_cell(cfg, ShapeSpec("decode", P + G, B, "decode"), mesh)
+    with torch.no_grad():
+        params = transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        if mesh is not None:  # this rank's slices, copied, the whole init freed
+            params = tree_map(torch.clone, sharding.rank_params(params, mesh, cfg))
+    torch.cuda.empty_cache()
+    held = sum(x.numel() * x.element_size() for x in leaves(params))
+    _, x = steps.shard_args(pre, (None, torch.from_numpy(serve.make_prompts(cfg, B, P, seed=1))), mesh, "cuda")
+
+    def run():
+        for m in mods:
+            m.reset_launch_counts()
+        sharding.reset_counts()
+        if mesh is not None:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, caches = pre.fn(params, x)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        report = {"prefill_s": pre_s, "prefill_tokens_per_s": B * P / pre_s,
+                  "prefill_collectives": dict(sharding.COUNTS),
+                  "k7": {k: v for mod in mods for k, v in mod.LAUNCHES.items()}.get("flash_attention", 0)}
+        found = {"prefill": logits.float().cpu().numpy(), "tokens": [], "decode": []}
+        sharding.reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for j in range(G):  # greedy: each step feeds the argmax of the last logits
+                tok = logits.argmax(-1).to(torch.int32)
+                found["tokens"].append(tok)
+                logits, caches = dec.fn(params, caches, tok, torch.full((B,), P + j, dtype=torch.int32,
+                                                                         device="cuda"))
+                found["decode"].append(logits)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        report.update(decode_s=dec_s, decode_tokens_per_s=B * G / dec_s,
+                      decode_collectives_per_step={k: v / G for k, v in sharding.COUNTS.items()})
+        found["tokens"] = torch.stack(found["tokens"], dim=1).cpu().numpy()
+        found["decode"] = [d.float().cpu().numpy() for d in found["decode"]]
+        return report, found
+
+    first, found = run()
+    warm, _ = run()
+    timed = []
+    if mesh is not None:
+        restore, timed = timed_tp_collectives(torch)
+        try:
+            run()
+        finally:
+            restore()
+    out = {"first": first, "warm": warm, **found, "param_bytes": held,
+           "timed_run_collectives": tp_collectives_report(timed),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - base}
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -3596,9 +3800,12 @@ class _Groups2:
     shape = {"data": 2}
 
 
-def cell_rank(rank, world, job):
-    """``dist.launch.spawn`` entry of the launch-cell phases: this rank of a
-    gloo ("data",) mesh of ``world`` ranks that share the card."""
+def cell_rank(rank, world, jobs):
+    """``dist.launch.spawn`` entry of the launch-cell phases: the jobs, in
+    order, on this rank of a gloo world whose ranks share the card: the
+    train cell on a mesh of the job's shape and axes, lm-100m served over
+    ("data", "model") of (1, 2), or deepseek-v3's layer expert-parallel
+    over ("data",)."""
     import torch
 
     from repro_torch import resolve_device
@@ -3607,66 +3814,198 @@ def cell_rank(rank, world, job):
     from repro_torch.launch import mesh as lmesh
 
     resolve_device("cuda")  # TF32 off
-    mesh = lmesh.make_host_mesh((world,), ("data",), device="cuda")
-    if job["kind"] == "train_cell":
-        return train_cell_run(torch, (ha,), mesh)
-    return serve_ep_run(torch, (fa,), mesh, job["tokens"])
+    out = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        if job["kind"] == "train_cell":
+            mesh = lmesh.make_host_mesh(job["shape"], job["axes"], device="cuda")
+            out.append(train_cell_run(torch, (ha,), mesh))
+        elif job["kind"] == "tp_serve":
+            mesh = lmesh.make_host_mesh((1, world), ("data", "model"), device="cuda")
+            out.append(tp_serve_run(torch, (fa,), mesh))
+        else:
+            mesh = lmesh.make_host_mesh((world,), ("data",), device="cuda")
+            out.append(serve_ep_run(torch, (fa,), mesh, job["tokens"]))
+        out[-1]["job_seconds"] = time.perf_counter() - t0
+    return out
 
 
-def phase_train_cell_lm100m_w2(torch, mods):
+def phase_train_cell_lm100m_w2(torch, mods, fa):
     """``build_train_cell`` at lm-100m under ``fed_rules`` over a ("data",)
     mesh of 2 gloo ranks sharing the card: ``topology_for`` gives 16
     clients on 4 edges, 8 (two whole edges) a rank; the cut shape
-    ``TRAIN_CUT`` gives b 8, microbatch 4, accum 2; one cloud interval, 32
-    calls. Held to the single-device cell over the same batches (run here
-    first, then freed) at JAX's mesh tolerances; K1 one per leaf per level
-    mean on each rank (3 edge syncs and the cloud's edge stage x 12
-    leaves: 48; the single-device cell's 60), one all-reduce, at the cloud
-    sync."""
+    ``TRAIN_CUT`` gives b 8, microbatch 4, accum 2; one cloud interval of
+    kappa ``TRAIN_CELL_KAPPAS``, 4 calls. Held to the single-device cell
+    over the same batches (run here first) at JAX's mesh tolerances; K1 one
+    per leaf per level mean on each rank (the edge sync and the cloud's
+    edge stage x 12 leaves: 24; the single-device cell's 36), one
+    all-reduce, at the cloud sync. The same world then runs
+    ``tp_lm100m_m2``'s jobs (``phase_tp_lm100m_m2``): a spawn and an init
+    saved."""
     import numpy as np
 
     from repro_torch.dist import launch
 
     t0 = time.perf_counter()
     single = train_cell_run(torch, (mods[0],), None)
+    single_s = time.perf_counter() - t0
+    serve_single = tp_serve_run(torch, (fa,), None)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    ranks = launch.spawn(cell_rank, 2, "gloo", ({"kind": "train_cell"},))
+    jobs = [{"kind": "train_cell", "shape": (2,), "axes": ("data",)},
+            {"kind": "train_cell", "shape": (1, 2), "axes": ("data", "model")}, {"kind": "tp_serve"}]
+    ranks = launch.spawn(cell_rank, 2, "gloo", (jobs,))
     world_s = time.perf_counter() - t1
     check(single["meta"]["grad_accum"] == 2 and single["meta"]["num_clients"] == 16, f"train cell {single['meta']}")
-    check(single["launches"]["grouped_mean"] == 60, f"train_cell single device launches {single['launches']}")
-    for r in ranks:
+    check(single["launches"]["grouped_mean"] == 36, f"train_cell single device launches {single['launches']}")
+    data = [r[0] for r in ranks]
+    for r in data:
         check(r["meta"]["sharded"] and r["state_rows"] == 8, f"train_cell_lm100m_w2: rank rows {r['state_rows']}")
-        check(r["launches"]["grouped_mean"] == 48, f"train_cell_lm100m_w2 K1 {r['launches']}")
+        check(r["launches"]["grouped_mean"] == 24, f"train_cell_lm100m_w2 K1 {r['launches']}")
         check(r["collectives"]["all_reduce"] == 1 and r["collectives"]["all_to_all"] == 0,
               f"train_cell_lm100m_w2 collectives {r['collectives']}")
     loss_err = gnorm_err = 0.0
     for j, (loss, gnorm) in enumerate(single["per_step"]):
-        losses = np.concatenate([r["per_step"][j][0] for r in ranks]).astype(np.float64)
-        gsq = np.concatenate([r["per_step"][j][1] for r in ranks]).astype(np.float64)
+        losses = np.concatenate([r["per_step"][j][0] for r in data]).astype(np.float64)
+        gsq = np.concatenate([r["per_step"][j][1] for r in data]).astype(np.float64)
         got = (losses.mean(), np.sqrt(gsq.sum()))
         for g, w, name in ((got[0], loss, "loss"), (got[1], gnorm, "grad_norm")):
             check(abs(g - w) <= SHARDED_LOSS_ATOL + SHARDED_LOSS_RTOL * abs(w),
                   f"train_cell_lm100m_w2 call {j} {name} {g} vs {w}")
         loss_err, gnorm_err = max(loss_err, abs(got[0] - loss)), max(gnorm_err, abs(got[1] - gnorm))
-    worst, excess = 0.0, -1.0
-    for a, b in zip(ranks[0]["params"], single["params"]):
-        diff = np.abs(a.astype(np.float64) - b)
-        worst = max(worst, float(diff.max()))
-        excess = max(excess, float(np.max(diff - (SHARDED_ATOL + SHARDED_RTOL * np.abs(b)))))
-    check(excess <= 0, f"train_cell_lm100m_w2: params {worst} from the single-device cell")
+    worst = params_within_mesh_tolerance(data[0]["params"], single["params"], "train_cell_lm100m_w2")
     emit({"phase": "train_cell_lm100m_w2", "arch": "lm-100m", "shape": list(TRAIN_CUT), "mesh": {"data": 2},
-          "meta": single["meta"], "calls": len(single["per_step"]), "world_seconds_with_spawn": world_s,
+          "kappas": list(TRAIN_CELL_KAPPAS), "cuts": TRAIN_CELL_CUTS, "meta": single["meta"],
+          "calls": len(single["per_step"]), "single_device_seconds": single_s,
+          "tp_serve_single_device_seconds": t1 - t0 - single_s, "world_seconds_with_spawn_and_tp_jobs": world_s,
+          "rank_job_seconds": [[j["job_seconds"] for j in r] for r in ranks],
           "single_device": {k: single[k] for k in ("launches", "wall_ms_first_call", "warm_wall_ms_per_call",
                                                    "peak_memory_bytes")},
           "ranks": [{k: r[k] for k in ("launches", "collectives", "wall_ms_first_call", "warm_wall_ms_per_call",
-                                       "state_rows", "peak_memory_bytes")} for r in ranks],
+                                       "state_rows", "peak_memory_bytes")} for r in data],
           "vs_single_device_cell": {"loss_max_abs_err": loss_err, "grad_norm_max_abs_err": gnorm_err,
                                     "params_max_abs_err": worst,
                                     "tolerance": {"params": [SHARDED_RTOL, SHARDED_ATOL],
                                                   "loss": [SHARDED_LOSS_RTOL, SHARDED_LOSS_ATOL]}},
           "phase_seconds": time.perf_counter() - t0})
+    phase_tp_lm100m_m2(single, serve_single, [r[1] for r in ranks], [r[2] for r in ranks])
     return single["launches"]
+
+
+def params_within_mesh_tolerance(got, want, what) -> float:
+    """Two runs' ``params_numpy`` leaves within JAX's mesh tolerances
+    (``SHARDED_RTOL``, ``SHARDED_ATOL``); checked. Returns the largest
+    difference."""
+    import numpy as np
+
+    worst, excess = 0.0, -1.0
+    check(len(got) == len(want), f"{what}: {len(got)} leaves against {len(want)}")
+    for a, b in zip(got, want):
+        diff = np.abs(a.astype(np.float64) - b)
+        worst = max(worst, float(diff.max()))
+        excess = max(excess, float(np.max(diff - (SHARDED_ATOL + SHARDED_RTOL * np.abs(b)))))
+    check(excess <= 0, f"{what}: params {worst} from the single-device cell")
+    return worst
+
+
+def model_assembled(ranks):
+    """The model ranks' ``params_numpy`` leaves put back together: a leaf
+    split over "model" concatenated along its split dim in rank order, a
+    whole one rank 0's (every rank's held within the mesh tolerance of
+    it)."""
+    import numpy as np
+
+    out = []
+    for i, dim in enumerate(ranks[0]["model_dims"]):
+        parts = [r["params"][i] for r in ranks]
+        if dim is None:
+            params_within_mesh_tolerance(parts[1:], parts[:1] * (len(parts) - 1), f"tp_lm100m_m2 whole leaf {i}")
+            out.append(parts[0])
+        else:
+            out.append(np.concatenate(parts, axis=dim))
+    return out
+
+
+def phase_tp_lm100m_m2(single, serve_single, train, serve):
+    """Tensor parallelism over a ("data", "model") mesh of (1, 2): the two
+    gloo ranks of ``train_cell_lm100m_w2``'s world, each holding half of
+    every split leaf of lm-100m (wq..wv, w1, w3, lm_head and embed's
+    columns, wo and w2's rows; the norms whole).
+
+    The train cell (16 clients on 4 edges, the 128 x 64 cut, microbatch 4,
+    accum 2, kappa cut to ``TRAIN_CELL_KAPPAS``: 4 calls) against the
+    single-device cell over the same batches and init: losses and grad
+    norms at ``SHARDED_LOSS_RTOL``, the params after the cloud sync at
+    JAX's mesh tolerances; K1 36 a rank (12 leaves x (the edge sync + the
+    cloud's 2 stages), as on one device); a call's collectives (2 x (4 x 12
+    + 2) sums, 2 maxes, 2 gathers, 1 grad-norm sum) and the last call's
+    timed. Serving (``TP_BATCH`` x ``TP_PROMPT``, f32): K7 12 a prefill a
+    rank (6 query heads over 2 KV heads, hd 64); the prefill's last
+    logits and ``TP_GEN`` greedy decode steps against one device: the same
+    tokens, logits within ``K_F32`` of the largest."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    layers = 12
+    for r in train:
+        check(r["meta"]["model"] == 2 and not r["meta"]["sharded"] and r["state_rows"] == 16,
+              f"tp_lm100m_m2 train meta {r['meta']}, rows {r['state_rows']}")
+        check(r["launches"]["grouped_mean"] == 36, f"tp_lm100m_m2 K1 {r['launches']}")
+        for c in r["collectives_per_call"]:
+            want = {"tp_all_reduce": 2 * (4 * layers + 2), "tp_all_reduce_max": 2, "tp_all_gather": 2,
+                    "tp_grad_norm": 1, "all_reduce": 0, "all_to_all": 0}
+            check(all(c[k] == v for k, v in want.items()), f"tp_lm100m_m2 collectives a call {c}, want {want}")
+    loss_err = gnorm_err = 0.0
+    for j, (loss, gnorm) in enumerate(single["per_step"]):
+        for r in train:
+            got_loss, got_gnorm = r["per_step"][j]
+            for g, w, name in ((got_loss, loss, "loss"), (got_gnorm, gnorm, "grad_norm")):
+                check(abs(g - w) <= SHARDED_LOSS_ATOL + SHARDED_LOSS_RTOL * abs(w),
+                      f"tp_lm100m_m2 call {j} {name} {g} vs {w}")
+            loss_err, gnorm_err = max(loss_err, abs(got_loss - loss)), max(gnorm_err, abs(got_gnorm - gnorm))
+    params_err = params_within_mesh_tolerance(model_assembled(train), single["params"], "tp_lm100m_m2")
+
+    worst, scale = 0.0, 0.0
+    for r in serve:
+        check(r["first"]["k7"] == 12 and r["warm"]["k7"] == 12, f"tp_lm100m_m2 K7 a prefill {r['first']['k7']}")
+        check(np.array_equal(r["tokens"], serve_single["tokens"]),
+              f"tp_lm100m_m2 greedy tokens {r['tokens'].tolist()} vs {serve_single['tokens'].tolist()}")
+        for got, want in [(r["prefill"], serve_single["prefill"])] + list(zip(r["decode"], serve_single["decode"])):
+            err, big = float(np.abs(got - want).max()), float(np.abs(want).max())
+            check(err <= K_F32 * big, f"tp_lm100m_m2 logits {err} of {big}")
+            worst, scale = max(worst, err), max(scale, big)
+        pc, dc = r["first"]["prefill_collectives"], r["first"]["decode_collectives_per_step"]
+        check(pc["tp_all_reduce"] == 2 * layers and pc["tp_all_gather"] == 2 and dc["tp_all_reduce"] == 2 * layers
+              and dc["tp_all_gather"] == 2, f"tp_lm100m_m2 serving collectives {pc}, {dc}")
+    keep = ("prefill_s", "prefill_tokens_per_s", "decode_s", "decode_tokens_per_s")
+    emit({"phase": "tp_lm100m_m2", "arch": "lm-100m", "mesh": {"data": 1, "model": 2}, "backend": "gloo",
+          "train": {"shape": list(TRAIN_CUT), "kappas": list(TRAIN_CELL_KAPPAS), "cuts": TRAIN_CELL_CUTS,
+                    "calls": len(single["per_step"]),
+                    "single_device": {k: single[k] for k in ("launches", "wall_ms_first_call",
+                                                             "warm_wall_ms_per_call", "peak_memory_bytes")},
+                    "ranks": [{k: r[k] for k in ("launches", "wall_ms_first_call", "warm_wall_ms_per_call",
+                                                 "timed_call_wall_ms", "timed_call_collectives",
+                                                 "peak_memory_bytes")} | {"collectives_a_call":
+                                                                          r["collectives_per_call"][1]}
+                              for r in train],
+                    "vs_single_device_cell": {"loss_max_abs_err": loss_err, "grad_norm_max_abs_err": gnorm_err,
+                                              "params_max_abs_err": params_err,
+                                              "tolerance": {"params": [SHARDED_RTOL, SHARDED_ATOL],
+                                                            "loss": [SHARDED_LOSS_RTOL, SHARDED_LOSS_ATOL]}}},
+          "serve": {"batch": TP_BATCH, "prompt_len": TP_PROMPT, "gen": TP_GEN, "dtype": "float32",
+                    "single_device": {**{f"first_{k}": serve_single["first"][k] for k in keep},
+                                      **{f"warm_{k}": serve_single["warm"][k] for k in keep},
+                                      "param_bytes": serve_single["param_bytes"],
+                                      "peak_memory_bytes": serve_single["peak_memory_bytes"]},
+                    "ranks": [{**{f"first_{k}": r["first"][k] for k in keep},
+                               **{f"warm_{k}": r["warm"][k] for k in keep},
+                               "k7_a_prefill": r["first"]["k7"], "prefill_collectives": r["first"]["prefill_collectives"],
+                               "decode_collectives_per_step": r["first"]["decode_collectives_per_step"],
+                               "timed_run_collectives": r["timed_run_collectives"], "param_bytes": r["param_bytes"],
+                               "peak_memory_bytes": r["peak_memory_bytes"]} for r in serve],
+                    "vs_single_device": {"tokens_equal": True, "logits_max_abs_err": worst,
+                                         "max_abs_logit": scale, "tolerance": f"{K_F32} x max |logit|"}},
+          "phase_seconds": time.perf_counter() - t0})
 
 
 def first_difference(got, want):
@@ -3703,7 +4042,7 @@ def phase_serve_deepseekv3_l1_ep2(torch, mods):
     tokens = ref["tokens"]
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    ranks = launch.spawn(cell_rank, 2, "gloo", ({"kind": "serve_ep", "tokens": tokens},))
+    ranks = [r[0] for r in launch.spawn(cell_rank, 2, "gloo", ([{"kind": "serve_ep", "tokens": tokens}],))]
     world_s = time.perf_counter() - t1
     want = ref["logits"]
     pairs = [("prefill", np.concatenate([r["logits"]["prefill"] for r in ranks]), want["prefill"])] + [
@@ -4694,7 +5033,9 @@ def main() -> int:
     # and 2 ranks sharing it, each held to the single-device card run
     count(phase_sharded_w1_nccl(torch, mods, sharded_params))
     phase_sharded_worlds(torch)
-    count(phase_train_cell_lm100m_w2(torch, mods))
+    # train_cell_lm100m_w2's world of 2 gloo ranks then runs lm-100m
+    # tensor-parallel over ("data", "model") of (1, 2): tp_lm100m_m2
+    count(phase_train_cell_lm100m_w2(torch, mods, fa))
     count(phase_train_xlstm350m(torch, mods))
 
     # LM serving: K7 in every attention layer and K8 in every RG-LRU layer of
@@ -4710,7 +5051,8 @@ def main() -> int:
 
     check(all(total[name] > 0 for name in KERNELS), f"a kernel was never launched on its path: {total}")
     emit({"phase": "wall", "seconds": time.perf_counter() - T0})
-    emit({"phase": "profiler", "short_traces_taken_again": TRACES_TAKEN_AGAIN[0]})
+    emit({"phase": "profiler", "traces_taken_again": TRACE_STATS["taken_again"],
+          "leading_spins_lost_max": TRACE_STATS["leading_spins_lost_max"]})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][1], "replaces": KERNELS[name][0],
          "launches": total[name], "max_abs_err": summary[name]["max_abs_err"], "ms": summary[name]["ms"],

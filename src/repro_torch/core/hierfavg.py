@@ -424,7 +424,7 @@ def _client_grads(loss_fn: LossFn, precision: Optional[PrecisionSpec], grad_accu
 
 
 def build_local_step(loss_fn: LossFn, optimizer: GradientTransformation, *, grad_accum: int = 1,
-                     precision: Optional[PrecisionSpec] = None):
+                     precision: Optional[PrecisionSpec] = None, model=None):
     """One local SGD update for all clients (Algorithm 1 l.5).
 
     batch leaves: (N, b, ...), or (grad_accum, N, b, ...) with microbatch
@@ -432,14 +432,17 @@ def build_local_step(loss_fn: LossFn, optimizer: GradientTransformation, *, grad
     (state, metrics)``. The stacked parameters are updated in place
     (``optim.apply_updates``); ``precision`` casts the batch to the policy
     dtype; the loss / grad-norm metrics are f32 device scalars (the loss
-    the last microbatch's)."""
+    the last microbatch's). ``model`` (a ``dist.sharding.ModelShards``:
+    the params are a model rank's tensor-parallel slices) makes the grad
+    norm global over the model ranks, one counted all-reduce."""
     grad_fn = _client_grads(loss_fn, precision, grad_accum)
 
     def local_step(state: FedState, batch: Dict[str, torch.Tensor]) -> Tuple[FedState, dict]:
         grads, losses = grad_fn(state.params, batch, state.rng)
         updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
         apply_updates(state.params, updates)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves(grads)))
+        sq = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves(grads)]
+        gnorm = torch.sqrt(sum(sq) if model is None else model.sum_sq(sq))
         metrics = {"loss": torch.mean(losses.to(torch.float32)), "grad_norm": gnorm}
         return state._replace(step=state.step + 1, opt_state=opt_state), metrics
 
@@ -583,6 +586,7 @@ def build_train_step(
     *,
     grad_accum: int = 1,
     shard: Optional["ClientSharding"] = None,
+    model=None,
 ):
     """One fused HierFAVG step (``repro/core/hierfavg.py:822-859``): a local
     update, then the deepest level sync due at the new step count.
@@ -601,13 +605,20 @@ def build_train_step(
     (``build_level_sync(shard=)``). The metrics then stay per client, as the
     sharded superround's, so no collective is spent on them: ``{"loss":
     (C,), "gsq": (C,) squared grad norms, "step"}``; unsharded they are the
-    means ``{"loss", "grad_norm", "step"}``."""
+    means ``{"loss", "grad_norm", "step"}``.
+
+    With ``model`` (a ``dist.sharding.ModelShards``) the params are a model
+    rank's tensor-parallel slices: the grad norms (or "gsq") are global over
+    the model ranks, one counted all-reduce a step, and each level sync
+    runs K1 on the rank's slice of every leaf, no collective of its own
+    (``shard``'s mesh is then the client axis's line)."""
     spec = as_hierarchy(topology)
     depth = _check_levels(spec, config)
     if shard is None:
-        local_step = build_local_step(loss_fn, optimizer, grad_accum=grad_accum, precision=config.precision)
+        local_step = build_local_step(loss_fn, optimizer, grad_accum=grad_accum, precision=config.precision,
+                                      model=model)
     else:
-        sharded_step = _sharded_local_step(loss_fn, optimizer, config.precision, grad_accum)
+        sharded_step = _sharded_local_step(loss_fn, optimizer, config.precision, grad_accum, model)
 
         def local_step(state, batch):
             state, losses, gsq = sharded_step(state, batch)
@@ -1396,17 +1407,18 @@ def _build_sharded_level_sync(spec: HierarchySpec, config: HierFAVGConfig, level
 
 
 def _sharded_local_step(loss_fn: LossFn, optimizer: GradientTransformation, precision: Optional[PrecisionSpec],
-                        grad_accum: int = 1):
+                        grad_accum: int = 1, model=None):
     """``build_local_step`` with per-client metrics: ``local_step(state,
     batch) -> (state, losses (C,) f32, squared grad norms (C,) f32)``. The
-    update is ``build_local_step``'s op for op."""
+    update is ``build_local_step``'s op for op; ``model`` as there."""
     grad_fn = _client_grads(loss_fn, precision, grad_accum)
 
     def local_step(state: FedState, batch):
         grads, losses = grad_fn(state.params, batch, state.rng)
         updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
         apply_updates(state.params, updates)
-        gsq = sum(torch.sum(torch.square(g.to(torch.float32)).reshape(g.shape[0], -1), dim=1) for g in leaves(grads))
+        sq = [torch.sum(torch.square(g.to(torch.float32)).reshape(g.shape[0], -1), dim=1) for g in leaves(grads)]
+        gsq = sum(sq) if model is None else model.sum_sq(sq)
         return state._replace(step=state.step + 1, opt_state=opt_state), losses.to(torch.float32), gsq
 
     return local_step

@@ -12,7 +12,7 @@ ranks that share one card (PyTorch's gloo takes CUDA tensors for
 ``all_reduce`` and ``broadcast`` only, so the gathers and all-to-alls below
 go through host tensors under gloo).
 
-Three jobs, as in JAX:
+Four jobs, as in JAX:
 
 * **The client-sharded superround** (``repro/dist/sharding.py:256-303``): a
   1-D mesh (``client_mesh``) shards the stacked client axis, each rank
@@ -35,16 +35,35 @@ Three jobs, as in JAX:
 * **Rules** (``ShardingRules`` via ``fed_rules`` / ``serve_rules``,
   ``:177-248``, ``:304-328``): JAX's ``PartitionSpec`` members for
   parameter, batch, request and cache trees, and each spec's slice of a
-  tensor for this rank. A "model" axis larger than 1 is refused by name
-  (``set_hint_mesh``, ``launch.steps``): tensor parallelism needs
-  collectives inside the layers, which GSPMD inserts for JAX and nothing
-  inserts here (ROADMAP.md Queue 1 item 16). The rules still give JAX's
-  "model" members.
+  tensor for this rank, with the tensor-parallel layout the port runs
+  (below) where it differs from JAX's.
+* **Tensor parallelism over "model"** (ROADMAP.md Queue 1 item 16, the dense
+  families). GSPMD places JAX's collectives inside the layers; here they
+  are Megatron's four, written as ``torch.autograd.Function``s over the
+  hint mesh's "model" sub-group: ``model_copy`` (identity forward,
+  all-reduce backward: a column-parallel product's input), ``model_reduce``
+  (all-reduce forward, identity backward: a row-parallel product's
+  output), ``model_gather`` (all-gather of the last dim: the embedding's
+  and the served logits' columns) and ``model_max`` (all-reduce max: the
+  vocab-parallel cross-entropy's shift). Each has a ``vmap`` rule: the
+  engine's local step is ``grad(vmap(loss))``, where a plain
+  ``dist.all_reduce`` cannot run, and a sum over ranks commutes with the
+  client axis, so the rule reduces the batched tensor once. Off a model
+  axis larger than 1 each is the identity. The layout: ``wq``, ``wk``,
+  ``wv``, ``w1``, ``w3``, ``lm_head`` and ``embed`` split their last dim
+  (JAX's spec); ``wo`` and ``w2`` split dim -2 (row-parallel, where JAX
+  splits the last); the RMSNorm scales stay whole (JAX splits a stacked
+  one's last dim); with fewer KV heads than model ranks a rank keeps the
+  KV head its query heads read (``HeadShare``), and the ranks that share
+  it sum its gradient (``model_kv``). RG-LRU, mLSTM / sLSTM, MoE and MLA
+  blocks on such an axis are refused by name (``refuse_model_axis``, item
+  16b).
 
 Every collective goes through one of the counted wrappers here
 (``COUNTS``), so tests and ``chip_smoke.py`` can hold each path to its
 collectives: one all-reduce per cloud interval, one all-to-all each way
-per MoE call.
+per MoE call, 4L + 2 tensor-parallel all-reduces per loss and gradient of
+an L-layer model.
 """
 from __future__ import annotations
 
@@ -71,9 +90,14 @@ LAUNCH_RECIPE = (
 # "all_reduce" the cloud syncs' (one per cloud interval), "eval_all_reduce"
 # the evals' cloud model (``aggregation.psum_cloud_model``), "all_to_all"
 # MoE's expert-parallel exchanges (one dispatch and one combine per MoE
-# call), "moe_aux_all_reduce" the MoE aux loss's router statistics
+# call), "moe_aux_all_reduce" the MoE aux loss's router statistics; over
+# the "model" axis "tp_all_reduce" the layers' and the loss's sums (forward
+# and backward), "tp_all_reduce_max" the loss's shift, "tp_all_gather" the
+# embedding's and the served logits' gathers, "tp_grad_norm" the grad-norm
+# metric's sum, and "tp_bytes" the bytes every one of those sent in
 COUNTS: Dict[str, int] = {"all_reduce": 0, "eval_all_reduce": 0, "gather": 0, "broadcast": 0, "all_to_all": 0,
-                          "moe_aux_all_reduce": 0}
+                          "moe_aux_all_reduce": 0, "tp_all_reduce": 0, "tp_all_reduce_max": 0,
+                          "tp_all_gather": 0, "tp_grad_norm": 0, "tp_bytes": 0}
 
 
 def reset_counts() -> None:
@@ -128,6 +152,28 @@ class RankMesh:
         """This rank's positions of a placement-ordered client axis."""
         return slice(self.rank * capacity, (self.rank + 1) * capacity)
 
+    def over(self, axes: Sequence[str]) -> "RankMesh":
+        """The mesh of this rank's line along ``axes`` (those present, in
+        the mesh's order): their sizes, this rank's row-major place among
+        them, and the process group of that line. The line must be the
+        whole mesh or one axis longer than 1 (the groups ``rank_mesh``
+        made)."""
+        names = tuple(a for a in self.axis_names if a in axes)
+        sizes = tuple(self.shape[a] for a in names)
+        n = math.prod(sizes)
+        longer = [a for a in names if self.shape[a] > 1]
+        if n == self.size:
+            group = self.group
+        elif len(longer) == 1:
+            group = self.axis_group(longer[0])
+        else:
+            raise ValueError(f"no process group spans the axes {names} of a {self.shape} mesh")
+        rank = 0
+        for a in names:
+            rank = rank * self.shape[a] + self.axis_index(a)
+        return RankMesh(axis_names=names, sizes=sizes, rank=rank, group=group, device=self.device,
+                        backend=self.backend, axis_groups={a: g for a, g in self.axis_groups.items() if a in names})
+
 
 def ClientMesh(axis: str, size: int, rank: int, group, device: torch.device, backend: str) -> RankMesh:
     """The client-sharded superround's mesh: a ``RankMesh`` with the one
@@ -143,20 +189,43 @@ def ClientMesh(axis: str, size: int, rank: int, group, device: torch.device, bac
 _HINT_MESH = None
 
 
-def refuse_model_axis(mesh) -> None:
-    """Raise, naming ROADMAP.md item 16, when ``mesh`` has a "model" axis
-    larger than 1: nothing here inserts the in-layer collectives that tensor
-    parallelism needs, and replicating instead would be silent."""
-    if "model" in tuple(mesh.axis_names) and int(mesh.shape["model"]) > 1:
-        raise unported('tensor-parallel sharding over the "model" axis', 16)
+def model_size(mesh) -> int:
+    """The size of ``mesh``'s "model" axis (1 without a mesh or the axis)."""
+    if mesh is None or "model" not in tuple(mesh.axis_names):
+        return 1
+    return int(mesh.shape["model"])
+
+
+def refuse_model_axis(mesh, cfg) -> None:
+    """Raise when ``cfg`` cannot run tensor-parallel on ``mesh``'s "model"
+    axis larger than 1: RG-LRU, mLSTM / sLSTM, MoE and MLA blocks name
+    ROADMAP.md item 16b (running them replicated instead would be silent);
+    a query-head count or MLP width that does not split, or KV heads that
+    divide neither way, name themselves. Dense GQA blocks with a dense MLP
+    pass (a vocabulary or model width that does not split keeps its leaf
+    whole, as JAX's rule does)."""
+    m = model_size(mesh)
+    if m <= 1:
+        return
+    for what, present in (("MoE blocks", cfg.moe is not None), ("MLA attention", cfg.mla is not None),
+                          ("RG-LRU blocks", "rglru" in cfg.block_pattern),
+                          ("mLSTM / sLSTM blocks", bool({"mlstm", "slstm"} & set(cfg.block_pattern)))):
+        if present:
+            raise unported(f'tensor-parallel sharding over the "model" axis for {what}', "16b")
+    for what, n in (("query heads", cfg.num_heads), ("MLP width d_ff", cfg.d_ff)):
+        if n % m:
+            raise ValueError(f'{cfg.name}: {what} {n} do not split over a "model" axis of {m}')
+    hkv = cfg.num_kv_heads
+    if hkv % m and m % hkv:
+        raise ValueError(f'{cfg.name}: {hkv} KV heads and a "model" axis of {m} divide neither way; '
+                         f"a rank could keep neither whole KV heads nor the one its query heads read")
 
 
 def set_hint_mesh(mesh) -> None:
     """Install (or clear, with None) the mesh the model code consults: its
-    "data" axis sets MoE's token groups and expert-parallel exchange."""
+    "data" axis sets MoE's token groups and expert-parallel exchange, its
+    "model" axis the layers' tensor-parallel collectives."""
     global _HINT_MESH
-    if mesh is not None:
-        refuse_model_axis(mesh)
     _HINT_MESH = mesh
 
 
@@ -276,6 +345,243 @@ def expert_rows(params, mesh, axis: str = "data"):
         return t
 
     return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the hint mesh's "model" axis
+# ---------------------------------------------------------------------------
+
+
+def hint_model_mesh():
+    """The hint mesh when its "model" axis is larger than 1, else None: the
+    one place the layers ask whether they hold a slice."""
+    return _HINT_MESH if model_size(_HINT_MESH) > 1 else None
+
+
+def model_kv_heads(num_kv_heads: int) -> int:
+    """The KV heads a rank holds under the hint mesh: Hkv / M of them, or
+    the one its query heads read when Hkv < M (every head off a model
+    axis)."""
+    m = model_size(_HINT_MESH)
+    return num_kv_heads // m if num_kv_heads % m == 0 else 1
+
+
+def _count(counter: str, x: torch.Tensor) -> None:
+    COUNTS[counter] += 1
+    COUNTS["tp_bytes"] += x.numel() * x.element_size()
+
+
+def _model_all_reduce(x: torch.Tensor, mesh: RankMesh, op=dist.ReduceOp.SUM, counter: str = "tp_all_reduce"
+                      ) -> torch.Tensor:
+    """``x`` reduced over the "model" sub-group into a fresh tensor (never
+    in place: autograd may hold ``x``). Counted with its bytes."""
+    _count(counter, x)
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=mesh.axis_group("model"))
+    return out
+
+
+def _model_all_gather(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
+    """(..., w) -> (..., M w): the model ranks' last dims side by side in
+    rank order. NCCL gathers; gloo (whose CUDA tensors take only all-reduce
+    and broadcast) sums zero-padded copies, exact since each place has one
+    non-zero addend."""
+    _count("tp_all_gather", x)
+    m, r, w = int(mesh.shape["model"]), mesh.axis_index("model"), x.shape[-1]
+    group = mesh.axis_group("model")
+    if mesh.backend == "nccl":
+        parts = torch.empty((m,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(parts, x.contiguous(), group=group)
+        return parts.movedim(0, -2).reshape(*x.shape[:-1], m * w)
+    out = x.new_zeros(*x.shape[:-1], m * w)
+    out[..., r * w:(r + 1) * w] = x
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def _batched(fn, x, bdim):
+    """A ``vmap`` rule's result for a function whose last dim is the
+    feature dim: the batch dim moved to the front, the ``Function`` applied
+    once to the physical tensor."""
+    if bdim is None:
+        return fn(x), None
+    return fn(x.movedim(bdim, 0)), 0
+
+
+class _ModelCopy(torch.autograd.Function):
+    """Identity forward, all-reduce backward over "model" (Megatron's f):
+    the input of column-parallel products, whose gradient each rank holds
+    only its slice's share of."""
+
+    @staticmethod
+    def forward(x, mesh):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_all_reduce(g, ctx.mesh), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh):
+        return _batched(lambda t: _ModelCopy.apply(t, mesh), x, in_dims[0])
+
+
+class _ModelReduce(torch.autograd.Function):
+    """All-reduce forward, identity backward over "model" (Megatron's g):
+    the partial sums of row-parallel products and of the vocab-parallel
+    loss. Every rank's replica of what follows is whole, so its gradient
+    already is the sum's."""
+
+    @staticmethod
+    def forward(x, mesh):
+        return _model_all_reduce(x, mesh)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh):
+        return _batched(lambda t: _ModelReduce.apply(t, mesh), x, in_dims[0])
+
+
+class _ModelGather(torch.autograd.Function):
+    """All-gather of the last dim over "model" forward; backward this rank's
+    columns of the (whole, replicated) gradient."""
+
+    @staticmethod
+    def forward(x, mesh):
+        return _model_all_gather(x, mesh)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, mesh = inputs
+        ctx.mesh, ctx.width = mesh, x.shape[-1]
+
+    @staticmethod
+    def backward(ctx, g):
+        r, w = ctx.mesh.axis_index("model"), ctx.width
+        return g[..., r * w:(r + 1) * w].contiguous(), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh):
+        return _batched(lambda t: _ModelGather.apply(t, mesh), x, in_dims[0])
+
+
+class _ModelMax(torch.autograd.Function):
+    """All-reduce max over "model", not differentiated: the loss's shift,
+    on which the log-sum-exp's value does not depend."""
+
+    @staticmethod
+    def forward(x, mesh):
+        return _model_all_reduce(x, mesh, dist.ReduceOp.MAX, "tp_all_reduce_max")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh):
+        return _batched(lambda t: _ModelMax.apply(t, mesh), x, in_dims[0])
+
+
+class _ModelKV(torch.autograd.Function):
+    """Identity forward on a KV projection that M / Hkv model ranks share
+    (one head each); backward the sum of their gradients, from one
+    all-reduce of a buffer with a slot per head: each rank writes its
+    head's slot, so the ranks of one head sum and the others add zeros."""
+
+    @staticmethod
+    def forward(w, mesh, heads):
+        return w.view_as(w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.heads = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, heads = ctx.mesh, ctx.heads
+        slot = mesh.axis_index("model") * heads // int(mesh.shape["model"])
+        buf = g.new_zeros((heads,) + tuple(g.shape))
+        buf[slot] = g
+        return _model_all_reduce(buf, mesh)[slot], None, None
+
+    @staticmethod
+    def vmap(info, in_dims, w, mesh, heads):
+        return _batched(lambda t: _ModelKV.apply(t, mesh, heads), w, in_dims[0])
+
+
+def model_copy(x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel product (identity off a model axis)."""
+    mesh = hint_model_mesh()
+    return x if mesh is None else _ModelCopy.apply(x, mesh)
+
+
+def model_reduce(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the model ranks of a row-parallel product's partial
+    output (identity off a model axis)."""
+    mesh = hint_model_mesh()
+    return x if mesh is None else _ModelReduce.apply(x, mesh)
+
+
+def model_gather(x: torch.Tensor) -> torch.Tensor:
+    """The model ranks' last dims side by side (identity off a model axis)."""
+    mesh = hint_model_mesh()
+    return x if mesh is None else _ModelGather.apply(x, mesh)
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over the model ranks, not differentiated (``x``
+    detached off a model axis)."""
+    mesh = hint_model_mesh()
+    return x.detach() if mesh is None else _ModelMax.apply(x.detach(), mesh)
+
+
+def model_kv(w: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
+    """A KV projection whose gradient the model ranks sharing its head sum
+    (Hkv < M); ``w`` itself otherwise."""
+    mesh = hint_model_mesh()
+    if mesh is None or num_kv_heads >= int(mesh.shape["model"]):
+        return w
+    return _ModelKV.apply(w, mesh, num_kv_heads)
+
+
+def model_offset(local: int) -> int:
+    """Where this rank's ``local`` columns of a last-dim split start (0 off
+    a model axis): the first vocabulary id of its logits."""
+    mesh = hint_model_mesh()
+    return 0 if mesh is None else mesh.axis_index("model") * local
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ModelShards:
+    """What a train step needs to report a global grad norm from a model
+    rank's slices: the mesh whose "model" sub-group sums, and for each
+    params leaf (``tree.leaves`` order) how many model ranks hold the same
+    values (1: a slice of its own; M: whole, as the norms; M / Hkv: a
+    shared KV head), so that each value counts once."""
+
+    mesh: RankMesh
+    replicas: Tuple[int, ...]
+
+    def sum_sq(self, sq: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global sum of the leaves' squared sums ``sq`` (scalars, or
+        (C,) per client): one counted all-reduce."""
+        local = sum(s if r == 1 else s / r for s, r in zip(sq, self.replicas))
+        return _model_all_reduce(local, self.mesh, counter="tp_grad_norm")
 
 
 # ---------------------------------------------------------------------------
@@ -572,6 +878,11 @@ class PartitionSpec:
             if member is None:
                 index.append(slice(None))
                 continue
+            if isinstance(member, HeadShare):
+                size = x.shape[dim] // member.heads
+                head = member.head(mesh)
+                index.append(slice(head * size, (head + 1) * size))
+                continue
             names = member if isinstance(member, tuple) else (member,)
             count, block = 1, 0
             for name in names:
@@ -587,10 +898,41 @@ class PartitionSpec:
 P = PartitionSpec
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadShare:
+    """A spec member for a dim of ``heads`` KV heads over an ``axis`` of
+    more ranks: each rank keeps the one head its query heads read, head
+    ``axis_index * heads // size`` (``size / heads`` ranks a head)."""
+
+    axis: str
+    heads: int
+
+    def head(self, mesh) -> int:
+        return mesh.axis_index(self.axis) * self.heads // int(mesh.shape[self.axis])
+
+
 def _last_dim_member(mesh, shape, axis: str):
     if len(shape) < 2 or axis not in mesh.axis_names:
         return None
     return axis if shape[-1] % mesh.shape[axis] == 0 else None
+
+
+# the tensor-parallel roles of leaves (``ShardingRules.params_shardings``):
+# RMSNorm scales stay whole; a GQA attention's ``wo`` and a dense MLP's
+# ``w2`` split dim -2; its ``wk`` / ``wv`` keep whole KV heads; every other
+# leaf splits its last dim, as JAX's rule
+NORMS = ("norm1", "norm2", "final_norm")
+GQA_KEYS = frozenset(("wq", "wk", "wv", "wo"))
+
+
+def _role(key, parent, siblings) -> str:
+    if key in NORMS:
+        return "whole"
+    if parent == "attn" and GQA_KEYS <= siblings:
+        return {"wo": "row", "wk": "kv", "wv": "kv"}.get(key, "last")
+    if parent == "mlp" and key == "w2":
+        return "row"
+    return "last"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -609,6 +951,7 @@ class ShardingRules:
     client_axes: Tuple[str, ...] = ()
     model_axis: str = "model"
     data_axis: str = "data"
+    kv_heads: int = 0  # the config's KV heads (0: unknown, wk / wv split as JAX's)
 
     def _client_member(self, dim_size: int):
         axes = tuple(a for a in self.client_axes if a in self.mesh.axis_names)
@@ -643,22 +986,62 @@ class ShardingRules:
             members[0] = self.data_axis
         return P(*members)
 
-    def _param_spec(self, shape) -> PartitionSpec:
+    def _param_spec(self, shape, role: str = "last") -> PartitionSpec:
+        """JAX's spec (client dim first, the last dim over "model" where it
+        divides) for a leaf of ``role`` "last"; a "row" leaf splits dim -2
+        instead, a "whole" leaf stays whole, and a "kv" leaf over a model
+        axis longer than its KV heads keeps one head a rank."""
         members = [None] * len(shape)
         if self.client_axes and shape:
             members[0] = self._client_member(shape[0])
+        if role == "whole":
+            return P(*members)
+        m = int(self.mesh.shape[self.model_axis]) if self.model_axis in self.mesh.axis_names else 0
+        if role == "row":
+            dim = len(shape) - 2
+            if m and dim >= 0 and members[dim] is None and shape[dim] % m == 0:
+                members[dim] = self.model_axis
+            return P(*members)
+        if role == "kv" and 0 < self.kv_heads < m:
+            members[-1] = HeadShare(self.model_axis, self.kv_heads)
+            return P(*members)
         tp = _last_dim_member(self.mesh, shape, self.model_axis)
         if tp is not None and (not members or members[-1] is None) and len(shape) >= 2:
             members[-1] = tp
         return P(*members)
 
     def params_shardings(self, params, *, scanned: bool = True):
-        """A spec per parameter leaf (stacked client dim first, the last dim
-        over "model" where it divides)."""
-        from repro_torch.tree import tree_map
-
+        """A spec per parameter leaf: the stacked client dim first, then the
+        tensor-parallel layout (``_role``): JAX's last-dim split except the
+        row-parallel ``wo`` / ``w2``, the whole norms and the KV heads."""
         del scanned  # specs are rank-generic; a scanned stack only adds a replicated dim
-        return tree_map(lambda leaf: self._param_spec(tuple(leaf.shape)), params)
+
+        def walk(t, parent=None, key=None, siblings=frozenset()):
+            if isinstance(t, dict):
+                keys = frozenset(t)
+                return {k: walk(v, key, k, keys) for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                return type(t)(walk(v, parent, key, siblings) for v in t)
+            return self._param_spec(tuple(t.shape), _role(key, parent, siblings))
+
+        return walk(params)
+
+    def model_replicas(self, params) -> Tuple[int, ...]:
+        """For each params leaf (``tree.leaves`` order), how many ranks of
+        the model axis hold the same values: 1 for a leaf split over it, M
+        for a whole one, M / Hkv for a shared KV head."""
+        from repro_torch.tree import leaves
+
+        m = int(self.mesh.shape[self.model_axis]) if self.model_axis in self.mesh.axis_names else 1
+
+        def count(spec):
+            members = tuple(spec)
+            if any(isinstance(x, HeadShare) for x in members):
+                return m // self.kv_heads
+            named = [n for x in members if x is not None for n in (x if isinstance(x, tuple) else (x,))]
+            return 1 if self.model_axis in named else m
+
+        return tuple(count(spec) for spec in leaves(self.params_shardings(params)))
 
     def caches_shardings(self, caches, *, scanned: bool = True):
         """A spec per decode-cache leaf: the leading dim over "data" where it
@@ -700,17 +1083,32 @@ def shard_tree(tree, specs, mesh, device: DeviceLike = None):
 
 
 def fed_rules(cfg, mesh) -> ShardingRules:
-    """Federated training: stacked client axis over ("pod", "data")."""
-    del cfg
+    """Federated training: stacked client axis over ("pod", "data"), the
+    tensor-parallel layout over "model"."""
     axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
-    return ShardingRules(mesh=mesh, client_axes=axes)
+    return ShardingRules(mesh=mesh, client_axes=axes, kv_heads=0 if cfg is None else cfg.num_kv_heads)
 
 
 def serve_rules(cfg, mesh) -> ShardingRules:
-    """Serving: no client axis; requests over "data" ("model" members as
-    JAX's, refused at run time when larger than 1)."""
-    del cfg
-    return ShardingRules(mesh=mesh, client_axes=())
+    """Serving: no client axis; requests over "data", the tensor-parallel
+    layout over "model"."""
+    return ShardingRules(mesh=mesh, client_axes=(), kv_heads=0 if cfg is None else cfg.num_kv_heads)
+
+
+def rank_params(params, mesh, cfg):
+    """This rank's part of an unstacked parameter tree (numpy or torch
+    leaves): its tensor-parallel slices under ``serve_rules`` when the
+    mesh's "model" axis is larger than 1, then, where the MoE exchanges
+    over "data" (``ep_mode_for``), its experts' rows (``expert_rows``).
+    Numpy leaves are sliced without copies."""
+    if model_size(mesh) > 1:
+        from repro_torch.tree import tree_map
+
+        params = tree_map(lambda x, spec: spec.shard(x, mesh), params,
+                          serve_rules(cfg, mesh).params_shardings(params))
+    if cfg.moe is not None and ep_mode_for(mesh, cfg.moe.num_experts) == "ep_data":
+        params = expert_rows(params, mesh)
+    return params
 
 
 def topology_for(cfg, mesh):

@@ -1,7 +1,7 @@
 """Errors shared across the port's layers."""
 
 
-def unported(feature: str, item: int) -> NotImplementedError:
+def unported(feature: str, item) -> NotImplementedError:
     """The error for a configuration that needs a feature a later slice
     brings; names the ROADMAP.md item."""
     return NotImplementedError(

@@ -11,14 +11,19 @@ decode cell : one decode step against the caches.
 JAX's cell is one jitted program over the whole mesh. Here ``Cell.fn`` runs
 on every rank of a ``dist.sharding.RankMesh`` with that rank's shards
 (``shard_args``): the train cell's state holds the rank's clients (whole
-edges, in rank order) and its cloud sync is one all-reduce; the serving
-cells take the rank's requests, and under an "ep_data" mesh the rank holds
-its E/P experts' rows and MoE's exchange runs one all-to-all each way.
-``mesh=None`` is the single-device cell. A "model" axis larger than 1 is
-refused by name (ROADMAP.md Queue 1 item 16).
+edges, in rank order, of its "data" line) and its cloud sync is one
+all-reduce over the "data" axis; the serving cells take the rank's
+requests, and under an "ep_data" mesh the rank holds its E/P experts' rows
+and MoE's exchange runs one all-to-all each way. Over a "model" axis
+larger than 1 a rank holds its tensor-parallel slices
+(``dist.sharding.ShardingRules``) and every cell runs under the model
+axis's hint, so the layers place their collectives; RG-LRU, xLSTM, MoE and
+MLA configurations are refused there by name (ROADMAP.md Queue 1 item
+16b). ``mesh=None`` is the single-device cell.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -57,11 +62,20 @@ class _NoMesh:
     shape: dict = {}
 
 
-def _mesh_or_none(mesh):
+def _mesh_or_none(mesh, cfg: ArchConfig):
     if mesh is None:
         return _NoMesh()
-    sharding.refuse_model_axis(mesh)
+    sharding.refuse_model_axis(mesh, cfg)
     return mesh
+
+
+def _model_line(mesh):
+    """The train cell's hint: this rank's line along a "model" axis larger
+    than 1 (no "data" axis, so MoE keeps one token group as in training
+    off-mesh), else None."""
+    if isinstance(mesh, _NoMesh) or sharding.model_size(mesh) <= 1:
+        return None
+    return mesh.over(("model",))
 
 
 def structs(fn) -> PyTree:
@@ -109,8 +123,9 @@ def _state_specs(state, params_specs):
 
 def shard_args(cell: Cell, args: Tuple, mesh, device=None) -> Tuple:
     """This rank's part of a cell's concrete arguments, on ``device``
-    (default: the mesh's): each leaf by its spec; under an "ep_data" serving
-    mesh the params keep only this rank's experts (``expert_rows``).
+    (default: the mesh's): each leaf by its spec (a model rank's
+    tensor-parallel slices among them); under an "ep_data" serving mesh the
+    params keep only this rank's experts (``expert_rows``).
     ``mesh=None`` moves the arguments whole (to ``device`` when given)."""
     if mesh is None:
         move = (lambda x: x) if device is None else (lambda x: x.to(device) if isinstance(x, torch.Tensor) else x)
@@ -128,27 +143,34 @@ def shard_args(cell: Cell, args: Tuple, mesh, device=None) -> Tuple:
 
 
 def _client_sharding(topo, mesh, weights: torch.Tensor) -> Optional[ClientSharding]:
-    """The train cell's rank view: the client axes span the mesh ("model"
-    is 1) and the rules' specs give each rank a contiguous block of clients
-    (JAX's ``P("data")``), so the placement is the identity, and each
-    block must hold whole edges (every sub-cloud sync stays on its rank)."""
-    if isinstance(mesh, _NoMesh) or mesh.size == 1:
+    """The train cell's rank view: the rules' specs give each rank of the
+    client axes ("data", and "pod") a contiguous block of clients (JAX's
+    ``P("data")``), so the placement is the identity, and each block must
+    hold whole edges (every sub-cloud sync stays on its rank). The model
+    ranks of one block hold the same clients; the sharding's mesh is the
+    client axes' line, whose group the cloud sync's all-reduce runs on."""
+    if isinstance(mesh, _NoMesh):
         return None
+    axes = sharding.fed_rules(None, mesh).client_axes
+    k = math.prod(int(mesh.shape[a]) for a in axes)
+    if k == 1:
+        return None
+    clients = mesh.over(axes)
     spec = as_hierarchy(topo)
-    n, k = spec.num_clients, mesh.size
+    n = spec.num_clients
     groups = (spec.segments(spec.depth - 1) if spec.depth >= 2 else np.arange(n)).reshape(k, n // k)
     if sum(len(set(row.tolist())) for row in groups) != len(set(groups.ravel().tolist())):
         raise ValueError(f"the train cell needs whole edges on each rank: {n} clients in {k} contiguous blocks "
                          f"split an edge")
     placement = ShardPlacement(num_shards=k, capacity=n // k, perm=tuple(range(n)), spec=spec)
-    return ClientSharding.build(sharding.client_axis_of(mesh), placement, weights, mesh=mesh)
+    return ClientSharding.build(sharding.client_axis_of(clients), placement, weights, mesh=clients)
 
 
 def init_train_state(cfg: ArchConfig, mesh, params, rng: torch.Generator, *, lr: float = 1e-3):
     """The whole (N-row) initial state the train cell steps, from unstacked
     ``params``: ``init_state`` under the cell's topology, schedule and
-    ``sgd(lr)``; ``shard_args`` cuts a rank's rows."""
-    m = _mesh_or_none(mesh)
+    ``sgd(lr)``; ``shard_args`` cuts a rank's rows (and slices)."""
+    m = _mesh_or_none(mesh, cfg)
     topo = sharding.topology_for(cfg, m)
     return init_state(rng, params, sgd(lr), topo, cfg.fed.schedule())
 
@@ -157,11 +179,14 @@ def build_train_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, *, lr: float = 1e-
                      device: DeviceLike = None) -> Cell:
     """``fn(state, batch) -> (state, metrics)``: one ``build_train_step`` on
     the rank's clients, ``grad_accum`` from the shape's specs, ``sgd(lr)``,
-    equal client weights. On a mesh of several ranks the metrics are per
-    client (``build_train_step(shard=)``). ``device`` places the
-    single-device cell (``mesh=None``; default ``cuda``); a mesh's rank
-    runs on the mesh's device."""
-    m = _mesh_or_none(mesh)
+    equal client weights. Over a "data" axis of several ranks the metrics
+    are per client (``build_train_step(shard=)``); over a "model" axis the
+    rank steps its tensor-parallel slices under the model line's hint, and
+    its grad norms are global over the model ranks
+    (``build_train_step(model=)``). ``device`` places the single-device
+    cell (``mesh=None``; default ``cuda``); a mesh's rank runs on the
+    mesh's device."""
+    m = _mesh_or_none(mesh, cfg)
     rules = sharding.fed_rules(cfg, m)
     topo = sharding.topology_for(cfg, m)
     n = topo.num_clients
@@ -171,17 +196,20 @@ def build_train_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, *, lr: float = 1e-
     shard = _client_sharding(topo, m, weights)
     opt = sgd(lr)
     batch_structs, batch_specs, accum = specs_mod.train_batch_specs(cfg, shape, m)
-    step_fn = build_train_step(transformer.make_loss_fn(cfg), opt, topo, hier, weights.to(dev),
-                               grad_accum=accum, shard=shard)
     state_struct = structs(lambda: init_state(torch.Generator(), _init_params(cfg), opt, topo, hier))
     params_specs = rules.params_shardings(state_struct.params, scanned=cfg.scan_layers)
     state_specs = _state_specs(state_struct, params_specs)
+    line = _model_line(m)
+    model = None if line is None else sharding.ModelShards(line, rules.model_replicas(state_struct.params))
+    step_fn = build_train_step(transformer.make_loss_fn(cfg), opt, topo, hier, weights.to(dev),
+                               grad_accum=accum, shard=shard, model=model)
     return Cell(
-        fn=lambda state, batch: step_fn(state, batch),
+        fn=_hinted(line, lambda state, batch: step_fn(state, batch)),
         arg_structs=(state_struct, batch_structs),
         arg_specs=(state_specs, batch_specs),
         meta={"kind": "train", "num_clients": n, "grad_accum": accum, "kappa1": hier.kappa1,
-              "kappa2": hier.kappa2, "layout": cfg.fed.layout, "sharded": shard is not None},
+              "kappa2": hier.kappa2, "layout": cfg.fed.layout, "sharded": shard is not None,
+              "model": sharding.model_size(m)},
     )
 
 
@@ -211,7 +239,7 @@ def _ep_mode(cfg: ArchConfig, mesh, requests: int, req_spec) -> str:
 
 
 def _hinted(mesh, fn):
-    if isinstance(mesh, _NoMesh):
+    if mesh is None or isinstance(mesh, _NoMesh):
         return fn
 
     def run(*args):
@@ -223,8 +251,9 @@ def _hinted(mesh, fn):
 
 def build_prefill_cell(cfg: ArchConfig, shape: ShapeSpec, mesh) -> Cell:
     """``fn(params, inputs) -> (last-position logits, caches)`` of the rank's
-    requests, under the hint mesh."""
-    m = _mesh_or_none(mesh)
+    requests, under the hint mesh; over a "model" axis the logits are
+    gathered (B, V) and the caches hold the rank's KV heads."""
+    m = _mesh_or_none(mesh, cfg)
     params_struct, params_specs = _serve_params(cfg, m)
     req_struct, req_spec = specs_mod.prefill_request_specs(cfg, shape, m)
     mode = _ep_mode(cfg, m, shape.global_batch, req_spec)
@@ -233,7 +262,7 @@ def build_prefill_cell(cfg: ArchConfig, shape: ShapeSpec, mesh) -> Cell:
         fn=_hinted(m, lambda params, inputs: transformer.prefill(params, cfg, inputs, max_len)),
         arg_structs=(params_struct, req_struct),
         arg_specs=(params_specs, req_spec),
-        meta={"kind": "prefill", "max_len": max_len, "ep_mode": mode},
+        meta={"kind": "prefill", "max_len": max_len, "ep_mode": mode, "model": sharding.model_size(m)},
     )
 
 
@@ -241,8 +270,8 @@ def build_decode_cell(cfg: ArchConfig, shape: ShapeSpec, mesh) -> Cell:
     """``fn(params, caches, tokens, position) -> (logits, caches)``: one
     decode step of the rank's requests. The caches' specs are JAX's
     (``caches_shardings``); a rank's caches are those its prefill cell
-    returned, already its own requests'."""
-    m = _mesh_or_none(mesh)
+    returned, already its own requests' and KV heads'."""
+    m = _mesh_or_none(mesh, cfg)
     rules = sharding.serve_rules(cfg, m)
     params_struct, params_specs = _serve_params(cfg, m)
     req_structs, req_specs = specs_mod.decode_request_specs(cfg, shape, m)
@@ -258,7 +287,7 @@ def build_decode_cell(cfg: ArchConfig, shape: ShapeSpec, mesh) -> Cell:
         fn=_hinted(m, serve_step),
         arg_structs=(params_struct, cache_struct, req_structs["tokens"], req_structs["position"]),
         arg_specs=(params_specs, cache_specs, req_specs["tokens"], req_specs["position"]),
-        meta={"kind": "decode", "cache_len": L, "ep_mode": mode},
+        meta={"kind": "decode", "cache_len": L, "ep_mode": mode, "model": sharding.model_size(m)},
     )
 
 
@@ -282,7 +311,7 @@ def build_aggregation_cells(cfg: ArchConfig, mesh, *, device: DeviceLike = None)
     stacked params (``fn(state) -> state``), so each HierFAVG hop can be
     timed apart; on a mesh of several ranks the edge sync is rank-local and
     the cloud sync one all-reduce."""
-    m = _mesh_or_none(mesh)
+    m = _mesh_or_none(mesh, cfg)
     rules = sharding.fed_rules(cfg, m)
     topo = sharding.topology_for(cfg, m)
     n = topo.num_clients

@@ -42,19 +42,20 @@ def _leaf_from_numpy(arr, device) -> torch.Tensor:
 
 
 def params_from_numpy(np_params: Tree, device=None, *, like: Optional[Tree] = None, path: str = "",
-                      mesh=None) -> Tree:
+                      mesh=None, cfg=None) -> Tree:
     """A JAX init (``jax.device_get`` of its parameter tree) as the port's
     tree on ``device``. With ``like`` (a port tree of the same model, such as
     ``transformer.init_params``'s or a module's ``named_parameters()``),
     checks that names, shapes and dtypes match it. With ``mesh`` (a
-    ``dist.sharding.RankMesh`` whose "data" axis runs MoE's expert-parallel
-    exchange) each MoE keeps only this rank's experts' rows
-    (``dist.sharding.expert_rows``), cut before they are copied."""
+    ``dist.sharding.RankMesh``) and the model's ``cfg``, this rank's part
+    is cut before anything is copied (``dist.sharding.rank_params``): its
+    tensor-parallel slices over a "model" axis larger than 1, and each
+    MoE's experts where the MoE exchanges over "data"."""
     if mesh is not None:
-        from repro_torch.dist.sharding import expert_rows
+        from repro_torch.dist.sharding import rank_params
 
-        return params_from_numpy(expert_rows(np_params, mesh), device, path=path,
-                                 like=None if like is None else expert_rows(like, mesh))
+        return params_from_numpy(rank_params(np_params, mesh, cfg), device, path=path,
+                                 like=None if like is None else rank_params(like, mesh, cfg))
     if isinstance(np_params, dict):
         if like is not None and set(np_params) != set(like):
             raise ValueError(f"{path or 'tree'}: names {sorted(np_params)} != the port's {sorted(like)}")

@@ -31,6 +31,16 @@ wants k and v of one shape, so the K7 route pads v with zero columns to
 the q/k head dim and slices the output back: zero columns of V give zero
 columns of the output, so it is the same function.
 
+Under a hint mesh whose "model" axis is larger than 1
+(``dist.sharding.hint_model_mesh``) the GQA attention and the dense MLP run
+on the rank's slices, as Megatron splits them: the head counts come from
+the weights' widths (H / M query heads, and Hkv / M KV heads or the one
+its query heads read), the column-parallel ``wq`` / ``wk`` / ``wv`` and
+``w1`` / ``w3`` take their input through ``sharding.model_copy`` and the
+row-parallel ``wo`` / ``w2`` give their output through
+``sharding.model_reduce``; K7 takes the rank's heads in a prefill. Off
+such a mesh those are the identity.
+
 The MoE is JAX's single-device dispatch (one token group, exchange mode
 ``"none"``): a stable argsort of the (token, k) assignments by expert
 gives each its rank, assignments of rank C or more are dropped, and the
@@ -54,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding
 from repro_torch.kernels import flash_attention as _fa
 
 Params = Dict[str, torch.Tensor]
@@ -117,8 +128,9 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, stack: Sequence[int] =
     }
 
 
-def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
-    return x.reshape(*x.shape[:-1], n_heads, hd)
+def _split_heads(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """(..., n hd) -> (..., n, hd): as many heads as the product's width holds."""
+    return x.reshape(*x.shape[:-1], -1, hd)
 
 
 def _repeat_kv(kv: torch.Tensor, groups: int) -> torch.Tensor:
@@ -264,11 +276,13 @@ def _full_attention(q, k, v, cfg: ArchConfig, positions, *, window: int = 0, def
 
 
 def attention_qkv(params: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """The roped q (B,S,H,hd) and k (B,S,Hkv,hd), and v (B,S,Hkv,hd)."""
+    """The roped q (B,S,H,hd) and k (B,S,Hkv,hd), and v (B,S,Hkv,hd); on a
+    model rank its H / M query heads and its KV heads."""
     hd = cfg.resolved_head_dim
-    q = _split_heads(x @ params["wq"], cfg.num_heads, hd)
-    k = _split_heads(x @ params["wk"], cfg.num_kv_heads, hd)
-    v = _split_heads(x @ params["wv"], cfg.num_kv_heads, hd)
+    x = sharding.model_copy(x)
+    q = _split_heads(x @ params["wq"], hd)
+    k = _split_heads(x @ sharding.model_kv(params["wk"], cfg.num_kv_heads), hd)
+    v = _split_heads(x @ sharding.model_kv(params["wv"], cfg.num_kv_heads), hd)
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
@@ -281,15 +295,17 @@ def attention_with_kv(params: Params, x: torch.Tensor, cfg: ArchConfig, position
     B, S, _ = x.shape
     q, k, v = attention_qkv(params, x, cfg, positions)
     out = _full_attention(q, k, v, cfg, positions, window=window, default_positions=default_positions)
-    return out.reshape(B, S, -1) @ params["wo"], k, v
+    return sharding.model_reduce(out.reshape(B, S, -1) @ params["wo"]), k, v
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device=None, stack: Sequence[int] = ()) -> Params:
+    """Empty k / v / slot-position buffers for the KV heads this rank holds."""
     hd = cfg.resolved_head_dim
+    hkv = sharding.model_kv_heads(cfg.num_kv_heads)
     cache_len = min(max_len, cfg.window) if cfg.window > 0 else max_len
     return {
-        "k": torch.zeros((*stack, batch, cache_len, cfg.num_kv_heads, hd), dtype=dtype, device=device),
-        "v": torch.zeros((*stack, batch, cache_len, cfg.num_kv_heads, hd), dtype=dtype, device=device),
+        "k": torch.zeros((*stack, batch, cache_len, hkv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((*stack, batch, cache_len, hkv, hd), dtype=dtype, device=device),
         # absolute position stored in each slot (-1 = empty), for ring buffers
         "pos": torch.full((*stack, batch, cache_len), -1, dtype=torch.int32, device=device),
     }
@@ -317,7 +333,7 @@ def attention_decode(
     pos_buf = torch.where(hit, position[:, None].to(torch.int32), cache["pos"])
     out = causal_attention(q, k, v, q_positions=position[:, None], kv_positions=pos_buf, window=window,
                            kv_valid=pos_buf >= 0)
-    y = out.reshape(B, 1, -1) @ params["wo"]
+    y = sharding.model_reduce(out.reshape(B, 1, -1) @ params["wo"])
     return y, {"k": k, "v": v, "pos": pos_buf}
 
 
@@ -334,8 +350,10 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, stack: Sequence[int] 
 
 
 def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU; on a model rank over its d_ff / M columns, summed after ``w2``."""
+    x = sharding.model_copy(x)
     h = F.silu(x @ params["w1"]) * (x @ params["w3"])
-    return h @ params["w2"]
+    return sharding.model_reduce(h @ params["w2"])
 
 
 # ---------------------------------------------------------------------------
@@ -576,8 +594,6 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.T
     exchange computes, to 0.0). The exchange is a collective outside
     autograd: serving runs it, training (whole client models a rank) does
     not."""
-    from repro_torch.dist import sharding
-
     m = cfg.moe
     T, d = x.shape
     E, K = m.num_experts, m.top_k

@@ -27,6 +27,19 @@ recurrent cells a second time; the values are the same function), so a
 prefill launches K7 once per attention layer and K8 once per RG-LRU layer.
 The mLSTM prefill takes whole chunks only, as JAX's replay does
 (``recurrent.mlstm_check_prefill``).
+
+Under a hint mesh whose "model" axis is larger than 1 (tensor parallelism,
+dense families only: ``dist.sharding.refuse_model_axis`` names the rest)
+a rank holds ``embed``'s d / M columns and gathers the embedded tokens
+(JAX's spec for the leaf; the gather's backward needs no collective),
+``lm_head``'s V / M columns, and the layers' slices. ``forward_with_aux``
+then returns the rank's (B, S, V / M) logits, the loss is vocab-parallel
+(``cross_entropy``: no rank holds (B, S, V)), and ``prefill`` /
+``decode_step`` gather the (B, V) logits, so greedy tokens are one
+device's. A vocabulary (or model width) that does not split keeps its
+leaf whole on every rank, as JAX's rule does (granite-3-2b's 49,155): the
+rank then computes the whole logits (or embedding) and the loss as off
+the mesh.
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding
 from repro_torch.models import layers, recurrent
 
 PyTree = Any
@@ -225,9 +239,27 @@ def _embed(params, cfg: ArchConfig, inputs: torch.Tensor) -> torch.Tensor:
         # not ``params["embed"][inputs]``: its gradient is an accumulating
         # ``index_put_``, whose adds of a repeated token's rows follow the
         # threads' timing on the CPU and atomics on the card. The
-        # embedding's own backward adds them in token order.
-        return torch.nn.functional.embedding(inputs, params["embed"])
+        # embedding's own backward adds them in token order. A model rank
+        # looks up its d / M columns and gathers the rest.
+        x = torch.nn.functional.embedding(inputs, params["embed"])
+        return sharding.model_gather(x) if params["embed"].shape[-1] != cfg.d_model else x
     return inputs.to(cfg.dtype())
+
+
+def _vocab_split(params, cfg: ArchConfig) -> bool:
+    """Whether this rank holds a slice of the LM head's vocabulary."""
+    return params["lm_head"].shape[-1] != cfg.vocab_size
+
+
+def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The LM head: this rank's vocabulary columns on a model rank."""
+    return (sharding.model_copy(x) if _vocab_split(params, cfg) else x) @ params["lm_head"]
+
+
+def _whole_logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """(B, V) logits of (B, d) states, gathered from the model ranks."""
+    logits = _logits(params, cfg, x)
+    return sharding.model_gather(logits) if _vocab_split(params, cfg) else logits
 
 
 def _default_positions(x: torch.Tensor) -> torch.Tensor:
@@ -237,14 +269,16 @@ def _default_positions(x: torch.Tensor) -> torch.Tensor:
 
 def forward_with_aux(params, cfg: ArchConfig, inputs: torch.Tensor, positions: Optional[torch.Tensor] = None):
     """inputs: int tokens (B,S) if cfg.embed_inputs else embeddings (B,S,d).
-    Returns (logits (B,S,V), MoE aux loss), as JAX's ``forward``."""
+    Returns (logits (B,S,V), MoE aux loss), as JAX's ``forward``; on a
+    model rank its (B,S,V/M) logits."""
+    sharding.refuse_model_axis(sharding.hint_mesh(), cfg)
     x = _embed(params, cfg, inputs)
     default = positions is None
     if default:
         positions = _default_positions(x)
     x, aux = backbone(params, cfg, x, positions, default_positions=default)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"], aux
+    return _logits(params, cfg, x), aux
 
 
 def forward(params, cfg: ArchConfig, inputs: torch.Tensor, positions: Optional[torch.Tensor] = None):
@@ -252,15 +286,36 @@ def forward(params, cfg: ArchConfig, inputs: torch.Tensor, positions: Optional[t
     return forward_with_aux(params, cfg, inputs, positions)[0]
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None):
-    """logsumexp - target logit, in f32. targets: (B,S) int."""
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
+                  vocab: Optional[int] = None):
+    """logsumexp - target logit, in f32. targets: (B,S) int. On a model
+    rank ``logits`` are its vocabulary columns (``forward_with_aux``;
+    ``vocab``, the whole vocabulary where known, says whether they are)
+    and the loss is vocab-parallel: the global max, then the sums of exp
+    and of the target logit (each rank adds the targets it holds) from one
+    all-reduce."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
-    nll = lse - tgt
+    if sharding.hint_model_mesh() is not None and lf.shape[-1] != vocab:
+        nll = _vocab_parallel_nll(lf, targets)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+        nll = lse - tgt
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return torch.mean(nll)
+
+
+def _vocab_parallel_nll(lf: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """-log softmax at the targets from this rank's f32 logit columns."""
+    v = lf.shape[-1]
+    shift = sharding.model_max(torch.amax(lf, dim=-1))
+    local = targets.long() - sharding.model_offset(v)
+    held = (local >= 0) & (local < v)
+    tgt = torch.gather(lf, -1, torch.clamp(local, 0, v - 1)[..., None])[..., 0]
+    sums = sharding.model_reduce(torch.stack([torch.sum(torch.exp(lf - shift[..., None]), dim=-1),
+                                              torch.where(held, tgt, torch.zeros_like(tgt))]))
+    return shift + torch.log(sums[0]) - sums[1]
 
 
 def make_loss_fn(cfg: ArchConfig):
@@ -270,7 +325,7 @@ def make_loss_fn(cfg: ArchConfig):
 
     def loss_fn(params, batch, rng):
         logits, aux = forward_with_aux(params, cfg, batch["inputs"])
-        return cross_entropy(logits, batch["targets"], batch.get("mask")) + aux
+        return cross_entropy(logits, batch["targets"], batch.get("mask"), vocab=cfg.vocab_size) + aux
 
     return loss_fn
 
@@ -312,6 +367,7 @@ def prefill(params, cfg: ArchConfig, inputs: torch.Tensor, max_len: int):
     """Full-prompt forward building every layer's decode cache.
     Returns (last-position logits (B,V), caches). With mLSTM blocks a
     prompt longer than ``cfg.mlstm_chunk`` must be a multiple of it."""
+    sharding.refuse_model_axis(sharding.hint_mesh(), cfg)
     x = _embed(params, cfg, inputs)
     if "mlstm" in cfg.block_pattern:
         recurrent.mlstm_check_prefill(cfg, x.shape[1])
@@ -331,11 +387,12 @@ def prefill(params, cfg: ArchConfig, inputs: torch.Tensor, max_len: int):
     if stacked:
         caches["blocks"] = _stack(stacked)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, -1] @ params["lm_head"], caches
+    return _whole_logits(params, cfg, x[:, -1]), caches
 
 
 def init_decode_caches(params, cfg: ArchConfig, batch: int, max_len: int, device=None):
-    """Fresh (empty) caches matching the model structure."""
+    """Fresh (empty) caches matching the model structure (a model rank's
+    KV heads under the hint mesh)."""
     dtype = cfg.dtype()
     caches: Dict[str, PyTree] = {}
     if _stacked(cfg, params):
@@ -357,6 +414,7 @@ def decode_step(params, cfg: ArchConfig, caches, tokens: torch.Tensor, position:
     """One decode step for all requests. tokens: (B,) int (or (B,d)
     embeddings for stub-frontend archs); position: (B,) absolute positions.
     Returns (logits (B,V), caches); the input caches are left as they were."""
+    sharding.refuse_model_axis(sharding.hint_mesh(), cfg)
     x = _embed(params, cfg, tokens)[:, None]
     new: Dict[str, PyTree] = {}
     stacked = []
@@ -379,4 +437,4 @@ def decode_step(params, cfg: ArchConfig, caches, tokens: torch.Tensor, position:
     if stacked:
         new["blocks"] = _stack(stacked)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, 0] @ params["lm_head"], new
+    return _whole_logits(params, cfg, x[:, 0]), new

@@ -40,6 +40,17 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 D, C, B = 6, 3, 8  # features, classes, per-client batch
 
 
+@pytest.fixture(autouse=True)
+def _fresh_jax_caches():
+    """Each test makes its JAX steps from empty caches. ``_jloss`` is one
+    function object for every JAX step of this file; after
+    ``_build_microbatch_grads(_jloss, 4)`` a later ``build_train_step(
+    grad_accum=2)`` in the same process returned a stale trace (w[1,2,0]
+    -2.4891 after step 1 where a fresh process and the port give -2.5998)."""
+    jax.clear_caches()
+    yield
+
+
 def _jloss(params, batch, _rng):
     logits = batch["x"] @ params["w"] + params["b"]
     logz = jax.nn.logsumexp(logits, axis=-1)

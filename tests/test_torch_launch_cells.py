@@ -16,7 +16,8 @@
   2-device hint mesh: logits of the prefill and of three decode steps, one
   dispatch and one combine all-to-all per MoE call, half the experts a
   rank; requests that do not split over the data axis are refused.
-- The refusals: a "model" axis larger than 1 names ROADMAP.md item 16; a
+- The refusals: a "model" axis larger than 1 under a family without
+  tensor parallelism names ROADMAP.md item 16b (a dense one builds); a
   world that does not match the mesh raises JAX's ValueError text.
 
 Tolerances: JAX's mesh tolerances for the train cell (params ``rtol=3e-6,
@@ -110,12 +111,17 @@ def test_lm100m_train_cut_gives_accum_two_of_four():
 
 
 def test_a_model_axis_larger_than_one_is_refused_naming_item_16():
+    """Item 16 brought the dense families to a "model" axis larger than 1;
+    the rest are refused there by name, naming item 16b."""
     mesh = _FakeMesh(data=2, model=2)
     for build in (steps.build_train_cell, steps.build_prefill_cell, steps.build_decode_cell):
         shape = ShapeSpec("s", 8, 16 if build is steps.build_train_cell else 2,
                           {steps.build_train_cell: "train", steps.build_prefill_cell: "prefill"}.get(build, "decode"))
-        with pytest.raises(NotImplementedError, match=r'tensor-parallel sharding over the "model" axis.*item 16'):
-            build(treg.get_smoke(TRAIN_ARCH), shape, mesh)
+        for arch in ("recurrentgemma-9b", "xlstm-350m", SERVE_ARCH):
+            with pytest.raises(NotImplementedError, match=r'tensor-parallel sharding over the "model" axis.*item 16b'):
+                build(treg.get_smoke(arch), shape, mesh)
+        if build is not steps.build_train_cell:  # the serving cells of a dense family build on the mesh
+            assert build(treg.get_smoke(TRAIN_ARCH), shape, mesh).meta["model"] == 2
 
 
 def test_replicated_requests_are_refused_under_the_expert_parallel_moe():

@@ -15,20 +15,17 @@ Both packages get the same numpy data and the JAX init (carried across with
   up to one ulp, XLA's jit may divide by a reciprocal, and near the end of
   the decay ``1 + cos`` cancels, so a result can sit 20 of its own ulps
   apart;
-* ``lm_edge_niid`` at lm-10m over 4 rounds: loss and grad_norm
-  ``rtol=1e-4``, as the MLP scenarios (measured: losses equal, grad_norm
-  within 1.7e-6), final parameters ``atol=1e-5`` (measured 7.2e-7, against
-  moves of 1.5e-3); ``wire_mb`` equal. Adam needed nothing looser: a run
-  whose warmup is one step longer misses both (loss 1.4e-4 to 5.2e-3
-  relative, parameters 7e-5), which the control test asserts.
+* the launcher's runs: ``torch_lm_runs``'s (loss and grad norm
+  ``rtol=1e-4``, final parameters ``atol=1e-5``).
 
-The scenario's 16 local steps stay inside its 20-step warmup; the cosine
-half of the schedule runs in ``test_torch_hierfavg.py``'s LM engine test
-(warmup 2 of 8 steps).
+The ``lm_edge_niid`` runs against JAX are in
+``test_torch_lm_train_scenario.py`` and ``test_torch_lm_train_int8.py``
+(files of their own, so the suite's workers share the work out).
 """
 import dataclasses
 import os
 import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -46,16 +43,23 @@ from repro_torch.configs import registry as treg
 from repro_torch.data import make_partition, pipeline as tpipeline, synthetic as tsyn
 from repro_torch.fed import api as tapi
 from repro_torch.fed import scenarios as tscen
-from repro_torch.kernels import ops
 from repro_torch.launch import train as ttrain
 from repro_torch import optim as toptim
 from repro_torch.testing.parity import assert_close, to_numpy
-from repro_torch.tree import leaves
 
-LOSS_RTOL = 1e-4
-PARAM_ATOL = 1e-5
-LM_SHORT = ["run.num_rounds=4", "data.num_samples=128"]
-INT8_EF = ["run.num_rounds=2", "data.num_samples=128", "transport.levels=int8_ef:128/int8_ef:128"]
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_lm_runs import INT8_EF, LOSS_RTOL, PARAM_ATOL  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread a test: the smoke and lm-10m tensors are small,
+    and beside the suite's other workers a product spread over every core
+    only contends."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 # -- data -----------------------------------------------------------------------------
@@ -154,77 +158,6 @@ def test_cosine_decay_within_a_rounding_per_operation_of_jax(alpha):
 
 
 # -- the scenario ---------------------------------------------------------------------
-
-
-def _run_both(overrides, port_overrides=()):
-    jspec = jscen.get("lm_edge_niid", overrides=overrides)
-    tspec = tscen.get("lm_edge_niid", overrides=list(overrides) + list(port_overrides))
-    np_params = jax.device_get(jspec.init_params(jax.random.PRNGKey(jspec.run.seed + 1)))
-    jr, js = jspec.run_experiment()
-    tr, ts = tspec.run_experiment(device="cpu", params=tspec.params_from_numpy(np_params, "cpu"))
-    return (jr, js), (tr, ts)
-
-
-def _check_lm_run(jr, js, tr, ts):
-    """The scenario's tolerance: every record's loss and grad_norm within
-    ``LOSS_RTOL``, wire_mb equal, final parameters within ``PARAM_ATOL``."""
-    assert len(tr.history) == len(jr.history) == jr.cfg.num_rounds
-    for a, b in zip(jr.history, tr.history):
-        assert (b.round, b.step, b.mask_alive) == (a.round, a.step, a.mask_alive)
-        assert b.loss == pytest.approx(a.loss, rel=LOSS_RTOL), f"round {a.round} loss {b.loss} vs {a.loss}"
-        assert b.grad_norm == pytest.approx(a.grad_norm, rel=LOSS_RTOL), f"round {a.round} grad_norm"
-        assert a.accuracy is None and b.accuracy is None
-        assert b.sim_time_s == a.sim_time_s == 0.0 and b.sim_energy_j == a.sim_energy_j == 0.0
-        assert b.wire_mb == pytest.approx(a.wire_mb, rel=1e-12)
-    assert int(ts.step) == int(js.step)
-    assert_close(to_numpy(ts.params), jax.device_get(js.params), rtol=0.0, atol=PARAM_ATOL, what="final params")
-
-
-@pytest.fixture(scope="module")
-def lm_edge_niid_runs():
-    return _run_both(LM_SHORT)
-
-
-def test_lm_edge_niid_tracks_jax(lm_edge_niid_runs):
-    (jr, js), (tr, ts) = lm_edge_niid_runs
-    _check_lm_run(jr, js, tr, ts)
-    assert tr.history[-1].loss < tr.history[0].loss
-    assert tr.spec.model.arch == "lm-10m" and tr.eval_fn is None and tr.costs is None
-    n_params = sum(x[0].numel() for x in leaves(ts.params))
-    assert n_params == 3_410_176  # lm-10m at the scenario's vocabulary of 512
-
-
-def test_the_lm_tolerance_fails_a_warmup_one_step_longer(lm_edge_niid_runs):
-    """The control: the same run with ``model.warmup_steps`` 21 in place of
-    20 (every learning rate 5 % lower) must miss the tolerance."""
-    (jr, js), _ = lm_edge_niid_runs
-    tspec = tscen.get("lm_edge_niid", overrides=LM_SHORT + ["model.warmup_steps=21"])
-    np_params = jax.device_get(jscen.get("lm_edge_niid").init_params(jax.random.PRNGKey(1)))
-    tr, ts = tspec.run_experiment(device="cpu", params=tspec.params_from_numpy(np_params, "cpu"))
-    with pytest.raises(AssertionError):
-        _check_lm_run(jr, js, tr, ts)
-    with pytest.raises(AssertionError):
-        assert_close(to_numpy(ts.params), jax.device_get(js.params), rtol=0.0, atol=PARAM_ATOL, what="control")
-
-
-def test_int8_ef_variant_tracks_jax_and_counts_its_calls(monkeypatch):
-    """Error-feedback int8 on both hops over 2 rounds; on the CPU the
-    kernels' plain versions run, one call per leaf per level mean (K1: the
-    edge sync one stage, the cloud sync two) and per compressed sync (K4,
-    K5), the counts ``chip_smoke.py`` asserts on the card."""
-    calls = {"grouped_mean": 0, "quantize_stacked": 0, "dequantize_stacked": 0}
-    for name in calls:
-        def counted(*a, _f=getattr(ops, name), _n=name, **k):
-            calls[_n] += 1
-            return _f(*a, **k)
-        monkeypatch.setattr(ops, name, counted)
-    (jr, js), (tr, ts) = _run_both(INT8_EF)
-    _check_lm_run(jr, js, tr, ts)
-    n_leaves = len(list(leaves(ts.params)))
-    assert n_leaves == 12
-    assert calls == {"grouped_mean": n_leaves * (1 + 2), "quantize_stacked": n_leaves * 2,
-                     "dequantize_stacked": n_leaves * 2}
-    assert tr.history[-1].wire_mb == pytest.approx(jr.history[-1].wire_mb, rel=1e-12)
 
 
 @pytest.mark.parametrize("overrides", [[], ["model.arch=lm-100m", "run.num_rounds=8"], INT8_EF])

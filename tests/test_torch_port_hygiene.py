@@ -157,11 +157,15 @@ class _Mesh:
 
 
 def _model_axis_refused(sharding):
-    with pytest.raises(NotImplementedError, match=r'"model" axis .*ROADMAP\.md Queue 1 item 16 '):
-        sharding.set_hint_mesh(_Mesh(data=2, model=2))
+    # tensor parallelism runs the dense families (item 16); the rest are
+    # refused on a "model" axis larger than 1, naming item 16b
+    from repro_torch.configs.registry import get_smoke
+
+    with pytest.raises(NotImplementedError, match=r'"model" axis .*ROADMAP\.md Queue 1 item 16b '):
+        sharding.refuse_model_axis(_Mesh(data=2, model=2), get_smoke("recurrentgemma-9b"))
+    sharding.refuse_model_axis(_Mesh(data=2, model=2), get_smoke("deepseek-7b"))
+    sharding.refuse_model_axis(_Mesh(data=2, model=1), get_smoke("recurrentgemma-9b"))  # a "model" axis of 1 is none
     assert sharding.hint_mesh() is None
-    sharding.set_hint_mesh(_Mesh(data=2, model=1))  # a "model" axis of 1 is no tensor parallelism
-    sharding.set_hint_mesh(None)
 
 
 def _ep_mode_follows_jax(sharding):

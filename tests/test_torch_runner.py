@@ -1,6 +1,9 @@
 """The slice as a whole on the CPU: scenarios run end to end through both
 packages' ``ExperimentSpec.run_experiment`` from the same init (the JAX
 init carried across with ``params_from_numpy``) and their histories agree.
+The robust scenarios are in ``test_torch_runner_robust.py`` and the
+caller's one live state in ``test_torch_runner_live_state.py`` (files of
+their own, so the suite's workers share them out).
 
 Tolerances: per-round loss ``rtol=1e-4`` (f32 drift over 32 local steps;
 the losses fall to ~1e-3, where the logsumexp's cancellation amplifies an
@@ -8,6 +11,8 @@ ulp of the logits), accuracy within 0.01, final parameters ``atol=1e-4``.
 """
 import dataclasses
 import json
+import os
+import sys
 
 import jax
 import numpy as np
@@ -23,28 +28,19 @@ from repro_torch.fed import scenarios as tscen
 from repro_torch.testing.parity import assert_close, to_numpy
 from repro_torch.tree import leaves as tleaves
 
-
-def _run_both(name, overrides):
-    jspec = jscen.get(name, overrides=overrides)
-    tspec = tscen.get(name, overrides=overrides)
-    np_params = jax.device_get(jspec.init_params(jax.random.PRNGKey(jspec.run.seed + 1)))
-    jr, js = jspec.run_experiment()
-    tr, ts = tspec.run_experiment(device="cpu", params=tspec.params_from_numpy(np_params, "cpu"))
-    return (jr, js), (tr, ts)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_scenario_runs import check_histories, run_both  # noqa: E402
 
 
-def _check_histories(jr, tr):
-    assert len(tr.history) == len(jr.history)
-    for a, b in zip(jr.history, tr.history):
-        assert (b.round, b.step, b.mask_alive) == (a.round, a.step, a.mask_alive)
-        assert b.loss == pytest.approx(a.loss, rel=1e-4), f"round {a.round} loss"
-        assert b.grad_norm == pytest.approx(a.grad_norm, rel=1e-4), f"round {a.round} grad_norm"
-        assert (a.accuracy is None) == (b.accuracy is None)
-        if a.accuracy is not None:
-            assert abs(b.accuracy - a.accuracy) <= 0.01, f"round {a.round} accuracy"
-        assert b.sim_time_s == pytest.approx(a.sim_time_s, rel=1e-12)
-        assert b.sim_energy_j == pytest.approx(a.sim_energy_j, rel=1e-12)
-        assert b.wire_mb == pytest.approx(a.wire_mb, rel=1e-12)
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread a test: the runs' tensors are small, and beside
+    the suite's other workers a product spread over every core only
+    contends."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize(
@@ -56,16 +52,16 @@ def _check_histories(jr, tr):
     ],
 )
 def test_scenario_tracks_jax(name, overrides):
-    (jr, js), (tr, ts) = _run_both(name, overrides)
-    _check_histories(jr, tr)
+    (jr, js), (tr, ts) = run_both(name, overrides)
+    check_histories(jr, tr)
     assert_close(to_numpy(ts.params), jax.device_get(js.params), rtol=0.0, atol=1e-4, what=f"{name} final params")
     assert int(ts.step) == int(js.step)
 
 
 def test_target_accuracy_stops_at_the_same_round():
-    (jr, _), (tr, _) = _run_both("quickstart", ["run.num_rounds=8", "run.target_accuracy=0.7"])
+    (jr, _), (tr, _) = run_both("quickstart", ["run.num_rounds=8", "run.target_accuracy=0.7"])
     assert len(tr.history) == len(jr.history) == 4
-    _check_histories(jr, tr)
+    check_histories(jr, tr)
 
 
 @pytest.mark.parametrize("name,overrides", [
@@ -169,84 +165,3 @@ def test_run_consumes_the_state_but_not_the_init_params():
         assert np.array_equal(params[k].numpy(), before[k].numpy())
     assert int(out.step) == 8 and int(state.step) == 0
     assert not np.array_equal(stacked.numpy(), np.zeros_like(stacked.numpy()))  # trained in place
-
-
-@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
-def test_the_caller_keeps_one_live_state_across_intervals(optimizer, monkeypatch):
-    """``state = runner.run(state)`` keeps the caller's state alive for the
-    whole run. Each interval's stacked leaves go back into its tensors, so
-    every interval starts with the tensors the first one did and the same
-    bytes live, give or take a batch (no second state beside the
-    caller's), and the run ends in
-    the caller's tensors with the values a run that holds no state gets.
-
-    It runs on 2 intra-op threads: with torch's default (one a core) the
-    lm-10m steps slow down tenfold when other test workers load every core
-    (434 s against 55 s beside five busy processes on 8 cores)."""
-    import gc
-
-    from repro_torch.fed import engine
-
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        _one_live_state(optimizer, monkeypatch, engine, gc)
-    finally:
-        torch.set_num_threads(threads)
-
-
-def _one_live_state(optimizer, monkeypatch, engine, gc):
-    def live_bytes():
-        gc.collect()
-        storages = {}
-        for o in gc.get_objects():
-            if isinstance(o, torch.Tensor) and not o.is_meta:
-                storages[o.untyped_storage().data_ptr()] = o.untyped_storage().nbytes()
-        return sum(storages.values())
-
-    overrides = ["run.num_rounds=6", "run.eval_every=0", f"model.optimizer={optimizer}"]
-    spec = tscen.get("lm_edge_niid", overrides=overrides)
-    params = spec.init_params(1, "cpu")
-    runner = spec.build(device="cpu")
-    state = runner.init(torch.Generator().manual_seed(0), params)
-    seen = []
-    dispatch = engine.SuperRoundEngine._dispatch_interval
-
-    def spied(self, s, *a, **k):
-        seen.append(([id(x) for x in tleaves(s.params)], live_bytes()))
-        return dispatch(self, s, *a, **k)
-
-    monkeypatch.setattr(engine.SuperRoundEngine, "_dispatch_interval", spied)
-    out = runner.run(state)
-    monkeypatch.setattr(engine.SuperRoundEngine, "_dispatch_interval", dispatch)
-    assert len(seen) == 3
-    assert all(ids == seen[0][0] for ids, _ in seen)
-    # a second state would add every stacked leaf's bytes; the prefetched
-    # batch block and the metrics come and go
-    state_bytes = sum(x.numel() * x.element_size() for x in tleaves((state.params, state.opt_state)) if x.dim())
-    assert max(b for _, b in seen) - seen[0][1] < state_bytes / 4
-    assert all(a is b for a, b in zip(tleaves(out.params), tleaves(state.params)))
-    fresh = spec.build(device="cpu")
-    want = fresh.run(fresh.init(torch.Generator().manual_seed(0), params))
-    for a, b in zip(tleaves(out.params), tleaves(want.params)):
-        assert torch.equal(a, b)
-    assert [h.loss for h in runner.history] == [h.loss for h in fresh.history]
-
-
-@pytest.mark.parametrize("engine", ["per_round", "auto"])
-@pytest.mark.parametrize("name,overrides", [
-    ("trimmed_edge", ["run.num_rounds=8"]),
-    ("median_cloud", ["run.num_rounds=10", "run.eval_every=10", "data.num_samples=1000"]),
-    ("trimmed_int8", ["run.num_rounds=10", "run.eval_every=10", "data.num_samples=1000"]),
-])
-def test_robust_scenarios_track_jax(name, overrides, engine):
-    """The robust scenarios on both engines: the trimmed edge sync under
-    client failures (its survivors round by round equal to JAX's), the
-    coordinate-median cloud sync and eval model, and the trimmed edge sync
-    over an int8 cloud hop."""
-    (jr, js), (tr, ts) = _run_both(name, overrides + [f"run.engine={engine}"])
-    assert (tr._engine is None) == (engine == "per_round")
-    _check_histories(jr, tr)
-    assert_close(to_numpy(ts.params), jax.device_get(js.params), rtol=0.0, atol=1e-4, what=f"{name} final params")
-    if name == "trimmed_edge":
-        assert min(h.mask_alive for h in tr.history) < tr.topology.num_clients

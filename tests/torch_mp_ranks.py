@@ -1,5 +1,7 @@
-"""What the ranks of the model-parallel and launch-cell tests run
-(``tests/test_torch_model_parallel.py``, ``tests/test_torch_launch_cells.py``).
+"""What the ranks of the model-parallel, launch-cell and tensor-parallel
+tests run (``tests/test_torch_model_parallel.py``,
+``tests/test_torch_launch_cells.py``,
+``tests/test_torch_tensor_parallel.py``).
 
 ``dist.launch.spawn`` hands the ranks the tests' ``sys.path``, so they
 import this module from beside the tests; it imports only ``repro_torch``.
@@ -72,7 +74,7 @@ def serve_cells(rank: int, world: int, arch: str, np_params, prompts: np.ndarray
     b, s = prompts.shape
     pre = steps.build_prefill_cell(cfg, ShapeSpec("prefill", max_len, b, "prefill"), mesh)
     dec = steps.build_decode_cell(cfg, ShapeSpec("decode", max_len, b, "decode"), mesh)
-    params = params_from_numpy(np_params, "cpu", mesh=mesh if pre.meta["ep_mode"] == "ep_data" else None)
+    params = params_from_numpy(np_params, "cpu", mesh=mesh, cfg=cfg)
     held = sum(x.numel() for x in leaves(params))
     _, inputs = steps.shard_args(pre, (None, torch.as_tensor(prompts)), mesh)
     sharding.reset_counts()
@@ -86,4 +88,110 @@ def serve_cells(rank: int, world: int, arch: str, np_params, prompts: np.ndarray
         logits, caches = dec.fn(params, caches, tok, pos)
         out["decode"].append(logits.numpy())
     out["decode_counts"] = dict(sharding.COUNTS)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over a "model" axis (tests/test_torch_tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+
+def tp_config(fields: Dict[str, Any]):
+    """The dense smoke config of the tensor-parallel tests: granite-3-2b's
+    smoke with ``fields`` replaced."""
+    import dataclasses
+
+    return dataclasses.replace(get_smoke("granite-3-2b"), **fields)
+
+
+def _placed(x: torch.Tensor, spec, struct, mesh):
+    """(this rank's block, the flat indices of its values in the global
+    array): the spec applied to the global array's index grid."""
+    grid = np.arange(int(np.prod(struct.shape))).reshape(tuple(struct.shape))
+    return x.numpy(), np.asarray(spec.shard(grid, mesh))
+
+
+def _tp_train(mesh, cfg, shape, np_params, batches, lr):
+    cell = steps.build_train_cell(cfg, ShapeSpec(*shape), mesh, lr=lr)
+    state = steps.init_train_state(cfg, mesh, params_from_numpy(np_params, "cpu"), torch.Generator().manual_seed(0),
+                                   lr=lr)
+    state, _ = steps.shard_args(cell, (state, None), mesh)
+    metrics, counts = [], []
+    for b in batches:
+        _, batch = steps.shard_args(cell, (None, {k: torch.as_tensor(v) for k, v in b.items()}), mesh)
+        sharding.reset_counts()
+        state, m = cell.fn(state, batch)
+        counts.append(dict(sharding.COUNTS))
+        metrics.append({k: np.asarray(v) for k, v in m.items()})
+    blocks = [_placed(x, spec, struct, mesh) for x, spec, struct in
+              zip(leaves(state.params), leaves(cell.arg_specs[0].params), leaves(cell.arg_structs[0].params))]
+    return {"metrics": metrics, "counts": counts, "blocks": blocks, "meta": dict(cell.meta)}
+
+
+def _rows(w, m: int, i: int) -> np.ndarray:
+    """Block ``i`` of ``m`` of a row-parallel leaf's dim -2."""
+    k = w.shape[-2] // m
+    return np.ascontiguousarray(w[..., i * k:(i + 1) * k, :])
+
+
+def _tp_serve(mesh, cfg, np_params, prompts, tokens, max_len, swap_wo=False):
+    b, s = prompts.shape
+    pre = steps.build_prefill_cell(cfg, ShapeSpec("prefill", max_len, b, "prefill"), mesh)
+    dec = steps.build_decode_cell(cfg, ShapeSpec("decode", max_len, b, "decode"), mesh)
+    params = params_from_numpy(np_params, "cpu", mesh=mesh, cfg=cfg)
+    if swap_wo:  # the control: the next model rank's rows of ``wo``
+        m, r = int(mesh.shape["model"]), mesh.axis_index("model")
+        params["blocks"]["b0"]["attn"]["wo"] = torch.as_tensor(_rows(np_params["blocks"]["b0"]["attn"]["wo"], m,
+                                                                     (r + 1) % m))
+    held = sum(x.numel() for x in leaves(params))
+    _, inputs = steps.shard_args(pre, (None, torch.as_tensor(prompts)), mesh)
+    sharding.reset_counts()
+    logits, caches = pre.fn(params, inputs)
+    out = {"prefill": logits.numpy(), "prefill_counts": dict(sharding.COUNTS), "decode": [], "held": held,
+           "cache_heads": int(caches["blocks"]["b0"]["k"].shape[-2]), "meta": dict(pre.meta)}
+    for j in range(tokens.shape[1]):
+        _, _, tok, pos = steps.shard_args(dec, (None, None, torch.as_tensor(tokens[:, j]),
+                                                torch.full((b,), s + j, dtype=torch.int32)), mesh)
+        sharding.reset_counts()
+        logits, caches = dec.fn(params, caches, tok, pos)
+        out["decode"].append(logits.numpy())
+    out["decode_counts"] = dict(sharding.COUNTS)
+    return out
+
+
+def _tp_cross_entropy(mesh, logits, targets, mask):
+    """The vocab-parallel loss on this rank's logit columns, and its
+    gradient there (plain autograd)."""
+    m, r = int(mesh.shape["model"]), mesh.axis_index("model")
+    v = logits.shape[-1] // m
+    local = torch.tensor(logits[..., r * v:(r + 1) * v], requires_grad=True)
+    from repro_torch.models import transformer
+
+    sharding.reset_counts()
+    with sharding.using_hint_mesh(mesh):
+        loss = transformer.cross_entropy(local, torch.as_tensor(targets), torch.as_tensor(mask))
+        loss.backward()
+    return {"loss": float(loss), "grad": local.grad.numpy(), "counts": dict(sharding.COUNTS)}
+
+
+def tp_world(rank: int, world: int, jobs: List[Dict[str, Any]]) -> List[Any]:
+    """Every job of a tensor-parallel test file on this rank of one gloo
+    world, in order: "train" (the train cell over the job's batches),
+    "serve" (the prefill cell, then a decode step per column of
+    ``tokens``), "cross_entropy" (the vocab-parallel loss). Each job names
+    its ("data", "model") mesh shape and the config's fields."""
+    torch.set_num_threads(1)
+    out = []
+    for job in jobs:
+        mesh = tmesh.make_host_mesh(job["mesh"], ("data", "model"), device="cpu")
+        kind = job["kind"]
+        if kind == "cross_entropy":
+            out.append(_tp_cross_entropy(mesh, job["logits"], job["targets"], job["mask"]))
+            continue
+        cfg = tp_config(job["cfg"])
+        if kind == "train":
+            out.append(_tp_train(mesh, cfg, job["shape"], job["params"], job["batches"], job["lr"]))
+        else:
+            out.append(_tp_serve(mesh, cfg, job["params"], job["prompts"], job["tokens"], job["max_len"],
+                                 job.get("swap_wo", False)))
     return out
