@@ -528,6 +528,10 @@ XLSTM_MLSTM_PROMPT = 2048
 # down product): within MOE_REF_RTOL of the largest |y|, a bf16 ulp's order
 MOE_REF_RTOL = 2.0 ** -7
 MOE_REF_TOKENS = 64
+# tp_deepseekv3_l1_m2's MoE alone at a capacity its experts overflow:
+# 4096 tokens at capacity factor 1.0, 136 slots an expert for a mean load of
+# 128 assignments (the prefill's factor 1.25 drops none)
+MOE_OVERFLOW = (4096, 1.0)
 
 
 def emit(obj) -> None:
@@ -678,6 +682,10 @@ def kernel_cases():
         # stage
         ("grouped_mean", "lm-100m w1 TP slice, one of 2 model ranks (16x9437184, G=4)", 16, 9437184, 4),
         ("grouped_mean", "lm-100m lm_head TP slice, one of 2 model ranks (16x12582912, G=4)", 16, 12582912, 4),
+        # tp_xlstm350m_m2's train cell (4 clients on 2 edges, f32), one of 2
+        # model ranks: the LM head's half (4 x 1024 x 25152, the largest
+        # slice) at the edge stage
+        ("grouped_mean", "xlstm-350m lm_head TP slice, one of 2 model ranks (4x25755648, G=2)", 4, 25755648, 2),
         # lm_edge_niid's leaves at lm-100m: the final norm, and the stacked
         # MLP weight of 12 layers (8 x 12 x 768 x 2048, the largest leaf)
         ("grouped_mean", "lm-100m final_norm edge (8x768, G=2)", 8, 768, 2),
@@ -717,6 +725,7 @@ def phase_kernels(torch, ha):
 
     flush = flush_buffer(torch)
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
     rows, summary = [], {}
     for name, label, n, d, groups in kernel_cases():
         offsets = None
@@ -739,7 +748,8 @@ def phase_kernels(torch, ha):
         masked[firsts] = base[firsts]
         dead = masked * (ids != 0)
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to("cuda", dtype)
+            # drawn on the card: host normals for the largest cases took tens of seconds of the phase
+            x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
             for variant, wn in (("weights", base), ("masked", masked), ("dead group 0", dead)):
                 w = torch.from_numpy(wn).cuda()
                 got, want = kernel(x, w), plain(x, w)
@@ -1389,8 +1399,8 @@ def device_profile(torch, mods, name, overrides, params):
 
 
 def attention_cases():
-    """(label, B, S, H, Hkv, hd, window, dtype name); K7 is causal on every
-    path of the port."""
+    """(label, B, S, H, Hkv, hd, window, dtype name[, v head dim where it is
+    not hd]); K7 is causal on every path of the port."""
     cases = [(f"jax case s{s} window {w}", 3, s, 1, 1, 64, w, dt)
              for s, w in ((128, 0), (200, 0), (256, 33), (120, 64)) for dt in ("float32", "bfloat16")]
     return cases + [
@@ -1398,6 +1408,14 @@ def attention_cases():
         ("lm-100m prefill", 4, 1024, 12, 4, 64, 0, "float32"),
         ("lm-100m prefill, one of 2 model ranks", 4, 1024, 6, 2, 64, 0, "float32"),
         ("recurrentgemma-9b prefill", 2, 4096, 16, 1, 256, 2048, "bfloat16"),
+        # tp_recurrentgemma9b_m2's and tp_deepseekv3_l1_m2's ranks: 8 of the
+        # 16 query heads over the one KV head; 64 of MLA's 128 heads with v
+        # head dim 128 (K7 takes v zero-padded to the q/k head dim 192, as
+        # mla_attention pads it; the plain version, SDPA and the bound take
+        # the 128-wide v)
+        ("recurrentgemma-9b prefill, one of 2 model ranks", 2, 4096, 8, 1, 256, 2048, "bfloat16"),
+        ("deepseek-v3 MLA prefill, one of 2 model ranks (v 128, padded to 192 for K7)", 1, 4096, 64, 64, 192,
+         0, "bfloat16", 128),
         ("yi-9b prefill", 1, 4096, 32, 4, 128, 0, "bfloat16"),
     ]
 
@@ -1410,13 +1428,15 @@ def visible_pairs(s: int, window: int) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def k7_bound(b, s, h, hkv, hd, window, isz):
-    """(bound ms, "bytes" or "operations") of one K7 call: q, k, v read once
-    and out written once at the HBM rate, against 4 hd operations per visible
+def k7_bound(b, s, h, hkv, hd, window, isz, dv=None):
+    """(bound ms, "bytes" or "operations") of one causal attention with q/k
+    head dim hd and v head dim dv (default hd): q, k, v read once and out
+    written once at the HBM rate, against 2 (hd + dv) operations per visible
     pair per query head at the tensor cores' bf16 rate (bf16) or the f32 rate
     without TF32 (f32)."""
-    nbytes = (2 * b * s * h * hd + 2 * b * s * hkv * hd) * isz
-    flops = 4 * hd * visible_pairs(s, window) * b * h
+    dv = hd if dv is None else dv
+    nbytes = b * s * (h + hkv) * (hd + dv) * isz
+    flops = 2 * (hd + dv) * visible_pairs(s, window) * b * h
     rate = BF16_FLOPS_PER_S if isz == 2 else F32_FLOPS_PER_S
     byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
@@ -1460,17 +1480,16 @@ def phase_attention_kernel(torch, fa):
     with a window one key too wide must fail), bit-equal across two
     launches, on the template its dtype names (one profiled call per
     dtype: ``fa_forward`` picks the template by dtype alone)."""
-    import numpy as np
-
     flush = flush_buffer(torch)
-    rng = np.random.default_rng(4)
+    gen = torch.Generator(device="cuda").manual_seed(4)
     rows, summary, paths = [], {}, {}
-    for label, b, s, h, hkv, hd, window, dname in attention_cases():
-        dtype = getattr(torch, dname)
-        q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(np.float32)).to("cuda", dtype)
-                   for n in (h, hkv, hkv))
-        got = fa.attention(q, k, v, causal=True, window=window)
-        again = fa.attention(q, k, v, causal=True, window=window)
+    for label, b, s, h, hkv, hd, window, dname, *dv in attention_cases():
+        dtype, dv = getattr(torch, dname), (dv[0] if dv else hd)
+        q, k, v = (torch.randn((b, s, n, w), generator=gen, device="cuda").to(dtype)
+                   for n, w in ((h, hd), (hkv, hd), (hkv, dv)))
+        vk = v if dv == hd else torch.nn.functional.pad(v, (0, hd - dv))
+        kernel = lambda: fa.attention(q, k, vk, causal=True, window=window)  # noqa: E731
+        got, again = kernel()[..., :dv], kernel()[..., :dv]
         want = fa.attention_plain(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         what = f"flash_attention {label} {dname}"
@@ -1494,21 +1513,21 @@ def phase_attention_kernel(torch, fa):
         check(bool(torch.isfinite(got).all()) and bool((diff <= tol).all()),
               f"{what}: max err {float((diff / tol).max())} of the tolerance")
         if dname not in paths:
-            paths[dname] = k7_path(torch, lambda: fa.attention(q, k, v, causal=True, window=window))
+            paths[dname] = k7_path(torch, kernel)
         path = paths[dname]
         want_path = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
         check(path == want_path, f"{what}: ran the {path} template, want {want_path}")
         library = sdpa_call(torch, q, k, v, window)
         lib_err = float((library().transpose(1, 2).float() - want.float()).abs().max())
-        bound, bound_by = k7_bound(b, s, h, hkv, hd, window, q.element_size())
+        bound, bound_by = k7_bound(b, s, h, hkv, hd, window, q.element_size(), dv)
         big = s >= 4096
         row = {"kernel": "flash_attention", "case": label, "b": b, "s": s, "h": h, "hkv": hkv, "hd": hd,
+               "dv": dv,
                "window": window, "dtype": dname, "path": path, "max_abs_err": float(diff.max()),
                "rms_err_rel": rms, "max_err_over_tol": float((diff / tol).max()), "control_window_plus_1": control,
                "bit_equal_relaunch": True,
                "visible_pairs_per_head": visible_pairs(s, window),
-               "ms": time_ms(lambda: fa.attention(q, k, v, causal=True, window=window), flush=flush,
-                             reps=10 if big else 25),
+               "ms": time_ms(kernel, flush=flush, reps=10 if big else 25),
                "plain_ms": time_ms(lambda: fa.attention_plain(q, k, v, causal=True, window=window), flush=flush,
                                    reps=5, warmup=1),
                "bound_ms": bound, "bound_by": bound_by,
@@ -1516,10 +1535,10 @@ def phase_attention_kernel(torch, fa):
                "library_max_abs_err": lib_err}
         row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
-        if label.startswith("recurrentgemma"):
+        if label == "recurrentgemma-9b prefill":
             summary["flash_attention"] = {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                                "library_ms")}
-        del q, k, v, got, again, want, diff
+        del q, k, v, vk, kernel, got, again, want, diff
     emit({"phase": "attention_kernel", "kernels": ["flash_attention"], "tolerance": {
         "atol": K7_ATOL, "bf16": "atol + 2^-7/(1-2^-8) attention_plain(q, k, |v|) + one bf16 ulp of the larger "
         "result, per element", "bf16_rms_rel": K7_BF16_RMS}, "cases": rows})
@@ -1549,6 +1568,7 @@ def phase_rglru_kernel(torch, rg):
     cases += [("chunk boundary", 2, s, d, dname) for s in (t - 1, t, t + 1, 3 * t + 7) for d in (5, 200)
               for dname in ("float32", "bfloat16")]
     cases += [("kernel_bench", 2, 8192, 256, "float32"), ("recurrentgemma-9b prefill", 2, 4096, 4096, "float32"),
+              ("recurrentgemma-9b prefill, one of 2 model ranks", 2, 4096, 2048, "float32"),
               ("recurrentgemma-9b prefill, bf16 a and b", 2, 4096, 4096, "bfloat16"),
               ("long prefill, bf16 a and b", 2, 32768, 4096, "bfloat16")]
     rows, summary = [], {}
@@ -2931,17 +2951,6 @@ def moe_dense_reference(torch, moe, x, cfg, n):
     return torch.stack(rows).to(x.dtype), int((~kept).sum())
 
 
-def mla_k7_bound(b, s, h, dqk, dv):
-    """(bound ms, "bytes" or "operations") of causal attention with q/k head
-    dim dqk and v head dim dv in bf16: q, k, v read once and the output
-    written once, against 2 (dqk + dv) operations per visible pair per head
-    at the tensor cores' bf16 rate."""
-    nbytes = b * s * h * (2 * dqk + 2 * dv) * 2
-    flops = 2 * (dqk + dv) * visible_pairs(s, 0) * b * h
-    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
-
-
 def phase_serve_deepseekv3_l1(torch, mods, fa):
     """deepseek-v3-671b at full layer widths, one layer deep, through the
     serving entry point: K7 once per prefill (MLA, v zero-padded to the
@@ -3033,7 +3042,7 @@ def phase_serve_deepseekv3_l1(torch, mods, fa):
     del moe_in, moe_out, ref
 
     # the expert product (E, C, d) @ (E, d, f) at this prefill's shape by
-    # both of ``_expert_matmul_f32``'s bf16 routes: bmm's f32 output, and
+    # both of ``_matmul_f32``'s bf16 routes: bmm's f32 output, and
     # blocks of experts upcast
     flush = flush_buffer(torch)
     with torch.inference_mode():
@@ -3063,7 +3072,7 @@ def phase_serve_deepseekv3_l1(torch, mods, fa):
         check(bool(torch.isfinite(got).all()) and err_over_tol <= 1, f"K7 at the MLA shape: {err_over_tol} of tol")
         del tol
         library = sdpa_call(torch, q, k, v, 0)
-        bound, bound_by = mla_k7_bound(B, P, cfg.num_heads, q.shape[-1], v.shape[-1])
+        bound, bound_by = k7_bound(B, P, cfg.num_heads, cfg.num_heads, q.shape[-1], 0, 2, v.shape[-1])
         k7 = {"shape": {"b": B, "s": P, "h": cfg.num_heads, "dqk": q.shape[-1], "dv": v.shape[-1],
                         "padded_dv": vp.shape[-1]},
               "max_abs_err": float((got.float() - want.float()).abs().max()), "max_err_over_tol": err_over_tol,
@@ -3321,16 +3330,34 @@ def phase_sharded_w1_nccl(torch, mods, mlp_params):
     return launches
 
 
-def phase_sharded_worlds(torch):
-    """The gloo worlds on the one card: mlp307k over 4 ranks (one edge
-    each); mlp307k_int8_ef, ragged_edges, lm-100m and n1m_cohort4096 over 2.
-    Launches and all-reduces per rank (every rank its own K1/K2/K4/K5 on its
-    rows): mlp307k K1 32 = 4 intervals x (edge sync + the cloud's edge
-    stage) x 4 leaves; int8_ef also K4 = K5 = 8 syncs x 4 leaves; ragged
-    K2 80 = 2 intervals x 10 sub-top stages x 4 leaves and no K1 (the root
-    is the all-reduce); lm-100m K1 96 = 4 intervals x 2 stages x 12 leaves;
-    n1m K2 32 = 4 intervals x 2 stages x 4 leaves (4 or 5 slots an edge:
-    ragged). One all-reduce per cloud interval everywhere."""
+# the client-sharded scenarios of the 2-rank world (``phase_world2``)
+W2_SHARDED = [
+    {"phase": "mlp307k_int8_ef_w2", "name": "int8_ef_both", "overrides": MLP307K},
+    {"phase": "sharded_ragged_w2", "name": "ragged_edges", "overrides": RAGGED},
+    {"phase": "sharded_lm100m_w2", "name": "lm_edge_niid", "overrides": LM100M + LM_TRAIN},
+    {"phase": "sharded_n1m_cohort_w2", "name": "n1m_cohort4096", "overrides": (), "profile": True}]
+# per sharded phase: (launches a rank, cloud intervals, the single-device
+# run in REFS it is held to, the loss rtol). Launches and all-reduces per
+# rank (every rank its own K1/K2/K4/K5 on its rows): mlp307k K1 32 = 4
+# intervals x (edge sync + the cloud's edge stage) x 4 leaves; int8_ef also
+# K4 = K5 = 8 syncs x 4 leaves; ragged K2 80 = 2 intervals x 10 sub-top
+# stages x 4 leaves and no K1 (the root is the all-reduce); lm-100m K1 96 =
+# 4 intervals x 2 stages x 12 leaves; n1m K2 32 = 4 intervals x 2 stages x 4
+# leaves (4 or 5 slots an edge: ragged). One all-reduce per cloud interval
+# everywhere.
+SHARDED_WANTS = {
+    "sharded_mlp307k_w4": ({"grouped_mean": 32}, 4, "mlp307k", SHARDED_LOSS_RTOL),
+    "mlp307k_int8_ef_w2": ({"grouped_mean": 32, "quantize": 32, "dequantize": 32}, 4, "mlp307k_int8_ef",
+                           SHARDED_LOSS_RTOL),
+    "sharded_ragged_w2": ({"segment_mean": 80}, 2, "ragged", SHARDED_LOSS_RTOL),
+    "sharded_lm100m_w2": ({"grouped_mean": 96}, 4, "lm100m", LM_RTOL),
+    "sharded_n1m_cohort_w2": ({"segment_mean": 32}, 4, "n1m_cohort4096", SHARDED_LOSS_RTOL),
+}
+
+
+def phase_sharded_w4(torch):
+    """mlp307k over a gloo world of 4 ranks on the one card, one edge each
+    (the 2-rank scenarios run in ``phase_world2``'s world)."""
     from repro_torch.dist import launch
 
     torch.cuda.empty_cache()
@@ -3338,45 +3365,31 @@ def phase_sharded_worlds(torch):
     w4 = launch.spawn(sharded_rank, 4, "gloo", ([
         {"phase": "sharded_mlp307k_w4", "name": "hierfavg_edge_iid", "overrides": MLP307K,
          "profile": True}],))
-    w4_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    w2 = launch.spawn(sharded_rank, 2, "gloo", ([
-        {"phase": "mlp307k_int8_ef_w2", "name": "int8_ef_both", "overrides": MLP307K},
-        {"phase": "sharded_ragged_w2", "name": "ragged_edges", "overrides": RAGGED},
-        {"phase": "sharded_lm100m_w2", "name": "lm_edge_niid", "overrides": LM100M + LM_TRAIN},
-        {"phase": "sharded_n1m_cohort_w2", "name": "n1m_cohort4096", "overrides": (), "profile": True}],))
-    w2_s = time.perf_counter() - t1
-    wants = {
-        "sharded_mlp307k_w4": ({"grouped_mean": 32}, 4, "mlp307k", SHARDED_LOSS_RTOL),
-        "mlp307k_int8_ef_w2": ({"grouped_mean": 32, "quantize": 32, "dequantize": 32}, 4, "mlp307k_int8_ef",
-                               SHARDED_LOSS_RTOL),
-        "sharded_ragged_w2": ({"segment_mean": 80}, 2, "ragged", SHARDED_LOSS_RTOL),
-        "sharded_lm100m_w2": ({"grouped_mean": 96}, 4, "lm100m", LM_RTOL),
-        "sharded_n1m_cohort_w2": ({"segment_mean": 32}, 4, "n1m_cohort4096", SHARDED_LOSS_RTOL),
-    }
-    jobs = [("sharded_mlp307k_w4", 0, w4, w4_s)] + [
-        (name, i, w2, w2_s) for i, name in enumerate(["mlp307k_int8_ef_w2", "sharded_ragged_w2", "sharded_lm100m_w2",
-                                                      "sharded_n1m_cohort_w2"])]
-    for phase, i, world, world_s in jobs:
-        ranks = [r[i] for r in world]
-        want, intervals, ref, rtol = wants[phase]
-        for r in ranks:
-            check(r["sharded"], f"{phase} rank {r['rank']}: no sharded engine ({r['mesh_reason']})")
-            check_launches(r["launches"], want, f"{phase} rank {r['rank']}")
-            check(r["collectives"]["all_reduce"] == intervals, f"{phase} rank {r['rank']}: {r['collectives']}")
-            evals = sum(a is not None for a in r["accuracy"])
-            check(r["collectives"]["eval_all_reduce"] == evals, f"{phase} rank {r['rank']}: {evals} evals, "
-                                                                 f"{r['collectives']}")
-            check(r["params_finite"], f"{phase} rank {r['rank']}: params not finite")
-            check(r["loss"] == ranks[0]["loss"], f"{phase}: the ranks' records differ")
-        agreement = sharded_agreement(ranks[0], REFS[ref], phase, loss_rtol=rtol,
-                                      loss_atol=0.0 if rtol == LM_RTOL else SHARDED_LOSS_ATOL)
-        emit({"phase": phase, "world": len(ranks), "backend": ranks[0]["backend"], "device": ranks[0]["device"],
-              "world_seconds_with_spawn": world_s, "placement": ranks[0]["placement"],
-              "vs_single_device_card": agreement, "losses": ranks[0]["loss"],
-              "ranks": [{k: r[k] for k in ("rank", "seconds", "launches", "collectives", "peak_memory_bytes",
-                                           "state_rows", "capacity")} | ({"profile": r["profile"]} if "profile" in r
-                                                                         else {}) for r in ranks]})
+    sharded_checks("sharded_mlp307k_w4", [r[0] for r in w4], time.perf_counter() - t0)
+
+
+def sharded_checks(phase, ranks, world_s):
+    """One sharded scenario's ranks (``SHARDED_WANTS``): the sharded engine,
+    its launches and all-reduces on every rank, the ranks' records equal,
+    and the run held to the single-device card run."""
+    want, intervals, ref, rtol = SHARDED_WANTS[phase]
+    for r in ranks:
+        check(r["sharded"], f"{phase} rank {r['rank']}: no sharded engine ({r['mesh_reason']})")
+        check_launches(r["launches"], want, f"{phase} rank {r['rank']}")
+        check(r["collectives"]["all_reduce"] == intervals, f"{phase} rank {r['rank']}: {r['collectives']}")
+        evals = sum(a is not None for a in r["accuracy"])
+        check(r["collectives"]["eval_all_reduce"] == evals, f"{phase} rank {r['rank']}: {evals} evals, "
+                                                             f"{r['collectives']}")
+        check(r["params_finite"], f"{phase} rank {r['rank']}: params not finite")
+        check(r["loss"] == ranks[0]["loss"], f"{phase}: the ranks' records differ")
+    agreement = sharded_agreement(ranks[0], REFS[ref], phase, loss_rtol=rtol,
+                                  loss_atol=0.0 if rtol == LM_RTOL else SHARDED_LOSS_ATOL)
+    emit({"phase": phase, "world": len(ranks), "backend": ranks[0]["backend"], "device": ranks[0]["device"],
+          "world_seconds_with_spawn": world_s, "placement": ranks[0]["placement"],
+          "vs_single_device_card": agreement, "losses": ranks[0]["loss"],
+          "ranks": [{k: r[k] for k in ("rank", "seconds", "launches", "collectives", "peak_memory_bytes",
+                                       "state_rows", "capacity")} | ({"profile": r["profile"]} if "profile" in r
+                                                                     else {}) for r in ranks]})
 
 
 # ---------------------------------------------------------------------------
@@ -3391,6 +3404,37 @@ TRAIN_CELL_CUTS = ["lm-100m's kappa (8, 4) cut to (2, 2): one cloud interval of 
 # tp_lm100m_m2's serving cells: serve_lm100m's shape, f32
 TP_BATCH, TP_PROMPT, TP_GEN = 4, 1024, 8
 EP_PROMPT, EP_GEN = 4096, 16  # serve_deepseekv3_l1_ep2: 2 requests, one a rank
+# tensor parallelism over ("data", "model") of (1, 2) for the RG-LRU, MLA,
+# MoE and xLSTM families in the 2-rank world: each serving job's (arch, its
+# config's cut, batch, prompt, decode steps, launches a prefill). The
+# decode steps take the single-device run's greedy tokens
+TP_FAMILY_SERVE = {
+    "tp_recurrentgemma9b_m2": ("recurrentgemma-9b", {}, 2, 4096, 8, {"flash_attention": 12, "rglru_scan": 26}),
+    "tp_deepseekv3_l1_m2": ("deepseek-v3-671b", {"num_layers": 1}, 1, 4096, 8, {"flash_attention": 1}),
+    "tp_xlstm350m_m2": ("xlstm-350m", {"param_dtype": "float32", "compute_dtype": "float32"}, 2,
+                        XLSTM_CHECK_PROMPT, 8, {}),
+}
+# xlstm-350m is served in f32 (its config stores bf16): in bf16 the two
+# ranks' products, summed in f32 and rounded once, round apart from one
+# device's, and the sLSTM grows that past K_BF16 within the first decode
+# step (on an H100: 0.54 of a largest 4.81 at position 8, 1.63 of 5.5 by
+# the eighth step; the prefill within it; PERF.md §6). Its 2 x 256
+# prefill's gap to one device is reported, not held
+TP_XLSTM_GAP_PROMPT = 256
+# in f32 the ranks' logits part from one device's by about 1.15x a token
+# too (on an H100: 5.1e-4 of a largest 4.64 at decode step 5, position 13,
+# past K_F32). The prefill and the first decode step are held
+TP_XLSTM_HELD_STEPS = 1
+# tp_xlstm350m_m2's train cell: xlstm-350m's published widths, one
+# superblock, f32, 4 clients on 2 edges, kappa (2, 2), 8-token sequences
+# (b 2, microbatch 1, accum 2)
+TP_XLSTM_CUT = ("train_cut", XLSTM_CHECK_PROMPT, 8, "train")
+TP_XLSTM_CUTS = [
+    "one superblock (3 mLSTM + 1 sLSTM), not 6: the two ranks' and the reference's states share the card",
+    "f32 held at the mesh tolerances; bf16 (the config's own dtype) held within one device's bf16 gap from "
+    "f32: a bf16 product rounds a reordered f32 sum apart from one device's, past the f32 loss tolerance",
+    "4 clients on 2 edges, kappa (2, 2): one cloud interval of 4 calls",
+    f"{XLSTM_CHECK_PROMPT}-token sequences: the sLSTM amplifies a rounding about 1.15x a token at full width"]
 
 
 def accum_params_gap(state, ref_params) -> float:
@@ -3521,10 +3565,11 @@ def tp_collectives_report(calls):
     return out
 
 
-def train_cell_run(torch, mods, mesh):
-    """``build_train_cell`` at lm-100m over one cloud interval (kappa cut to
-    ``TRAIN_CELL_KAPPAS``), on this rank's clients or tensor-parallel
-    slices (``mesh``) or on one device (None): per step the clients' losses
+def train_cell_run(torch, mods, mesh, cfg=None, cut=TRAIN_CUT):
+    """``build_train_cell`` at lm-100m (or ``cfg``, at the shape ``cut``)
+    over one cloud interval (kappa cut to ``TRAIN_CELL_KAPPAS``), on this
+    rank's clients or tensor-parallel slices (``mesh``) or on one device
+    (None): per step the clients' losses
     and squared grad norms (or the global loss and grad norm) on the host,
     the final params (row-compressed, ``params_numpy``) with each leaf's
     model-split dim, the K1 launches and collectives a call, the warm wall
@@ -3535,11 +3580,11 @@ def train_cell_run(torch, mods, mesh):
     from repro_torch.launch import steps
     from repro_torch.tree import leaves
 
-    cfg = train_cell_config()
+    cfg = train_cell_config() if cfg is None else cfg
     tp = mesh is not None and sharding.model_size(mesh) > 1
     torch.cuda.empty_cache()
     base = reset_peak(torch)
-    cell = steps.build_train_cell(cfg, ShapeSpec(*TRAIN_CUT), mesh, lr=1e-3, device="cuda")
+    cell = steps.build_train_cell(cfg, ShapeSpec(*cut), mesh, lr=1e-3, device="cuda")
     calls = cell.meta["kappa1"] * cell.meta["kappa2"]
     batches = cell_batches(cfg, cell, calls)
     params = steps.transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
@@ -3583,8 +3628,7 @@ def train_cell_run(torch, mods, mesh):
         out["timed_call_wall_ms"] = walls[-1] * 1e3
     if mesh is None or mesh.rank == 0 or tp:
         out["params"] = params_numpy(state)
-        out["model_dims"] = [next((i for i, x in enumerate(spec) if x == "model"), None)
-                             for spec in leaves(cell.arg_specs[0].params)]
+        out["model_dims"] = [model_dim(spec) for spec in leaves(cell.arg_specs[0].params)]
     del state
     torch.cuda.empty_cache()
     return out
@@ -3800,65 +3844,123 @@ class _Groups2:
     shape = {"data": 2}
 
 
-def cell_rank(rank, world, jobs):
-    """``dist.launch.spawn`` entry of the launch-cell phases: the jobs, in
-    order, on this rank of a gloo world whose ranks share the card: the
-    train cell on a mesh of the job's shape and axes, lm-100m served over
-    ("data", "model") of (1, 2), or deepseek-v3's layer expert-parallel
-    over ("data",)."""
+def world_rank(rank, world, jobs):
+    """``dist.launch.spawn`` entry of the one 2-rank gloo world whose ranks
+    share the card: the jobs, in order, each freeing its tensors before the
+    next. "sharded" a client-sharded scenario (``sharded_job``); "train_cell"
+    the train cell on a mesh of the job's shape and axes (lm-100m, or
+    xlstm-350m's cut in the job's "tp_family" dtype); "tp_serve" lm-100m served over ("data", "model") of
+    (1, 2); "serve_ep" deepseek-v3's layer expert-parallel over ("data",);
+    "tp_family" a tensor-parallel serving job of ``TP_FAMILY_SERVE`` over
+    (1, 2)."""
+    import gc
+
     import torch
 
     from repro_torch import resolve_device
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hier_aggregate as ha
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.launch import mesh as lmesh
 
     resolve_device("cuda")  # TF32 off
+    tp_mesh = lambda: lmesh.make_host_mesh((1, world), ("data", "model"), device="cuda")  # noqa: E731
     out = []
     for job in jobs:
         t0 = time.perf_counter()
-        if job["kind"] == "train_cell":
+        kind = job["kind"]
+        if kind == "sharded":
+            out.append(sharded_job(torch, (ha, qz), world, job))
+        elif kind == "train_cell":
             mesh = lmesh.make_host_mesh(job["shape"], job["axes"], device="cuda")
-            out.append(train_cell_run(torch, (ha,), mesh))
-        elif job["kind"] == "tp_serve":
-            mesh = lmesh.make_host_mesh((1, world), ("data", "model"), device="cuda")
-            out.append(tp_serve_run(torch, (fa,), mesh))
+            cfg = tp_xlstm_train_config(job["tp_family"]) if "tp_family" in job else None
+            out.append(train_cell_run(torch, (ha,), mesh, cfg, TP_XLSTM_CUT if cfg is not None else TRAIN_CUT))
+        elif kind == "tp_serve":
+            out.append(tp_serve_run(torch, (fa,), tp_mesh()))
+        elif kind == "serve_ep":
+            out.append(serve_ep_run(torch, (fa,), lmesh.make_host_mesh((world,), ("data",), device="cuda"),
+                                    job["tokens"]))
         else:
-            mesh = lmesh.make_host_mesh((world,), ("data",), device="cuda")
-            out.append(serve_ep_run(torch, (fa,), mesh, job["tokens"]))
+            out.append(tp_family_serve_run(torch, (fa, rg), tp_mesh(), job["name"], job["tokens"]))
         out[-1]["job_seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
-def phase_train_cell_lm100m_w2(torch, mods, fa):
-    """``build_train_cell`` at lm-100m under ``fed_rules`` over a ("data",)
-    mesh of 2 gloo ranks sharing the card: ``topology_for`` gives 16
-    clients on 4 edges, 8 (two whole edges) a rank; the cut shape
-    ``TRAIN_CUT`` gives b 8, microbatch 4, accum 2; one cloud interval of
-    kappa ``TRAIN_CELL_KAPPAS``, 4 calls. Held to the single-device cell
-    over the same batches (run here first) at JAX's mesh tolerances; K1 one
-    per leaf per level mean on each rank (the edge sync and the cloud's
-    edge stage x 12 leaves: 24; the single-device cell's 36), one
-    all-reduce, at the cloud sync. The same world then runs
-    ``tp_lm100m_m2``'s jobs (``phase_tp_lm100m_m2``): a spawn and an init
-    saved."""
-    import numpy as np
-
+def phase_world2(torch, mods, fa):
+    """Every 2-rank job in one gloo world whose ranks share the card (one
+    spawn and one init, where four worlds once took four): the client-sharded
+    scenarios over 2 ranks (``W2_SHARDED``), ``train_cell_lm100m_w2``,
+    ``tp_lm100m_m2``, ``serve_deepseekv3_l1_ep2``, and the tensor-parallel
+    families over ("data", "model") of (1, 2): ``tp_recurrentgemma9b_m2``,
+    ``tp_deepseekv3_l1_m2``, ``tp_xlstm350m_m2``. Each job's single-device
+    reference runs here first, on the card, and is freed before the world
+    starts; each phase then checks and reports its jobs. Returns the
+    references' launches (the main path's)."""
     from repro_torch.dist import launch
 
     t0 = time.perf_counter()
     single = train_cell_run(torch, (mods[0],), None)
-    single_s = time.perf_counter() - t0
     serve_single = tp_serve_run(torch, (fa,), None)
+    ep_ref = serve_ep_run(torch, (fa,), None, None)
+    fam = {name: tp_family_serve_run(torch, mods, None, name, None) for name in TP_FAMILY_SERVE}
+    xlstm_single = {dt: train_cell_run(torch, (mods[0],), None, tp_xlstm_train_config(dt), TP_XLSTM_CUT)
+                    for dt in ("float32", "bfloat16")}
     torch.cuda.empty_cache()
+    refs_s = time.perf_counter() - t0
+    sharded = [dict(job, kind="sharded") for job in W2_SHARDED]
+    train_w2 = {"kind": "train_cell", "shape": (2,), "axes": ("data",)}
+    train_m2 = {"kind": "train_cell", "shape": (1, 2), "axes": ("data", "model")}
+    serve_m2 = {"kind": "tp_serve"}
+    ep2 = {"kind": "serve_ep", "tokens": ep_ref["tokens"]}
+    xlstm_train = {dt: {"kind": "train_cell", "shape": (1, 2), "axes": ("data", "model"), "tp_family": dt}
+                   for dt in xlstm_single}
+    fam_jobs = {name: {"kind": "tp_family", "name": name, "tokens": fam[name]["tokens"]}
+                for name in TP_FAMILY_SERVE}
+    jobs = sharded + [train_w2, train_m2, serve_m2, ep2, *xlstm_train.values(), *fam_jobs.values()]
     t1 = time.perf_counter()
-    jobs = [{"kind": "train_cell", "shape": (2,), "axes": ("data",)},
-            {"kind": "train_cell", "shape": (1, 2), "axes": ("data", "model")}, {"kind": "tp_serve"}]
-    ranks = launch.spawn(cell_rank, 2, "gloo", (jobs,))
+    ranks = launch.spawn(world_rank, 2, "gloo", (jobs,))
     world_s = time.perf_counter() - t1
+    emit({"phase": "world2", "jobs": [j.get("phase", j.get("name", j["kind"])) for j in jobs],
+          "references_seconds": refs_s, "world_seconds_with_spawn": world_s,
+          "rank_job_seconds": [[r["job_seconds"] for r in rank] for rank in ranks]})
+    at = {id(j): i for i, j in enumerate(jobs)}
+    part = lambda job: [rank[at[id(job)]] for rank in ranks]  # noqa: E731
+    for job in sharded:
+        sharded_checks(job["phase"], part(job), world_s)
+    train_cell_checks(single, part(train_w2), world_s, refs_s)
+    phase_tp_lm100m_m2(single, serve_single, part(train_m2), part(serve_m2))
+    ep2_checks(ep_ref, part(ep2), world_s)
+    launches = dict(single["launches"])
+    launches["flash_attention"] = launches.get("flash_attention", 0) + sum(
+        r["runs"][0]["k7"] for r in part(ep2))
+    phase_tp_recurrentgemma9b_m2(fam["tp_recurrentgemma9b_m2"], part(fam_jobs["tp_recurrentgemma9b_m2"]))
+    phase_tp_deepseekv3_l1_m2(fam["tp_deepseekv3_l1_m2"], part(fam_jobs["tp_deepseekv3_l1_m2"]))
+    phase_tp_xlstm350m_m2(xlstm_single, {dt: part(job) for dt, job in xlstm_train.items()},
+                          fam["tp_xlstm350m_m2"], part(fam_jobs["tp_xlstm350m_m2"]))
+    for ref in list(fam.values()) + list(xlstm_single.values()):
+        for k, v in ref["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def train_cell_checks(single, data, world_s, refs_s):
+    """``train_cell_lm100m_w2``: ``build_train_cell`` at lm-100m under
+    ``fed_rules`` over a ("data",) mesh of 2 gloo ranks sharing the card
+    (``data``, each rank's result): ``topology_for`` gives 16 clients on 4 edges, 8 (two whole
+    edges) a rank; the cut shape ``TRAIN_CUT`` gives b 8, microbatch 4,
+    accum 2; one cloud interval of kappa ``TRAIN_CELL_KAPPAS``, 4 calls.
+    Held to the single-device cell over the same batches (``single``) at
+    JAX's mesh tolerances; K1 one per leaf per level mean on each rank (the
+    edge sync and the cloud's edge stage x 12 leaves: 24; the
+    single-device cell's 36), one all-reduce, at the cloud sync."""
+    import numpy as np
+
+    t0 = time.perf_counter()
     check(single["meta"]["grad_accum"] == 2 and single["meta"]["num_clients"] == 16, f"train cell {single['meta']}")
     check(single["launches"]["grouped_mean"] == 36, f"train_cell single device launches {single['launches']}")
-    data = [r[0] for r in ranks]
     for r in data:
         check(r["meta"]["sharded"] and r["state_rows"] == 8, f"train_cell_lm100m_w2: rank rows {r['state_rows']}")
         check(r["launches"]["grouped_mean"] == 24, f"train_cell_lm100m_w2 K1 {r['launches']}")
@@ -3876,9 +3978,9 @@ def phase_train_cell_lm100m_w2(torch, mods, fa):
     worst = params_within_mesh_tolerance(data[0]["params"], single["params"], "train_cell_lm100m_w2")
     emit({"phase": "train_cell_lm100m_w2", "arch": "lm-100m", "shape": list(TRAIN_CUT), "mesh": {"data": 2},
           "kappas": list(TRAIN_CELL_KAPPAS), "cuts": TRAIN_CELL_CUTS, "meta": single["meta"],
-          "calls": len(single["per_step"]), "single_device_seconds": single_s,
-          "tp_serve_single_device_seconds": t1 - t0 - single_s, "world_seconds_with_spawn_and_tp_jobs": world_s,
-          "rank_job_seconds": [[j["job_seconds"] for j in r] for r in ranks],
+          "calls": len(single["per_step"]), "references_seconds": refs_s,
+          "world_seconds_with_spawn_and_every_job": world_s,
+          "rank_job_seconds": [r["job_seconds"] for r in data],
           "single_device": {k: single[k] for k in ("launches", "wall_ms_first_call", "warm_wall_ms_per_call",
                                                    "peak_memory_bytes")},
           "ranks": [{k: r[k] for k in ("launches", "collectives", "wall_ms_first_call", "warm_wall_ms_per_call",
@@ -3888,8 +3990,6 @@ def phase_train_cell_lm100m_w2(torch, mods, fa):
                                     "tolerance": {"params": [SHARDED_RTOL, SHARDED_ATOL],
                                                   "loss": [SHARDED_LOSS_RTOL, SHARDED_LOSS_ATOL]}},
           "phase_seconds": time.perf_counter() - t0})
-    phase_tp_lm100m_m2(single, serve_single, [r[1] for r in ranks], [r[2] for r in ranks])
-    return single["launches"]
 
 
 def params_within_mesh_tolerance(got, want, what) -> float:
@@ -3908,19 +4008,38 @@ def params_within_mesh_tolerance(got, want, what) -> float:
     return worst
 
 
-def model_assembled(ranks):
+def model_dim(spec):
+    """How a train cell leaf splits over "model" (``model_assembled``): the
+    split dim, ("blocks", dim, blocks) for a ``BlockSplit`` dim (the sLSTM
+    bias: the rank's part of each block), or None (whole)."""
+    from repro_torch.dist import sharding
+
+    for i, member in enumerate(spec):
+        if isinstance(member, sharding.BlockSplit):
+            return ("blocks", i, member.blocks)
+        if member == "model":
+            return i
+    return None
+
+
+def model_assembled(ranks, what="tp_lm100m_m2"):
     """The model ranks' ``params_numpy`` leaves put back together: a leaf
-    split over "model" concatenated along its split dim in rank order, a
-    whole one rank 0's (every rank's held within the mesh tolerance of
-    it)."""
+    split over "model" concatenated along its split dim in rank order (a
+    ``BlockSplit`` leaf block by block), a whole one rank 0's (every rank's
+    held within the mesh tolerance of it)."""
     import numpy as np
 
     out = []
     for i, dim in enumerate(ranks[0]["model_dims"]):
         parts = [r["params"][i] for r in ranks]
         if dim is None:
-            params_within_mesh_tolerance(parts[1:], parts[:1] * (len(parts) - 1), f"tp_lm100m_m2 whole leaf {i}")
+            params_within_mesh_tolerance(parts[1:], parts[:1] * (len(parts) - 1), f"{what} whole leaf {i}")
             out.append(parts[0])
+        elif isinstance(dim, tuple):
+            _, d, n = dim
+            split = [p.reshape(p.shape[:d] + (n, -1) + p.shape[d + 1:]) for p in parts]
+            whole = np.concatenate(split, axis=d + 1)
+            out.append(whole.reshape(whole.shape[:d] + (-1,) + whole.shape[d + 2:]))
         else:
             out.append(np.concatenate(parts, axis=dim))
     return out
@@ -4008,6 +4127,402 @@ def phase_tp_lm100m_m2(single, serve_single, train, serve):
           "phase_seconds": time.perf_counter() - t0})
 
 
+def tp_family_config(name):
+    """(config, batch, prompt, decode steps, launches a prefill) of a
+    ``TP_FAMILY_SERVE`` job."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    arch, cut, b, p, g, launches = TP_FAMILY_SERVE[name]
+    return dataclasses.replace(get_config(arch), **cut), b, p, g, launches
+
+
+def tp_xlstm_train_config(dtype="float32"):
+    """xlstm-350m cut to ``TP_XLSTM_CUTS``: one superblock in ``dtype`` on 4
+    clients over 2 edges, kappa (2, 2)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("xlstm-350m")
+    return dataclasses.replace(cfg, num_layers=4, param_dtype=dtype, compute_dtype=dtype,
+                               fed=dataclasses.replace(cfg.fed, edges_per_pod=2, clients_per_edge=2, kappa1=2,
+                                                       kappa2=2))
+
+
+@contextlib.contextmanager
+def moe_drops(record):
+    """Every MoE dispatch's assignments while the block runs, appended to
+    ``record`` on the host: (expert ids (T K,), dropped (T K,) bool)."""
+    from repro_torch.models import layers
+
+    dispatch = layers._moe_dispatch
+
+    def spy(xg, ids, num_experts, capacity):
+        out = dispatch(xg, ids, num_experts, capacity)
+        record.append((out[1].cpu().numpy(), (out[2] >= capacity).cpu().numpy()))
+        return out
+
+    layers._moe_dispatch = spy
+    try:
+        yield
+    finally:
+        layers._moe_dispatch = dispatch
+
+
+def tp_family_serve_run(torch, mods, mesh, name, tokens):
+    """One ``TP_FAMILY_SERVE`` job on this rank's tensor-parallel slices
+    (``mesh``: ("data", "model") of (1, 2)) through ``build_prefill_cell``
+    / ``build_decode_cell``, or on one device (None) through
+    ``transformer.prefill`` / ``decode_step``. The ranks draw the init one
+    at a time (``init_params(mesh=)``: each block cut to the rank's slices
+    as it is drawn). The prefill's last logits and the launches a prefill,
+    then the decode steps fed ``tokens`` (B, steps) (None: greedy), each
+    step's logits; the MoE's dispatches (``moe_drops``); over the mesh every
+    sum and gather timed (``timed_tp_collectives``, the device drained
+    around each); the walls, tokens/s, param bytes and peak. xlstm-350m
+    also prefills 2 x ``TP_XLSTM_GAP_PROMPT`` tokens (its gap to one device
+    is reported, not held)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist import sharding
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves
+
+    cfg, B, P, G, _ = tp_family_config(name)
+    torch.cuda.empty_cache()
+    base = reset_peak(torch)
+    cells = None
+    if mesh is not None:
+        cells = (steps.build_prefill_cell(cfg, ShapeSpec("prefill", P + G, B, "prefill"), mesh),
+                 steps.build_decode_cell(cfg, ShapeSpec("decode", P + G, B, "decode"), mesh))
+    for turn in range(1 if mesh is None else mesh.size):  # one rank at a time draws the whole init
+        if mesh is None or mesh.rank == turn:
+            with torch.no_grad():
+                params = transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, mesh=mesh)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        if mesh is not None:
+            dist.barrier()
+    held = sum(x.numel() * x.element_size() for x in leaves(params))
+    init_peak = torch.cuda.max_memory_allocated() - base
+
+    def prefill(x, max_len):
+        with torch.inference_mode():
+            if cells is None:
+                return transformer.prefill(params, cfg, x, max_len)
+            return cells[0].fn(params, x)
+
+    def decode(caches, tok, pos):
+        with torch.inference_mode():
+            if cells is None:
+                return transformer.decode_step(params, cfg, caches, tok, pos)
+            return cells[1].fn(params, caches, tok, pos)
+
+    x = torch.from_numpy(serve.make_prompts(cfg, B, P, seed=1)).cuda()
+    restore, timed = timed_tp_collectives(torch) if mesh is not None else (None, [])
+    drops = []
+    try:
+        for m in mods:
+            m.reset_launch_counts()
+        sharding.reset_counts()
+        if mesh is not None:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with moe_drops(drops):
+            logits, caches = prefill(x, P + G)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+        pre_counts, pre_timed = dict(sharding.COUNTS), len(timed)
+        out = {"prefill": logits.float().cpu().numpy(), "decode": [], "tokens": []}
+        sharding.reset_counts()
+        t0 = time.perf_counter()
+        with moe_drops(drops):
+            for j in range(G):
+                tok = logits.argmax(-1).to(torch.int32) if tokens is None else torch.from_numpy(tokens[:, j]).cuda()
+                out["tokens"].append(tok.cpu().numpy())
+                logits, caches = decode(caches, tok, torch.full((B,), P + j, dtype=torch.int32, device="cuda"))
+                out["decode"].append(logits.float().cpu().numpy())
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        dec_counts = {k: v / G for k, v in sharding.COUNTS.items()}
+    finally:
+        if restore is not None:
+            restore()
+    del caches
+    out.update(tokens=np.stack(out["tokens"], axis=1), launches=launches, param_bytes=held,
+               init_peak_memory_bytes=init_peak, prefill_s=pre_s, prefill_tokens_per_s=B * P / pre_s,
+               decode_s=dec_s, decode_tokens_per_s=B * G / dec_s, prefill_collectives=pre_counts,
+               decode_collectives_per_step=dec_counts, drops=drops,
+               prefill_timed_collectives=tp_collectives_report(timed[:pre_timed]),
+               decode_timed_collectives=tp_collectives_report(timed[pre_timed:]))
+    if name == "tp_xlstm350m_m2":
+        xg = torch.from_numpy(serve.make_prompts(cfg, 2, TP_XLSTM_GAP_PROMPT, seed=2)).cuda()
+        out["gap_prefill"] = prefill(xg, TP_XLSTM_GAP_PROMPT)[0].float().cpu().numpy()
+    if name == "tp_deepseekv3_l1_m2":
+        out["overflow"] = moe_overflow_run(torch, cfg, params, mesh)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_overflow_run(torch, cfg, params, mesh):
+    """deepseek-v3's MoE layer alone (``layers.moe_apply``) on
+    ``MOE_OVERFLOW``'s random bf16 tokens at its capacity factor, where the
+    busiest experts overflow, on this rank's slices of each expert under
+    ``mesh``'s hint (None: one device, every column): y on the host in f32
+    and the dispatch's (expert ids, dropped)."""
+    import dataclasses
+
+    from repro_torch.dist import sharding
+    from repro_torch.models import layers
+    from repro_torch.tree import tree_map
+
+    tokens, factor = MOE_OVERFLOW
+    low = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
+    moe = tree_map(lambda v: v[0], params["blocks"]["b0"]["moe"])
+    x = torch.randn((tokens, cfg.d_model), generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda").to(torch.bfloat16)
+    drops = []
+    with torch.inference_mode(), moe_drops(drops), sharding.using_hint_mesh(mesh):
+        y, _ = layers.moe_apply(moe, x, low)
+    return {"y": y.float().cpu().numpy(), "drops": drops, "capacity": layers.moe_capacity(tokens, low)}
+
+
+def tp_family_agreement(what, ref, ranks, rtol, held_steps=None):
+    """Each rank's prefill and decode logits against one device's (``ref``,
+    the same tokens fed): the prefill and the first ``held_steps`` decode
+    steps (None: every one) within ``rtol`` of the largest |logit| of
+    their call, checked; every call's gap reported. Returns the report."""
+    import numpy as np
+
+    worst, scale, calls = 0.0, 0.0, {}
+    for r in ranks:
+        check(np.array_equal(r["tokens"], ref["tokens"]), f"{what}: the fed tokens differ")
+        for j, (call, got, want) in enumerate([("prefill", r["prefill"], ref["prefill"])] + [
+                (f"decode_{j}", g, w) for j, (g, w) in enumerate(zip(r["decode"], ref["decode"]))]):
+            err, big = float(np.abs(got - want).max()), float(np.abs(want).max())
+            calls[call] = max(calls.get(call, 0.0), err / big)
+            if held_steps is None or j <= held_steps:
+                check(np.isfinite(got).all() and err <= rtol * big, f"{what} {call}: logits {err} of {big}")
+                worst, scale = max(worst, err), max(scale, big)
+    top1 = float(np.mean([np.mean(r["prefill"].argmax(-1) == ref["prefill"].argmax(-1)) for r in ranks]))
+    return {"logits_max_abs_err": worst, "max_abs_logit": scale, "tolerance": f"{rtol} x max |logit|",
+            "held_calls": "all" if held_steps is None else f"prefill and decode_0..{held_steps - 1}",
+            "err_over_max_logit_by_call": calls, "prefill_top1_agreement": top1}
+
+
+def tp_family_report(ref, ranks):
+    keep = ("prefill_s", "prefill_tokens_per_s", "decode_s", "decode_tokens_per_s", "param_bytes",
+            "peak_memory_bytes", "init_peak_memory_bytes")
+    return {"single_device": {k: ref[k] for k in keep},
+            "ranks": [{**{k: r[k] for k in keep}, "launches_a_prefill": r["launches"],
+                       "prefill_collectives": r["prefill_collectives"],
+                       "decode_collectives_per_step": r["decode_collectives_per_step"],
+                       "prefill_timed_collectives": r["prefill_timed_collectives"],
+                       "decode_timed_collectives": r["decode_timed_collectives"], "job_seconds": r["job_seconds"]}
+                      for r in ranks],
+            "timing": "every sum and gather of a rank's run timed with the device drained around it"}
+
+
+def tp_family_checks(name, ref, ranks, sums, gathers=2):
+    """The launches a prefill on each rank and on one device (each rank's
+    kernels on its slices), and each call's collectives: ``sums`` a
+    forward, ``gathers`` gathers."""
+    want = tp_family_config(name)[4]
+    check_launches(ref["launches"], want, f"{name} single device")
+    for r in ranks:
+        check_launches(r["launches"], want, f"{name} rank")
+        for c in (r["prefill_collectives"], r["decode_collectives_per_step"]):
+            check(c["tp_all_reduce"] == sums and c["tp_all_gather"] == gathers and c["all_to_all"] == 0,
+                  f"{name} collectives {c}: want {sums} sums and {gathers} gathers a call")
+
+
+def phase_tp_recurrentgemma9b_m2(ref, ranks):
+    """recurrentgemma-9b (arXiv:2402.19427; 9.57B, bf16) served at full width
+    over ("data", "model") of (1, 2): 2 x 4096 prompts, 8 decode steps fed
+    one device's greedy tokens. A rank holds half of every RG-LRU's 4096
+    channels (its scan on 2048: K8 26 a prefill at (2, 4096, 2048)), 8 of
+    the 16 query heads of each local-attention layer over the one KV head
+    (K7 12 a prefill), half of each MLP; the rest whole. 76 sums a call
+    (26 RG-LRU, 12 attention and 38 MLP outputs: the partials in f32,
+    rounded to bf16 once) and 2 gathers. The logits within K_BF16 of the
+    largest of one device's, run first in the main process."""
+    t0 = time.perf_counter()
+    tp_family_checks("tp_recurrentgemma9b_m2", ref, ranks, sums=76)
+    agreement = tp_family_agreement("tp_recurrentgemma9b_m2", ref, ranks, K_BF16)
+    cfg = tp_family_config("tp_recurrentgemma9b_m2")[0]
+    emit({"phase": "tp_recurrentgemma9b_m2", "arch": cfg.name, "dtype": "bfloat16", "mesh": {"data": 1, "model": 2},
+          "backend": "gloo", "batch": 2, "prompt_len": 4096, "gen": 8, "vs_single_device": agreement,
+          **tp_family_report(ref, ranks), "phase_seconds": time.perf_counter() - t0})
+
+
+def phase_tp_deepseekv3_l1_m2(ref, ranks):
+    """deepseek-v3-671b (arXiv:2412.19437) cut to 1 of its 61 layers at full
+    widths over ("data", "model") of (1, 2): 1 x 4096, 8 decode steps. A
+    rank holds 64 of MLA's 128 heads (``wq_b``, ``wkv_b``, ``wo``'s rows; K7
+    once a prefill on the 64 heads, v padded to 192), the whole latent
+    projections and cache, and 1024 of each of the 256 experts' 2048 columns
+    and of the shared expert's; the router whole, so each rank routes the
+    whole x as one device does. 3 sums a call (MLA's output, the MoE's f32
+    combine, the shared expert) and 2 gathers. Logits within MOE_REF_RTOL
+    (2^-7) of the largest of one device's; every dispatch's dropped
+    assignments equal to one device's (none drop at the prefill's capacity,
+    and MLA's rounding reaches the router's input, so a few expert ids are
+    reported apart). Then the MoE alone on the same tokens at
+    ``MOE_OVERFLOW``'s capacity, where experts overflow: expert ids and
+    dropped assignments equal to one device's, some dropped, y within
+    MOE_REF_RTOL of the largest."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    tp_family_checks("tp_deepseekv3_l1_m2", ref, ranks, sums=3)
+    agreement = tp_family_agreement("tp_deepseekv3_l1_m2", ref, ranks, MOE_REF_RTOL)
+    drops = {"dispatches": len(ref["drops"]), "dropped": int(sum(d.sum() for _, d in ref["drops"]))}
+    for r in ranks:
+        check(len(r["drops"]) == len(ref["drops"]), f"tp_deepseekv3_l1_m2: {len(r['drops'])} dispatches")
+        routed = sum(int((e != we).sum()) for (e, _), (we, _) in zip(r["drops"], ref["drops"]))
+        differ = sum(int((d != wd).sum()) for (_, d), (_, wd) in zip(r["drops"], ref["drops"]))
+        drops.setdefault("assignments_routed_apart", []).append(routed)
+        drops.setdefault("dropped_apart", []).append(differ)
+        check(differ == 0, f"tp_deepseekv3_l1_m2: {differ} assignments dropped apart from one device "
+                           f"({routed} routed apart)")
+    # the serving run drops nothing, so equal drops are held where experts
+    # overflow: the MoE alone on the same tokens, routed and dropped as on
+    # one device
+    want = ref["overflow"]
+    (want_ids, want_drop), = want["drops"]
+    scale = float(np.abs(want["y"]).max())
+    overflow = {"tokens": MOE_OVERFLOW[0], "capacity_factor": MOE_OVERFLOW[1], "capacity": want["capacity"],
+                "assignments": int(want_drop.size), "dropped": int(want_drop.sum()), "max_abs_y": scale,
+                "y_max_abs_err": [], "tolerance": f"{MOE_REF_RTOL} x max |y|"}
+    check(overflow["dropped"] > 0, f"tp_deepseekv3_l1_m2 overflow: no assignment dropped at {overflow}")
+    for r in ranks:
+        (ids, drop), = r["overflow"]["drops"]
+        err = float(np.abs(r["overflow"]["y"] - want["y"]).max())
+        overflow["y_max_abs_err"].append(err)
+        check(np.array_equal(ids, want_ids) and np.array_equal(drop, want_drop),
+              f"tp_deepseekv3_l1_m2 overflow: {int((ids != want_ids).sum())} routed and "
+              f"{int((drop != want_drop).sum())} dropped apart from one device")
+        check(np.isfinite(r["overflow"]["y"]).all() and err <= MOE_REF_RTOL * scale,
+              f"tp_deepseekv3_l1_m2 overflow: y {err} of {scale}")
+    drops["overflow"] = overflow
+    emit({"phase": "tp_deepseekv3_l1_m2", "arch": "deepseek-v3-671b", "layers": 1, "dtype": "bfloat16",
+          "mesh": {"data": 1, "model": 2}, "backend": "gloo", "batch": 1, "prompt_len": 4096, "gen": 8,
+          "vs_single_device": agreement, "moe_drops": drops, **tp_family_report(ref, ranks),
+          "phase_seconds": time.perf_counter() - t0})
+
+
+def tp_xlstm_train_checks(single, train, f32_single=None):
+    """One dtype of ``tp_xlstm350m_m2``'s train cell on the two ranks
+    (``train``) against one device's (``single``): K1 123 a rank, the
+    collectives of every call, every call's loss and grad norm. f32 (no
+    ``f32_single``): at ``SHARDED_LOSS_RTOL``, the params after the cloud
+    sync reassembled at JAX's mesh tolerances. bf16: within bf16's own gap,
+    the largest relative distance over the calls of one device's bf16 cell
+    from its f32 cell (``f32_single``), loss and grad norm each; the
+    params' gap reported. Returns the report."""
+    import numpy as np
+
+    f32 = f32_single is None
+    what = f"tp_xlstm350m_m2 {'float32' if f32 else 'bfloat16'}"
+    check(single["launches"]["grouped_mean"] == 123, f"{what} single device K1 {single['launches']}")
+    accum = single["meta"]["grad_accum"]
+    for r in train:
+        check(r["meta"]["model"] == 2 and not r["meta"]["sharded"] and r["state_rows"] == 4,
+              f"{what} train meta {r['meta']}, rows {r['state_rows']}")
+        check(r["launches"]["grouped_mean"] == 123, f"{what} K1 {r['launches']}")
+        for c in r["collectives_per_call"]:
+            want = {"tp_all_reduce": accum * (4 + 7 + 2), "tp_all_reduce_max": accum, "tp_all_gather": accum,
+                    "tp_grad_norm": 1, "all_reduce": 0, "all_to_all": 0}
+            check(all(c[k] == v for k, v in want.items()), f"{what} collectives a call {c}, want {want}")
+    names = ("loss", "grad_norm")
+    if f32:
+        tol = {name: [SHARDED_LOSS_RTOL, SHARDED_LOSS_ATOL] for name in names}
+    else:
+        pairs = list(zip(single["per_step"], f32_single["per_step"]))
+        tol = {name: [max(abs(b[q] - f[q]) / abs(f[q]) for b, f in pairs), 0.0]
+               for q, name in enumerate(names)}
+    calls = {"single_device": single["per_step"], "ranks": [r["per_step"] for r in train]}
+    if not f32:
+        calls["single_device_float32"] = f32_single["per_step"]
+    errs = dict.fromkeys(names, 0.0)
+    for j, want in enumerate(single["per_step"]):
+        for r in train:
+            for q, name in enumerate(names):
+                (rtol, atol), g, w = tol[name], r["per_step"][j][q], want[q]
+                check(abs(g - w) <= atol + rtol * abs(w),
+                      f"{what} call {j} {name} {g} vs {w} (tolerance {tol[name]}; every call (loss, "
+                      f"grad norm): {calls})")
+                errs[name] = max(errs[name], abs(g - w))
+    got = model_assembled(train, what)
+    vs = {"loss_max_abs_err": errs["loss"], "grad_norm_max_abs_err": errs["grad_norm"], "calls": calls}
+    if f32:
+        vs["params_max_abs_err"] = params_within_mesh_tolerance(got, single["params"], what)
+        vs["tolerance"] = {"params": [SHARDED_RTOL, SHARDED_ATOL], **tol}
+    else:
+        check(len(got) == len(single["params"]), f"{what}: {len(got)} leaves")
+        gaps = [float(np.abs(a.astype(np.float64) - b).max()) for a, b in zip(got, single["params"])]
+        vs.update(params_max_abs_err=max(gaps), params_max_err_over_leaf_max=max(
+                      g / max(float(np.abs(b).max()), 1e-30) for g, b in zip(gaps, single["params"])),
+                  params_held=False,
+                  tolerance={"relative": "one device's bf16 cell from its f32 cell, the most over the calls",
+                             **tol})
+    keep = ("launches", "wall_ms_first_call", "warm_wall_ms_per_call", "peak_memory_bytes")
+    return {"single_device": {k: single[k] for k in keep},
+            "ranks": [{k: r[k] for k in ("launches", "wall_ms_first_call", "warm_wall_ms_per_call",
+                                         "timed_call_wall_ms", "timed_call_collectives", "peak_memory_bytes",
+                                         "job_seconds")}
+                      | {"collectives_a_call": r["collectives_per_call"][1]} for r in train],
+            "vs_single_device_cell": vs}
+
+
+def phase_tp_xlstm350m_m2(single, train, ref, ranks):
+    """xlstm-350m (arXiv:2405.04517) at its published widths (d 1024, 2 of
+    its 4 heads a rank) over ("data", "model") of (1, 2).
+
+    The train cell cut to ``TP_XLSTM_CUTS`` (one superblock, 4 clients on 2
+    edges, kappa (2, 2), 8-token sequences, accum 2), in f32 and in bf16
+    (``single`` and ``train`` by dtype), against the single-device cell
+    over the same batches and init (``tp_xlstm_train_checks``); K1 on every
+    sync of each rank's slices (41 leaves x (the edge sync + the cloud's 2
+    stages): 123 a rank, as on one device); a call's collectives (per loss
+    and gradient 4 sums forward, 7 backward (the mLSTM's two copies, the
+    sLSTM's one), the loss's 2; a max, a gather; one grad-norm sum), the
+    last call's timed. In bf16 under ``torch.func`` the row-parallel
+    products upcast their operands to f32 (``layers._matmul_f32``): the
+    warm walls of both dtypes show that cost.
+
+    Serving: all 24 layers in f32 (``TP_FAMILY_SERVE``), 2 x 8 prompts: the
+    prefill and the first decode step (the 8-token prompt's state) within
+    K_F32 of one device's logits, the other 7 steps' gaps and the 2 x 256
+    prefill's reported, not held (the sLSTM's chaos at full width); 24 sums
+    and 2 gathers a call."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    trains = {"float32": tp_xlstm_train_checks(single["float32"], train["float32"]),
+              "bfloat16": tp_xlstm_train_checks(single["bfloat16"], train["bfloat16"], single["float32"])}
+    tp_family_checks("tp_xlstm350m_m2", ref, ranks, sums=24)
+    agreement = tp_family_agreement("tp_xlstm350m_m2", ref, ranks, K_F32, held_steps=TP_XLSTM_HELD_STEPS)
+    gap = [float(np.abs(r["gap_prefill"] - ref["gap_prefill"]).max()) for r in ranks]
+    emit({"phase": "tp_xlstm350m_m2", "arch": "xlstm-350m", "mesh": {"data": 1, "model": 2}, "backend": "gloo",
+          "train": {"shape": list(TP_XLSTM_CUT), "cuts": TP_XLSTM_CUTS,
+                    "calls": len(single["float32"]["per_step"]), "meta": single["float32"]["meta"], **trains},
+          "serve": {"dtype": "float32", "layers": 24, "batch": 2, "prompt_len": XLSTM_CHECK_PROMPT, "gen": 8,
+                    "vs_single_device": agreement, **tp_family_report(ref, ranks),
+                    "gap_prefill_2x256": {"max_abs_err": gap, "max_abs_logit": float(np.abs(ref["gap_prefill"]).max()),
+                                          "held": False}},
+          "phase_seconds": time.perf_counter() - t0})
+
+
 def first_difference(got, want):
     """(index, got, want) of the first element where two arrays differ, or None."""
     import numpy as np
@@ -4019,31 +4534,23 @@ def first_difference(got, want):
     return {"index": list(i), "got": float(got[i]), "want": float(want[i])}
 
 
-def phase_serve_deepseekv3_l1_ep2(torch, mods):
-    """deepseek-v3-671b cut to 1 layer at full widths (as
-    ``serve_deepseekv3_l1``) through ``build_prefill_cell`` /
+def ep2_checks(ref, ranks, world_s):
+    """``serve_deepseekv3_l1_ep2``: deepseek-v3-671b cut to 1 layer at full
+    widths (as ``serve_deepseekv3_l1``) through ``build_prefill_cell`` /
     ``build_decode_cell`` under ``serve_rules`` on 2 gloo ranks with a
     "data" axis of 2: ``moe_ep_mode`` "ep_data", 128 of the 256 experts a
     rank, one request of 4096 tokens a rank, 16 generated. Per MoE call one
     dispatch and one combine all-to-all (and the router statistics'
     all-reduce); K7 once per prefill a rank. Prefill logits and every
     decode step held to a single-device card run of the same 2 requests
-    with G = 2 token groups and every expert (run here first, then freed):
-    bit for bit expected, else within 2^-7 of the largest |logit|. The
-    exchange's ms and bytes, each rank's parameter bytes and peak, the warm
-    prefill and decode tokens/s (the host path: on one card the exchange
-    goes through gloo's host copies)."""
+    with G = 2 token groups and every expert (``ref``, run first, then
+    freed): bit for bit expected, else within 2^-7 of the largest |logit|.
+    The exchange's ms and bytes, each rank's parameter bytes and peak, the
+    warm prefill and decode tokens/s (the host path: on one card the
+    exchange goes through gloo's host copies)."""
     import numpy as np
 
-    from repro_torch.dist import launch
-
     t0 = time.perf_counter()
-    ref = serve_ep_run(torch, mods, None, None)  # greedy; the ranks are fed its tokens
-    tokens = ref["tokens"]
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    ranks = [r[0] for r in launch.spawn(cell_rank, 2, "gloo", ([{"kind": "serve_ep", "tokens": tokens}],))]
-    world_s = time.perf_counter() - t1
     want = ref["logits"]
     pairs = [("prefill", np.concatenate([r["logits"]["prefill"] for r in ranks]), want["prefill"])] + [
         (f"decode_{j}", np.concatenate([r["logits"]["decode"][j] for r in ranks]), want["decode"][j])
@@ -4068,7 +4575,7 @@ def phase_serve_deepseekv3_l1_ep2(torch, mods):
     pre_s, dec_s = max(w["prefill_s"] for w in warm), max(w["decode_s"] for w in warm)
     exch = ranks[0]["exchanges_ms_bytes"]
     emit({"phase": "serve_deepseekv3_l1_ep2", "arch": "deepseek-v3-671b", "layers": 1, "batch": 2,
-          "prompt_len": EP_PROMPT, "gen": EP_GEN, "mesh": {"data": 2}, "world_seconds_with_spawn": world_s,
+          "prompt_len": EP_PROMPT, "gen": EP_GEN, "mesh": {"data": 2}, "world_seconds_with_spawn_and_every_job": world_s,
           "vs_single_device_g2": {"bit_equal": bit_equal, "calls": report, "tolerance": f"{MOE_REF_RTOL} x max |logit|"},
           "prefill_exchange": {"dispatch_ms": exch[0][0], "combine_ms": exch[1][0], "bytes_each_way": exch[0][1]},
           "decode_exchange_ms": [e[0] for e in exch[2:]],
@@ -4080,8 +4587,7 @@ def phase_serve_deepseekv3_l1_ep2(torch, mods):
                      "prefill_s": [x["prefill_s"] for x in r["runs"]], "decode_s": [x["decode_s"] for x in r["runs"]]}
                     for r in ranks],
           "reference": {"param_bytes": ref["param_bytes"], "peak_memory_bytes": ref["peak_memory_bytes"]},
-          "phase_seconds": time.perf_counter() - t0})
-    return {"flash_attention": sum(r["runs"][0]["k7"] for r in ranks)}
+          "job_seconds": [r["job_seconds"] for r in ranks], "phase_seconds": time.perf_counter() - t0})
 
 
 # ---------------------------------------------------------------------------
@@ -5029,13 +5535,11 @@ def main() -> int:
     count(phase_roofline_calibration(torch, mods))
 
     # the client-sharded superround over torch.distributed ranks on this
-    # card: a world of 1 under NCCL in this process, then gloo worlds of 4
-    # and 2 ranks sharing it, each held to the single-device card run
+    # card: a world of 1 under NCCL in this process, then a gloo world of 4
+    # ranks sharing it (the 2-rank scenarios run in phase_world2's world),
+    # each held to the single-device card run
     count(phase_sharded_w1_nccl(torch, mods, sharded_params))
-    phase_sharded_worlds(torch)
-    # train_cell_lm100m_w2's world of 2 gloo ranks then runs lm-100m
-    # tensor-parallel over ("data", "model") of (1, 2): tp_lm100m_m2
-    count(phase_train_cell_lm100m_w2(torch, mods, fa))
+    phase_sharded_w4(torch)
     count(phase_train_xlstm350m(torch, mods))
 
     # LM serving: K7 in every attention layer and K8 in every RG-LRU layer of
@@ -5047,7 +5551,12 @@ def main() -> int:
     # deepseek-v3's MLA + MoE layer at full width (K7 in its prefill)
     count(phase_serve_xlstm350m(torch, mods))
     count(phase_serve_deepseekv3_l1(torch, mods, fa))
-    count(phase_serve_deepseekv3_l1_ep2(torch, mods))
+
+    # one gloo world of 2 ranks sharing the card: the 2-rank sharded
+    # scenarios, the train cells over ("data",) and ("data", "model"),
+    # lm-100m served tensor-parallel, deepseek-v3's layer expert-parallel,
+    # and the RG-LRU, MLA / MoE and xLSTM families tensor-parallel
+    count(phase_world2(torch, mods, fa))
 
     check(all(total[name] > 0 for name in KERNELS), f"a kernel was never launched on its path: {total}")
     emit({"phase": "wall", "seconds": time.perf_counter() - T0})

@@ -37,9 +37,10 @@ Four jobs, as in JAX:
   parameter, batch, request and cache trees, and each spec's slice of a
   tensor for this rank, with the tensor-parallel layout the port runs
   (below) where it differs from JAX's.
-* **Tensor parallelism over "model"** (ROADMAP.md Queue 1 item 16, the dense
-  families). GSPMD places JAX's collectives inside the layers; here they
-  are Megatron's four, written as ``torch.autograd.Function``s over the
+* **Tensor parallelism over "model"** (ROADMAP.md Queue 1 items 16 and
+  16b: every block family). GSPMD places JAX's collectives inside the
+  layers; here they are Megatron's four, written as
+  ``torch.autograd.Function``s over the
   hint mesh's "model" sub-group: ``model_copy`` (identity forward,
   all-reduce backward: a column-parallel product's input), ``model_reduce``
   (all-reduce forward, identity backward: a row-parallel product's
@@ -55,9 +56,15 @@ Four jobs, as in JAX:
   splits the last); the RMSNorm scales stay whole (JAX splits a stacked
   one's last dim); with fewer KV heads than model ranks a rank keeps the
   KV head its query heads read (``HeadShare``), and the ranks that share
-  it sum its gradient (``model_kv``). RG-LRU, mLSTM / sLSTM, MoE and MLA
-  blocks on such an axis are refused by name (``refuse_model_axis``, item
-  16b).
+  it sum its gradient (``model_kv``). The other families split by channel
+  or head (``_role``): the RG-LRU's channels (its 1-D ``a_r``, ``a_i`` and
+  ``lambda`` too, which JAX keeps whole); MLA's heads (``wq_b``,
+  ``wkv_b``), its latent projections and norms whole; the experts' f
+  columns (``w2`` row-parallel), the router whole; the mLSTM's heads
+  (``w_up`` whole, ``a_i`` / ``a_f`` by the heads' columns); the sLSTM's
+  heads (``r_*`` by their head dim, the bias ``b`` by the rank's columns
+  of each of its four gates: ``BlockSplit``). A count that does not split
+  is refused by name (``refuse_model_axis``).
 
 Every collective goes through one of the counted wrappers here
 (``COUNTS``), so tests and ``chip_smoke.py`` can hold each path to its
@@ -78,7 +85,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import DeviceLike
-from repro_torch.errors import unported
 
 LAUNCH_RECIPE = (
     "start one process per rank and initialise torch.distributed first: "
@@ -197,26 +203,29 @@ def model_size(mesh) -> int:
 
 
 def refuse_model_axis(mesh, cfg) -> None:
-    """Raise when ``cfg`` cannot run tensor-parallel on ``mesh``'s "model"
-    axis larger than 1: RG-LRU, mLSTM / sLSTM, MoE and MLA blocks name
-    ROADMAP.md item 16b (running them replicated instead would be silent);
-    a query-head count or MLP width that does not split, or KV heads that
-    divide neither way, name themselves. Dense GQA blocks with a dense MLP
-    pass (a vocabulary or model width that does not split keeps its leaf
-    whole, as JAX's rule does)."""
+    """Raise (ValueError, naming the count) when ``cfg`` cannot run
+    tensor-parallel on ``mesh``'s "model" axis larger than 1: query heads,
+    the RG-LRU width ``d_rnn``, the xLSTM heads, the MLP width ``d_ff`` or
+    an expert's width ``d_ff_expert`` (and so the shared experts') that do
+    not split, or GQA KV heads that divide neither way. Running such a block
+    replicated instead would be silent. A vocabulary or model width that
+    does not split keeps its leaf whole, as JAX's rule does."""
     m = model_size(mesh)
     if m <= 1:
         return
-    for what, present in (("MoE blocks", cfg.moe is not None), ("MLA attention", cfg.mla is not None),
-                          ("RG-LRU blocks", "rglru" in cfg.block_pattern),
-                          ("mLSTM / sLSTM blocks", bool({"mlstm", "slstm"} & set(cfg.block_pattern)))):
-        if present:
-            raise unported(f'tensor-parallel sharding over the "model" axis for {what}', "16b")
-    for what, n in (("query heads", cfg.num_heads), ("MLP width d_ff", cfg.d_ff)):
-        if n % m:
+    kinds = set(cfg.block_pattern)
+    attn = bool({"attn", "local_attn"} & kinds)
+    counts = [("query heads", cfg.num_heads, attn),
+              ("RG-LRU width d_rnn", cfg.d_rnn_resolved, "rglru" in kinds),
+              ("xLSTM heads", cfg.num_heads, bool({"mlstm", "slstm"} & kinds)),
+              ("MLP width d_ff", cfg.d_ff, True)]
+    if cfg.moe is not None:  # the shared experts' width, a multiple of it, then splits too
+        counts.append(("expert width d_ff_expert", cfg.moe.d_ff_expert, True))
+    for what, n, present in counts:
+        if present and n % m:
             raise ValueError(f'{cfg.name}: {what} {n} do not split over a "model" axis of {m}')
     hkv = cfg.num_kv_heads
-    if hkv % m and m % hkv:
+    if attn and cfg.mla is None and hkv % m and m % hkv:
         raise ValueError(f'{cfg.name}: {hkv} KV heads and a "model" axis of {m} divide neither way; '
                          f"a rank could keep neither whole KV heads nor the one its query heads read")
 
@@ -883,6 +892,10 @@ class PartitionSpec:
                 head = member.head(mesh)
                 index.append(slice(head * size, (head + 1) * size))
                 continue
+            if isinstance(member, BlockSplit):
+                pos = member.positions(x.shape[dim], mesh)
+                index.append(pos if isinstance(x, np.ndarray) else torch.as_tensor(pos, device=x.device))
+                continue
             names = member if isinstance(member, tuple) else (member,)
             count, block = 1, 0
             for name in names:
@@ -911,6 +924,26 @@ class HeadShare:
         return mesh.axis_index(self.axis) * self.heads // int(mesh.shape[self.axis])
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockSplit:
+    """A spec member for a dim of ``blocks`` equal blocks side by side (the
+    sLSTM bias: its i, f, z and o gates), each split over ``axis``: a rank
+    keeps its part of every block, in block order (a strided cut; the
+    slice is a copy, not a view)."""
+
+    axis: str
+    blocks: int
+
+    def positions(self, n: int, mesh) -> np.ndarray:
+        m, r = int(mesh.shape[self.axis]), mesh.axis_index(self.axis)
+        width = n // self.blocks
+        if n % self.blocks or width % m:
+            raise ValueError(f"{self.blocks} blocks of a dim of {n} do not split {m} ways over {self.axis!r}")
+        part = width // m
+        return np.concatenate([np.arange(b * width + r * part, b * width + (r + 1) * part)
+                               for b in range(self.blocks)])
+
+
 def _last_dim_member(mesh, shape, axis: str):
     if len(shape) < 2 or axis not in mesh.axis_names:
         return None
@@ -918,11 +951,17 @@ def _last_dim_member(mesh, shape, axis: str):
 
 
 # the tensor-parallel roles of leaves (``ShardingRules.params_shardings``):
-# RMSNorm scales stay whole; a GQA attention's ``wo`` and a dense MLP's
-# ``w2`` split dim -2; its ``wk`` / ``wv`` keep whole KV heads; every other
-# leaf splits its last dim, as JAX's rule
+# "whole" (RMSNorm scales, MLA's latent projections and norms, the MoE
+# router, the mLSTM's ``w_up``), "row" (split dim -2: the row-parallel
+# outputs ``wo``, ``w2``, ``w_out``, ``w_down``), "kv" (a GQA attention's
+# ``wk`` / ``wv``: whole KV heads), "channel" (the last dim split whatever
+# the rank: the RG-LRU's and the mLSTM's 1-D gate parameters), "heads"
+# (dim -3: the sLSTM's recurrent (H, dh, dh) blocks), "quarters" (the sLSTM
+# bias, ``BlockSplit``); every other leaf splits its last dim, as JAX's rule
 NORMS = ("norm1", "norm2", "final_norm")
 GQA_KEYS = frozenset(("wq", "wk", "wv", "wo"))
+MLP_PARENTS = ("mlp", "shared", "dense", "moe")  # a dense MLP, the MoE's shared / dense branches and its experts
+SLSTM_RECURRENT = ("r_i", "r_f", "r_z", "r_o")
 
 
 def _role(key, parent, siblings) -> str:
@@ -930,8 +969,18 @@ def _role(key, parent, siblings) -> str:
         return "whole"
     if parent == "attn" and GQA_KEYS <= siblings:
         return {"wo": "row", "wk": "kv", "wv": "kv"}.get(key, "last")
-    if parent == "mlp" and key == "w2":
+    if parent == "attn" and "wq_a" in siblings:  # MLA: the latent whole, the heads split
+        return {"wo": "row", "wq_b": "last", "wkv_b": "last"}.get(key, "whole")
+    if parent in MLP_PARENTS and key == "w2":
         return "row"
+    if parent == "moe" and key == "router":
+        return "whole"
+    if parent == "rnn":
+        return {"w_out": "row", "a_r": "channel", "a_i": "channel", "lambda": "channel"}.get(key, "last")
+    if parent == "cell" and "w_up" in siblings:  # mLSTM
+        return {"w_up": "whole", "w_down": "row", "a_i": "channel", "a_f": "channel"}.get(key, "last")
+    if parent == "cell" and "r_i" in siblings:  # sLSTM
+        return "row" if key == "w_out" else "quarters" if key == "b" else "heads" if key in SLSTM_RECURRENT else "last"
     return "last"
 
 
@@ -989,18 +1038,24 @@ class ShardingRules:
     def _param_spec(self, shape, role: str = "last") -> PartitionSpec:
         """JAX's spec (client dim first, the last dim over "model" where it
         divides) for a leaf of ``role`` "last"; a "row" leaf splits dim -2
-        instead, a "whole" leaf stays whole, and a "kv" leaf over a model
-        axis longer than its KV heads keeps one head a rank."""
+        instead, a "heads" leaf dim -3, a "channel" leaf its last dim even
+        at rank 1, a "quarters" leaf each quarter of its last dim, a
+        "whole" leaf stays whole, and a "kv" leaf over a model axis longer
+        than its KV heads keeps one head a rank."""
         members = [None] * len(shape)
         if self.client_axes and shape:
             members[0] = self._client_member(shape[0])
         if role == "whole":
             return P(*members)
         m = int(self.mesh.shape[self.model_axis]) if self.model_axis in self.mesh.axis_names else 0
-        if role == "row":
-            dim = len(shape) - 2
+        if role in ("row", "heads", "channel"):
+            dim = len(shape) - {"row": 2, "heads": 3, "channel": 1}[role]
             if m and dim >= 0 and members[dim] is None and shape[dim] % m == 0:
                 members[dim] = self.model_axis
+            return P(*members)
+        if role == "quarters":
+            if m and members[-1] is None and shape[-1] % (4 * m) == 0:
+                members[-1] = BlockSplit(self.model_axis, 4)
             return P(*members)
         if role == "kv" and 0 < self.kv_heads < m:
             members[-1] = HeadShare(self.model_axis, self.kv_heads)
@@ -1013,7 +1068,8 @@ class ShardingRules:
     def params_shardings(self, params, *, scanned: bool = True):
         """A spec per parameter leaf: the stacked client dim first, then the
         tensor-parallel layout (``_role``): JAX's last-dim split except the
-        row-parallel ``wo`` / ``w2``, the whole norms and the KV heads."""
+        row-parallel outputs, the whole norms, latents, router and
+        ``w_up``, the KV heads and the recurrent cells' heads and channels."""
         del scanned  # specs are rank-generic; a scanned stack only adds a replicated dim
 
         def walk(t, parent=None, key=None, siblings=frozenset()):
@@ -1038,6 +1094,8 @@ class ShardingRules:
             members = tuple(spec)
             if any(isinstance(x, HeadShare) for x in members):
                 return m // self.kv_heads
+            if any(isinstance(x, BlockSplit) for x in members):
+                return 1
             named = [n for x in members if x is not None for n in (x if isinstance(x, tuple) else (x,))]
             return 1 if self.model_axis in named else m
 
@@ -1097,10 +1155,13 @@ def serve_rules(cfg, mesh) -> ShardingRules:
 
 def rank_params(params, mesh, cfg):
     """This rank's part of an unstacked parameter tree (numpy or torch
-    leaves): its tensor-parallel slices under ``serve_rules`` when the
+    leaves), or of a subtree with its parent keys (``{"blocks": {"b0":
+    block}}``): its tensor-parallel slices under ``serve_rules`` when the
     mesh's "model" axis is larger than 1, then, where the MoE exchanges
-    over "data" (``ep_mode_for``), its experts' rows (``expert_rows``).
-    Numpy leaves are sliced without copies."""
+    over "data" (``ep_mode_for``), its experts' rows of those slices
+    (``expert_rows``): tensor and expert parallelism compose on a (data,
+    model) mesh. Numpy leaves are sliced without copies, but for the
+    strided sLSTM bias."""
     if model_size(mesh) > 1:
         from repro_torch.tree import tree_map
 

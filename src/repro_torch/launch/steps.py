@@ -17,9 +17,11 @@ requests, and under an "ep_data" mesh the rank holds its E/P experts' rows
 and MoE's exchange runs one all-to-all each way. Over a "model" axis
 larger than 1 a rank holds its tensor-parallel slices
 (``dist.sharding.ShardingRules``) and every cell runs under the model
-axis's hint, so the layers place their collectives; RG-LRU, xLSTM, MoE and
-MLA configurations are refused there by name (ROADMAP.md Queue 1 item
-16b). ``mesh=None`` is the single-device cell.
+axis's hint, so the layers place their collectives, for every block
+family; a head count or width that does not split is refused by name
+(``dist.sharding.refuse_model_axis``). On a ("data", "model") mesh the
+serving cells' MoE exchanges over "data" with each rank holding its
+experts' f / M columns. ``mesh=None`` is the single-device cell.
 """
 from __future__ import annotations
 

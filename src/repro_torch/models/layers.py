@@ -32,14 +32,20 @@ the q/k head dim and slices the output back: zero columns of V give zero
 columns of the output, so it is the same function.
 
 Under a hint mesh whose "model" axis is larger than 1
-(``dist.sharding.hint_model_mesh``) the GQA attention and the dense MLP run
-on the rank's slices, as Megatron splits them: the head counts come from
-the weights' widths (H / M query heads, and Hkv / M KV heads or the one
-its query heads read), the column-parallel ``wq`` / ``wk`` / ``wv`` and
-``w1`` / ``w3`` take their input through ``sharding.model_copy`` and the
-row-parallel ``wo`` / ``w2`` give their output through
-``sharding.model_reduce``; K7 takes the rank's heads in a prefill. Off
-such a mesh those are the identity.
+(``dist.sharding.hint_model_mesh``) every layer runs on the rank's slices,
+as Megatron splits them: the head counts come from the weights' widths
+(H / M query heads, and Hkv / M KV heads or the one its query heads read),
+the column-parallel products take their input through
+``sharding.model_copy`` and the row-parallel ones give their output
+through ``row_parallel`` (the partial products summed over the ranks in
+f32 and rounded once, as one device's product rounds); K7 takes the
+rank's heads in a prefill. MLA keeps its latent whole on every rank (the
+copy sits on the latent, where it meets the rank's heads in ``wq_b`` and
+``wkv_b``); the MoE routes the whole ``x`` identically on every rank, so
+its drops are one device's, and runs the experts on the rank's f
+columns: the dispatch reads ``model_copy(x)``, the gates reach the
+combine through ``model_copy``, and the combined (T, d) f32 output is
+summed once. Off such a mesh those are the identity.
 
 The MoE is JAX's single-device dispatch (one token group, exchange mode
 ``"none"``): a stable argsort of the (token, k) assignments by expert
@@ -238,6 +244,40 @@ def chunked_causal_attention(
     return out.to(v.dtype)
 
 
+def _matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in f32 with nothing rounded before the result (JAX's
+    ``preferred_element_type=float32``): a 2-D ``w`` after ``a``'s last
+    dim, or experts' (E,C,d) @ (E,d,f). bf16 on the card takes the
+    product's f32 output (``mm`` / ``bmm`` ``out_dtype``) where autograd
+    records nothing and no ``torch.func`` transform wraps an input: torch
+    has no derivative and no batching rule for that output. Elsewhere the
+    operands are upcast (exact for bf16 values), an expert product's in
+    blocks of experts, so the whole expert weight is never held in f32."""
+    if a.dtype == torch.float32 and w.dtype == torch.float32:
+        return a @ w
+    if _on_card(a) and not _transformed(a, w) and not (
+            torch.is_grad_enabled() and (a.requires_grad or w.requires_grad)):
+        if w.dim() == 3:
+            return torch.bmm(a, w, out_dtype=torch.float32)
+        out = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], w.shape[-1])
+    return _expert_matmul_upcast(a, w) if w.dim() == 3 else a.float() @ w.float()
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` for a row-parallel ``w`` (its rows split over the model
+    ranks, ``h`` the rank's matching columns): off a model axis the
+    product itself; on a model rank the partial products summed over the
+    ranks (``sharding.model_reduce``), taken and summed in f32 for a
+    narrower dtype and rounded once to ``h``'s dtype, as one device's
+    product accumulates in f32 and rounds once."""
+    if sharding.hint_model_mesh() is None:
+        return h @ w
+    if h.dtype == torch.float32:
+        return sharding.model_reduce(h @ w)
+    return sharding.model_reduce(_matmul_f32(h, w)).to(h.dtype)
+
+
 def _on_card(t: torch.Tensor) -> bool:
     """Whether ``t`` lies on the card (the one place the route asks)."""
     return t.is_cuda
@@ -295,7 +335,7 @@ def attention_with_kv(params: Params, x: torch.Tensor, cfg: ArchConfig, position
     B, S, _ = x.shape
     q, k, v = attention_qkv(params, x, cfg, positions)
     out = _full_attention(q, k, v, cfg, positions, window=window, default_positions=default_positions)
-    return sharding.model_reduce(out.reshape(B, S, -1) @ params["wo"]), k, v
+    return row_parallel(out.reshape(B, S, -1), params["wo"]), k, v
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device=None, stack: Sequence[int] = ()) -> Params:
@@ -333,7 +373,7 @@ def attention_decode(
     pos_buf = torch.where(hit, position[:, None].to(torch.int32), cache["pos"])
     out = causal_attention(q, k, v, q_positions=position[:, None], kv_positions=pos_buf, window=window,
                            kv_valid=pos_buf >= 0)
-    y = sharding.model_reduce(out.reshape(B, 1, -1) @ params["wo"])
+    y = row_parallel(out.reshape(B, 1, -1), params["wo"])
     return y, {"k": k, "v": v, "pos": pos_buf}
 
 
@@ -353,7 +393,7 @@ def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU; on a model rank over its d_ff / M columns, summed after ``w2``."""
     x = sharding.model_copy(x)
     h = F.silu(x @ params["w1"]) * (x @ params["w3"])
-    return sharding.model_reduce(h @ params["w2"])
+    return row_parallel(h, params["w2"])
 
 
 # ---------------------------------------------------------------------------
@@ -377,12 +417,14 @@ def init_mla(gen: torch.Generator, cfg: ArchConfig, stack: Sequence[int] = ()) -
 
 
 def _mla_query(params: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """(q_nope (B,S,H,dn), roped q_rope (B,S,H,dr))."""
+    """(q_nope (B,S,H,dn), roped q_rope (B,S,H,dr)); on a model rank its
+    H / M heads, from the whole query latent."""
     m = cfg.mla
     B, S, _ = x.shape
     dn = m.qk_nope_head_dim
-    q = rmsnorm(x @ params["wq_a"], params["q_norm"], cfg.norm_eps) @ params["wq_b"]
-    q = q.reshape(B, S, cfg.num_heads, dn + m.qk_rope_head_dim)
+    c_q = rmsnorm(x @ params["wq_a"], params["q_norm"], cfg.norm_eps)
+    q = sharding.model_copy(c_q) @ params["wq_b"]
+    q = q.reshape(B, S, -1, dn + m.qk_rope_head_dim)
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
 
@@ -398,14 +440,16 @@ def mla_latent(params: Params, x: torch.Tensor, cfg: ArchConfig, positions: torc
 
 def mla_qkv(params: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
     """The full-sequence MLA's attention inputs: q and k (B,S,H,dn+dr), v
-    (B,S,H,dv), and the latent (c_kv, k_rope) they were built from."""
+    (B,S,H,dv), and the latent (c_kv, k_rope) they were built from (whole
+    on every model rank; q, k and v its H / M heads)."""
     m = cfg.mla
     B, S, _ = x.shape
-    H, dn, dr = cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
     q_nope, q_rope = _mla_query(params, x, cfg, positions)
     c_kv, k_rope = mla_latent(params, x, cfg, positions)
-    kvu = (c_kv @ params["wkv_b"]).reshape(B, S, H, dn + m.v_head_dim)
-    k = torch.cat([kvu[..., :dn], k_rope[:, :, None].expand(B, S, H, dr)], dim=-1)
+    kvu = (sharding.model_copy(c_kv) @ params["wkv_b"]).reshape(B, S, -1, dn + m.v_head_dim)
+    H = kvu.shape[2]
+    k = torch.cat([kvu[..., :dn], sharding.model_copy(k_rope)[:, :, None].expand(B, S, H, dr)], dim=-1)
     return torch.cat([q_nope, q_rope], dim=-1), k, kvu[..., dn:], c_kv, k_rope
 
 
@@ -426,7 +470,7 @@ def mla_with_latent(params: Params, x: torch.Tensor, cfg: ArchConfig, positions:
     B, S, _ = x.shape
     q, k, v, c_kv, k_rope = mla_qkv(params, x, cfg, positions)
     out = mla_attention(q, k, v, cfg, positions, default_positions=default_positions)
-    return out.reshape(B, S, -1) @ params["wo"], c_kv, k_rope
+    return row_parallel(out.reshape(B, S, -1), params["wo"]), c_kv, k_rope
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device=None, stack: Sequence[int] = ()) -> Params:
@@ -443,10 +487,12 @@ def mla_decode(params: Params, x: torch.Tensor, cache: Params, cfg: ArchConfig,
     """Absorbed-matrix MLA decode in f32 over the latent cache: q_nope goes
     through W_uk^T into the latent space, so the scores and the context
     read only (kv_lora_rank + rope) numbers per cached token. x: (B,1,d);
-    position: (B,) absolute position of the new token (its cache slot)."""
+    position: (B,) absolute position of the new token (its cache slot). On
+    a model rank the cache is whole and the heads are the rank's."""
     m = cfg.mla
     B = x.shape[0]
-    H, dn, dr, dv, L = cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
+    dn, dr, dv, L = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
+    H = params["wkv_b"].shape[-1] // (dn + dv)
     q_nope, q_rope = _mla_query(params, x, cfg, position[:, None])
     c_new, kr_new = mla_latent(params, x, cfg, position[:, None])
     hit = torch.arange(cache["c_kv"].shape[1], device=x.device)[None, :] == position[:, None]  # (B, max_len)
@@ -456,17 +502,17 @@ def mla_decode(params: Params, x: torch.Tensor, cache: Params, cfg: ArchConfig,
 
     wkv_b = params["wkv_b"].reshape(L, H, dn + dv)
     w_uk, w_uv = wkv_b[..., :dn].float(), wkv_b[..., dn:].float()
-    c32 = c_kv.float()
+    c32 = sharding.model_copy(c_kv).float()
     q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope.float(), w_uk)
     scores = torch.einsum("bqhl,bsl->bhqs", q_lat, c32)
-    scores = scores + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), k_rope.float())
+    scores = scores + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), sharding.model_copy(k_rope).float())
     scores = scores * (dn + dr) ** -0.5
     valid = (pos_buf >= 0) & (pos_buf <= position[:, None])
     scores = torch.where(valid[:, None, None, :], scores, torch.full((), _NEG, device=x.device))
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bhqs,bsl->bqhl", probs, c32)  # the latent context
     out = torch.einsum("bqhl,lhv->bqhv", ctx, w_uv).to(x.dtype)
-    y = out.reshape(B, 1, H * dv) @ params["wo"]
+    y = row_parallel(out.reshape(B, 1, H * dv), params["wo"])
     return y, {"c_kv": c_kv, "k_rope": k_rope, "pos": pos_buf}
 
 
@@ -502,21 +548,8 @@ def moe_capacity(num_tokens: int, cfg: ArchConfig) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def _expert_matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(E,C,d) @ (E,d,f) -> (E,C,f) in f32 with nothing rounded before the
-    result (JAX's ``preferred_element_type=float32``). bf16 on the card
-    takes ``bmm``'s f32 output; elsewhere (a CPU tensor, or a tensor that
-    a ``torch.func`` transform wraps) blocks of experts are upcast, so the
-    whole expert weight is never held in f32."""
-    if a.dtype == torch.float32 and w.dtype == torch.float32:
-        return torch.bmm(a, w)
-    if _on_card(a) and not _transformed(a, w):
-        return torch.bmm(a, w, out_dtype=torch.float32)
-    return _expert_matmul_upcast(a, w)
-
-
 def _expert_matmul_upcast(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``_expert_matmul_f32`` with blocks of experts upcast to f32."""
+    """``_matmul_f32`` of experts with blocks of experts upcast to f32."""
     step = max(1, _UPCAST_ELEMENTS // max(1, w[0].numel()))
     return torch.cat([torch.bmm(a[i:i + step].float(), w[i:i + step].float()) for i in range(0, w.shape[0], step)])
 
@@ -593,7 +626,14 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.T
     holds all E experts dispatches its G groups locally (what JAX's
     exchange computes, to 0.0). The exchange is a collective outside
     autograd: serving runs it, training (whole client models a rank) does
-    not."""
+    not.
+
+    On a model rank (``sharding.hint_model_mesh``) the experts hold their
+    f / M columns (``w1`` / ``w3``, ``w2``'s rows) and the routing runs on
+    the whole ``x``, as on one device: the dispatch reads
+    ``model_copy(x)``, the gates reach the combine through ``model_copy``,
+    each rank's expert outputs stay f32 (nothing rounded before the sum)
+    and the combined (T, d) f32 output is summed over the ranks once."""
     m = cfg.moe
     T, d = x.shape
     E, K = m.num_experts, m.top_k
@@ -613,25 +653,28 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.T
         G_local, Tg = G, T // G
     C = moe_capacity(Tg, cfg)
 
+    tp = sharding.hint_model_mesh() is not None
     probs, gates, ids = moe_route(params["router"], x, K)
-    parts = [_moe_dispatch(x[g * Tg:(g + 1) * Tg], ids[g * Tg:(g + 1) * Tg], E, C) for g in range(G_local)]
+    xd = sharding.model_copy(x)
+    parts = [_moe_dispatch(xd[g * Tg:(g + 1) * Tg], ids[g * Tg:(g + 1) * Tg], E, C) for g in range(G_local)]
     buf_g = torch.stack([p[0] for p in parts])  # (G_local, E, C, d)
     if ep:
         buf = sharding.moe_dispatch_exchange(buf_g, mode)  # (E/P, G*C, d)
     else:
         buf = buf_g.transpose(0, 1).reshape(E, G * C, d)
 
-    h = _expert_matmul_f32(buf, params["w1"])
-    g = _expert_matmul_f32(buf, params["w3"])
-    out_buf = torch.bmm((F.silu(h) * g).to(x.dtype), params["w2"]).to(x.dtype)
+    h = _matmul_f32(buf, params["w1"])
+    g = _matmul_f32(buf, params["w3"])
+    act = (F.silu(h) * g).to(x.dtype)
+    out_buf = _matmul_f32(act, params["w2"]) if tp else torch.bmm(act, params["w2"]).to(x.dtype)
 
-    gates_g = gates.reshape(G_local, Tg, K)
+    gates_g = sharding.model_copy(gates).reshape(G_local, Tg, K)
     if ep:
         yg = sharding.moe_combine_exchange(out_buf, [p[1] for p in parts], [p[2] for p in parts], gates_g, mode, C)
     else:
         out_g = out_buf.reshape(E, G, C, d).transpose(0, 1)  # (G, E, C, d)
         yg = torch.stack([moe_combine(out_g[i], parts[i][1], parts[i][2], gates_g[i]) for i in range(G)])
-    y = yg.reshape(T, d)
+    y = sharding.model_reduce(yg.reshape(T, d))
     if "shared" in params:
         y = y + mlp_apply(params["shared"], x).float()
     if "dense" in params:

@@ -22,6 +22,18 @@ The mLSTM and sLSTM run plain PyTorch on every device, in f32 as JAX's
 Python loop over chunks of ``cfg.mlstm_chunk`` (JAX: ``lax.scan``), the
 sLSTM as a Python loop over time steps (no parallel form exists: its
 gates read h_{t-1}).
+
+Under a hint mesh whose "model" axis is larger than 1 each block runs on
+the rank's slices (``dist.sharding._role``) and takes its widths from
+them: the RG-LRU on its dr / M channels (its input through
+``sharding.model_copy``, the convolution, the coefficients and the scan
+per channel, K8 on the rank's (B, S, dr / M)); the mLSTM and the sLSTM on
+their H / M heads (the mLSTM's ``u`` from the whole ``w_up`` meets the
+rank's ``wq`` / ``wk`` / ``wv`` and gate columns through one copy, the
+block input meets ``w_gate`` through another; the sLSTM's recurrence is
+block-diagonal by head, so its loop over time holds no collective). Each
+gives its output through ``layers.row_parallel``. The decode states are
+the rank's channels or heads, sized from the weights.
 """
 from __future__ import annotations
 
@@ -32,7 +44,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import rglru_scan as _rg
-from repro_torch.models.layers import _init_dense, _use_kernels
+from repro_torch.dist import sharding
+from repro_torch.models.layers import _init_dense, _use_kernels, row_parallel
 
 Params = Dict[str, torch.Tensor]
 _RGLRU_C = 8.0
@@ -94,7 +107,9 @@ def rglru_sequence(params: Params, x: torch.Tensor, cfg: ArchConfig, *, default_
     """The full-sequence block and what a decode cache needs:
     (y (B,S,d), h_S (B,dr) f32, u = x @ w_x (B,S,dr)). K8 takes the scan on
     the card when autograd records nothing (``default_positions``: the
-    sequence starts at position 0, so h_0 = 0)."""
+    sequence starts at position 0, so h_0 = 0). On a model rank dr is its
+    channels."""
+    x = sharding.model_copy(x)
     gate = F.gelu((x @ params["w_gate"]).float(), approximate="tanh")
     u = x @ params["w_x"]
     v = _conv1d_causal(u, params["conv"])
@@ -104,12 +119,15 @@ def rglru_sequence(params: Params, x: torch.Tensor, cfg: ArchConfig, *, default_
     else:
         h = _associative_scan(a, b)
         h_last = h[:, -1]
-    y = (h * gate).to(x.dtype) @ params["w_out"]
+    y = row_parallel((h * gate).to(x.dtype), params["w_out"])
     return y, h_last, u
 
 
-def rglru_init_state(cfg: ArchConfig, batch: int, dtype, device=None, stack: Sequence[int] = ()) -> Params:
-    dr = cfg.d_rnn_resolved
+def rglru_init_state(cfg: ArchConfig, batch: int, dtype, device=None, stack: Sequence[int] = (),
+                     params: Params = None) -> Params:
+    """The zero state; its width ``params``' channels where given (a model
+    rank's), else ``cfg``'s."""
+    dr = cfg.d_rnn_resolved if params is None else params["w_x"].shape[-1]
     return {
         "h": torch.zeros((*stack, batch, dr), dtype=torch.float32, device=device),
         "conv": torch.zeros((*stack, batch, 3, dr), dtype=dtype, device=device),  # last 3 pre-conv inputs
@@ -118,14 +136,14 @@ def rglru_init_state(cfg: ArchConfig, batch: int, dtype, device=None, stack: Seq
 
 def rglru_step(params: Params, x_t: torch.Tensor, state: Params, cfg: ArchConfig):
     """x_t: (B,1,d) -> (y_t, state). Always the layer code."""
-    xt = x_t[:, 0]
+    xt = sharding.model_copy(x_t[:, 0])
     gate = F.gelu((xt @ params["w_gate"]).float(), approximate="tanh")
     u = xt @ params["w_x"]  # (B, dr)
     window = torch.cat([state["conv"], u[:, None]], dim=1)  # (B,4,dr)
     v = sum(window[:, i] * params["conv"][i] for i in range(4))
     a, b = _rglru_coeffs(params, v)
     h = a * state["h"] + b
-    y = ((h * gate).to(x_t.dtype) @ params["w_out"])[:, None]
+    y = row_parallel((h * gate).to(x_t.dtype), params["w_out"])[:, None]
     return y, {"h": h, "conv": window[:, 1:]}
 
 
@@ -152,21 +170,28 @@ def init_mlstm(gen: torch.Generator, cfg: ArchConfig, stack: Sequence[int] = ())
     }
 
 
+def _mlstm_dh(cfg: ArchConfig) -> int:
+    return 2 * cfg.d_model // max(cfg.num_heads, 1)
+
+
 def _mlstm_qkv_gates(params: Params, x: torch.Tensor, cfg: ArchConfig):
     """x: (B,S,d) -> q, k, v (B,S,H,dh); i, f gate logits (B,S,H) and the
-    output gate (B,S,up), f32."""
-    H = max(cfg.num_heads, 1)
+    output gate (B,S,H dh), f32. On a model rank H is its heads, and the
+    gate logits read its heads' columns of the whole ``u``."""
     u = x @ params["w_up"]
-    B, S, up = u.shape
-    dh = up // H
+    B, S, _ = u.shape
+    dh = _mlstm_dh(cfg)
+    H = params["wq"].shape[-1] // dh
+    uc = sharding.model_copy(u)
     heads = lambda t: t.reshape(B, S, H, dh)
-    q = heads(u @ params["wq"]) * dh ** -0.5
-    k = heads(u @ params["wk"])
-    v = heads(u @ params["wv"])
-    uf = u.float()
+    q = heads(uc @ params["wq"]) * dh ** -0.5
+    k = heads(uc @ params["wk"])
+    v = heads(uc @ params["wv"])
+    off = sharding.model_offset(H * dh)
+    uf = uc[..., off:off + H * dh].float()
     i_logit = (uf * params["a_i"]).reshape(B, S, H, dh).mean(-1)
     f_logit = (uf * params["a_f"]).reshape(B, S, H, dh).mean(-1) + 1.0  # bias toward remembering
-    gate = F.silu((x @ params["w_gate"]).float())
+    gate = F.silu((sharding.model_copy(x) @ params["w_gate"]).float())
     return q, k, v, i_logit, f_logit, gate
 
 
@@ -222,10 +247,9 @@ def mlstm_sequence(params: Params, x: torch.Tensor, cfg: ArchConfig):
     gates at -1e30 (padding never reaches a real position); the carry then
     includes the padded steps, so the prefill refuses such prompts
     (``mlstm_check_prefill``)."""
-    H = max(cfg.num_heads, 1)
     B, S0, _ = x.shape
     q, k, v, i_log, f_log, gate = _mlstm_qkv_gates(params, x, cfg)
-    dh = q.shape[-1]
+    H, dh = q.shape[-2], q.shape[-1]
     W = min(cfg.mlstm_chunk, S0)
     pad = (-S0) % W
     if pad:
@@ -251,13 +275,15 @@ def mlstm_sequence(params: Params, x: torch.Tensor, cfg: ArchConfig):
         hs.append(h)
     # (n_chunks, B, H, W, dh) -> (B, S, up)
     h = torch.stack(hs).permute(1, 0, 3, 2, 4).reshape(B, S0 + pad, H * dh)[:, :S0]
-    y = (h * gate).to(x.dtype) @ params["w_down"]
+    y = row_parallel((h * gate).to(x.dtype), params["w_down"])
     return y, {"C": carry[0], "n": carry[1], "m": carry[2]}
 
 
-def mlstm_init_state(cfg: ArchConfig, batch: int, dtype, device=None, stack: Sequence[int] = ()) -> Params:
-    H = max(cfg.num_heads, 1)
-    dh = 2 * cfg.d_model // H
+def mlstm_init_state(cfg: ArchConfig, batch: int, dtype, device=None, stack: Sequence[int] = (),
+                     params: Params = None) -> Params:
+    """The zero carry; its heads ``params``' (a model rank's) where given."""
+    dh = _mlstm_dh(cfg)
+    H = max(cfg.num_heads, 1) if params is None else params["wq"].shape[-1] // dh
     return {
         "C": torch.zeros((*stack, batch, H, dh, dh), dtype=torch.float32, device=device),
         "n": torch.zeros((*stack, batch, H, dh), dtype=torch.float32, device=device),
@@ -280,7 +306,7 @@ def mlstm_step(params: Params, x_t: torch.Tensor, state: Params, cfg: ArchConfig
     den = torch.einsum("bhk,bhk->bh", q, n)
     h = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
     B = x_t.shape[0]
-    y = ((h.reshape(B, -1) * gate).to(x_t.dtype) @ params["w_down"])[:, None]
+    y = row_parallel((h.reshape(B, -1) * gate).to(x_t.dtype), params["w_down"])[:, None]
     return y, {"C": C, "n": n, "m": m_new}
 
 
@@ -308,9 +334,12 @@ def init_slstm(gen: torch.Generator, cfg: ArchConfig, stack: Sequence[int] = ())
     }
 
 
-def slstm_init_state(cfg: ArchConfig, batch: int, dtype, device=None, stack: Sequence[int] = ()) -> Params:
-    H = max(cfg.num_heads, 1)
-    dh = cfg.d_model // H
+def slstm_init_state(cfg: ArchConfig, batch: int, dtype, device=None, stack: Sequence[int] = (),
+                     params: Params = None) -> Params:
+    """The zero state; its heads ``params``' (a model rank's) where given."""
+    H0 = max(cfg.num_heads, 1)
+    dh = cfg.d_model // H0
+    H = H0 if params is None else params["r_i"].shape[-3]
     z = lambda: torch.zeros((*stack, batch, H, dh), dtype=torch.float32, device=device)
     return {"h": z(), "c": z(), "n": z() + 1e-6, "m": z()}
 
@@ -335,29 +364,31 @@ def _slstm_cell(params: Params, pre: torch.Tensor, state: Params, H: int, dh: in
 
 
 def _slstm_pre(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The [i, f, z, o] input projections (..., 4 H dh) f32; on a model rank
+    its heads' columns of each."""
     w = torch.cat([params["w_i"], params["w_f"], params["w_z"], params["w_o"]], dim=1)
-    return (x @ w).float() + params["b"]
+    return (sharding.model_copy(x) @ w).float() + params["b"]
 
 
 def slstm_sequence(params: Params, x: torch.Tensor, cfg: ArchConfig):
     """The full-sequence sLSTM block, one step at a time: (y (B,S,d), the
-    state after the last position)."""
-    B, S, d = x.shape
-    H = max(cfg.num_heads, 1)
-    dh = d // H
-    pre_all = _slstm_pre(params, x)  # (B,S,4d)
-    state = slstm_init_state(cfg, B, x.dtype, x.device)
+    state after the last position). On a model rank the loop runs its
+    heads."""
+    B, S, _ = x.shape
+    H, dh = params["r_i"].shape[-3], params["r_i"].shape[-1]
+    pre_all = _slstm_pre(params, x)  # (B,S,4 H dh)
+    state = slstm_init_state(cfg, B, x.dtype, x.device, params=params)
     hs = []
     for t in range(S):
         h, state = _slstm_cell(params, pre_all[:, t], state, H, dh)
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, d)
-    return h.to(x.dtype) @ params["w_out"], state
+    h = torch.stack(hs, dim=1).reshape(B, S, H * dh)
+    return row_parallel(h.to(x.dtype), params["w_out"]), state
 
 
 def slstm_step(params: Params, x_t: torch.Tensor, state: Params, cfg: ArchConfig):
     """x_t: (B,1,d) -> (y_t, state)."""
-    B, _, d = x_t.shape
-    H = max(cfg.num_heads, 1)
-    h, state = _slstm_cell(params, _slstm_pre(params, x_t[:, 0]), state, H, d // H)
-    return (h.reshape(B, d).to(x_t.dtype) @ params["w_out"])[:, None], state
+    B = x_t.shape[0]
+    H, dh = params["r_i"].shape[-3], params["r_i"].shape[-1]
+    h, state = _slstm_cell(params, _slstm_pre(params, x_t[:, 0]), state, H, dh)
+    return row_parallel(h.reshape(B, H * dh).to(x_t.dtype), params["w_out"])[:, None], state

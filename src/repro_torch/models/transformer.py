@@ -28,11 +28,13 @@ prefill launches K7 once per attention layer and K8 once per RG-LRU layer.
 The mLSTM prefill takes whole chunks only, as JAX's replay does
 (``recurrent.mlstm_check_prefill``).
 
-Under a hint mesh whose "model" axis is larger than 1 (tensor parallelism,
-dense families only: ``dist.sharding.refuse_model_axis`` names the rest)
+Under a hint mesh whose "model" axis is larger than 1 (tensor parallelism;
+``dist.sharding.refuse_model_axis`` names the counts that do not split)
 a rank holds ``embed``'s d / M columns and gathers the embedded tokens
 (JAX's spec for the leaf; the gather's backward needs no collective),
-``lm_head``'s V / M columns, and the layers' slices. ``forward_with_aux``
+``lm_head``'s V / M columns, and the layers' slices (its decode caches
+its KV heads, its RG-LRU channels and its xLSTM heads; MLA's latent cache
+whole). ``forward_with_aux``
 then returns the rank's (B, S, V / M) logits, the loss is vocab-parallel
 (``cross_entropy``: no rank holds (B, S, V)), and ``prefill`` /
 ``decode_step`` gather the (B, V) logits, so greedy tokens are one
@@ -50,6 +52,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import sharding
 from repro_torch.models import layers, recurrent
+from repro_torch.tree import tree_map
 
 PyTree = Any
 ATTN_KINDS = ("attn", "local_attn")
@@ -132,7 +135,10 @@ def block_apply(params, x, cfg: ArchConfig, kind: str, positions, *,
     return _block_run(params, x, cfg, kind, positions, default_positions)[:2]
 
 
-def block_init_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, dtype, device=None, stack=()) -> PyTree:
+def block_init_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, dtype, device=None, stack=(), *,
+                     params) -> PyTree:
+    """A block's empty decode cache; a recurrent block's state sized from
+    its ``params`` (a model rank's channels or heads)."""
     _check_kind(kind)
     if kind in ATTN_KINDS:
         if cfg.mla:
@@ -142,7 +148,7 @@ def block_init_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, dtype
         return layers.init_kv_cache(cfg, batch, eff if window else max_len, dtype, device, stack)
     init = {"rglru": recurrent.rglru_init_state, "mlstm": recurrent.mlstm_init_state,
             "slstm": recurrent.slstm_init_state}[kind]
-    return init(cfg, batch, dtype, device, stack)
+    return init(cfg, batch, dtype, device, stack, params=params["rnn" if kind == "rglru" else "cell"])
 
 
 def block_decode(params, x, cache, cfg: ArchConfig, kind: str, position) -> Tuple[torch.Tensor, PyTree]:
@@ -170,29 +176,42 @@ def _stacked(cfg: ArchConfig, params=None) -> bool:
     return cfg.scan_layers and cfg.num_superblocks > 0 and (params is None or "blocks" in params)
 
 
-def init_superblock(gen: torch.Generator, cfg: ArchConfig, stack=()) -> Dict[str, PyTree]:
-    return {f"b{i}": init_block(gen, cfg, kind, stack) for i, kind in enumerate(cfg.block_pattern)}
-
-
-def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, PyTree]:
+def init_params(gen: torch.Generator, cfg: ArchConfig, *, mesh=None) -> Dict[str, PyTree]:
     """Random parameters on ``gen``'s device with JAX's tree, names, shapes,
-    dtypes and scales (other numbers than JAX's init draws)."""
+    dtypes and scales (other numbers than JAX's init draws). With ``mesh``
+    (a rank's ``dist.sharding.RankMesh``) each leaf or block is cut to the
+    rank's part (``sharding.rank_params``) as soon as it is drawn, so a
+    rank never holds the whole model; the numbers are the whole init's."""
     dt = cfg.dtype()
+
+    def cut(path, tree):
+        if mesh is None:
+            return tree
+        nest = tree
+        for key in reversed(path):
+            nest = {key: nest}
+        part = sharding.rank_params(nest, mesh, cfg)
+        for key in path:
+            part = part[key]
+        return tree_map(torch.clone, part)  # copies: a view would keep the whole leaf alive
+
     params: Dict[str, PyTree] = {}
     if cfg.embed_inputs:
-        params["embed"] = layers._init_dense(gen, (cfg.vocab_size, cfg.d_model), dt, scale=1.0)
+        params["embed"] = cut(("embed",), layers._init_dense(gen, (cfg.vocab_size, cfg.d_model), dt, scale=1.0))
     if _stacked(cfg):
-        params["blocks"] = init_superblock(gen, cfg, stack=(cfg.num_superblocks,))
+        params["blocks"] = {f"b{i}": cut(("blocks", f"b{i}"), init_block(gen, cfg, kind, (cfg.num_superblocks,)))
+                            for i, kind in enumerate(cfg.block_pattern)}
     else:
         params["blocks_unrolled"] = [
-            init_block(gen, cfg, cfg.block_pattern[i % cfg.pattern_period])
+            cut(("blocks_unrolled", i), init_block(gen, cfg, cfg.block_pattern[i % cfg.pattern_period]))
             for i in range(cfg.num_layers - cfg.tail_layers)
         ]
     for t in range(cfg.tail_layers):
-        params[f"tail{t}"] = init_block(gen, cfg, cfg.block_pattern[t])
+        params[f"tail{t}"] = cut((f"tail{t}",), init_block(gen, cfg, cfg.block_pattern[t]))
     params["final_norm"] = layers.init_rmsnorm(cfg.d_model, dt, gen.device)
-    params["lm_head"] = layers._init_dense(gen, (cfg.d_model, cfg.vocab_size), dt)
+    params["lm_head"] = cut(("lm_head",), layers._init_dense(gen, (cfg.d_model, cfg.vocab_size), dt))
     return params
+
 
 
 def _index(tree, i: int):
@@ -341,7 +360,7 @@ def _block_prefill(params, x, cfg: ArchConfig, kind: str, positions, max_len: in
         return y, state
     B, S, _ = x.shape
     dtype = cfg.dtype()
-    cache = block_init_cache(cfg, kind, B, max_len, dtype, x.device)
+    cache = block_init_cache(cfg, kind, B, max_len, dtype, x.device, params=params)
     if kind in ATTN_KINDS and cfg.mla:  # the latent, in slots 0..S-1 (no ring)
         c_kv, k_rope = state
         cache["c_kv"][:, :S] = c_kv.to(dtype)
@@ -391,22 +410,26 @@ def prefill(params, cfg: ArchConfig, inputs: torch.Tensor, max_len: int):
 
 
 def init_decode_caches(params, cfg: ArchConfig, batch: int, max_len: int, device=None):
-    """Fresh (empty) caches matching the model structure (a model rank's
-    KV heads under the hint mesh)."""
+    """Fresh (empty) caches matching the model structure: a model rank's KV
+    heads under the hint mesh, and its recurrent blocks' channels and heads
+    (read from ``params``)."""
     dtype = cfg.dtype()
     caches: Dict[str, PyTree] = {}
     if _stacked(cfg, params):
         caches["blocks"] = {
-            f"b{i}": block_init_cache(cfg, kind, batch, max_len, dtype, device, stack=(cfg.num_superblocks,))
+            f"b{i}": block_init_cache(cfg, kind, batch, max_len, dtype, device, stack=(cfg.num_superblocks,),
+                                      params=params["blocks"][f"b{i}"])
             for i, kind in enumerate(cfg.block_pattern)
         }
     elif "blocks_unrolled" in params:
         caches["blocks_unrolled"] = [
-            block_init_cache(cfg, cfg.block_pattern[i % cfg.pattern_period], batch, max_len, dtype, device)
-            for i in range(len(params["blocks_unrolled"]))
+            block_init_cache(cfg, cfg.block_pattern[i % cfg.pattern_period], batch, max_len, dtype, device,
+                             params=bp)
+            for i, bp in enumerate(params["blocks_unrolled"])
         ]
     for t in range(cfg.tail_layers):
-        caches[f"tail{t}"] = block_init_cache(cfg, cfg.block_pattern[t], batch, max_len, dtype, device)
+        caches[f"tail{t}"] = block_init_cache(cfg, cfg.block_pattern[t], batch, max_len, dtype, device,
+                                              params=params[f"tail{t}"])
     return caches
 
 

@@ -16,14 +16,15 @@
   2-device hint mesh: logits of the prefill and of three decode steps, one
   dispatch and one combine all-to-all per MoE call, half the experts a
   rank; requests that do not split over the data axis are refused.
-- The refusals: a "model" axis larger than 1 under a family without
-  tensor parallelism names ROADMAP.md item 16b (a dense one builds); a
-  world that does not match the mesh raises JAX's ValueError text.
+- A "model" axis larger than 1: every family's cells build there (item
+  16b); a world that does not match the mesh raises JAX's ValueError
+  text.
 
 Tolerances: JAX's mesh tolerances for the train cell (params ``rtol=3e-6,
 atol=2e-7``, loss and grad norm ``rtol=1e-5``); logits ``rtol=atol=1e-5``
 (``tests/test_torch_moe_mla.py``'s).
 """
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -111,17 +112,21 @@ def test_lm100m_train_cut_gives_accum_two_of_four():
 
 
 def test_a_model_axis_larger_than_one_is_refused_naming_item_16():
-    """Item 16 brought the dense families to a "model" axis larger than 1;
-    the rest are refused there by name, naming item 16b."""
-    mesh = _FakeMesh(data=2, model=2)
+    """Item 16 brought the dense families to a "model" axis larger than 1
+    and item 16b the rest: every family's cells build on a (2, 2) mesh
+    (``tests/test_torch_tensor_parallel_families.py`` holds their numbers
+    to JAX's)."""
+    from test_torch_tensor_parallel import rank_mesh_stand_in
+
+    mesh = rank_mesh_stand_in((2, 2))
     for build in (steps.build_train_cell, steps.build_prefill_cell, steps.build_decode_cell):
         shape = ShapeSpec("s", 8, 16 if build is steps.build_train_cell else 2,
                           {steps.build_train_cell: "train", steps.build_prefill_cell: "prefill"}.get(build, "decode"))
-        for arch in ("recurrentgemma-9b", "xlstm-350m", SERVE_ARCH):
-            with pytest.raises(NotImplementedError, match=r'tensor-parallel sharding over the "model" axis.*item 16b'):
-                build(treg.get_smoke(arch), shape, mesh)
-        if build is not steps.build_train_cell:  # the serving cells of a dense family build on the mesh
-            assert build(treg.get_smoke(TRAIN_ARCH), shape, mesh).meta["model"] == 2
+        for arch in ("recurrentgemma-9b", "xlstm-350m", SERVE_ARCH, TRAIN_ARCH):
+            cfg = treg.get_smoke(arch)
+            if build is steps.build_train_cell:  # 8 clients: whole edges on each of the 2 data ranks
+                cfg = dataclasses.replace(cfg, fed=dataclasses.replace(cfg.fed, edges_per_pod=2, clients_per_edge=4))
+            assert build(cfg, shape, mesh).meta["model"] == 2, (build, arch)
 
 
 def test_replicated_requests_are_refused_under_the_expert_parallel_moe():

@@ -6,13 +6,17 @@ package, on the CPU (ROADMAP.md Queue 1 item 12, second half).
   and cache specs, equal to JAX's ``PartitionSpec`` members on
   ("data", "model") and ("pod", "data", "model") meshes of several sizes
   (JAX's ``_FakeMesh`` idiom, ``tests/test_sharded.py:143``), but for the
-  tensor-parallel layout's named differences (a GQA ``wo`` and an MLP
-  ``w2`` split dim -2, the RMSNorm scales stay whole, a shared KV head);
+  tensor-parallel layout's named differences
+  (``test_torch_tensor_parallel.DIFFERENCES``: row-parallel outputs, whole
+  norms, latents, router and ``w_up``, the recurrent cells' heads and
+  channels, a shared KV head, and where ``refuse_model_axis`` refuses an
+  item-16b family's config, a named leaf whose split dim does not divide
+  the axis kept whole);
   the client axis's ValueError word for word; ``topology_for``; a spec's
   slice.
 - The hint mesh: ``hint`` is the identity, ``hint_data_groups`` and
   ``moe_ep_mode`` follow JAX's table, a "model" axis larger than 1 is
-  installed, and refused by family, naming ROADMAP.md item 16b.
+  installed, and every family passes on it (item 16b).
 - ``moe_apply`` at G = 2 in one process (all experts on the rank) and over
   2 expert-parallel gloo ranks (E/P experts a rank, one all-to-all each way
   and one all-reduce of the router statistics per call) against JAX's
@@ -77,6 +81,8 @@ def _jax_shapes(cfg):
 
 @pytest.mark.parametrize("arch", sorted(treg.all_configs()))
 def test_rules_give_jax_members_for_every_leaf(arch, monkeypatch):
+    from test_torch_tensor_parallel import FAMILIES  # tensor parallel since item 16b
+
     monkeypatch.setattr(jsh, "NamedSharding", lambda mesh, spec: spec)  # JAX's specs on a fake mesh
     is_spec = lambda x: isinstance(x, jsh.P)  # noqa: E731
     jcfg, tcfg = jreg.get_smoke(arch), treg.get_smoke(arch)
@@ -85,6 +91,7 @@ def test_rules_give_jax_members_for_every_leaf(arch, monkeypatch):
     assert [tuple(x.shape) for x in leaves(tstruct)] == [tuple(x.shape) for x in jax.tree_util.tree_leaves(jtree)]
     for shape in MESHES:
         mesh = _FakeMesh(**shape)
+        refused = arch in FAMILIES and _refused(mesh, tcfg)
         n = mesh.shape.get("pod", 1) * mesh.shape["data"] * 2
         jstacked = jax.tree_util.tree_map(lambda x: jax.ShapeDtypeStruct((n,) + x.shape, x.dtype), jtree)
         tstacked = _stack(tstruct, n)
@@ -96,7 +103,8 @@ def test_rules_give_jax_members_for_every_leaf(arch, monkeypatch):
             names = list(_leaf_names(tt))
             assert len(got) == len(want) == len(names), (arch, shape)
             for name, g, w in zip(names, got, want):
-                assert tuple(g) == tuple(w) or _named_difference(name, tuple(g), tuple(w)), (arch, shape, name, g, w)
+                assert tuple(g) == tuple(w) or _named_difference(name, tuple(g), tuple(w)) or (
+                    refused and _kept_whole(name, tuple(g), tuple(w))), (arch, shape, name, g, w)
             if jrules.client_axes:
                 for s, accum in (((n, 4, 16), False), ((n,), False), ((3, n, 2, 16, 8), True)):
                     assert tuple(trules.batch_spec(s, has_accum=accum)) == tuple(jrules.batch_spec(s, has_accum=accum))
@@ -107,6 +115,27 @@ def test_rules_give_jax_members_for_every_leaf(arch, monkeypatch):
                 [jax.ShapeDtypeStruct(c, np.float32) for c in cshapes]), is_leaf=is_spec)
             got = list(leaves(trules.caches_shardings([torch.empty(c, device="meta") for c in cshapes])))
             assert [tuple(g) for g in got] == [tuple(w) for w in want]
+
+
+def _refused(mesh, cfg) -> bool:
+    """Whether ``refuse_model_axis`` refuses ``cfg`` on ``mesh`` (a head
+    count or width that does not split over its "model" axis)."""
+    try:
+        sharding.refuse_model_axis(mesh, cfg)
+    except ValueError:
+        return True
+    return False
+
+
+def _kept_whole(name, got, want) -> bool:
+    """A leaf of a named kind whose dim the port splits does not divide the
+    "model" axis (xlstm-350m's 4 heads over 16 ranks, a config
+    ``refuse_model_axis`` refuses there): the port keeps it whole where JAX
+    splits another dim; every other member equals JAX's."""
+    from test_torch_tensor_parallel import DIFFERENCES
+
+    named = any(name in names for names in DIFFERENCES.values())
+    return named and "model" not in got and got == tuple(None if m == "model" else m for m in want)
 
 
 def _leaf_names(tree, name=None):
@@ -123,14 +152,11 @@ def _leaf_names(tree, name=None):
 
 def _named_difference(name, got, want) -> bool:
     """The tensor-parallel layout's differences from JAX's specs (ROADMAP.md
-    Queue 3): ``wo`` / ``w2`` split dim -2 where JAX splits the last, the
-    norms stay whole where JAX splits a stacked one's last dim, a shared
-    KV head."""
-    if name in ("wo", "w2"):
-        return got[-2] == "model" and got[-1] is None and want[-1] == "model"
-    if name in sharding.NORMS:
-        return want[-1] == "model" and all(m is None for m in got[1:])
-    return name in ("wk", "wv") and isinstance(got[-1], sharding.HeadShare)
+    "Differences by design"), as ``tests/test_torch_tensor_parallel.py``
+    names them."""
+    from test_torch_tensor_parallel import layout_difference
+
+    return layout_difference(name, got, want) is not None
 
 
 def _stack(tree, n):
@@ -189,14 +215,13 @@ def test_hint_mesh_table_and_the_model_axis_refusal():
         with sharding.using_hint_mesh(mesh):
             assert (sharding.hint_data_groups(), sharding.moe_ep_mode(experts)) == want, shape
         assert sharding.hint_mesh() is None
-    # a "model" axis larger than 1 is installed; the families without
-    # tensor parallelism are refused on it by name, the dense ones pass
+    # a "model" axis larger than 1 is installed; every family passes on
+    # it, the MoE ones among them (item 16b)
     mesh = _FakeMesh(data=2, model=2)
     with sharding.using_hint_mesh(mesh):
         assert sharding.hint_model_mesh() is mesh and sharding.model_kv_heads(4) == 2
     assert sharding.hint_mesh() is None
-    with pytest.raises(NotImplementedError, match=r'"model" axis for MoE blocks.*Queue 1 item 16b'):
-        sharding.refuse_model_axis(mesh, treg.get_smoke(ARCH))
+    sharding.refuse_model_axis(mesh, treg.get_smoke(ARCH))
     sharding.refuse_model_axis(mesh, treg.get_smoke("deepseek-7b"))
 
 

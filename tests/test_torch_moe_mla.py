@@ -114,7 +114,7 @@ def test_moe_apply_tracks_jax(arch, capacity_factor, rng):
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_bf16_moe_apply_is_within_one_ulp_of_jax(arch, rng):
     """In bf16 on the CPU the expert products upcast a block of experts at a
-    time (``_expert_matmul_f32``: h and g in f32, as JAX's
+    time (``layers._matmul_f32``: h and g in f32, as JAX's
     ``preferred_element_type``). Each expert's down product rounds to bf16
     after an f32 sum in another order than XLA's, so an expert output can
     sit one bf16 ulp apart, and y, their gated sum, by up to one bf16 ulp of

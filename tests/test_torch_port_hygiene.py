@@ -1,10 +1,10 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX
 package nor the JAX reproduction scripts (``benchmarks``), its entry
 points (the figure and table scripts and the examples among them) default
-to CUDA and refuse to fall back to the CPU, and configurations that need an unported feature say which ROADMAP
-item brings it (item 16: tensor parallelism over a "model" axis larger
-than 1); features of items once unported build, and the hint mesh follows
-JAX's table."""
+to CUDA and refuse to fall back to the CPU; features of items once
+unported build (items 16 and 16b: tensor parallelism over a "model" axis
+larger than 1, where only a count that does not split is refused, by
+name), and the hint mesh follows JAX's table."""
 import pathlib
 import re
 import subprocess
@@ -157,13 +157,17 @@ class _Mesh:
 
 
 def _model_axis_refused(sharding):
-    # tensor parallelism runs the dense families (item 16); the rest are
-    # refused on a "model" axis larger than 1, naming item 16b
+    # tensor parallelism runs every family (items 16 and 16b): only a count
+    # that does not split is refused, by name and without a ROADMAP item
+    import dataclasses
+
     from repro_torch.configs.registry import get_smoke
 
-    with pytest.raises(NotImplementedError, match=r'"model" axis .*ROADMAP\.md Queue 1 item 16b '):
-        sharding.refuse_model_axis(_Mesh(data=2, model=2), get_smoke("recurrentgemma-9b"))
-    sharding.refuse_model_axis(_Mesh(data=2, model=2), get_smoke("deepseek-7b"))
+    for arch in ("recurrentgemma-9b", "xlstm-350m", "deepseek-v3-671b", "arctic-480b", "deepseek-7b"):
+        sharding.refuse_model_axis(_Mesh(data=2, model=2), get_smoke(arch))
+    with pytest.raises(ValueError, match=r'RG-LRU width d_rnn 66 do not split over a "model" axis of 4'):
+        sharding.refuse_model_axis(_Mesh(data=2, model=4),
+                                   dataclasses.replace(get_smoke("recurrentgemma-9b"), d_rnn=66))
     sharding.refuse_model_axis(_Mesh(data=2, model=1), get_smoke("recurrentgemma-9b"))  # a "model" axis of 1 is none
     assert sharding.hint_mesh() is None
 

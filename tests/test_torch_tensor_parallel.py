@@ -1,5 +1,6 @@
 """Tensor parallelism over a "model" axis in the port against the JAX
-package, on the CPU (ROADMAP.md Queue 1 item 16, the dense families).
+package, on the CPU (ROADMAP.md Queue 1 item 16, the dense families, and
+the layout of item 16b's).
 
 The port's ranks are processes of one gloo world per size
 (``dist.launch.spawn`` running ``tests/torch_mp_ranks.tp_world``): 2 ranks
@@ -20,11 +21,16 @@ the JAX init: ``build_train_step`` over one cloud interval, ``prefill`` /
   forward after ``wo`` / ``w2`` and the loss's sums, 2L backward before
   ``wq..wv`` / ``w1, w3`` and the LM head's input), one max and one
   gather; prefill and decode 2L sums and two gathers.
-- The spec table against JAX's ``ShardingRules``: the only differences
-  are the row-parallel ``wo`` / ``w2``, the whole norms and the shared KV
-  heads; the refusals of RG-LRU, xLSTM, MoE, MLA and indivisible counts.
+- The spec table against JAX's ``ShardingRules``, the dense families and
+  (item 16b) recurrentgemma-9b, xlstm-350m, deepseek-v3-671b and
+  arctic-480b at their published widths: the only differences are the
+  leaves ``DIFFERENCES`` names, each with the bytes a rank holds; every
+  family builds its cells on a model axis, and counts that do not split
+  are refused by name (the families' numbers against JAX:
+  ``tests/test_torch_tensor_parallel_families.py``).
 - The control: two ranks that swap their ``wo`` slices miss the logits.
 """
+import dataclasses
 import os
 import sys
 
@@ -58,6 +64,13 @@ PROMPT, MAX_LEN, DECODE = 8, 12, 3
 TOL = dict(rtol=1e-5, atol=1e-7)
 PARAMS_ATOL = 1e-5
 LOGITS = dict(rtol=1e-5, atol=1e-5)
+
+
+def rank_mesh_stand_in(shape):
+    """Rank 0's ``RankMesh`` of a ("data", "model") mesh of ``shape`` on the
+    CPU, without process groups: enough to build a cell, not to run one."""
+    return sharding.RankMesh(("data", "model"), tuple(shape), 0, None, torch.device("cpu"), "gloo",
+                             {"data": None, "model": None})
 
 
 class _FakeMesh:
@@ -135,9 +148,9 @@ def _train_job(ref, fields, mesh):
             "batches": ref["batches"], "lr": LR}
 
 
-def _serve_job(ref, fields, mesh, params, swap_wo=False):
+def _serve_job(ref, fields, mesh, params, swap=None):
     return {"kind": "serve", "mesh": mesh, "cfg": fields, "params": params, "prompts": ref["prompts"],
-            "tokens": ref["tokens"], "max_len": MAX_LEN, "swap_wo": swap_wo}
+            "tokens": ref["tokens"], "max_len": MAX_LEN, "swap": swap}
 
 
 @pytest.fixture(scope="module")
@@ -147,7 +160,7 @@ def two_ranks(refs):
     config trained and served."""
     d, s, ce, w = refs["dense"], refs["serve_dense"], refs["ce"], refs["whole"]
     jobs = [_train_job(d, DENSE, (1, 2)), _serve_job(s, DENSE, (1, 2), d["params"]),
-            _serve_job(s, DENSE, (1, 2), d["params"], swap_wo=True),
+            _serve_job(s, DENSE, (1, 2), d["params"], swap=("blocks", "b0", "attn", "wo")),
             {"kind": "cross_entropy", "mesh": (1, 2), "logits": ce["logits"], "targets": ce["targets"],
              "mask": ce["mask"]},
             _train_job(w, WHOLE_VOCAB, (1, 2)), _serve_job(refs["serve_whole"], WHOLE_VOCAB, (1, 2), w["params"])]
@@ -237,6 +250,11 @@ def _check_serve(results, ref, mesh_shape):
                                    err_msg=f"decode step {j}")
 
 
+def _cache_heads(result) -> int:
+    """The KV heads of the first layers' stacked k cache (n, B, L, Hkv, hd)."""
+    return result["cache_shapes"]["blocks/b0/k"][-2]
+
+
 def _check_serve_counts(results, layers, gathers=2):
     for r in results:
         for c in (r["prefill_counts"], r["decode_counts"]):
@@ -255,11 +273,11 @@ def test_the_serving_cells_over_model_ranks_track_jax(refs, two_ranks, four_rank
         _check_serve_counts(results, layers)
         for r in results:
             assert r["held"] == (whole - norms) // shape[1] + norms
-            assert r["cache_heads"] == DENSE["num_kv_heads"] // shape[1]
+            assert _cache_heads(r) == DENSE["num_kv_heads"] // shape[1]
     shared = [w[3] for w in four_ranks]
     _check_serve(shared, refs["serve_shared"], (1, 4))
     _check_serve_counts(shared, layers)
-    assert all(r["cache_heads"] == 1 for r in shared)  # the one KV head its query heads read
+    assert all(_cache_heads(r) == 1 for r in shared)  # the one KV head its query heads read
 
 
 def test_a_vocabulary_that_does_not_split_stays_whole_and_tracks_jax(refs, two_ranks):
@@ -294,7 +312,44 @@ def test_the_vocab_parallel_cross_entropy_tracks_jax(refs, two_ranks):
 # ---------------------------------------------------------------------------
 
 
-DIFFERENCES = {"row": ("wo", "w2"), "whole": sharding.NORMS}
+# the leaves whose tensor-parallel spec may differ from JAX's, by kind:
+# row-parallel outputs (dim -2 where JAX splits the last), leaves kept whole
+# (JAX splits a stacked or 2-D one's last dim), the 1-D gate parameters the
+# port splits by channel (JAX keeps a 1-D leaf whole), the sLSTM's
+# recurrent blocks by head (dim -3; JAX splits dh), its bias by the rank's
+# part of each gate (JAX splits a stacked one's last dim), and a KV head
+# shared by several model ranks
+DIFFERENCES = {"row": ("wo", "w2", "w_out", "w_down"),
+               "whole": sharding.NORMS + ("q_norm", "kv_norm", "wq_a", "wkv_a", "router", "w_up"),
+               "channel": ("a_r", "a_i", "a_f", "lambda"), "heads": sharding.SLSTM_RECURRENT,
+               "quarters": ("b",), "kv": ("wk", "wv")}
+
+
+def layout_difference(name, got, want):
+    """The kind of ``DIFFERENCES`` under which the port's spec ``got`` of a
+    leaf named ``name`` may differ from JAX's ``want`` as it does, or None."""
+    got, want = tuple(got), tuple(want)
+    kind = next((k for k, names in DIFFERENCES.items() if name in names), None)
+    ok = {"row": lambda: got[-2] == "model" and got[-1] is None and want[-1] == "model",
+          "whole": lambda: want[-1] == "model" and all(m is None for m in got[1:]),
+          "channel": lambda: got[-1] == "model" and want[-1] is None,
+          "heads": lambda: got[-3] == "model" and got[-1] is None and want[-1] == "model",
+          "quarters": lambda: isinstance(got[-1], sharding.BlockSplit),
+          "kv": lambda: isinstance(got[-1], sharding.HeadShare)}
+    return kind if kind is not None and ok[kind]() else None
+
+
+def _held(shape, spec, mesh) -> int:
+    """The elements of a leaf of ``shape`` that a rank holds under ``spec``."""
+    n = int(np.prod(shape))
+    for dim, member in enumerate(tuple(spec)):
+        if isinstance(member, sharding.HeadShare):
+            n //= member.heads
+        elif isinstance(member, sharding.BlockSplit):
+            n //= mesh.shape[member.axis]
+        elif member is not None:
+            n //= int(np.prod([mesh.shape[a] for a in (member if isinstance(member, tuple) else (member,))]))
+    return n
 
 
 def _paths(tree, prefix=()):
@@ -308,42 +363,66 @@ def _paths(tree, prefix=()):
         yield prefix, tree
 
 
+FAMILIES = ("recurrentgemma-9b", "xlstm-350m", "deepseek-v3-671b", "arctic-480b")
+FULL_LAYOUTS = ("lm-100m",) + FAMILIES  # the published widths (the families' smoke heads do not split 16 ways)
+
+
 @pytest.mark.parametrize("arch", ["lm-100m", "granite-3-2b", "yi-9b", "granite-20b", "deepseek-7b",
-                                  "internvl2-2b"])
+                                  "internvl2-2b", *FAMILIES])
 @pytest.mark.parametrize("model", [2, 4, 16])
 def test_the_layout_differs_from_jax_only_on_the_named_leaves(arch, model, monkeypatch):
-    """Dense families: every spec equals JAX's but a GQA ``wo`` and an MLP
-    ``w2`` (dim -2 where JAX splits the last: a rank holds as many of its
-    values as JAX's shard), the norms (whole) and, with fewer KV heads than
-    model ranks, ``wk`` / ``wv`` (one whole head a rank)."""
+    """Every spec equals JAX's but on the leaves ``DIFFERENCES`` names, each
+    with the bytes a rank holds: a row-parallel output and an sLSTM
+    recurrent block as many as JAX's shard (another dim split), the sLSTM
+    bias too where JAX splits it (stacked) and 1 / M of it where JAX keeps
+    it whole, a whole leaf M times JAX's shard, a 1-D gate parameter 1 / M
+    of JAX's whole leaf, and with fewer KV heads than model ranks ``wk`` /
+    ``wv`` one whole head."""
     monkeypatch.setattr(jsh, "NamedSharding", lambda mesh, spec: spec)
     mesh = _FakeMesh(data=2, model=model)
-    jcfg = jreg.get_config(arch) if arch == "lm-100m" else jreg.get_smoke(arch)
-    tcfg = treg.get_config(arch) if arch == "lm-100m" else treg.get_smoke(arch)
+    full = arch in FULL_LAYOUTS
+    jcfg = jreg.get_config(arch) if full else jreg.get_smoke(arch)
+    tcfg = treg.get_config(arch) if full else treg.get_smoke(arch)
+    if arch in FAMILIES:  # a count that does not split is refused by name: its layout never runs
+        try:
+            sharding.refuse_model_axis(mesh, tcfg)
+        except ValueError as e:
+            assert (arch, model) in ((("xlstm-350m", 16), ("arctic-480b", 16))), e
+            return
     shapes = steps.structs(lambda: steps._init_params(tcfg))
     jshapes = jax.tree_util.tree_map(lambda x: jax.ShapeDtypeStruct(tuple(x.shape), np.float32), shapes)
     want = jax.tree_util.tree_leaves(jsh.serve_rules(jcfg, mesh).params_shardings(jshapes),
                                      is_leaf=lambda x: isinstance(x, jsh.P))
     got = list(leaves(sharding.serve_rules(tcfg, mesh).params_shardings(shapes)))
+    named = {}
     for (path, x), g, w in zip(_paths(shapes), got, want):
-        name = path[-1]
         if tuple(g) == tuple(w):
             continue
-        if name in DIFFERENCES["row"]:
-            assert g[-2] == "model" and g[-1] is None and w[-1] == "model", (path, g, w)
-            assert x.shape[-2] // model * x.shape[-1] == x.shape[-1] // model * x.shape[-2]
-        elif name in DIFFERENCES["whole"]:
-            assert all(m is None for m in g), (path, g)
+        kind = layout_difference(path[-1], g, w)
+        assert kind is not None, (path, g, w)
+        mine, jax_part, whole = _held(x.shape, g, mesh), _held(x.shape, w, mesh), int(np.prod(x.shape))
+        named["/".join(path)] = (kind, mine * x.element_size())
+        if kind in ("row", "heads") or (kind == "quarters" and w[-1] == "model"):
+            assert mine == jax_part, (path, mine, jax_part)
+        elif kind in ("channel", "quarters"):
+            assert jax_part == whole and mine * model == whole, (path, mine, whole)
+        elif kind == "whole":
+            assert mine == whole and jax_part * model == whole, (path, mine, jax_part)
         else:
-            assert name in ("wk", "wv") and tcfg.num_kv_heads < model, (path, g, w)
-            assert g[-1] == sharding.HeadShare("model", tcfg.num_kv_heads)
+            assert tcfg.num_kv_heads < model and mine * tcfg.num_kv_heads == whole, (path, mine)
+    kinds = {k for k, _ in named.values()}
+    assert "row" in kinds and "whole" in kinds
+    if arch == "recurrentgemma-9b":  # the unstacked tail's 1-D gate parameters (stacked ones split as JAX's)
+        assert "channel" in kinds
+    if arch == "xlstm-350m":
+        assert {"heads", "quarters"} <= kinds
     replicas = sharding.serve_rules(tcfg, mesh).model_replicas(shapes)
     for (path, _), n, g in zip(_paths(shapes), replicas, got):
-        if path[-1] in sharding.NORMS:
-            assert n == model
-        elif isinstance(g[-1], sharding.HeadShare):
+        if isinstance(g[-1], sharding.HeadShare):
             assert n == model // tcfg.num_kv_heads
-        else:  # a split leaf, or one whose dims do not split (as JAX's)
+        elif isinstance(g[-1], sharding.BlockSplit):
+            assert n == 1
+        else:  # a split leaf, or a whole one (the norms, latents, router, w_up; dims that do not split)
             assert n == (1 if "model" in tuple(g) else model), path
 
 
@@ -372,19 +451,26 @@ def test_a_shared_kv_head_is_the_one_its_query_heads_read():
                                        ("arctic-480b", "MoE blocks"), ("deepseek-v3-671b", "MoE blocks"),
                                        ("mla", "MLA attention")])
 def test_families_without_tensor_parallelism_are_refused_by_name(arch, what):
-    import dataclasses
-
+    """Once refused by name on a "model" axis (ROADMAP.md item 16b), each of
+    these families now builds there: the rules pass it, and its train,
+    prefill and decode cells build on a ("data", "model") mesh of (1, 2),
+    each rank's params a slice of every split leaf
+    (``tests/test_torch_tensor_parallel_families.py`` holds their numbers
+    to JAX's)."""
+    del what
     cfg = (dataclasses.replace(treg.get_smoke("deepseek-v3-671b"), moe=None) if arch == "mla"
            else treg.get_smoke(arch))
-    mesh = _FakeMesh(data=1, model=2)
-    with pytest.raises(NotImplementedError, match=rf'"model" axis for {what}.*item 16b'):
-        sharding.refuse_model_axis(mesh, cfg)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        steps.build_prefill_cell(cfg, ShapeSpec("p", 8, 2, "prefill"), mesh)
-    with sharding.using_hint_mesh(mesh), pytest.raises(NotImplementedError, match="item 16b"):
-        from repro_torch.models import transformer
-
-        transformer.forward(steps._init_params(cfg), cfg, torch.zeros((1, 4), dtype=torch.int32))
+    mesh = rank_mesh_stand_in((1, 2))
+    sharding.refuse_model_axis(mesh, cfg)
+    cells = [steps.build_train_cell(cfg, ShapeSpec("t", 8, cfg.fed.edges_per_pod * cfg.fed.clients_per_edge,
+                                                   "train"), mesh),
+             steps.build_prefill_cell(cfg, ShapeSpec("p", 8, 2, "prefill"), mesh),
+             steps.build_decode_cell(cfg, ShapeSpec("d", 8, 2, "decode"), mesh)]
+    for cell in cells:
+        assert cell.meta["model"] == 2
+        specs = [tuple(x) for x in leaves(cell.arg_specs[0] if cell.meta["kind"] != "train"
+                                          else cell.arg_specs[0].params)]
+        assert any("model" in x for x in specs)
     sharding.refuse_model_axis(_FakeMesh(data=2, model=1), cfg)  # a model axis of 1 runs as before
 
 

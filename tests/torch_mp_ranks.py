@@ -1,7 +1,8 @@
 """What the ranks of the model-parallel, launch-cell and tensor-parallel
 tests run (``tests/test_torch_model_parallel.py``,
 ``tests/test_torch_launch_cells.py``,
-``tests/test_torch_tensor_parallel.py``).
+``tests/test_torch_tensor_parallel.py``,
+``tests/test_torch_tensor_parallel_families.py``).
 
 ``dist.launch.spawn`` hands the ranks the tests' ``sys.path``, so they
 import this module from beside the tests; it imports only ``repro_torch``.
@@ -96,12 +97,17 @@ def serve_cells(rank: int, world: int, arch: str, np_params, prompts: np.ndarray
 # ---------------------------------------------------------------------------
 
 
-def tp_config(fields: Dict[str, Any]):
-    """The dense smoke config of the tensor-parallel tests: granite-3-2b's
-    smoke with ``fields`` replaced."""
+def tp_config(fields: Dict[str, Any], arch: str = "granite-3-2b"):
+    """The smoke config of a tensor-parallel test: ``arch``'s smoke (the
+    dense tests' granite-3-2b by default) with ``fields`` replaced; a
+    ``"fed"`` entry is a dict of the ``FedPlan``'s fields to replace."""
     import dataclasses
 
-    return dataclasses.replace(get_smoke("granite-3-2b"), **fields)
+    cfg = get_smoke(arch)
+    fields = dict(fields)
+    if "fed" in fields:
+        fields["fed"] = dataclasses.replace(cfg.fed, **fields["fed"])
+    return dataclasses.replace(cfg, **fields)
 
 
 def _placed(x: torch.Tensor, spec, struct, mesh):
@@ -128,27 +134,48 @@ def _tp_train(mesh, cfg, shape, np_params, batches, lr):
     return {"metrics": metrics, "counts": counts, "blocks": blocks, "meta": dict(cell.meta)}
 
 
-def _rows(w, m: int, i: int) -> np.ndarray:
-    """Block ``i`` of ``m`` of a row-parallel leaf's dim -2."""
-    k = w.shape[-2] // m
-    return np.ascontiguousarray(w[..., i * k:(i + 1) * k, :])
+class _NextModelRank:
+    """``mesh`` seen from the next rank of its "model" axis: a spec's slice
+    under it is that rank's."""
+
+    def __init__(self, mesh):
+        self.mesh, self.axis_names, self.shape = mesh, mesh.axis_names, mesh.shape
+
+    def axis_index(self, name):
+        i = self.mesh.axis_index(name)
+        return (i + 1) % int(self.shape[name]) if name == "model" else i
 
 
-def _tp_serve(mesh, cfg, np_params, prompts, tokens, max_len, swap_wo=False):
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _shapes(tree, prefix=""):
+    """{"blocks/b0/k": shape, ...}: every tensor leaf's shape by its path."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _shapes(sub, f"{prefix}{key}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in _shapes(sub, f"{prefix}{i}/").items()}
+    return {prefix[:-1]: tuple(tree.shape)}
+
+
+def _tp_serve(mesh, cfg, np_params, prompts, tokens, max_len, swap=None):
     b, s = prompts.shape
     pre = steps.build_prefill_cell(cfg, ShapeSpec("prefill", max_len, b, "prefill"), mesh)
     dec = steps.build_decode_cell(cfg, ShapeSpec("decode", max_len, b, "decode"), mesh)
     params = params_from_numpy(np_params, "cpu", mesh=mesh, cfg=cfg)
-    if swap_wo:  # the control: the next model rank's rows of ``wo``
-        m, r = int(mesh.shape["model"]), mesh.axis_index("model")
-        params["blocks"]["b0"]["attn"]["wo"] = torch.as_tensor(_rows(np_params["blocks"]["b0"]["attn"]["wo"], m,
-                                                                     (r + 1) % m))
+    if swap is not None:  # the control: the next model rank's slice of the leaf at path ``swap``
+        spec = _at(pre.arg_specs[0], swap)
+        _at(params, swap[:-1])[swap[-1]] = torch.as_tensor(np.ascontiguousarray(
+            spec.shard(_at(np_params, swap), _NextModelRank(mesh))))
     held = sum(x.numel() for x in leaves(params))
     _, inputs = steps.shard_args(pre, (None, torch.as_tensor(prompts)), mesh)
     sharding.reset_counts()
     logits, caches = pre.fn(params, inputs)
     out = {"prefill": logits.numpy(), "prefill_counts": dict(sharding.COUNTS), "decode": [], "held": held,
-           "cache_heads": int(caches["blocks"]["b0"]["k"].shape[-2]), "meta": dict(pre.meta)}
+           "cache_shapes": _shapes(caches), "meta": dict(pre.meta)}
     for j in range(tokens.shape[1]):
         _, _, tok, pos = steps.shard_args(dec, (None, None, torch.as_tensor(tokens[:, j]),
                                                 torch.full((b,), s + j, dtype=torch.int32)), mesh)
@@ -178,8 +205,10 @@ def tp_world(rank: int, world: int, jobs: List[Dict[str, Any]]) -> List[Any]:
     """Every job of a tensor-parallel test file on this rank of one gloo
     world, in order: "train" (the train cell over the job's batches),
     "serve" (the prefill cell, then a decode step per column of
-    ``tokens``), "cross_entropy" (the vocab-parallel loss). Each job names
-    its ("data", "model") mesh shape and the config's fields."""
+    ``tokens``; ``swap``, a params path, takes the next model rank's slice
+    of that leaf), "cross_entropy" (the vocab-parallel loss). Each job
+    names its ("data", "model") mesh shape, the config's fields and its
+    smoke ``arch`` (granite-3-2b by default)."""
     torch.set_num_threads(1)
     out = []
     for job in jobs:
@@ -188,10 +217,10 @@ def tp_world(rank: int, world: int, jobs: List[Dict[str, Any]]) -> List[Any]:
         if kind == "cross_entropy":
             out.append(_tp_cross_entropy(mesh, job["logits"], job["targets"], job["mask"]))
             continue
-        cfg = tp_config(job["cfg"])
+        cfg = tp_config(job["cfg"], job.get("arch", "granite-3-2b"))
         if kind == "train":
             out.append(_tp_train(mesh, cfg, job["shape"], job["params"], job["batches"], job["lr"]))
         else:
             out.append(_tp_serve(mesh, cfg, job["params"], job["prompts"], job["tokens"], job["max_len"],
-                                 job.get("swap_wo", False)))
+                                 job.get("swap")))
     return out
