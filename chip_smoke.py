@@ -362,6 +362,24 @@ Phases, one JSON line each; any failure exits non-zero:
               against one device with G = 2 token groups (within 2^-7 of the
               largest logit, the first difference printed); the exchange's
               ms and bytes, tokens/s and each rank's peak
+  dryrun      the dry run's op counter (``analysis.opcount``) against the
+              card: lm-100m's single-device prefill (4 x 1024, f32, K7) and
+              train cell (the 128 x 64 cut, its second call: the local step
+              and the edge sync's K1) counted on real CUDA tensors and on
+              meta tensors (the dry run's): equal FLOPs, bytes, kernel
+              charges and collectives, the counted peak within 15 % of the
+              allocator's, the counted roofline against a CUDA-event time;
+              ``tp_lm100m_m2``'s prefill as its gloo ranks counted it
+              against a fake (1, 2) world presented as gloo; then
+              ``python -m repro_torch.launch.dryrun --arch yi-9b --mesh
+              single`` and its report in subprocesses that see no card,
+              started beside ``world2`` and collected here
+
+The CPU runs the card runs are held to (``cpu_jobs``) run in one spawned,
+lower-priority worker process from the start, beside the build; each phase
+collects its reference (``cpu_ref``) and the ``wall`` line names how long
+each waited and when the worker finished it. The 2- and 4-rank worlds'
+ranks hand their results back through files (``handed_over``).
 
 The quickstart, mlp307k, mlp307k_int8_ef, mlp307k_megakernel,
 n1m_cohort4096, mlp307k_cohort, mlp307k_deadline and train_lm100m phases
@@ -393,6 +411,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 T0 = time.perf_counter()
+T0_WALL = time.time()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
@@ -967,7 +986,10 @@ def k3_inputs(torch, rng, n, k1, b, feat, out, mom, dtype):
 
 # traces taken again (a window that lost its edges, or a kernel); the most
 # leading spins one kept trace lost
-TRACE_STATS = {"taken_again": 0, "leading_spins_lost_max": 0}
+TRACE_STATS = {"whole": 0, "taken_again": 0, "leading_spins_lost_max": 0}
+# leading spins a trace starts with: the tracer has lost up to 50 in one
+# window on an H100, and each retake runs the call again
+TRACE_LEAD = 32
 SPIN_CYCLES = 2_000_000  # torch.cuda._sleep's clock cycles: about 1 ms on an H100
 
 
@@ -981,12 +1003,12 @@ def bracketed_trace(torch, fn, activities, attempts: int = 12):
     counts only if a leading spin survived before the call's first record
     and the trailing one after its last: then nothing of the call was lost.
     A trace that lost every leading spin is taken again with twice as many
-    (4 at first, up to 256). Returns (profiler, the call's device records,
+    (TRACE_LEAD at first, up to 256). Returns (profiler, the call's device records,
     seconds of the call to a synchronise, ``fn``'s result); raises if no
     trace was whole."""
     from torch.profiler import profile
 
-    lead = 4
+    lead = TRACE_LEAD
     for attempt in range(attempts):
         time.sleep(0.05 * attempt)
         torch.cuda.synchronize()
@@ -1009,6 +1031,7 @@ def bracketed_trace(torch, fn, activities, attempts: int = 12):
         leading = sum(i < first for i in spins)
         if leading and spins[-1] > last:
             TRACE_STATS["leading_spins_lost_max"] = max(TRACE_STATS["leading_spins_lost_max"], lead - leading)
+            TRACE_STATS["whole"] += 1
             return prof, [events[i] for i in call], seconds, out
         TRACE_STATS["taken_again"] += 1
         if not leading:
@@ -1257,6 +1280,207 @@ def run_scenario(torch, mods, name, overrides, device, params=None, profiler=Non
     return runner, state, seconds, launches, params
 
 
+# -- CPU references in worker processes ---------------------------------------
+#
+# The CPU runs that the card runs are held to take minutes of host time. They
+# depend on nothing the card computes (each starts from its scenario's seeded
+# init), so a spawned worker process runs them beside the card phases,
+# from the end of the build, and a phase collects its reference when it
+# needs it (``cpu_ref``). Each worker keeps CPU_WORKER_THREADS intra-op
+# threads at a lower priority (CPU_WORKER_NICE), and while it lives the main
+# process keeps the other cores' worth of intra-op threads (``MAIN_THREADS``):
+# more threads than cores made each of the main process's host ops wait on
+# a descheduled thread (a CIFAR-10 interval's host-bound wall 1.6 s -> 8.1
+# s). The workers end with the last collection, and the main process takes
+# its threads back.
+CPU_WORKERS = 1
+CPU_WORKER_THREADS = 3
+CPU_WORKER_NICE = 19
+CPU_REFS = {}  # job name -> Future
+CPU_POOL = []
+MAIN_THREADS = []  # the main process's intra-op threads before the workers started
+
+
+def cpu_jobs():
+    """Job name -> ``cpu_reference``'s arguments (scenario, overrides, the
+    scenario and overrides whose seeded init the card run used, a model
+    config cut, whether to keep the final params), in the order the phases
+    need them."""
+    mk = MLP307K + MEGAKERNEL
+    jobs = {"quickstart": ("quickstart", ())}
+    jobs.update({name: (name, overrides) for name, overrides in (("int8_cloud", INT8_CLOUD),
+                                                               ("int8_ef_both", INT8_EF_BOTH))})
+    jobs["mlp307k_int8_ef"] = ("int8_ef_both", MLP307K)
+    jobs["mlp307k_megakernel"] = ("hierfavg_edge_iid", mk + ["run.num_rounds=2"], ("hierfavg_edge_iid", MLP307K))
+    jobs.update({name: (name, overrides) for name, overrides in (("trimmed_edge", ()), ("median_cloud", INT8_CLOUD),
+                                                               ("trimmed_int8", INT8_CLOUD))})
+    for name in ("deadline_straggler", "fedbuff_k4", "stale_decay"):
+        jobs[name] = (name, DEADLINE_RUN, None, None, True)
+    jobs["mlp307k_deadline"] = ("deadline_straggler", MLP307K, ("hierfavg_edge_iid", MLP307K), None, True)
+    jobs["n1m_cohort4096"] = ("n1m_cohort4096", ["run.num_rounds=2"], ("n1m_cohort4096", ()), None, True)
+    jobs["mlp307k_cohort"] = None  # cohort_cpu_reference
+    for phase, overrides in (("train_lm10m", LM_TRAIN), ("train_lm10m_int8_ef", LM_INT8_EF)):
+        jobs[phase] = ("lm_edge_niid", overrides, None, None, True)
+    jobs["train_lm100m"] = ("lm_edge_niid", LM100M + LM100M_CPU_ROUND, ("lm_edge_niid", LM100M + LM_TRAIN))
+    for opt in ("adam", "sgd"):
+        jobs[f"xlstm_cut_{opt}"] = ("lm_edge_niid", XLSTM + XLSTM_CUT_RUN + [f"model.optimizer={opt}"],
+                                    ("lm_edge_niid", XLSTM + XLSTM_CUT_RUN), XLSTM_CUT, True)
+    return jobs
+
+
+def cpu_reference(name, overrides, init=None, cut=None, keep_params=False):
+    """(In a worker.) ``run_scenario`` on the CPU from the seeded init of
+    ``init``'s scenario (default: this one's), under ``lm_config_cut(**cut)``:
+    its records, round count, seconds and (``keep_params``) final params
+    as numpy leaves in ``tree.leaves`` order."""
+    import os
+
+    import torch
+
+    from repro_torch.fed import scenarios
+    from repro_torch.tree import leaves
+
+    if os.nice(0) < CPU_WORKER_NICE:  # the main process, driving the card, goes first
+        os.nice(CPU_WORKER_NICE - os.nice(0))
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    with lm_config_cut(**cut) if cut else contextlib.nullcontext():
+        params = None
+        if init is not None:
+            ref = scenarios.get(init[0], overrides=list(init[1]))
+            params = ref.init_params(ref.run.seed + 1, "cpu")
+        runner, state, seconds, _, _ = run_scenario(torch, (), name, list(overrides), "cpu", params=params)
+    return {"history": runner.history, "num_rounds": runner.cfg.num_rounds, "seconds": seconds,
+            "gated_intervals": getattr(runner._engine, "gated_intervals", None),
+            "params": [x.detach().float().numpy() for x in leaves(state.params)] if keep_params else None,
+            "done_at": time.time()}
+
+
+def cohort_cpu_reference():
+    """(In a worker.) ``mlp307k_cohort``'s two CPU runs from mlp307k's init:
+    the cohort run spied (``spy_cohort_engine``: the params after each
+    interval), with its records, final params and its store's rows at the
+    drawn ids and at those ids rolled by one (the control's), as numpy;
+    and the no-cohort control's final params and sticky optimizer rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fed import scenarios
+    from repro_torch.fed.client_store import sticky_rows
+    from repro_torch.tree import leaves
+
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    ref = scenarios.get("hierfavg_edge_iid", overrides=MLP307K)
+    params = ref.init_params(ref.run.seed + 1, "cpu")
+    after = []
+    runner, state, *_ = run_scenario(torch, (), "hierfavg_edge_iid", MLP307K + COHORT_MLP, "cpu", params,
+                                     spy=lambda r: spy_cohort_engine(r, after))
+    ids = drawn_ids(runner)
+    store = runner.client_store.state()["leaves"]
+    out = {"history": runner.history, "num_rounds": runner.cfg.num_rounds, "seconds": 0.0, "gated_intervals": None,
+           "params": [x.numpy() for x in leaves(state.params)],
+           "after": [{k: v.numpy() for k, v in p.items()} for p in after],
+           "store_rows": [x[ids] for x in store], "store_rows_rolled": [x[np.roll(ids, 1)] for x in store]}
+    control = MLP307K + [o for o in COHORT_MLP if o.startswith(("model.", "transport."))]
+    _, c_state, *_ = run_scenario(torch, (), "hierfavg_edge_iid", control, "cpu", params)
+    out["control_params"] = [x.numpy() for x in leaves(c_state.params)]
+    out["control_opt"] = [x.numpy() for x in sticky_rows(c_state, 32)["opt"]]
+    out["done_at"] = time.time()
+    return out
+
+
+class CpuRun:
+    """What the checks read of a CPU run made in a worker: ``history``,
+    ``cfg.num_rounds``, and ``state.params`` (a list of leaves)."""
+
+    def __init__(self, out):
+        import types
+
+        import torch
+
+        self.history, self.seconds, self.gated_intervals = out["history"], out["seconds"], out["gated_intervals"]
+        self.cfg = types.SimpleNamespace(num_rounds=out["num_rounds"])
+        params = None if out["params"] is None else [torch.from_numpy(x) for x in out["params"]]
+        self.state = types.SimpleNamespace(params=params)
+
+
+def start_cpu_refs():
+    """Submit every ``cpu_jobs`` entry to CPU_WORKERS spawned processes, and
+    leave the main process the other cores' worth of intra-op threads."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    import torch
+
+    pool = concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    CPU_POOL.append(pool)
+    for key, args in cpu_jobs().items():
+        CPU_REFS[key] = pool.submit(cohort_cpu_reference) if args is None else pool.submit(cpu_reference, *args)
+    MAIN_THREADS.append(torch.get_num_threads())
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) - CPU_WORKERS * CPU_WORKER_THREADS))
+
+
+def cpu_ref(key) -> CpuRun:
+    """The worker's run for ``key``, waiting for it if it is not done; the
+    seconds the phase waited, and when (from the start) the worker finished
+    it, are kept (``CPU_WAITS``, ``CPU_DONE``)."""
+    t0 = time.perf_counter()
+    out = CPU_REFS.pop(key).result()
+    CPU_WAITS[key] = time.perf_counter() - t0
+    CPU_DONE[key] = out["done_at"] - T0_WALL
+    if not CPU_REFS:
+        stop_cpu_refs()
+    run = CpuRun(out)
+    run.extra = {k: v for k, v in out.items() if k not in ("history", "num_rounds", "seconds", "params", "done_at")}
+    return run
+
+
+CPU_WAITS = {}
+CPU_DONE = {}
+
+
+CHILDREN = []  # subprocesses a phase started and collects later (the dry run's)
+
+
+def stop_cpu_refs():
+    """End the workers, the running jobs too (a failed check leaves them),
+    and give the main process its intra-op threads back."""
+    for pool in CPU_POOL:
+        for proc in list(getattr(pool, "_processes", {}).values()):
+            proc.terminate()
+        pool.shutdown(wait=True, cancel_futures=True)
+    CPU_POOL.clear()
+    if MAIN_THREADS:
+        import torch
+
+        torch.set_num_threads(MAIN_THREADS.pop())
+
+
+def host_cpus() -> dict:
+    """The cores this process may run on and the cgroup's CPU quota (read
+    only), beside the wall: a host that throttles its cgroup slows every
+    process in it, whatever its priority."""
+    import os
+
+    quota = None
+    for path in ("/sys/fs/cgroup/cpu.max", "/sys/fs/cgroup/cpu/cpu.cfs_quota_us"):
+        try:
+            quota = Path(path).read_text().strip()
+            break
+        except OSError:
+            continue
+    return {"affinity": len(os.sched_getaffinity(0)), "cpu_count": os.cpu_count(), "cgroup_cpu_max": quota}
+
+
+def stop_all():
+    """The workers and the subprocesses still running (a failed check
+    leaves them)."""
+    for child in CHILDREN:
+        child.kill()
+    CHILDREN.clear()
+    stop_cpu_refs()
+
+
 def history_agreement(runner, ref_runner, what, prefix):
     """Per-round losses within rtol 1e-4 and accuracies within 0.01 of
     ``ref_runner``'s, checked. A round whose reference loss is exactly 0
@@ -1276,13 +1500,11 @@ def history_agreement(runner, ref_runner, what, prefix):
             f"{prefix}_loss_max_where_zero": zero_loss, f"{prefix}_accuracy_max_gap": acc_gap}
 
 
-def cpu_agreement(torch, mods, runner, name, overrides, params, rounds=None):
-    """The same run on the CPU (plain versions) from the same init, held to
-    ``history_agreement``; with ``rounds``, its first ``rounds`` rounds
-    only (a CPU run of that length)."""
-    extra = [] if rounds is None else [f"run.num_rounds={rounds}"]
-    cpu_runner, *_ = run_scenario(torch, mods, name, list(overrides) + extra, "cpu", params=params)
-    return history_agreement(runner, cpu_runner, f"{name} cuda vs cpu", "cpu")
+def cpu_agreement(runner, key, name):
+    """The same run on the CPU (plain versions) from the same init, made by
+    a worker (``cpu_ref(key)``; a shorter one holds the first rounds), held
+    to ``history_agreement``."""
+    return history_agreement(runner, cpu_ref(key), f"{name} cuda vs cpu", "cpu")
 
 
 def resident_clients(runner) -> int:
@@ -1745,7 +1967,8 @@ def phase_train_lm10m(torch, mods, phase, overrides):
     check_launches(launches, want, phase)
     losses = [h.loss for h in runner.history]
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"{phase}: losses {losses}")
-    cpu_runner, cpu_state, cpu_secs, *_ = run_scenario(torch, mods, "lm_edge_niid", overrides, "cpu", params=params)
+    cpu_runner = cpu_ref(phase)
+    cpu_state, cpu_secs = cpu_runner.state, cpu_runner.seconds
     agreement = lm_agreement(runner, cpu_runner, f"{phase} cuda vs cpu")
     emit({"phase": phase, **path_report(runner, secs, launches, {
         "arch": runner.spec.model.arch, "transport": runner.spec.transport.levels, "launches_want": want,
@@ -1783,9 +2006,8 @@ def phase_train_lm100m(torch, mods):
     # card against the CPU over one round of one local step and its edge
     # sync (LM100M_CPU_ROUND), from the same init
     card_round, *_ = run_scenario(torch, mods, "lm_edge_niid", LM100M + LM100M_CPU_ROUND, "cuda", params=params)
-    t1 = time.perf_counter()
-    cpu_runner, *_ = run_scenario(torch, mods, "lm_edge_niid", LM100M + LM100M_CPU_ROUND, "cpu", params=params)
-    cpu_s = time.perf_counter() - t1
+    cpu_runner = cpu_ref("train_lm100m")
+    cpu_s = cpu_runner.seconds
     agreement = lm_agreement(card_round, cpu_runner, "train_lm100m round 0 cuda vs cpu", rounds=1)
     profile = device_profile(torch, mods, "lm_edge_niid", LM100M + ["run.num_rounds=2"], params)
     REFS["lm100m_peak_memory_bytes"] = peak
@@ -1808,7 +2030,7 @@ def phase_robust_scenario(torch, mods, name, overrides, want):
     check_launches(launches, want, name)
     check(all(bool(torch.isfinite(v).all()) for v in state.params.values()), f"{name} params not finite")
     check(runner.history[-1].loss < runner.history[0].loss, f"{name} loss did not fall")
-    cpu_runner, *_ = run_scenario(torch, mods, name, overrides, "cpu", params=params)
+    cpu_runner = cpu_ref(name)
     agreement = history_agreement(runner, cpu_runner, f"{name} cuda vs cpu", "cpu")
     alive = [h.mask_alive for h in runner.history]
     check(alive == [h.mask_alive for h in cpu_runner.history], f"{name}: survivors differ from the CPU run's")
@@ -1942,21 +2164,21 @@ def spy_cohort_engine(runner, params_after):
     runner._engine = engine
 
 
-def store_rows_agreement(state, cohort_size, store, ref_store, ids, ref_ids=None):
-    """Two runs' stores at the rows ``ids`` (of ``ref_store``: ``ref_ids``,
-    by default the same), leaf by leaf, relative to the reference leaf's
-    largest |value|: the optimizer rows' largest difference, and for each
-    residual leaf (the share of values further apart than
-    COHORT_STORE_RES_RTOL of it, the largest difference): an int8 code that
-    rounds the other way moves a residual by a whole code step."""
+def store_rows_agreement(state, cohort_size, store, ref_rows, ids):
+    """A run's store at the rows ``ids`` against ``ref_rows`` (a reference
+    store's rows, leaf by leaf), relative to the reference leaf's largest
+    |value|: the optimizer rows' largest difference, and for each residual
+    leaf (the share of values further apart than COHORT_STORE_RES_RTOL of
+    it, the largest difference): an int8 code that rounds the other way
+    moves a residual by a whole code step."""
     import numpy as np
 
     from repro_torch.fed.client_store import sticky_rows
 
     n_opt = len(sticky_rows(state, cohort_size)["opt"])
     opt, res = [], []
-    for i, (a, b) in enumerate(zip(store.state()["leaves"], ref_store.state()["leaves"])):
-        a, b = a[ids].astype(np.float64), b[ids if ref_ids is None else ref_ids].astype(np.float64)
+    for i, (a, b) in enumerate(zip(store.state()["leaves"], ref_rows)):
+        a, b = a[ids].astype(np.float64), b.astype(np.float64)
         scale = float(np.abs(b).max()) or 1.0
         err = np.abs(a - b) / scale
         if i < n_opt:
@@ -2020,7 +2242,8 @@ def phase_n1m_cohort4096(torch, mods):
     check(all(bool(torch.isfinite(v).all()) for v in state.params.values()), "n1m_cohort4096 params not finite")
     check(runner.history[-1].loss < runner.history[0].loss, "n1m_cohort4096 loss did not fall")
     REFS["n1m_cohort4096"] = stash(runner, state)
-    cpu_runner, cpu_state, *_ = run_scenario(torch, mods, "n1m_cohort4096", ["run.num_rounds=2"], "cpu", params)
+    cpu_runner = cpu_ref("n1m_cohort4096")
+    cpu_state = cpu_runner.state
     agreement = lm_agreement(runner, cpu_runner, "n1m_cohort4096 cuda vs cpu, first cloud interval")
     # the params after that interval's cloud sync (K2 over the compacted
     # edges with the prefetched table, K1 at the root), which neither the
@@ -2066,6 +2289,8 @@ def phase_mlp307k_cohort(torch, mods, mlp_params):
 
     from repro_torch.fed.client_store import sticky_rows
 
+    import types
+
     overrides = MLP307K + COHORT_MLP
     want = {"segment_mean": 32, "grouped_mean": 16, "quantize": 32, "dequantize": 32}
     base = reset_peak(torch)
@@ -2083,25 +2308,27 @@ def phase_mlp307k_cohort(torch, mods, mlp_params):
     # the same run spied on the card and on the CPU: the swap bit for bit
     # (spy_cohort_engine), the params after every interval and the store's
     # touched rows against the CPU's
-    card_params, cpu_params = [], []
+    card_params = []
     spied, spied_state, *_ = run_scenario(torch, mods, "hierfavg_edge_iid", overrides, "cuda", mlp_params,
                                           spy=lambda r: spy_cohort_engine(r, card_params))
-    cpu_runner, cpu_state, *_ = run_scenario(torch, mods, "hierfavg_edge_iid", overrides, "cpu", mlp_params,
-                                             spy=lambda r: spy_cohort_engine(r, cpu_params))
+    cpu_runner = cpu_ref("mlp307k_cohort")  # the same spied run on the CPU, in a worker
+    cpu_state = cpu_runner.state
+    cpu_params = [{k: torch.from_numpy(v) for k, v in p.items()} for p in cpu_runner.extra["after"]]
     check(all(bit_equal(spied_state.params[k], state.params[k]) for k in state.params),
           "mlp307k_cohort: the spied card run differs from the first")
     agreement = history_agreement(runner, cpu_runner, "mlp307k_cohort cuda vs cpu", "cpu")
     check(len(card_params) == len(cpu_params) == 4, "mlp307k_cohort: params after 4 intervals")
     interval_err = [max(float((a[k] - b[k]).abs().max()) for k in a) for a, b in zip(card_params, cpu_params)]
     check(max(interval_err) <= COHORT_PARAMS_ATOL, f"mlp307k_cohort params vs cpu by interval: {interval_err}")
-    opt_err, res_off = store_rows_agreement(spied_state, 32, spied.client_store, cpu_runner.client_store, distinct)
+    opt_err, res_off = store_rows_agreement(spied_state, 32, spied.client_store, cpu_runner.extra["store_rows"],
+                                            distinct)
     check(max(opt_err) <= COHORT_STORE_RTOL, f"mlp307k_cohort store: optimizer rows {opt_err} of the leaf's largest")
     check(max(share for share, _ in res_off) <= COHORT_STORE_RES_SHARE,
           f"mlp307k_cohort store: residual values off {res_off}")
     # the store comparison's control: the CPU's rows of the next drawn
     # client in place of each client's own must fail it
-    shifted_opt, shifted_res = store_rows_agreement(spied_state, 32, spied.client_store, cpu_runner.client_store,
-                                                    distinct, np.roll(distinct, 1))
+    shifted_opt, shifted_res = store_rows_agreement(spied_state, 32, spied.client_store,
+                                                    cpu_runner.extra["store_rows_rolled"], distinct)
     check(min(shifted_opt) > COHORT_STORE_RTOL and min(share for share, _ in shifted_res) > COHORT_STORE_RES_SHARE,
           f"mlp307k_cohort store control: other clients' rows pass ({shifted_opt}, {shifted_res})")
     del spied, spied_state, card_params, cpu_params
@@ -2114,20 +2341,21 @@ def phase_mlp307k_cohort(torch, mods, mlp_params):
     params_err = params_max_err(state, cpu_state)
     check(gnorm_excess <= 1.0 and params_err <= COHORT_PARAMS_ATOL,
           f"mlp307k_cohort vs cpu: grad_norm at {gnorm_excess} of its tolerance, params {params_err}")
-    del cpu_runner, cpu_state
+    del cpu_state
     # the control: the same optimizer and codec without participation (the
     # 32 clients of mlp307k), card against CPU; Adam moves a coordinate
     # whose gradient is near zero by about lr whatever its size, so the two
     # devices' roundings part by this much with or without cohorts
     control = MLP307K + [o for o in COHORT_MLP if o.startswith(("model.", "transport."))]
     _, c_state, *_ = run_scenario(torch, mods, "hierfavg_edge_iid", control, "cuda", mlp_params)
-    _, c_cpu_state, *_ = run_scenario(torch, mods, "hierfavg_edge_iid", control, "cpu", mlp_params)
+    c_cpu_state = types.SimpleNamespace(params=[torch.from_numpy(x) for x in cpu_runner.extra["control_params"]])
     control_err = params_max_err(c_state, c_cpu_state)
     control_opt = [float((a.cpu() - b).abs().max() / (b.abs().max() or 1.0))
-                   for a, b in zip(sticky_rows(c_state, 32)["opt"], sticky_rows(c_cpu_state, 32)["opt"])]
+                   for a, b in zip(sticky_rows(c_state, 32)["opt"],
+                                   [torch.from_numpy(x) for x in cpu_runner.extra["control_opt"]])]
     check(control_err <= COHORT_PARAMS_ATOL and max(control_opt) <= COHORT_STORE_RTOL,
           f"mlp307k_cohort control (no cohorts) vs cpu: params {control_err}, optimizer rows {control_opt}")
-    del c_state, c_cpu_state
+    del c_state, c_cpu_state, cpu_runner
 
     ckpt = ["run.checkpoint_every=4", f"run.checkpoint_dir={CKPT_DIR / 'cohort'}"]
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -2228,18 +2456,20 @@ def phase_deadline_barrier(torch, mods):
     return launches
 
 
-def deadline_vs_cpu(torch, mods, runner, state, name, overrides, params):
-    """The same run on the CPU from the same init: losses and accuracies
-    (``history_agreement``), survivors and the event clock equal, final
-    params within DEADLINE_PARAMS_ATOL, the same gated intervals."""
-    cpu, c_state, *_ = run_scenario(torch, mods, name, overrides, "cpu", params=params)
+def deadline_vs_cpu(runner, state, name, key):
+    """The same run on the CPU from the same init (a worker's, ``cpu_ref(key)``):
+    losses and accuracies (``history_agreement``), survivors and the event
+    clock equal, final params within DEADLINE_PARAMS_ATOL, the same gated
+    intervals."""
+    cpu = cpu_ref(key)
+    c_state = cpu.state
     agreement = history_agreement(runner, cpu, f"{name} cuda vs cpu", "cpu")
     check([h.mask_alive for h in runner.history] == [h.mask_alive for h in cpu.history], f"{name}: survivors differ")
     check([h.wall_clock_s for h in runner.history] == [h.wall_clock_s for h in cpu.history],
           f"{name}: wall_clock_s differs from the CPU run's")
     err = params_max_err(state, c_state)
     check(err <= DEADLINE_PARAMS_ATOL, f"{name}: params {err} from the CPU run's")
-    check(cpu._engine.gated_intervals == runner._engine.gated_intervals, f"{name}: gated intervals differ")
+    check(cpu.gated_intervals == runner._engine.gated_intervals, f"{name}: gated intervals differ")
     return {**agreement, "cpu_params_max_abs_err": err, "wall_clock_s_equal_cpu": True}
 
 
@@ -2256,7 +2486,7 @@ def phase_deadline_scenarios(torch, mods):
         check_launches(launches, {"grouped_mean": 2 * 44}, name)
         gated = deadline_engine(runner, name)
         check(gated >= 1, f"{name}: no gated interval")
-        agreement = deadline_vs_cpu(torch, mods, runner, state, name, DEADLINE_RUN, params)
+        agreement = deadline_vs_cpu(runner, state, name, name)
         try:
             scenarios.get(name, overrides=["run.num_rounds=20"]).run_experiment(device="cuda")
             refusal = None
@@ -2311,7 +2541,7 @@ def phase_mlp307k_deadline(torch, mods, mlp_params, mlp_profile):
           "mlp307k_deadline resume: the records (wall clock included) differ from the uninterrupted run's")
     check(all(bit_equal(r_state.params[k], state.params[k]) for k in state.params),
           "mlp307k_deadline resume: final params differ from the uninterrupted run's")
-    agreement = deadline_vs_cpu(torch, mods, runner, state, name, overrides, mlp_params)
+    agreement = deadline_vs_cpu(runner, state, name, "mlp307k_deadline")
     # the synchronous engine under the same straggler masks (the deadline
     # section off), so the deadline engine's own cost is apart from the
     # masks': warm walls in turns (A B B A), then its profile
@@ -2833,7 +3063,8 @@ def xlstm_cut_vs_cpu(torch, mods):
             overrides = XLSTM + XLSTM_CUT_RUN + [f"model.optimizer={opt}"]
             card, card_state, _, launches, _ = run_scenario(torch, mods, "lm_edge_niid", overrides, "cuda",
                                                             params=cut_params)
-            cpu, cpu_state, *_ = run_scenario(torch, mods, "lm_edge_niid", overrides, "cpu", params=cut_params)
+            cpu = cpu_ref(f"xlstm_cut_{opt}")
+            cpu_state = cpu.state
             pairs = list(zip(card.history, cpu.history))
             check(len(pairs) == 2 and launches["grouped_mean"] == 3 * len(list(leaves(card_state.params))),
                   f"train_xlstm350m cut {opt}: rounds {len(pairs)}, launches {launches}")
@@ -3269,8 +3500,10 @@ def sharded_rank(rank, world, jobs):
     from repro_torch.kernels import hier_aggregate as ha
     from repro_torch.kernels import quantize as qz
 
+    entered = time.time()
     resolve_device("cuda")  # TF32 off
-    return [sharded_job(torch, (ha, qz), world, job) for job in jobs]
+    return handed_over([sharded_job(torch, (ha, qz), world, job) for job in jobs], f"world{world}_rank{rank}",
+                       entered)
 
 
 def edge_interval_bit_equal(torch, runner, params, mesh):
@@ -3361,14 +3594,14 @@ def phase_sharded_w4(torch):
     from repro_torch.dist import launch
 
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    w4 = launch.spawn(sharded_rank, 4, "gloo", ([
+    t0, spawned = time.perf_counter(), time.time()
+    w4, times = taken_back(launch.spawn(sharded_rank, 4, "gloo", ([
         {"phase": "sharded_mlp307k_w4", "name": "hierfavg_edge_iid", "overrides": MLP307K,
-         "profile": True}],))
-    sharded_checks("sharded_mlp307k_w4", [r[0] for r in w4], time.perf_counter() - t0)
+         "profile": True}],)), spawned)
+    sharded_checks("sharded_mlp307k_w4", [r[0] for r in w4], time.perf_counter() - t0, times)
 
 
-def sharded_checks(phase, ranks, world_s):
+def sharded_checks(phase, ranks, world_s, world_times=None):
     """One sharded scenario's ranks (``SHARDED_WANTS``): the sharded engine,
     its launches and all-reduces on every rank, the ranks' records equal,
     and the run held to the single-device card run."""
@@ -3385,7 +3618,7 @@ def sharded_checks(phase, ranks, world_s):
     agreement = sharded_agreement(ranks[0], REFS[ref], phase, loss_rtol=rtol,
                                   loss_atol=0.0 if rtol == LM_RTOL else SHARDED_LOSS_ATOL)
     emit({"phase": phase, "world": len(ranks), "backend": ranks[0]["backend"], "device": ranks[0]["device"],
-          "world_seconds_with_spawn": world_s, "placement": ranks[0]["placement"],
+          "world_seconds_with_spawn": world_s, "world_times": world_times, "placement": ranks[0]["placement"],
           "vs_single_device_card": agreement, "losses": ranks[0]["loss"],
           "ranks": [{k: r[k] for k in ("rank", "seconds", "launches", "collectives", "peak_memory_bytes",
                                        "state_rows", "capacity")} | ({"profile": r["profile"]} if "profile" in r
@@ -3710,6 +3943,13 @@ def tp_serve_run(torch, mods, mesh):
     out = {"first": first, "warm": warm, **found, "param_bytes": held,
            "timed_run_collectives": tp_collectives_report(timed),
            "peak_memory_bytes": torch.cuda.max_memory_allocated() - base}
+    if mesh is not None:  # the dry run's counter on this rank's prefill (phase_dryrun (b))
+        from repro_torch.analysis import opcount
+
+        counted = steps.build_prefill_cell(cfg, ShapeSpec("prefill", P, B, "prefill"), mesh)
+        with torch.no_grad():
+            _, summary = opcount.count(counted.fn, params, x, mesh=mesh, device="cuda")
+        out["counted_prefill"] = counted_record(summary)
     del params
     torch.cuda.empty_cache()
     return out
@@ -3864,6 +4104,7 @@ def world_rank(rank, world, jobs):
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.launch import mesh as lmesh
 
+    entered = time.time()
     resolve_device("cuda")  # TF32 off
     tp_mesh = lambda: lmesh.make_host_mesh((1, world), ("data", "model"), device="cuda")  # noqa: E731
     out = []
@@ -3886,7 +4127,43 @@ def world_rank(rank, world, jobs):
         out[-1]["job_seconds"] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
-    return out
+    return handed_over(out, f"world{world}_rank{rank}", entered)
+
+
+def handed_over(out, name, entered):
+    """A rank's results written to a file under ``build/`` (pickle protocol
+    5: arrays in one copy) and its path returned in their place, with when
+    the rank entered and left its jobs: the parent reads the file back
+    (``taken_back``). The pipe of ``dist.launch.spawn`` moved a rank's
+    gigabytes of params at about 250 MB/s on an 8-core x86 host, one rank
+    after the other."""
+    import pickle
+
+    path = ROOT / "build" / "worlds" / f"{name}.pkl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    left = time.time()
+    with open(path, "wb") as f:
+        pickle.dump(out, f, protocol=5)
+    return {"path": str(path), "entered": entered, "left": left, "written": time.time()}
+
+
+def taken_back(handed, spawned):
+    """The ranks' results from their files (removed once read), and the
+    world's times from the spawn (wall clock ``spawned``): when each rank
+    entered its jobs, its jobs' seconds, its file's seconds, and the
+    seconds from the last file to the results read."""
+    import pickle
+
+    outs = []
+    for h in handed:
+        with open(h["path"], "rb") as f:
+            outs.append(pickle.load(f))
+        Path(h["path"]).unlink()
+    times = {"entered_s": [h["entered"] - spawned for h in handed],
+             "jobs_s": [h["left"] - h["entered"] for h in handed],
+             "write_s": [h["written"] - h["left"] for h in handed],
+             "after_last_write_s": time.time() - max(h["written"] for h in handed)}
+    return outs, times
 
 
 def phase_world2(torch, mods, fa):
@@ -3920,11 +4197,11 @@ def phase_world2(torch, mods, fa):
     fam_jobs = {name: {"kind": "tp_family", "name": name, "tokens": fam[name]["tokens"]}
                 for name in TP_FAMILY_SERVE}
     jobs = sharded + [train_w2, train_m2, serve_m2, ep2, *xlstm_train.values(), *fam_jobs.values()]
-    t1 = time.perf_counter()
-    ranks = launch.spawn(world_rank, 2, "gloo", (jobs,))
+    t1, spawned = time.perf_counter(), time.time()
+    ranks, times = taken_back(launch.spawn(world_rank, 2, "gloo", (jobs,)), spawned)
     world_s = time.perf_counter() - t1
     emit({"phase": "world2", "jobs": [j.get("phase", j.get("name", j["kind"])) for j in jobs],
-          "references_seconds": refs_s, "world_seconds_with_spawn": world_s,
+          "references_seconds": refs_s, "world_seconds_with_spawn": world_s, "world_times": times,
           "rank_job_seconds": [[r["job_seconds"] for r in rank] for rank in ranks]})
     at = {id(j): i for i, j in enumerate(jobs)}
     part = lambda job: [rank[at[id(job)]] for rank in ranks]  # noqa: E731
@@ -3932,6 +4209,7 @@ def phase_world2(torch, mods, fa):
         sharded_checks(job["phase"], part(job), world_s)
     train_cell_checks(single, part(train_w2), world_s, refs_s)
     phase_tp_lm100m_m2(single, serve_single, part(train_m2), part(serve_m2))
+    REFS["tp_prefill_counted"] = [r["counted_prefill"] for r in part(serve_m2)]
     ep2_checks(ep_ref, part(ep2), world_s)
     launches = dict(single["launches"])
     launches["flash_attention"] = launches.get("flash_attention", 0) + sum(
@@ -5292,6 +5570,259 @@ def phase_examples(torch, mods, fa):
     return total
 
 
+# the dry run's phase: lm-100m's single-device prefill (4 x 1024, f32: K7)
+# and train cell (the 128 x 64 cut, its second call: the local step and the
+# edge sync's K1) counted by ``analysis.opcount`` on the card and again on
+# meta tensors (the dry run's): FLOPs, bytes, kernel charges and collective
+# records equal; the counted peak of live storages within DRYRUN_PEAK_RTOL of
+# the card's ``max_memory_allocated`` over the call
+DRYRUN_PREFILL = ("prefill", 1024, 4, "prefill")
+DRYRUN_PEAK_RTOL = 0.15
+# the yi-9b dry run and the report in subprocesses: over this wall the phase
+# fails (24.2-25.6 s beside the 2-rank world on H100 hosts; on one of them
+# the same run took 41.3-42.9 s alone while the report imported torch and a
+# spawned process counted the train cell, 75.4 s once on a slower host)
+DRYRUN_WALL_LIMIT_S = 60.0
+
+
+def counted_record(summary) -> dict:
+    """What two counts of one call must share: FLOPs, HBM bytes, the
+    kernels' charges and the collectives (opcode, payload bytes, group
+    size, mesh axes, f32-for-bf16), with the memory and ops beside."""
+    return {"flops": summary.flops, "hbm_bytes": summary.hbm_bytes,
+            "kernels": {k: list(v) for k, v in sorted(summary.kernels.items())},
+            "collectives": sorted(list(c.key()) for c in summary.collectives),
+            "memory": summary.memory, "ops": summary.ops}
+
+
+def same_counts(a: dict, b: dict) -> bool:
+    return all(a[k] == b[k] for k in ("flops", "hbm_bytes", "kernels", "collectives"))
+
+
+def counted_call(torch, fn, args, device):
+    """(the call's output, its ``counted_record``, the peak the card's
+    allocator added over the call) of ``fn(*args)`` on the card."""
+    from repro_torch.analysis import opcount
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, summary = opcount.count(fn, *args, device=device)
+    torch.cuda.synchronize()
+    return out, counted_record(summary), torch.cuda.max_memory_allocated() - before
+
+
+def roofline_against_time(cfg, shape, rec, ms):
+    """The counted terms (``analysis.roofline``) beside a measured time:
+    the bound over the time (the share of the roofline reached)."""
+    import types
+
+    from repro_torch.analysis import roofline as rl
+
+    counts = types.SimpleNamespace(flops=rec["flops"], hbm_bytes=rec["hbm_bytes"],
+                                   collective_bytes_per_device=lambda: 0.0, collective_breakdown=lambda: {})
+    t = rl.from_summary(f"{cfg.name}/{shape.name}", counts, 1, model_flops_global=rl.model_flops(cfg, shape))
+    return {"compute_ms": t.compute_s * 1e3, "memory_ms": t.memory_s * 1e3, "dominant": t.dominant,
+            "bound_ms": t.bound_s * 1e3, "measured_ms": ms, "roofline_fraction_of_time": t.bound_s * 1e3 / ms,
+            "roofline_fraction": t.roofline_fraction, "useful_flops_ratio": t.useful_flops_ratio}
+
+
+def dryrun_prefill(torch, mods):
+    """(a) lm-100m's single-device prefill, counted on the card and on meta
+    tensors; timed warm by CUDA events."""
+    from repro_torch.analysis import opcount
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun, serve, steps
+    from repro_torch.models import transformer
+
+    cfg, shape = get_config("lm-100m"), ShapeSpec(*DRYRUN_PREFILL)
+    cell = steps.build_prefill_cell(cfg, shape, None)
+    with torch.no_grad():
+        params = transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        x = torch.from_numpy(serve.make_prompts(cfg, shape.global_batch, shape.seq_len, seed=1)).cuda()
+        cell.fn(params, x)  # warm
+        for m in mods:
+            m.reset_launch_counts()
+        _, real, card_peak = counted_call(torch, cell.fn, (params, x), "cuda")
+        launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+        _, fake = opcount.count(cell.fn, *dryrun.rank_args(cell, None, cfg, dryrun.FAKE_DEVICE),
+                                device=dryrun.FAKE_DEVICE)
+        fake = counted_record(fake)
+        ms = time_ms(lambda: cell.fn(params, x), flush=flush_buffer(torch), reps=5, warmup=1)
+    del params, x
+    torch.cuda.empty_cache()
+    return cfg, shape, real, fake, card_peak, launches, ms
+
+
+def dryrun_train_cell(torch, mods):
+    """(a) lm-100m's single-device train cell at the 128 x 64 cut: its
+    second call (the local step and the edge sync) counted on the card and
+    on meta tensors (step count 1); its third (a local step) timed and
+    counted on meta tensors."""
+    from repro_torch.analysis import opcount
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, steps
+
+    cfg, shape = train_cell_config(), ShapeSpec(*TRAIN_CUT)
+    torch.cuda.empty_cache()
+    cell = steps.build_train_cell(cfg, shape, None, lr=1e-3, device="cuda")
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in cell_batches(cfg, cell, 3)]
+    params = steps.transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    state = steps.init_train_state(cfg, None, params, torch.Generator(device="cuda").manual_seed(0))
+    state, _ = steps.shard_args(cell, (state, None), None, "cuda")
+    del params
+    torch.cuda.empty_cache()
+    state, _ = cell.fn(state, batches[0])
+    for m in mods:
+        m.reset_launch_counts()
+    (state, _), real, card_peak = counted_call(torch, cell.fn, (state, batches[1]), "cuda")
+    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+
+    def fake_call(step):
+        args = dryrun.rank_args(cell, None, cfg, dryrun.FAKE_DEVICE)
+        opcount.hold_value(args[0].step, step)
+        return counted_record(opcount.count(cell.fn, *args, device=dryrun.FAKE_DEVICE)[1])
+
+    fake, fake_local = fake_call(1), fake_call(2)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, _ = cell.fn(state, batches[2])
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    del state, batches
+    torch.cuda.empty_cache()
+    return cfg, shape, real, fake, fake_local, card_peak, launches, ms
+
+
+def dryrun_tp_prefill(torch):
+    """(b) a fake (1, 2) world presented as gloo, rank 0's count of the
+    prefill cell that ``tp_lm100m_m2``'s gloo ranks counted on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import opcount
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as lmesh
+
+    check(not dist.is_initialized(), "dryrun: a process group is still up before the fake world")
+    cfg = get_config("lm-100m")
+    with dryrun.fake_world(2):
+        mesh = lmesh.make_host_mesh((1, 2), ("data", "model"), device=dryrun.FAKE_DEVICE, present_as="gloo")
+        cell = steps.build_prefill_cell(cfg, ShapeSpec("prefill", TP_PROMPT, TP_BATCH, "prefill"), mesh)
+        args = dryrun.rank_args(cell, mesh, cfg, dryrun.FAKE_DEVICE)
+        _, summary = opcount.count(cell.fn, *args, mesh=mesh, device=dryrun.FAKE_DEVICE)
+    return counted_record(summary)
+
+
+def dryrun_subprocess():
+    """(c) ``launch.dryrun`` for yi-9b on the single-pod mesh (every shape,
+    the train cell's phases; a process a cell), then the report, each in a
+    subprocess that sees no card (``CUDA_VISIBLE_DEVICES`` empty), started
+    now and run by a thread beside the card phases (it needs no card, and
+    the 2-rank world leaves the host's cores idle); ``finish()`` waits for
+    them and returns (the wall from the start to the report's end, the dry
+    run's seconds, the artifacts, the report's rows, the dry run's result
+    lines)."""
+    import os
+    import shutil
+    import threading
+
+    out = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    done = {}
+
+    def run():
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "yi-9b", "--mesh",
+                                 "single", "--out", str(out), "--jobs", "3"], env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        CHILDREN.append(proc)
+        try:
+            done["stdout"], done["stderr"] = proc.communicate(timeout=2 * DRYRUN_WALL_LIMIT_S)
+        finally:
+            proc.kill()
+            CHILDREN.remove(proc)
+        done["rc"], done["dry_s"] = proc.returncode, time.perf_counter() - t0
+        if proc.returncode == 0:
+            done["report"] = subprocess.run([sys.executable, "-m", "repro_torch.experiments.roofline_report",
+                                             "--out", str(out)], env=env, capture_output=True, text=True,
+                                            timeout=120)
+        done["wall"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, name="dryrun-yi-9b", daemon=True)
+    thread.start()
+
+    def finish():
+        thread.join(timeout=2 * DRYRUN_WALL_LIMIT_S + 150)
+        check("wall" in done, f"dryrun: the yi-9b dry run did not end: {done}")
+        stdout, stderr = done["stdout"], done["stderr"]
+        check(done["rc"] == 0, f"dryrun: the yi-9b dry run exited {done['rc']}: {stdout[-2000:]} {stderr[-2000:]}")
+        rep = done["report"]
+        check(rep.returncode == 0, f"dryrun: the report exited {rep.returncode}: {rep.stderr[-2000:]}")
+        arts = {p.stem: json.loads(p.read_text()) for p in sorted(out.glob("*.json"))}
+        rows = [ln for ln in rep.stdout.splitlines() if ln.startswith(("roofline,", "multipod,", "refused,"))]
+        lines = [ln for ln in stdout.splitlines() if ln.startswith(("  OK", "dry run"))]
+        return done["wall"], done["dry_s"], arts, rows, lines
+
+    return finish
+
+
+def phase_dryrun(torch, mods, yi9b):
+    """The dry run's counter against the card. (a) lm-100m's prefill and
+    train cell counted on real CUDA tensors and on meta tensors: equal
+    FLOPs, bytes, kernel charges and collectives; the counted peak within
+    DRYRUN_PEAK_RTOL of the card's; the counted roofline against a CUDA-event
+    time. (b) ``tp_lm100m_m2``'s prefill as the 2-rank gloo world counted it
+    against a fake (1, 2) world presented as gloo. (c) the yi-9b dry run and
+    the report (``yi9b``: ``dryrun_subprocess``'s, started beside the 2-rank
+    world), touching no card; over DRYRUN_WALL_LIMIT_S it fails.
+    Returns the launches of (a)'s card calls."""
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    cfg, shape, real, fake, peak, launches, ms = dryrun_prefill(torch, mods)
+    check(same_counts(real, fake), f"dryrun prefill: card {real} and meta {fake} counts differ")
+    check(launches.get("flash_attention", 0) == cfg.num_layers and fake["kernels"]["flash_attention"][0] == 12,
+          f"dryrun prefill: K7 launches {launches}, charges {fake['kernels']}")
+    temp = fake["memory"]["temp_size_in_bytes"]
+    check(abs(temp - peak) <= DRYRUN_PEAK_RTOL * peak, f"dryrun prefill: counted peak {temp}, the card's {peak}")
+    prefill = {"card": real, "meta": fake, "card_peak_bytes": peak, "peak_rel_err": temp / peak - 1,
+               "roofline": roofline_against_time(cfg, shape, fake, ms)}
+    tcfg, tshape, treal, tfake, tlocal, tpeak, tlaunches, tms = dryrun_train_cell(torch, mods)
+    check(same_counts(treal, tfake), f"dryrun train cell: card {treal} and meta {tfake} counts differ")
+    check(tlaunches.get("grouped_mean", 0) == tfake["kernels"].get("grouped_mean", [0])[0] == 12,
+          f"dryrun train cell: K1 launches {tlaunches}, charges {tfake['kernels']} (12 leaves, one edge sync)")
+    ttemp = tfake["memory"]["temp_size_in_bytes"]
+    check(abs(ttemp - tpeak) <= DRYRUN_PEAK_RTOL * tpeak, f"dryrun train cell: counted peak {ttemp}, card's {tpeak}")
+    train = {"card": treal, "meta": tfake, "card_peak_bytes": tpeak, "peak_rel_err": ttemp / tpeak - 1,
+             "local_step_meta": tlocal, "roofline": roofline_against_time(tcfg, tshape, tlocal, tms)}
+    for m in mods:
+        m.reset_launch_counts()
+    ranks = REFS.get("tp_prefill_counted")
+    check(ranks is not None and len(ranks) == 2 and same_counts(ranks[0], ranks[1]),
+          f"dryrun tp prefill: the gloo ranks' counts {ranks}")
+    fake_tp = dryrun_tp_prefill(torch)
+    check(same_counts(ranks[0], fake_tp), f"dryrun tp prefill: gloo rank 0 {ranks[0]} and fake (1, 2) {fake_tp}")
+    wall, dry_s, arts, rows, lines = yi9b()
+    train_art = arts.get("yi-9b__train_4k__single_pod_16x16", {})
+    edge = train_art.get("phases", {}).get("edge_ops", {}).get("coll_counts", {})
+    check(len(arts) == 3 and edge == {"all-reduce@data": 1} and len([r for r in rows if r.startswith("roofline,")])
+          == 3, f"dryrun yi-9b: artifacts {sorted(arts)}, edge collectives {edge}, rows {rows}")
+    check(wall < DRYRUN_WALL_LIMIT_S, f"dryrun yi-9b: {wall:.1f} s, over {DRYRUN_WALL_LIMIT_S} s")
+    emit({"phase": "dryrun", "card": smi, "prefill_lm100m_4x1024_f32": prefill,
+          "train_cell_lm100m_128x64": train,
+          "tp_prefill_lm100m_m2": {"gloo_ranks": ranks, "fake_1x2_as_gloo": fake_tp},
+          "yi9b_single_pod": {"wall_s": wall, "limit_s": DRYRUN_WALL_LIMIT_S, "dry_run_s": dry_s, "lines": lines,
+                              "report_rows": rows, "train_edge_collectives": edge},
+          "seconds": time.perf_counter() - t0})
+    return {k: launches.get(k, 0) + tlaunches.get(k, 0) for k in set(launches) | set(tlaunches)}
+
+
 def main() -> int:
     import torch
 
@@ -5315,6 +5846,7 @@ def main() -> int:
         _build.build_all(("hier_aggregate",))
         xlstm_train_memory(torch, mods)
         return 0
+    start_cpu_refs()  # the CPU references need no kernel: they start beside nvcc
     t0 = time.perf_counter()
     libs = _build.build_all()
     ptxas = [ln.strip() for p in libs.values() for ln in Path(str(p) + ".log").read_text().splitlines()
@@ -5337,7 +5869,7 @@ def main() -> int:
     runner, _, secs, launches, params = run_scenario(torch, mods, "quickstart", (), "cuda")
     intervals = runner.cfg.num_rounds // runner.hier_config.kappa2_effective
     check(launches["grouped_mean"] == intervals * 12, f"quickstart K1 launches {launches}")
-    agreement = cpu_agreement(torch, mods, runner, "quickstart", (), params)
+    agreement = cpu_agreement(runner, "quickstart", "quickstart")
     count(launches)
     emit({"phase": "quickstart", **path_report(runner, secs, launches, {
         **agreement, "final_accuracy": runner.history[-1].accuracy,
@@ -5378,7 +5910,7 @@ def main() -> int:
         check(launches["grouped_mean"] == 2 * 44, f"{name} K1 launches {launches}")
         check(all(torch.isfinite(v).all() for v in state.params.values()), f"{name} params not finite")
         check(runner.history[-1].loss < runner.history[0].loss, f"{name} loss did not fall")
-        agreement = cpu_agreement(torch, mods, runner, name, overrides, params)
+        agreement = cpu_agreement(runner, name, name)
         count(launches)
         emit({"phase": name, **path_report(runner, secs, launches, {
             **agreement, "transport": runner.hier_config.transport.describe(),
@@ -5396,7 +5928,7 @@ def main() -> int:
     check(abs(acc - uncompressed_accuracy) <= 0.02, f"mlp307k_int8_ef accuracy {acc} vs {uncompressed_accuracy}")
     REFS["mlp307k_int8_ef"] = stash(runner, state)
     peak = torch.cuda.max_memory_allocated() - base
-    agreement = cpu_agreement(torch, mods, runner, "int8_ef_both", MLP307K, params)
+    agreement = cpu_agreement(runner, "mlp307k_int8_ef", "int8_ef_both")
     count(launches)
     emit({"phase": "mlp307k_int8_ef", **path_report(runner, secs, launches, {
         **agreement, "transport": runner.hier_config.transport.describe(), "final_accuracy": acc,
@@ -5453,7 +5985,7 @@ def main() -> int:
     vs_superround = history_agreement(runner, mlp_runner, "mlp307k_megakernel vs mlp307k", "superround")
     # the CPU runs the client-blocked lowering's plain versions slowly: its
     # first cloud interval (2 of 8 rounds) is held
-    agreement = cpu_agreement(torch, mods, runner, "hierfavg_edge_iid", mk_overrides, mlp_params, rounds=2)
+    agreement = cpu_agreement(runner, "mlp307k_megakernel", "hierfavg_edge_iid")
     count(launches)
     emit({"phase": "mlp307k_megakernel", **path_report(runner, secs, launches, {
         "uses_megakernel": True, "megakernel_reason": None, **vs_superround, **agreement,
@@ -5556,11 +6088,18 @@ def main() -> int:
     # scenarios, the train cells over ("data",) and ("data", "model"),
     # lm-100m served tensor-parallel, deepseek-v3's layer expert-parallel,
     # and the RG-LRU, MLA / MoE and xLSTM families tensor-parallel
+    yi9b = dryrun_subprocess()  # the dry run's (c), beside the 2-rank world
     count(phase_world2(torch, mods, fa))
 
+    # the dry run's op counter against the card: lm-100m's prefill (K7) and
+    # train cell (K1) on real and on meta tensors; the fake (1, 2) world
+    # against the gloo ranks' count; the yi-9b dry run in a subprocess
+    count(phase_dryrun(torch, mods, yi9b))
+
     check(all(total[name] > 0 for name in KERNELS), f"a kernel was never launched on its path: {total}")
-    emit({"phase": "wall", "seconds": time.perf_counter() - T0})
-    emit({"phase": "profiler", "traces_taken_again": TRACE_STATS["taken_again"],
+    emit({"phase": "wall", "seconds": time.perf_counter() - T0, "cpu_reference_waits_s": CPU_WAITS,
+          "cpu_reference_done_at_s": CPU_DONE, "host_cpus": host_cpus()})
+    emit({"phase": "profiler", "traces_whole": TRACE_STATS["whole"], "traces_taken_again": TRACE_STATS["taken_again"],
           "leading_spins_lost_max": TRACE_STATS["leading_spins_lost_max"]})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][1], "replaces": KERNELS[name][0],
@@ -5578,4 +6117,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_all()
+    sys.exit(rc)

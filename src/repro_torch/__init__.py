@@ -13,6 +13,14 @@ Entry points (``ExperimentSpec.build`` / ``run_experiment`` and
     from repro_torch.fed import scenarios
     runner, state = scenarios.get("quickstart").run_experiment()
 """
-from repro_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # torch is imported on first use, so a module that needs none of it
+    # (``experiments.roofline_report``) starts without it
+    if name == "resolve_device":
+        from repro_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -321,9 +321,11 @@ def psum_weighted_mean(
     mask: Optional[torch.Tensor] = None,
     *,
     anchor: Optional[Tree] = None,
+    counter: str = "all_reduce",
 ) -> Tuple[Tree, torch.Tensor]:
     """Global weighted mean over a client axis sharded over ``mesh`` with
-    exactly ONE collective: the port of JAX's ``psum_weighted_mean``.
+    exactly ONE collective: the port of JAX's ``psum_weighted_mean``
+    (counted under ``counter``).
 
     Every leaf is this rank's (C, ...) rows and ``weights`` / ``mask`` the
     matching (C,) slices. Each leaf's partial weighted sum is taken in f32
@@ -337,7 +339,7 @@ def psum_weighted_mean(
     transport's keep-dead logic reuses without a second collective."""
     flat = list(leaves(tree))
     anchors = list(leaves(anchor)) if anchor is not None else None
-    means, alive = _psum_means(flat, _masked_weights(weights, mask), mesh, anchors, "all_reduce")
+    means, alive = _psum_means(flat, _masked_weights(weights, mask), mesh, anchors, counter)
     out = []
     for i, (x, mean) in enumerate(zip(flat, means)):
         full = mean.expand(x.shape)

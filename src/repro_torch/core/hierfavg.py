@@ -68,6 +68,7 @@ import torch
 from torch.func import grad, vmap
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from repro_torch.analysis import opcount
 from repro_torch.core import aggregation
 from repro_torch.core.hierarchy import (
     HierarchySpec,
@@ -414,7 +415,7 @@ def _client_grads(loss_fn: LossFn, precision: Optional[PrecisionSpec], grad_accu
 
     def microbatch_grads(params, batch, rng):
         acc, losses = grad_fn(params, _step_slice(batch, 0), rng)
-        for i in range(1, grad_accum):
+        for i in opcount.iterations(range(1, grad_accum)):  # a count on meta tensors folds them
             g, losses = grad_fn(params, _step_slice(batch, i), rng)
             acc = tree_map(lambda a, b: a.add_(b), acc, g)
             del g
@@ -1161,19 +1162,26 @@ class ClientSharding:
     ``local_weights`` is this rank's row on its device and
     ``local_segments`` its host ids. ``static_segments`` is the concrete
     layout when every rank has the same one (uniform packing), so a
-    uniform layout reaches K1 and a robust aggregator may run."""
+    uniform layout reaches K1 and a robust aggregator may run.
+
+    ``edge`` (a 1-D ``RankMesh``, or None) is set when each edge spans
+    several ranks of a two-level tree, every rank's clients inside one
+    edge (the train cell on a production mesh: one client a rank, 4 ranks
+    an edge): the mesh of the ranks that share this rank's edge, over
+    whose group the edge sync all-reduces (``_build_sharded_level_sync``)."""
 
     axis: str
     placement: ShardPlacement
     weights_table: Any  # np (num_shards, capacity) f32 permuted + padded weights
     mesh: Any = None  # dist.sharding.RankMesh (None: rank 0 on the weights' device)
+    edge: Any = None  # dist.sharding.RankMesh of this rank's edge when edges span ranks
     _cache: Dict[Any, Any] = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
-    def build(cls, axis: str, placement: ShardPlacement, weights, mesh=None) -> "ClientSharding":
+    def build(cls, axis: str, placement: ShardPlacement, weights, mesh=None, edge=None) -> "ClientSharding":
         w = weights.cpu().numpy() if isinstance(weights, torch.Tensor) else np.asarray(weights)
         table = placement.pad_weights(w).reshape(placement.num_shards, placement.capacity)
-        return cls(axis=axis, placement=placement, weights_table=table, mesh=mesh)
+        return cls(axis=axis, placement=placement, weights_table=table, mesh=mesh, edge=edge)
 
     @property
     def rank(self) -> int:
@@ -1315,14 +1323,24 @@ def _build_sharded_level_sync(spec: HierarchySpec, config: HierFAVGConfig, level
     each rank), the error-feedback residual, robust sub-top aggregators and
     the keep-dead rules are per client or per group and stay on the rank.
     Sub-top syncs add members in the single-device order; only the cloud
-    sum reassociates."""
+    sum reassociates. An edge that spans ranks (``shard.edge``: each rank's
+    clients inside one edge of a two-level tree) takes the top's form over
+    the edge's ranks: the rank's mean, then one all-reduce over them
+    (counted as ``"edge_all_reduce"``), whose "had a survivor" the keep-dead
+    rules reuse."""
     depth = spec.depth
     is_top = level == depth
+    edge = None if is_top else shard.edge
     if robust is not None:
         if is_top:
             raise ValueError(
                 "a non-default top-level aggregator cannot run client-sharded "
                 "(global order statistics); see sharding_incompatibility"
+            )
+        if edge is not None:
+            raise ValueError(
+                f"a non-default aggregator at level {level} cannot run on edges that span ranks "
+                "(order statistics over several ranks); see sharding_incompatibility"
             )
         if shard.static_segments(level) is None:
             raise ValueError(
@@ -1349,10 +1367,10 @@ def _build_sharded_level_sync(spec: HierarchySpec, config: HierFAVGConfig, level
                                 state.anchor, delta_hat, state.params)
         agg = None
         synced_opt = None
-        alive_top = None
+        alive = None  # a group on several ranks: "the group had a survivor"
         if is_top and config.delta_cloud and state.anchor is not None:
-            params, alive_top = aggregation.psum_weighted_mean(uploaded, w_local, shard.mesh, mask,
-                                                               anchor=state.anchor)
+            params, alive = aggregation.psum_weighted_mean(uploaded, w_local, shard.mesh, mask,
+                                                           anchor=state.anchor)
             anchor = _copy(params)
         elif is_top:
             # params (+ the synced optimizer leaves) in one packed all-reduce
@@ -1361,7 +1379,7 @@ def _build_sharded_level_sync(spec: HierarchySpec, config: HierFAVGConfig, level
                 opt_flat, sync_ix = _sharded_opt_leaves(state.opt_state)
                 bundle["o"] = [opt_flat[i] for i in sync_ix]
             staged = aggregation.staged_mean(bundle, w_local, stages, mask)
-            out, alive_top = aggregation.psum_weighted_mean(staged, w_local, shard.mesh, mask)
+            out, alive = aggregation.psum_weighted_mean(staged, w_local, shard.mesh, mask)
             params = out["p"]
             if config.sync_opt_state:
                 for i, new in zip(sync_ix, out["o"]):
@@ -1372,18 +1390,24 @@ def _build_sharded_level_sync(spec: HierarchySpec, config: HierFAVGConfig, level
             if robust is not None:
                 static = shard.static_segments(level)
                 agg = lambda t: robust.segment_call(t, static, nseg, mask)
+            elif edge is not None:
+                def agg(t):
+                    nonlocal alive
+                    out, alive = aggregation.psum_weighted_mean(aggregation.staged_mean(t, w_local, stages, mask),
+                                                                w_local, edge, mask, counter="edge_all_reduce")
+                    return out
             else:
                 agg = lambda t: aggregation.staged_mean(t, w_local, stages, mask)
             params = agg(uploaded)
             anchor = _copy(params) if config.transport_active else state.anchor
         if codec is not None:
-            # the single-device keep-dead rules; at the top the whole tree is
-            # one group, whose "had a survivor" the packed all-reduce gave
+            # the single-device keep-dead rules; a group on several ranks (the
+            # top's tree, a spanning edge) had a survivor if its all-reduce said so
             w_eff = w_local.to(torch.float32)
             if mask is not None:
                 w_eff = w_eff * mask.to(torch.float32)
-            if is_top:
-                received = alive_top
+            if alive is not None:
+                received = alive
             else:
                 den = torch.zeros(nseg, dtype=torch.float32, device=w_eff.device).index_add_(0, ids, w_eff)
                 received = (den > 0)[ids]

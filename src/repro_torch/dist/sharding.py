@@ -93,7 +93,8 @@ LAUNCH_RECIPE = (
 )
 
 # collectives made through the counted wrappers below, since the last reset:
-# "all_reduce" the cloud syncs' (one per cloud interval), "eval_all_reduce"
+# "all_reduce" the cloud syncs' (one per cloud interval), "edge_all_reduce"
+# the edge syncs' of a train cell whose edges span ranks, "eval_all_reduce"
 # the evals' cloud model (``aggregation.psum_cloud_model``), "all_to_all"
 # MoE's expert-parallel exchanges (one dispatch and one combine per MoE
 # call), "moe_aux_all_reduce" the MoE aux loss's router statistics; over
@@ -101,8 +102,8 @@ LAUNCH_RECIPE = (
 # and backward), "tp_all_reduce_max" the loss's shift, "tp_all_gather" the
 # embedding's and the served logits' gathers, "tp_grad_norm" the grad-norm
 # metric's sum, and "tp_bytes" the bytes every one of those sent in
-COUNTS: Dict[str, int] = {"all_reduce": 0, "eval_all_reduce": 0, "gather": 0, "broadcast": 0, "all_to_all": 0,
-                          "moe_aux_all_reduce": 0, "tp_all_reduce": 0, "tp_all_reduce_max": 0,
+COUNTS: Dict[str, int] = {"all_reduce": 0, "edge_all_reduce": 0, "eval_all_reduce": 0, "gather": 0, "broadcast": 0,
+                          "all_to_all": 0, "moe_aux_all_reduce": 0, "tp_all_reduce": 0, "tp_all_reduce_max": 0,
                           "tp_all_gather": 0, "tp_grad_norm": 0, "tp_bytes": 0}
 
 
@@ -126,7 +127,7 @@ class RankMesh:
     group: Any
     device: torch.device
     backend: str
-    axis_groups: Dict[str, Any] = dataclasses.field(default_factory=dict, repr=False)
+    axis_groups: Dict[Any, Any] = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -162,23 +163,27 @@ class RankMesh:
         """The mesh of this rank's line along ``axes`` (those present, in
         the mesh's order): their sizes, this rank's row-major place among
         them, and the process group of that line. The line must be the
-        whole mesh or one axis longer than 1 (the groups ``rank_mesh``
-        made)."""
+        whole mesh, one axis longer than 1, or two such axes (the groups
+        ``rank_mesh`` made)."""
         names = tuple(a for a in self.axis_names if a in axes)
         sizes = tuple(self.shape[a] for a in names)
         n = math.prod(sizes)
-        longer = [a for a in names if self.shape[a] > 1]
+        longer = tuple(a for a in names if self.shape[a] > 1)
         if n == self.size:
             group = self.group
         elif len(longer) == 1:
             group = self.axis_group(longer[0])
+        elif longer in self.axis_groups:
+            group = self.axis_groups[longer]
         else:
             raise ValueError(f"no process group spans the axes {names} of a {self.shape} mesh")
         rank = 0
         for a in names:
             rank = rank * self.shape[a] + self.axis_index(a)
         return RankMesh(axis_names=names, sizes=sizes, rank=rank, group=group, device=self.device,
-                        backend=self.backend, axis_groups={a: g for a, g in self.axis_groups.items() if a in names})
+                        backend=self.backend,
+                        axis_groups={a: g for a, g in self.axis_groups.items()
+                                     if (a in names if isinstance(a, str) else set(a) <= set(names))})
 
 
 def ClientMesh(axis: str, size: int, rank: int, group, device: torch.device, backend: str) -> RankMesh:
@@ -620,6 +625,12 @@ def _rank_device(device: DeviceLike, rank: int) -> torch.device:
     return dev
 
 
+def _fake_world() -> bool:
+    """Whether the process group is ``torch.testing``'s "fake" backend (no
+    collective moves a byte): the dry run's world of 256 or 512 ranks."""
+    return str(dist.get_backend()) == "fake"
+
+
 def _check_backend(backend: str, dev: torch.device, k: int) -> None:
     if backend == "nccl":
         if dev.type != "cuda":
@@ -638,12 +649,19 @@ def _world() -> int:
     return dist.get_world_size()
 
 
-def rank_mesh(shape: Sequence[int], axes: Sequence[str], *, device: DeviceLike = None) -> RankMesh:
+def rank_mesh(shape: Sequence[int], axes: Sequence[str], *, device: DeviceLike = None,
+              present_as: Optional[str] = None) -> RankMesh:
     """A ``RankMesh`` of ``shape`` named ``axes`` over every rank of the
     initialised process group, row-major; the world must have exactly
     prod(shape) ranks (``launch.mesh`` words the error as JAX does). Every
-    rank makes every axis sub-group, in one order, as
-    ``dist.new_group`` needs."""
+    rank makes every axis sub-group, and the groups of the lines along two
+    axes (the multi-pod mesh's ("pod", "data") client line), in one order,
+    as ``dist.new_group`` needs.
+
+    A "fake" world (the dry run's) presents itself as ``present_as``
+    (default "nccl"), so the ranks take that backend's program, and its
+    device is ``device`` as given (default ``cuda:0``), asking the CUDA
+    runtime nothing: its tensors are fake."""
     sizes = tuple(int(n) for n in shape)
     axes = tuple(axes)
     if len(sizes) != len(axes) or len(set(axes)) != len(axes):
@@ -663,11 +681,52 @@ def rank_mesh(shape: Sequence[int], axes: Sequence[str], *, device: DeviceLike =
             g = dist.new_group([int(x) for x in line])
             if rank in line:
                 groups[name] = g
+    # the lines along two axes longer than 1 that are not the whole mesh:
+    # ("pod", "data"), the client axes of the multi-pod mesh
+    longer = [i for i in range(len(axes)) if sizes[i] > 1]
+    for j, i in enumerate(longer):
+        for k in longer[j + 1:]:
+            if sizes[i] * sizes[k] == n:
+                continue
+            lines = np.moveaxis(grid, (i, k), (-2, -1)).reshape(-1, sizes[i] * sizes[k])
+            for line in lines:
+                g = dist.new_group([int(x) for x in line])
+                if rank in line:
+                    groups[(axes[i], axes[k])] = g
+    if _fake_world():
+        dev = torch.device("cuda", 0) if device is None else torch.device(device)
+        return RankMesh(axis_names=axes, sizes=sizes, rank=rank, group=None, device=dev,
+                        backend=present_as or "nccl", axis_groups=groups)
     backend = str(dist.get_backend())
     dev = _rank_device(device, rank)
     _check_backend(backend, dev, n)
     return RankMesh(axis_names=axes, sizes=sizes, rank=rank, group=None, device=dev, backend=backend,
                     axis_groups=groups)
+
+
+def span_mesh(mesh: RankMesh, axes: Sequence[str], span: int) -> RankMesh:
+    """This rank's block of ``span`` consecutive ranks along its line of
+    ``axes`` (those present, row-major, as ``RankMesh.over``): a 1-D mesh
+    over the block's process group, the ranks that share one edge of a
+    train cell whose edges span ranks. ``mesh`` lies over the whole world
+    (``rank_mesh``); every rank makes every block's group of every line, in
+    one order, as ``dist.new_group`` needs."""
+    names = tuple(a for a in mesh.axis_names if a in axes)
+    k = math.prod(mesh.shape[a] for a in names)
+    if span < 1 or k % span:
+        raise ValueError(f"blocks of {span} ranks do not tile a line of {k} along {names}")
+    dims = [mesh.axis_names.index(a) for a in names]
+    grid = np.arange(mesh.size).reshape(mesh.sizes)
+    lines = np.moveaxis(grid, dims, list(range(grid.ndim - len(dims), grid.ndim))).reshape(-1, k)
+    mine, pos = None, 0
+    for line in lines:
+        for j in range(k // span):
+            block = [int(x) for x in line[j * span:(j + 1) * span]]
+            g = dist.new_group(block)
+            if mesh.rank in block:
+                mine, pos = g, block.index(mesh.rank)
+    return RankMesh(axis_names=(names[-1],), sizes=(span,), rank=pos, group=mine, device=mesh.device,
+                    backend=mesh.backend)
 
 
 def client_mesh(num_devices: int = 0, axis: str = "clients", *, device: DeviceLike = None) -> RankMesh:

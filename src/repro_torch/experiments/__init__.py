@@ -12,6 +12,8 @@ plain path; the card otherwise):
     aggregation_scaling    the analytic per-level traffic of uniform and ragged trees
     round_time_sim         the replay simulator's parity, determinism, scenarios, association
     wallclock_curves       synchronous, deadline and buffered rounds on the event clock
+    roofline_report        the dry run's roofline table, from ``launch.dryrun``'s
+                           artifacts (counts; not run by ``__main__``)
 
 ``python -m repro_torch.experiments [--only NAME] [--device cpu]`` runs
 them in turn. Each prints the same row keys as its JAX counterpart. The

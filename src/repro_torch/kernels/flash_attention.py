@@ -14,9 +14,12 @@ is the case H = Hkv = 1.
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel on the current stream (no
-synchronisation) or raises. ``LAUNCHES`` counts kernel launches. On the
-card the source holds two templates, chosen by dtype: bf16 runs on the
-tensor cores (wgmma), f32 on the CUDA cores (no TF32).
+synchronisation) or raises; a fake tensor (``opcount.is_fake``: the dry
+run's) charges ``analysis.opcount`` with ``opcount.attention_work`` and
+returns an empty output, neither built nor launched. ``LAUNCHES`` counts
+kernel launches. On the card the source holds two templates, chosen by
+dtype: bf16 runs on the tensor cores (wgmma), f32 on the CUDA cores (no
+TF32).
 
 The bf16 template rounds the probabilities to bf16 for the PV product, as
 the model's layer code does, while ``attention_plain`` keeps them in f32;
@@ -28,6 +31,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.analysis import opcount
 from repro_torch.kernels import _build
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
@@ -105,6 +109,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
         raise ValueError(f"attention: q, k, v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window)
+    cost = opcount.attention_work(B, Sq, k.shape[1], H, k.shape[2], hd, v.shape[3], causal, window,
+                                  q.element_size())
+    if opcount.is_fake(q):  # the dry run's: charged, neither built nor launched
+        opcount.charge("flash_attention", *cost)
+        return torch.empty_like(q)
     for t in (q, k, v):
         _check_cuda(t, "attention")
     if q.dtype not in _DTYPE_CODES:
@@ -113,11 +122,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
         raise ValueError(f"attention: head dim {hd} > {MAX_HEAD_DIM}, the kernel's largest")
     if B > 65535 or H > 65535 or q.numel() >= 2**31 or k.numel() >= 2**31 or Sq == 0 or k.shape[1] == 0:
         raise ValueError(f"attention: shapes {tuple(q.shape)}, {tuple(k.shape)} outside the kernel's grid")
-    out = torch.empty_like(q)
-    err = _build.load("flash_attention").fa_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, k.shape[1], H, k.shape[2], hd,
-        hd ** -0.5, int(bool(causal)), int(window), _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream,
-    )
+    with opcount.kernel_region("flash_attention", *cost):
+        out = torch.empty_like(q)
+        err = _build.load("flash_attention").fa_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, k.shape[1], H, k.shape[2], hd,
+            hd ** -0.5, int(bool(causal)), int(window), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
     _build.raise_on_error(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out

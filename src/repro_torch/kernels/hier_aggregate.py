@@ -25,7 +25,10 @@ beyond a limit is refused with a message that names it.
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel on the current stream (no
-synchronisation) or raises. There is no fallback from one to the other.
+synchronisation) or raises. There is no fallback from one to the other. A
+fake tensor (``opcount.is_fake``: the dry run's) charges ``analysis.opcount``
+with the kernel's work and returns an empty output, neither built nor
+launched.
 ``LAUNCHES`` counts wrapper calls that launched (one per call, whether
 the schedule runs one device kernel or two), so a run can show that it
 went through the kernels.
@@ -38,6 +41,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis import opcount
 from repro_torch.kernels import _build
 
 LAUNCHES: Dict[str, int] = {"grouped_mean": 0, "segment_mean": 0, "segment_dequant_mean": 0}
@@ -249,17 +253,22 @@ def grouped_mean(x: torch.Tensor, w: torch.Tensor, num_groups: int) -> torch.Ten
         raise ValueError(f"N={n} not divisible by num_groups={num_groups}")
     if x.device.type == "cpu":
         return grouped_mean_plain(x, w, num_groups)
+    cost = opcount.grouped_mean_work(n, x.shape[1] if x.dim() == 2 else 0, x.element_size())
+    if opcount.is_fake(x):  # the dry run's: charged, neither built nor launched
+        opcount.charge("grouped_mean", *cost)
+        return torch.empty_like(x)
     _check_cuda(x, w, "grouped_mean")
     d = x.shape[1]
     sched = _schedule(n // num_groups, d, num_groups, x.element_size())
     _check_grid(sched.blocks(num_groups), "grouped_mean", x.shape)
-    out = torch.empty_like(x)
-    scratch, aligned = _run(sched, x, out, num_groups * sched.chunks)
-    err = _build.load("hier_aggregate").hier_grouped_mean(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(), n, d,
-        num_groups, _DTYPE_CODES[x.dtype], sched.vec, sched.lanes, sched.rows, sched.groups_per_block,
-        sched.chunk_rows, aligned, torch.cuda.current_stream().cuda_stream,
-    )
+    with opcount.kernel_region("grouped_mean", *cost):
+        out = torch.empty_like(x)
+        scratch, aligned = _run(sched, x, out, num_groups * sched.chunks)
+        err = _build.load("hier_aggregate").hier_grouped_mean(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(), n, d,
+            num_groups, _DTYPE_CODES[x.dtype], sched.vec, sched.lanes, sched.rows, sched.groups_per_block,
+            sched.chunk_rows, aligned, torch.cuda.current_stream().cuda_stream,
+        )
     _build.raise_on_error(err, "grouped_mean", f"x {tuple(x.shape)} {x.dtype}, {num_groups} groups, {sched}")
     LAUNCHES["grouped_mean"] += 1
     return out
@@ -321,6 +330,10 @@ def segment_mean(x: torch.Tensor, w: torch.Tensor, segment_ids, num_segments: in
         raise ValueError(f"segment_ids shape {ids.shape} != ({x.shape[0]},)")
     if x.device.type == "cpu":
         return segment_mean_plain(x, w, ids, num_segments)
+    cost = opcount.segment_mean_work(x.shape[0], x.shape[1] if x.dim() == 2 else 0, x.element_size())
+    if opcount.is_fake(x):  # the dry run's: charged, neither built nor launched
+        opcount.charge("segment_mean", *cost)
+        return torch.empty_like(x)
     _check_cuda(x, w, "segment_mean")
     g = int(num_segments)
     if offsets is None:
@@ -334,14 +347,15 @@ def segment_mean(x: torch.Tensor, w: torch.Tensor, segment_ids, num_segments: in
     items = table_items(offsets.numel(), g)
     sched = _segment_schedule(n, d, g, x.element_size(), items)
     _check_grid(sched.blocks(g, items), "segment_mean", x.shape)
-    out = torch.empty_like(x)
-    scratch, aligned = _run(sched, x, out, items)
-    err = _build.load("hier_aggregate").hier_segment_mean(
-        x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), n, d, g, items, _DTYPE_CODES[x.dtype], sched.vec,
-        sched.lanes, sched.rows, sched.groups_per_block, sched.chunk_rows, aligned,
-        torch.cuda.current_stream().cuda_stream,
-    )
+    with opcount.kernel_region("segment_mean", *cost):
+        out = torch.empty_like(x)
+        scratch, aligned = _run(sched, x, out, items)
+        err = _build.load("hier_aggregate").hier_segment_mean(
+            x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n, d, g, items, _DTYPE_CODES[x.dtype], sched.vec,
+            sched.lanes, sched.rows, sched.groups_per_block, sched.chunk_rows, aligned,
+            torch.cuda.current_stream().cuda_stream,
+        )
     _build.raise_on_error(err, "segment_mean", f"x {tuple(x.shape)} {x.dtype}, {g} segments, {items} work items, "
                                                f"{sched}")
     LAUNCHES["segment_mean"] += 1

@@ -17,8 +17,10 @@ rounding (and bit for bit when ``chunk >= S``).
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version at ``chunk=CHUNK``; a CUDA tensor launches the kernel on the
-current stream (no synchronisation) or raises. ``LAUNCHES`` counts kernel
-launches.
+current stream (no synchronisation) or raises; a fake tensor
+(``opcount.is_fake``: the dry run's) charges ``analysis.opcount`` with
+``opcount.rglru_scan_work`` and returns empty outputs, neither built nor
+launched. ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import opcount
 from repro_torch.kernels import _build
 
 LAUNCHES: Dict[str, int] = {"rglru_scan": 0}
@@ -96,6 +99,11 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> Tuple[torc
         raise ValueError(f"rglru_scan: a and b must share a dtype, got {a.dtype} and {b.dtype}")
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b, h0, chunk=CHUNK)
+    cost = opcount.rglru_scan_work(a.shape[0], a.shape[1], a.shape[2], a.element_size())
+    if opcount.is_fake(a):  # the dry run's: charged, neither built nor launched
+        opcount.charge("rglru_scan", *cost)
+        return (torch.empty(a.shape, dtype=torch.float32, device=a.device),
+                torch.empty((a.shape[0], a.shape[2]), dtype=torch.float32, device=a.device))
     for t in (a, b, h0):
         if t.device.type != "cuda":
             raise ValueError(f"rglru_scan: tensors must be on the CPU (plain version) or CUDA, got {t.device}")
@@ -106,24 +114,25 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> Tuple[torc
         raise ValueError("rglru_scan: a and b must be contiguous")
     if a.dtype not in _DTYPE_CODES:
         raise ValueError(f"rglru_scan: dtype must be float32 or bfloat16, got {a.dtype}")
-    B, S, D = a.shape
-    h0f = h0.float().contiguous()
-    h = torch.empty((B, S, D), dtype=torch.float32, device=a.device)
-    h_last = torch.empty((B, D), dtype=torch.float32, device=a.device)
-    lib = _build.load("rglru_scan")
-    # workspace: the ticket and one flag per tile, cleared by one memset,
-    # then (A, B) per (row, chunk, channel), which the kernel writes before
-    # any block reads them
-    header = lib.rg_scan_header_bytes(B, S, D, _DTYPE_CODES[a.dtype])
-    pairs = lib.rg_scan_aggregate_bytes(B, S, D)
-    if header < 0 or pairs < 0:
-        raise ValueError(f"rglru_scan: the kernel refuses {tuple(a.shape)}")
-    work = torch.empty(header + pairs, dtype=torch.uint8, device=a.device)
-    work[:header].zero_()
-    err = lib.rg_scan(
-        a.data_ptr(), b.data_ptr(), h0f.data_ptr(), h.data_ptr(), h_last.data_ptr(), work.data_ptr(), B, S, D,
-        _DTYPE_CODES[a.dtype], torch.cuda.current_stream().cuda_stream,
-    )
-    _build.raise_on_error(err, "rglru_scan")
+    with opcount.kernel_region("rglru_scan", *cost):
+        B, S, D = a.shape
+        h0f = h0.float().contiguous()
+        h = torch.empty((B, S, D), dtype=torch.float32, device=a.device)
+        h_last = torch.empty((B, D), dtype=torch.float32, device=a.device)
+        lib = _build.load("rglru_scan")
+        # workspace: the ticket and one flag per tile, cleared by one memset,
+        # then (A, B) per (row, chunk, channel), which the kernel writes before
+        # any block reads them
+        header = lib.rg_scan_header_bytes(B, S, D, _DTYPE_CODES[a.dtype])
+        pairs = lib.rg_scan_aggregate_bytes(B, S, D)
+        if header < 0 or pairs < 0:
+            raise ValueError(f"rglru_scan: the kernel refuses {tuple(a.shape)}")
+        work = torch.empty(header + pairs, dtype=torch.uint8, device=a.device)
+        work[:header].zero_()
+        err = lib.rg_scan(
+            a.data_ptr(), b.data_ptr(), h0f.data_ptr(), h.data_ptr(), h_last.data_ptr(), work.data_ptr(), B, S, D,
+            _DTYPE_CODES[a.dtype], torch.cuda.current_stream().cuda_stream,
+        )
+        _build.raise_on_error(err, "rglru_scan")
     LAUNCHES["rglru_scan"] += 1
     return h, h_last

@@ -6,13 +6,14 @@ JAX lays its meshes over devices: single-pod (16, 16) ("data", "model") =
 axis the cross-DCN dimension HierFAVG's cloud hop amortizes. Here a mesh
 lies over the ranks of the initialised process group, one process a
 rank (``dist.sharding.RankMesh``), so the world must have exactly as many
-ranks as the mesh has places. Functions, not module constants: importing
-touches no process group.
+ranks as the mesh has places (the dry run's world is ``torch.testing``'s
+"fake" one, presented as NCCL: ``launch.dryrun``). Functions, not module
+constants: importing touches no process group.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch.distributed as dist
 
@@ -35,11 +36,13 @@ def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = None) 
     return rank_mesh(shape, axes, device=device)
 
 
-def make_host_mesh(shape: Sequence[int], axes: Sequence[str], *, device: DeviceLike = None) -> RankMesh:
+def make_host_mesh(shape: Sequence[int], axes: Sequence[str], *, device: DeviceLike = None,
+                   present_as: Optional[str] = None) -> RankMesh:
     """A small mesh over the world's ranks (tests, probes, one card's gloo
-    ranks)."""
+    ranks). A "fake" world presents itself as ``present_as`` (default
+    NCCL; ``rank_mesh``)."""
     n = math.prod(int(s) for s in shape)
     have = _world_size()
     if have != n:
         raise ValueError(f"need {n} devices, have {have}")
-    return rank_mesh(shape, axes, device=device)
+    return rank_mesh(shape, axes, device=device, present_as=present_as)

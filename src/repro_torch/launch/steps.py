@@ -10,9 +10,10 @@ decode cell : one decode step against the caches.
 
 JAX's cell is one jitted program over the whole mesh. Here ``Cell.fn`` runs
 on every rank of a ``dist.sharding.RankMesh`` with that rank's shards
-(``shard_args``): the train cell's state holds the rank's clients (whole
-edges, in rank order, of its "data" line) and its cloud sync is one
-all-reduce over the "data" axis; the serving cells take the rank's
+(``shard_args``): the train cell's state holds the rank's clients (a
+contiguous block of its "data" line: whole edges, or, on the production
+meshes, part of one edge whose sync then all-reduces over the edge's
+ranks) and its cloud sync is one all-reduce over the client axes; the serving cells take the rank's
 requests, and under an "ep_data" mesh the rank holds its E/P experts' rows
 and MoE's exchange runs one all-to-all each way. Over a "model" axis
 larger than 1 a rank holds its tensor-parallel slices
@@ -147,25 +148,41 @@ def shard_args(cell: Cell, args: Tuple, mesh, device=None) -> Tuple:
 def _client_sharding(topo, mesh, weights: torch.Tensor) -> Optional[ClientSharding]:
     """The train cell's rank view: the rules' specs give each rank of the
     client axes ("data", and "pod") a contiguous block of clients (JAX's
-    ``P("data")``), so the placement is the identity, and each block must
-    hold whole edges (every sub-cloud sync stays on its rank). The model
+    ``P(("pod", "data"))``), so the placement is the identity. Two layouts
+    run: whole edges on each rank (every edge sync stays on its rank), or,
+    on a two-level tree, each edge over k / E consecutive ranks with every
+    rank's clients inside one edge (the production meshes: 4 edges of 4
+    clients on 16 data ranks), whose edge sync all-reduces over the edge's
+    ranks (``ClientSharding.edge``, ``dist.sharding.span_mesh``). Any other
+    placement is refused by name; a client count that does not divide the
+    client axes is refused with JAX's words (``ShardingRules``). The model
     ranks of one block hold the same clients; the sharding's mesh is the
     client axes' line, whose group the cloud sync's all-reduce runs on."""
     if isinstance(mesh, _NoMesh):
         return None
-    axes = sharding.fed_rules(None, mesh).client_axes
+    rules = sharding.fed_rules(None, mesh)
+    axes = rules.client_axes
     k = math.prod(int(mesh.shape[a]) for a in axes)
     if k == 1:
         return None
-    clients = mesh.over(axes)
     spec = as_hierarchy(topo)
     n = spec.num_clients
-    groups = (spec.segments(spec.depth - 1) if spec.depth >= 2 else np.arange(n)).reshape(k, n // k)
-    if sum(len(set(row.tolist())) for row in groups) != len(set(groups.ravel().tolist())):
-        raise ValueError(f"the train cell needs whole edges on each rank: {n} clients in {k} contiguous blocks "
-                         f"split an edge")
+    rules._client_member(n)  # JAX's refusal of a count the client axes do not divide
+    clients = mesh.over(axes)
     placement = ShardPlacement(num_shards=k, capacity=n // k, perm=tuple(range(n)), spec=spec)
-    return ClientSharding.build(sharding.client_axis_of(clients), placement, weights, mesh=clients)
+    edges = (spec.segments(1) if spec.depth >= 2 else np.arange(n)).reshape(k, n // k)
+    top = (spec.segments(spec.depth - 1) if spec.depth >= 2 else np.arange(n)).reshape(k, n // k)
+    if sum(len(set(row.tolist())) for row in top) == len(set(top.ravel().tolist())):
+        return ClientSharding.build(sharding.client_axis_of(clients), placement, weights, mesh=clients)
+    num_edges = len(set(edges.ravel().tolist()))
+    span = k // num_edges
+    if (spec.depth == 2 and k % num_edges == 0 and all(len(set(row.tolist())) == 1 for row in edges)
+            and all(len(set(edges[j * span:(j + 1) * span, 0].tolist())) == 1 for j in range(num_edges))):
+        edge = sharding.span_mesh(mesh, axes, span)
+        return ClientSharding.build(sharding.client_axis_of(clients), placement, weights, mesh=clients, edge=edge)
+    raise ValueError(f"the train cell needs whole edges on each rank, or each edge of a two-level tree over whole "
+                     f"ranks: {n} clients in {k} contiguous blocks over {num_edges} edge(s) of "
+                     f"{spec.describe()} fit neither")
 
 
 def init_train_state(cfg: ArchConfig, mesh, params, rng: torch.Generator, *, lr: float = 1e-3):
@@ -211,6 +228,7 @@ def build_train_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, *, lr: float = 1e-
         arg_specs=(state_specs, batch_specs),
         meta={"kind": "train", "num_clients": n, "grad_accum": accum, "kappa1": hier.kappa1,
               "kappa2": hier.kappa2, "layout": cfg.fed.layout, "sharded": shard is not None,
+              "edge_span": None if shard is None or shard.edge is None else shard.edge.size,
               "model": sharding.model_size(m)},
     )
 

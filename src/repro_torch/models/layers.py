@@ -69,6 +69,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import opcount
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import sharding
 from repro_torch.kernels import flash_attention as _fa
@@ -275,12 +276,16 @@ def row_parallel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return h @ w
     if h.dtype == torch.float32:
         return sharding.model_reduce(h @ w)
-    return sharding.model_reduce(_matmul_f32(h, w)).to(h.dtype)
+    with opcount.bf16_payload():  # the sum's f32 payload: a bf16 program's would be half
+        return sharding.model_reduce(_matmul_f32(h, w)).to(h.dtype)
 
 
 def _on_card(t: torch.Tensor) -> bool:
-    """Whether ``t`` lies on the card (the one place the route asks)."""
-    return t.is_cuda
+    """Whether ``t`` lies on the card (the one place the route asks). The
+    dry run's meta tensors stand for the card's while its counter is
+    active (``analysis.opcount.is_fake``), so its counts follow the card's
+    route."""
+    return t.is_cuda or (t.is_meta and opcount.is_fake(t))
 
 
 def _transformed(*inputs: torch.Tensor) -> bool:

@@ -34,9 +34,10 @@ from repro_torch.testing.parity import assert_close, to_numpy, to_torch
 TOL = dict(rtol=1e-5, atol=1e-6)
 PACKAGES = ("analysis", "checkpoint", "configs", "core", "data", "dist", "fed", "kernels", "launch", "models",
             "optim", "sim", "testing")
-# (package, name): why the port does not export it
+# (package, name): (the port's counterpart, why the port does not export the name)
 EXCEPTIONS = {
-    ("analysis", "hlo"): "an XLA HLO text parser: the port compiles no XLA (ROADMAP item 15)",
+    ("analysis", "hlo"): ("opcount", "an XLA HLO text parser: the port compiles no XLA; analysis.opcount counts "
+                                     "the ops a call dispatches under hlo.py's rules (ROADMAP item 15)"),
 }
 
 
@@ -47,9 +48,10 @@ def test_every_jax_export_is_a_port_export(package):
     missing = [n for n in jmod.__all__ if (package, n) not in EXCEPTIONS
                and not (hasattr(tmod, n) and n in getattr(tmod, "__all__", ()))]
     assert not missing, f"repro_torch.{package} lacks {missing}"
-    for (pkg, name), why in EXCEPTIONS.items():
+    for (pkg, name), (counterpart, why) in EXCEPTIONS.items():
         if pkg == package:
             assert name in jmod.__all__ and not hasattr(tmod, name), (name, why)
+            assert counterpart in tmod.__all__ and hasattr(tmod, counterpart), (counterpart, why)
 
 
 def test_the_subpackage_list_is_the_jax_package_s():

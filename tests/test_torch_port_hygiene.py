@@ -32,8 +32,9 @@ def test_the_launch_modules_are_checked():
 
 def test_the_analysis_and_library_modules_are_checked():
     names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
-    assert {"analysis/__init__.py", "analysis/roofline.py", "core/convergence.py", "core/divergence.py",
-            "core/reference.py", "kernels/ref.py", "models/cnn.py", "testing/property.py"} <= names
+    assert {"analysis/__init__.py", "analysis/roofline.py", "analysis/opcount.py", "core/convergence.py",
+            "core/divergence.py", "core/reference.py", "kernels/ref.py", "models/cnn.py", "testing/property.py",
+            "launch/dryrun.py", "experiments/roofline_report.py"} <= names
 
 
 def test_the_script_and_example_modules_are_checked():
@@ -44,6 +45,10 @@ def test_the_script_and_example_modules_are_checked():
     assert {f"examples/{n}.py" for n in ("quickstart", "compare_topologies", "serve_lm", "train_hier_lm")} <= names
 
 
+# The dry run (``launch.dryrun``) and its report (``experiments.roofline_report``)
+# are not among these: the dry run counts ops on meta tensors over a fake
+# process group and the report reads its JSON files, so neither touches a
+# device, and neither has a CPU fallback to refuse.
 def _entry_points():
     from repro_torch.examples import compare_topologies, quickstart, serve_lm, train_hier_lm
     from repro_torch.experiments import (aggregation_scaling, compression_tradeoff, fig2_topologies,

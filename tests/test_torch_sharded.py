@@ -90,6 +90,10 @@ W1 = ["uniform", "dead_edge", "int8_ef", "trimmed_edge", "sync_opt_state", "dept
 W2 = ["ragged_wide", "int8_ef", "depth3", "trimmed_edge"]
 W4 = ["ragged", "dead_edge", "sync_opt_state"]
 EDGE_SYNC = dict(fanouts="3,3,3,3", kappas=(1, 2), level=1, mask=np.array([1, 0, 1] * 4, np.float32))
+# each edge of 4 clients over 2 of the 4 ranks, int8_ef at the edge, one
+# edge dead: its mean crosses ranks through one all-reduce
+EDGE_SYNC_SPAN = dict(fanouts="4,4", kappas=(1, 2), level=1, span=2, transport="int8_ef:64/identity",
+                      mask=np.array([1, 0, 1, 1, 0, 0, 0, 0], np.float32))
 EDGE_SYNC_INT8 = dict(fanouts="4,2,1,3", kappas=(1, 2), level=1, transport="int8_ef:64/identity",
                       mask=np.array([1, 1, 1, 1, 0, 0, 1, 1, 0, 1], np.float32))
 
@@ -216,7 +220,7 @@ def worlds(tmp_path_factory):
                              os.path.join(ROOT, "tests")], env=env, cwd=ROOT)
     try:
         w2 = launch.spawn(drv.run_all, 2, "gloo", ([CASES[k] for k in W2] + [EDGE_SYNC_INT8], _spec_jobs(d)))
-        w4 = launch.spawn(drv.run_cases, 4, "gloo", ([CASES[k] for k in W4] + [EDGE_SYNC],))
+        w4 = launch.spawn(drv.run_cases, 4, "gloo", ([CASES[k] for k in W4] + [EDGE_SYNC, EDGE_SYNC_SPAN],))
         assert proc.wait(timeout=600) == 0
     finally:
         proc.kill()
@@ -226,7 +230,7 @@ def worlds(tmp_path_factory):
             "jax_w2": dict(zip(W2, res[:n2])), "jax_w4": dict(zip(W4, res[n2:])),
             "w2": dict(zip(W2, w2[0][0][:-1])), "w2_ranks": [r[0] for r in w2], "w2_edge_sync_int8": w2[0][0][-1],
             "w2_specs": [r[1] for r in w2],
-            "w4": dict(zip(W4, w4[0][:-1])), "w4_edge_sync": w4[0][-1]}
+            "w4": dict(zip(W4, w4[0][:-2])), "w4_edge_sync": w4[0][-2], "w4_edge_sync_span": w4[0][-1]}
 
 
 def _assert_states_close(want, got, what):
@@ -531,6 +535,12 @@ def test_edge_syncs_at_four_and_two_ranks_are_the_single_device_syncs_bit_for_bi
         for key in ("params", "anchor"):
             for a, b in zip(single[key], got[key]):
                 np.testing.assert_array_equal(b, a)
+
+
+def test_an_edge_sync_over_two_ranks_tracks_the_single_device_sync(worlds):
+    got, single = worlds["w4_edge_sync_span"], drv.sync_once(EDGE_SYNC_SPAN)
+    _assert_states_close(single, got, "an edge over 2 of 4 ranks vs one device")
+    np.testing.assert_array_equal(got["params"][0][4:], single["params"][0][4:])  # the dead edge kept its rows
 
 
 # ---------------------------------------------------------------------------

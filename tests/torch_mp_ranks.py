@@ -1,6 +1,6 @@
-"""What the ranks of the model-parallel, launch-cell and tensor-parallel
-tests run (``tests/test_torch_model_parallel.py``,
-``tests/test_torch_launch_cells.py``,
+"""What the ranks of the model-parallel, launch-cell, tensor-parallel and
+dry-run tests run (``tests/test_torch_model_parallel.py``,
+``tests/test_torch_launch_cells.py``, ``tests/test_torch_dryrun.py``,
 ``tests/test_torch_tensor_parallel.py``,
 ``tests/test_torch_tensor_parallel_families.py``).
 
@@ -224,3 +224,30 @@ def tp_world(rank: int, world: int, jobs: List[Dict[str, Any]]) -> List[Any]:
             out.append(_tp_serve(mesh, cfg, job["params"], job["prompts"], job["tokens"], job["max_len"],
                                  job.get("swap")))
     return out
+
+
+def span_train_cell(rank: int, world: int, arch: str, shape: tuple, np_params, batches: List[Dict[str, np.ndarray]],
+                    lr: float) -> Dict[str, Any]:
+    """The train cell on a ("data", "model") mesh of (``world``, 1) whose
+    edges span ranks (one client a rank, each edge over world / E ranks):
+    after each call this rank's rows of every params leaf, its per-client
+    losses, and the collectives ``analysis.opcount`` recorded (opcode, mesh
+    axes, group size); the counted collectives of the whole run."""
+    from repro_torch.analysis import opcount
+
+    mesh = tmesh.make_host_mesh((world, 1), ("data", "model"), device="cpu")
+    cfg = get_smoke(arch)
+    cell = steps.build_train_cell(cfg, ShapeSpec(*shape), mesh, lr=lr)
+    state = steps.init_train_state(cfg, mesh, params_from_numpy(np_params, "cpu"), torch.Generator().manual_seed(0),
+                                   lr=lr)
+    state, _ = steps.shard_args(cell, (state, None), mesh)
+    sharding.reset_counts()
+    params, losses, records = [], [], []
+    for b in batches:
+        _, batch = steps.shard_args(cell, (None, {k: torch.as_tensor(v) for k, v in b.items()}), mesh)
+        (state, m), summary = opcount.count(cell.fn, state, batch, mesh=mesh, device="cpu")
+        params.append([x.numpy().copy() for x in leaves(state.params)])
+        losses.append(m["loss"].numpy())
+        records.append([(c.opcode, c.axes, c.group_size) for c in summary.collectives])
+    return {"params": params, "losses": losses, "records": records, "counts": dict(sharding.COUNTS),
+            "meta": dict(cell.meta)}

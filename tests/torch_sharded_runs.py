@@ -160,9 +160,12 @@ def run_specs(rank: int, world: int, jobs: List[Any]) -> List[Dict[str, Any]]:
 def sync_once(case: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     """One level-``case["level"]`` sync (``build_level_sync``, with
     ``shard=`` on a mesh) of random params (from ``seed``) under
-    ``case["mask"]``: the canonical params and anchors as numpy."""
-    from repro_torch.core.hierarchy import parse_fanouts, plan_shard_placement
+    ``case["mask"]``: the canonical params and anchors as numpy. With
+    ``case["span"]`` the clients lie on the ranks in order, each edge over
+    that many ranks (the train cell's layout on the production meshes)."""
+    from repro_torch.core.hierarchy import ShardPlacement, parse_fanouts, plan_shard_placement
     from repro_torch.core.hierfavg import ClientSharding, build_level_sync, init_state
+    from repro_torch.dist.sharding import span_mesh
     from repro_torch.fed.engine import _MeshLayout
 
     spec = parse_fanouts(case["fanouts"])
@@ -177,8 +180,14 @@ def sync_once(case: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     if mesh is None:
         out = build_level_sync(spec, cfg, w, case["level"])(state, None if mask is None else torch.as_tensor(mask))
     else:
-        placement = plan_shard_placement(spec, mesh.size)
-        shard = ClientSharding.build("clients", placement, w, mesh=mesh)
+        if case.get("span"):
+            placement = ShardPlacement(num_shards=mesh.size, capacity=n // mesh.size, perm=tuple(range(n)),
+                                       spec=spec)
+            shard = ClientSharding.build("clients", placement, w, mesh=mesh,
+                                         edge=span_mesh(mesh, mesh.axis_names, case["span"]))
+        else:
+            placement = plan_shard_placement(spec, mesh.size)
+            shard = ClientSharding.build("clients", placement, w, mesh=mesh)
         layout = _MeshLayout(mesh, placement, n)
         sync = build_level_sync(spec, cfg, w, case["level"], shard=shard)
         local_mask = None if mask is None else layout.masks(np.asarray(mask, np.float32)[None])[0]
